@@ -1,12 +1,13 @@
-"""Parameters of the JAX package, as a tree of numpy arrays, to the
-port's modules.
+"""State of the JAX package, as trees of numpy arrays, to the port.
 
-Covered: the encoders ``f_user`` / ``f_item``, the aggregators
-``agg_user`` / ``agg_item`` and the RQ codebooks
-``rq.codebooks.layer{l}``.  The JAX ``linear`` keeps ``w`` as
-``(d_in, d_out)`` and computes ``x @ w``; ``nn.Linear`` keeps
-``(d_out, d_in)``, so ``w`` is transposed here.  ``uncertainty`` is
-training state and is not read.
+``params_from_jax`` covers the encoders ``f_user`` / ``f_item``, the
+aggregators ``agg_user`` / ``agg_item``, the RQ codebooks
+``rq.codebooks.layer{l}`` and the learned log-variances
+``uncertainty``.  The JAX ``linear`` keeps ``w`` as ``(d_in, d_out)``
+and computes ``x @ w``; ``nn.Linear`` keeps ``(d_out, d_in)``, so ``w``
+is transposed here.  ``rq_state_from_jax`` and ``pool_from_jax`` carry
+the RQ histograms and the negative pool over, so the port can start a
+train step from the exact JAX state.
 """
 from __future__ import annotations
 
@@ -15,8 +16,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.core.losses import TASKS
 from repro_torch.core.model import DTYPES, Aggregator, Encoder
-from repro_torch.core.rq_index import codebooks_module
+from repro_torch.core.negatives import NegPoolState
+from repro_torch.core.rq_index import RQState, codebooks_module
 from repro_torch.kernels.common import resolve_device
 
 
@@ -36,10 +39,10 @@ def _linear(p: Dict[str, Any]) -> torch.nn.Linear:
     return lin
 
 
-def params_from_jax(tree: Dict[str, Any], *, device=None
-                    ) -> torch.nn.ModuleDict:
+def params_from_jax(tree: Dict[str, Any], *, device=None,
+                    trainable: bool = False) -> torch.nn.ModuleDict:
     """JAX params tree (numpy leaves) -> ``ModuleDict`` with the same
-    keys, on ``device``."""
+    keys, on ``device``; ``trainable`` turns gradients on."""
     n_heads, _, d_embed = np.shape(tree["agg_user"]["w"])
     out = torch.nn.ModuleDict()
     for name in ("f_user", "f_item"):
@@ -53,4 +56,29 @@ def params_from_jax(tree: Dict[str, Any], *, device=None
         books = tree["rq"]["codebooks"]
         out["rq"] = codebooks_module(
             [_tensor(books[f"layer{l}"]) for l in range(len(books))])
-    return out.to(resolve_device(device)).requires_grad_(False)
+    if "uncertainty" in tree:
+        unc = tree["uncertainty"]
+        out["uncertainty"] = torch.nn.ParameterDict({
+            t: torch.nn.Parameter(_tensor(unc[t])) for t in TASKS
+            if t in unc})
+    return out.to(resolve_device(device)).requires_grad_(trainable)
+
+
+def _f32(a, dev) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+
+def rq_state_from_jax(state, *, device=None) -> RQState:
+    """A JAX ``RQState`` (hists, usage, ptr, filled) -> the port's."""
+    dev = resolve_device(device)
+    return RQState(tuple(_f32(h, dev) for h in state.hists),
+                   tuple(_f32(u, dev) for u in state.usage),
+                   int(state.ptr), int(state.filled))
+
+
+def pool_from_jax(pool, *, device=None) -> NegPoolState:
+    """A JAX ``NegPoolState`` -> the port's (rings as f32 tensors)."""
+    dev = resolve_device(device)
+    return NegPoolState(_f32(pool.user, dev), _f32(pool.item, dev),
+                        int(pool.user_ptr), int(pool.item_ptr),
+                        int(pool.user_fill), int(pool.item_fill))

@@ -1,0 +1,124 @@
+"""Negative sampling (paper §4.3), as ``repro/core/negatives.py``:
+in-batch + out-of-batch rolling pool + multi-head negative augmentation,
+``n_neg`` negatives per positive, of the positive's destination type.
+
+The pool is device-resident state, one FIFO ring of recent destination
+embeddings per node type.  Its write pointer and fill level are plain
+integers: they are a function of the batch sizes alone, so the host
+knows them without reading the device.
+
+``jax.random`` draws cannot be reproduced in torch, so every random
+index ``sample_negatives`` uses is drawn up front by
+``negative_draws`` (from a ``torch.Generator``) or passed in by the
+caller (the parity tests pass the JAX draws).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class NegPoolState:
+    user: torch.Tensor     # (P, d)
+    item: torch.Tensor     # (P, d)
+    user_ptr: int = 0
+    item_ptr: int = 0
+    user_fill: int = 0
+    item_fill: int = 0
+
+
+def init_pool(pool_size: int, d: int, dtype: torch.dtype = torch.float32,
+              device=None) -> NegPoolState:
+    return NegPoolState(
+        torch.zeros((pool_size, d), dtype=dtype, device=device),
+        torch.zeros((pool_size, d), dtype=dtype, device=device))
+
+
+@torch.no_grad()
+def _push(buf: torch.Tensor, ptr: int, fill: int, emb: torch.Tensor):
+    """Write ``emb`` at ``(ptr + i) % P`` in place.  Where the batch wraps
+    the ring, the later row wins (as a sequential scatter): only the last
+    ``P`` rows are written, to distinct slots."""
+    P, B = buf.shape[0], emb.shape[0]
+    keep = min(B, P)
+    idx = (ptr + torch.arange(B - keep, B, device=buf.device)) % P
+    buf[idx] = emb[B - keep:].detach().to(buf.dtype)
+    return (ptr + B) % P, min(fill + B, P)
+
+
+def update_pool(state: NegPoolState, user_emb: Optional[torch.Tensor],
+                item_emb: Optional[torch.Tensor]) -> NegPoolState:
+    """Push each type's endpoint embeddings (in place); ``None`` leaves
+    that type's ring untouched."""
+    if user_emb is not None:
+        state.user_ptr, state.user_fill = _push(
+            state.user, state.user_ptr, state.user_fill, user_emb)
+    if item_emb is not None:
+        state.item_ptr, state.item_fill = _push(
+            state.item, state.item_ptr, state.item_fill, item_emb)
+    return state
+
+
+def split_counts(n_neg: int, n_pool: int, n_heads: int):
+    """(n_inb, n_pool, n_aug): in-batch, pool and head-augmentation
+    negatives per positive."""
+    n_aug = max(n_neg // 8, 1) if n_heads > 1 else 0
+    n_pool = min(n_pool, n_neg - n_aug)
+    return n_neg - n_pool - n_aug, n_pool, n_aug
+
+
+def negative_draws(B: int, n_heads: int, n_neg: int, n_pool: int,
+                   pool_fill: int, *, generator: torch.Generator,
+                   device=None) -> Dict[str, torch.Tensor]:
+    """Every random index ``sample_negatives`` needs, as int64 tensors:
+
+    ``inb`` (B, n_inb) and ``fallback`` (B, n_pool) and ``aug_off``
+    (B, n_aug) row offsets in [1, max(B, 2)); ``pool`` (B, n_pool) pool
+    rows in [0, max(pool_fill, 1)); ``aug_head`` (B, n_aug) heads in
+    [0, n_heads)."""
+    n_inb, n_pool, n_aug = split_counts(n_neg, n_pool, n_heads)
+    hi = max(B, 2)
+
+    def r(lo, high, n):
+        return torch.randint(lo, high, (B, n), generator=generator,
+                             device=device)
+    return dict(inb=r(1, hi, n_inb), pool=r(0, max(pool_fill, 1), n_pool),
+                fallback=r(1, hi, n_pool), aug_off=r(1, hi, n_aug),
+                aug_head=r(0, n_heads, n_aug))
+
+
+def sample_negatives(dst_primary: torch.Tensor, dst_heads: torch.Tensor,
+                     pool: torch.Tensor, pool_fill: int, n_neg: int,
+                     n_pool: int, *,
+                     draws: Optional[Dict[str, torch.Tensor]] = None,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """The (B, n_neg, d) negative bank for each positive edge, in
+    ``dst_primary``'s type: (1) in-batch negatives, other rows' dst
+    primaries; (2) rows of the rolling pool (in-batch rows while the pool
+    is empty); (3) single heads of other in-batch dst nodes.  One chip:
+    the in-batch block is the whole batch.  ``draws`` defaults to
+    ``negative_draws`` from ``generator``."""
+    B, d = dst_primary.shape
+    H = dst_heads.shape[1]
+    dev = dst_primary.device
+    if draws is None:
+        draws = negative_draws(B, H, n_neg, n_pool, pool_fill,
+                               generator=generator, device=dev)
+    i = torch.arange(B, device=dev)[:, None]
+
+    def other_rows(off):            # row i -> (i + off) % B, never i
+        return (i + off.to(dev)) % B
+
+    parts = [dst_primary[other_rows(draws["inb"])]]
+    if pool_fill > 0:
+        parts.append(pool[draws["pool"].to(dev)].to(dst_primary.dtype))
+    else:
+        parts.append(dst_primary[other_rows(draws["fallback"])])
+    if draws["aug_off"].shape[1]:
+        parts.append(dst_heads[other_rows(draws["aug_off"]),
+                               draws["aug_head"].to(dev)])
+    return torch.cat(parts, dim=1)

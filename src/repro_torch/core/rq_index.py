@@ -1,14 +1,18 @@
-"""Co-learned residual-quantization cluster index (paper §4.4), the
-inference half of ``repro/core/rq_index.py``: codebook initialisation,
-hard assignment (Eq. 9) and utilisation of published assignments.
+"""Co-learned residual-quantization cluster index (paper §4.4), as
+``repro/core/rq_index.py``: codebook initialisation, the training
+forward ``rq_forward`` (Eq. 9-13: biased code selection, reconstruction
+with commitment, the balance regularizer, the utilization gap, the
+ring-buffer histograms and EMA usage), hard assignment (Eq. 9) and
+utilisation of published assignments.
 
 Codebooks are a ``ModuleDict({"codebooks": ParameterDict({"layer{l}":
 (n_l, d)})})`` so ``rq["codebooks"]["layer0"]`` reads as in the JAX
-params tree.
+params tree.  The dead-code reset waits for the lifecycle slice.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+import dataclasses
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +39,126 @@ def init_rq(cfg: RQConfig, d: int, *, generator: torch.Generator,
         c = torch.empty((n, d), dtype=dtype).normal_(generator=generator)
         books.append(c * (0.1 / (l + 1)))
     return codebooks_module(books).to(resolve_device(device))
+
+
+@dataclasses.dataclass
+class RQState:
+    """Ring buffers of per-batch code counts plus EMA usage, per layer.
+    ``ptr`` and ``filled`` count steps, known on the host."""
+    hists: Tuple[torch.Tensor, ...]     # (hist_len, n_codes_l) float32
+    usage: Tuple[torch.Tensor, ...]     # (n_codes_l,) f32 EMA batch freq
+    ptr: int = 0
+    filled: int = 0
+
+
+def init_rq_state(cfg: RQConfig, device=None) -> RQState:
+    """Empty histograms and a uniform usage prior (no code is born
+    dead)."""
+    dev = resolve_device(device)
+    hists = tuple(torch.zeros((cfg.hist_len, n), device=dev)
+                  for n in cfg.codebook_sizes)
+    usage = tuple(torch.full((n,), 1.0 / n, device=dev)
+                  for n in cfg.codebook_sizes)
+    return RQState(hists, usage)
+
+
+def _phat(hist: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    tot = hist.sum(dim=0)
+    return (tot + eps) / (tot.sum() + eps * hist.shape[1])
+
+
+def _soft_assign(dist: torch.Tensor, zeta1: float, zeta2: float
+                 ) -> torch.Tensor:
+    """Eq. 11: p[j] = softmax_j( zeta1 / (zeta2 + d_j) )."""
+    return torch.softmax(zeta1 / (zeta2 + dist), dim=-1)
+
+
+def rq_forward(rq_params, state: RQState, h: torch.Tensor, cfg: RQConfig,
+               *, train: bool = True) -> Dict[str, object]:
+    """Quantize h (B, d).  Returns codes, recon, losses and the new state.
+
+    Code *selection* is discrete; the reconstruction h' = sum_l C_l[k_l]
+    is differentiable with respect to the codebooks, and the
+    straight-through ``recon_st`` with respect to h.  The distances are
+    a plain f32 ``torch.matmul`` (TF32 stays off: they pick argmins)."""
+    h32 = h.to(torch.float32)
+    resid = h32
+    recon = torch.zeros_like(h32)
+    codes, reg_terms, util_terms = [], [], []
+    new_counts, hard_counts = [], []
+    biased = cfg.biased_selection and train
+    B = h32.shape[0]
+
+    for l, n_l in enumerate(cfg.codebook_sizes):
+        C = rq_params["codebooks"][f"layer{l}"].to(torch.float32)  # (n, d)
+        r = resid.detach()
+        d2 = ((r * r).sum(dim=1, keepdim=True) - 2.0 * (r @ C.T)
+              + (C * C).sum(dim=1)[None, :])
+        dist = torch.sqrt(torch.clamp_min(d2, 0.0) + 1e-12)     # (B, n)
+        p_soft = _soft_assign(dist, cfg.zeta1, cfg.zeta2)
+        phat = _phat(state.hists[l])
+        k_hard = torch.argmin(dist, dim=1)                      # Eq. 9
+        if biased:
+            k = torch.argmax(p_soft / phat[None, :], dim=1)     # Eq. 13
+        else:
+            k = k_hard
+        codes.append(k)
+        sel = C[k]                                    # diff w.r.t. C
+        recon = recon + sel
+        resid = resid - sel
+        # regularizer (Eq. 12): batch soft frequency . rolling histogram
+        p_batch = p_soft.sum(dim=0)
+        p_batch = p_batch / torch.clamp_min(p_batch.sum(), 1e-12)
+        reg_terms.append(torch.dot(phat, p_batch) * n_l)
+        # utilization balance: the hard (Eq. 9) batch fractions carry no
+        # gradient, the mean soft assignment does
+        f_hard = torch.bincount(k_hard, minlength=n_l).to(torch.float32)
+        f_hard = f_hard / max(float(B), 1.0)
+        if n_l > 1:
+            p_mean = p_soft.mean(dim=0)
+            p_mean = p_mean / torch.clamp_min(p_mean.sum(), 1e-12)
+            gap = (n_l * torch.dot(f_hard, p_mean) - 1.0) / (n_l - 1.0)
+            util_terms.append(torch.clamp_min(gap, 0.0))
+        hard_counts.append(f_hard * B)
+        # routed counts for the rolling histogram (Eq. 12/13 operate on
+        # the selection actually taken, biased or not)
+        new_counts.append(torch.bincount(k, minlength=n_l).to(torch.float32))
+
+    recon_loss = ((h32.detach() - recon) ** 2).sum(dim=1).mean()
+    commit = ((h32 - recon.detach()) ** 2).sum(dim=1).mean()
+    l_recon = recon_loss + cfg.commit_coef * commit
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    l_reg = torch.stack(reg_terms).mean() if cfg.regularize else zero
+    l_util = (cfg.util_coef * torch.stack(util_terms).mean()
+              if cfg.util_coef > 0 and util_terms else zero)
+    recon_st = h32 + (recon - h32).detach()                 # encoder path
+
+    if train:
+        with torch.no_grad():
+            p = state.ptr % cfg.hist_len
+            hists = []
+            for hh, c in zip(state.hists, new_counts):
+                hh = hh.clone()
+                hh[p] = c
+                hists.append(hh)
+            # deadness tracks the *argmin* assignment
+            Bm = max(B, 1)
+            usage = tuple(cfg.usage_ema * u + (1.0 - cfg.usage_ema) * (c / Bm)
+                          for u, c in zip(state.usage, hard_counts))
+        new_state = RQState(tuple(hists), usage, state.ptr + 1,
+                            min(state.filled + 1, cfg.hist_len))
+    else:
+        new_state = state
+
+    return dict(codes=torch.stack(codes, dim=1), recon=recon,
+                recon_st=recon_st.to(h.dtype), l_recon=l_recon, l_reg=l_reg,
+                l_util=l_util, state=new_state)
+
+
+def codebook_utilization(state: RQState) -> List[float]:
+    """Fraction of codes used at least once in the rolling window."""
+    return [float((hist.sum(dim=0) > 0).to(torch.float32).mean())
+            for hist in state.hists]
 
 
 def layer_books(rq_params, n_layers: int) -> List[torch.Tensor]:

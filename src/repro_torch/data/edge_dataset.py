@@ -1,23 +1,32 @@
-"""Neighbour tables and the inference-side gather of
-``repro/data/edge_dataset.py`` (``NeighborTables``, ``_gather_side``,
-``node_inference_batch``).
+"""Edge-centric training data (paper §4.2 'Data format'), as
+``repro/data/edge_dataset.py``: the PPR neighbour tables
+(``build_neighbor_tables``), training batches in the id-only ``dedup_ids``
+format (``sample_batch``) and the inference-side gather
+(``node_inference_batch``).
 
-Feature and neighbour tables live on the dataset's device and every
-gather runs there: at production size a host gather would move tens of
-GB of neighbour features per corpus pass.  Only the neighbour-column
-draw stays on the host, in numpy, so it is bit-identical to the JAX
-package's: ``np.random.default_rng(seed)`` re-made per call, one
-``(len(gids), k_train)`` draw for user neighbours, then one for item
-neighbours.
+Feature and neighbour tables live on the dataset's device (the role of
+the JAX ``FeatureStore``) and every feature gather runs there: at
+production size a host gather would move tens of GB of neighbour
+features per corpus pass.  The random draws stay on the host, in numpy,
+so they are bit-identical to the JAX package's: batch t of run ``seed``
+is ``np.random.default_rng((seed, t))`` consumed in the same order (edge
+draws per type, then per node type a user- and an item-neighbour draw),
+and an inference gather re-makes ``np.random.default_rng(seed)`` per
+call.  A batch ships int32 ids, maps and f32 masks to the device.
+
+The Group-2 KNN fill, the refresh state, and the ``legacy`` / ``dedup``
+batch formats wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import ppr as ppr_mod
+from repro_torch.core.graph_builder import HeteroGraph
 from repro_torch.kernels.common import resolve_device
 
 
@@ -31,16 +40,51 @@ class NeighborTables:
     n_items: int
 
 
+def build_neighbor_tables(g: HeteroGraph, *, k_imp: int = 50,
+                          n_walks: int = 64, walk_len: int = 5,
+                          restart: float = 0.15, seed: int = 0,
+                          backend: str = "device",
+                          device=None) -> NeighborTables:
+    """PPR tables over the whole graph (paper §4.2).  ``backend``
+    selects the walker (``numpy`` on the host, ``device``: the
+    ``ppr_walk`` op on ``device``); both give identical tables."""
+    user_nbrs, item_nbrs = ppr_mod.precompute_ppr_neighbors(
+        g, k_imp=k_imp, n_walks=n_walks, walk_len=walk_len,
+        restart=restart, seed=seed, backend=backend, device=device)
+    return NeighborTables(user_nbrs, item_nbrs, g.n_users, g.n_items)
+
+
+EDGE_KEYS = ("uu", "ui", "ii")
+
+# edge type -> (src, dst) node-type names
+_ET_SIDES = {"uu": ("user", "user"), "ui": ("user", "item"),
+             "ii": ("item", "item")}
+
+
+# pack sizes are bucketed to this multiple: the JAX package's default
+# ``pad_multiple``, so the packs equal its batches row for row
+PAD_MULTIPLE = 64
+
+
+def _round_up(n: int) -> int:
+    """n rounded up to a multiple of PAD_MULTIPLE (at least one)."""
+    return max(PAD_MULTIPLE, -(-n // PAD_MULTIPLE) * PAD_MULTIPLE)
+
+
 class EdgeDataset:
-    """Inference half of the JAX ``EdgeDataset``: features and tables on
-    ``device``, gathered for global node ids."""
+    """The JAX ``EdgeDataset`` with ``batch_format="dedup_ids"``:
+    features and neighbour tables on ``device``; ``g`` (the graph whose
+    edges are sampled) is needed for training batches only."""
 
     def __init__(self, tables: NeighborTables, user_feat, item_feat, *,
-                 k_train: int = 10, device=None):
+                 k_train: int = 10, device=None,
+                 g: Optional[HeteroGraph] = None):
         dev = resolve_device(device)
         self.device = dev
+        self.g = g
         self.tables = tables
         self.k_train = int(k_train)
+        self._cumw_cache: Dict[str, np.ndarray] = {}
         self.k_imp = int(tables.user_nbrs.shape[1])
         self.user_feat = torch.as_tensor(user_feat, dtype=torch.float32).to(dev)
         self.item_feat = torch.as_tensor(item_feat, dtype=torch.float32).to(dev)
@@ -83,3 +127,150 @@ class EdgeDataset:
         """Inference-side gather for embedding generation."""
         return self._gather_side(np.asarray(gids),
                                  np.random.default_rng(seed))
+
+    # ------------------------------------------------------------------
+    # training batches (dedup_ids)
+    # ------------------------------------------------------------------
+
+    def _cumw(self, et: str) -> np.ndarray:
+        if et not in self._cumw_cache:
+            es = getattr(self.g, et)
+            w = np.maximum(es.weight.astype(np.float64), 1e-9)
+            self._cumw_cache[et] = np.cumsum(w) / w.sum()
+        return self._cumw_cache[et]
+
+    def _draw_edges(self, rng: np.random.Generator, et: str, n: int
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Draw n (src_gid, dst_gid, weight) samples of one edge type,
+        each edge with probability proportional to its Eq. 1/2 weight
+        (weight == relevance)."""
+        nu = self.tables.n_users
+        es = getattr(self.g, et)
+        if len(es) == 0:   # degenerate graphs: self-pairs as fallback
+            src = rng.integers(0, nu, n)
+            dst = src.copy()
+            w = np.ones(n, np.float32)
+        else:
+            idx = np.minimum(np.searchsorted(self._cumw(et), rng.random(n)),
+                             len(es) - 1)
+            src, dst, w = es.src[idx], es.dst[idx], es.weight[idx]
+        if et == "uu":
+            sg, dg = src, dst
+        elif et == "ui":
+            sg, dg = src, dst + nu
+        else:  # ii
+            sg, dg = src + nu, dst + nu
+        return sg, dg, w.astype(np.float32)
+
+    def sample_batch(self, step: int, seed: int, per_type: Dict[str, int]
+                     ) -> Dict[str, Dict]:
+        """Batch ``step`` of run ``seed``: the JAX ``sample_batch(step,
+        seed, per_type, format="dedup_ids")`` made with numpy, then every
+        array as a tensor on the dataset's device (ids and maps int32,
+        masks and weights float32)."""
+        if self.g is None:
+            raise ValueError("training batches need the graph: "
+                             "EdgeDataset(..., g=graph)")
+        rng = np.random.default_rng((seed, step))
+        edges = {et: self._draw_edges(rng, et, n) for et in EDGE_KEYS
+                 if (n := per_type.get(et, 0))}
+        batch = self._dedup_batch(rng, edges)
+        dev = self.device
+
+        def put(tree):
+            return {k: put(v) if isinstance(v, dict)
+                    else torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for k, v in tree.items()}
+        return put(batch)
+
+    def _dedup_batch(self, rng: np.random.Generator, edges: Dict[str, Tuple]
+                     ) -> Dict[str, Dict]:
+        """Packed unique-node batch: every node referenced by any
+        endpoint or sampled neighbour appears exactly once per node type.
+
+        Pack layout per type: ``[endpoint uniques (E, sorted) | pad to
+        E_pad | neighbour-only extras (sorted) | pad to U_pad]``, sizes
+        bucketed to ``PAD_MULTIPLE``.  Endpoint rows [0, E) are the only
+        ones aggregated; extras exist only to be feature-encoded and
+        gathered as neighbours.  ``ids`` are type-local feature rows.
+        """
+        nu, ni = self.tables.n_users, self.tables.n_items
+        k_imp = self.tables.user_nbrs.shape[1]
+        k = self.k_train
+
+        ep = {"user": [], "item": []}
+        for et, (sg, dg, w) in edges.items():
+            st, dt = _ET_SIDES[et]
+            ep[st].append(sg)
+            ep[dt].append(dg)
+
+        uniq: Dict[str, np.ndarray] = {}
+        nbr_gids: Dict[str, Dict[str, np.ndarray]] = {}
+        for t in ("user", "item"):
+            u = (np.unique(np.concatenate(ep[t])) if ep[t]
+                 else np.zeros(0, np.int64))
+            uniq[t] = u
+            # one neighbour draw per unique endpoint node
+            cols = rng.integers(0, k_imp, (len(u), k))
+            unbr = self.tables.user_nbrs[u[:, None], cols] if len(u) else \
+                np.zeros((0, k), np.int64)
+            cols = rng.integers(0, k_imp, (len(u), k))
+            inbr = self.tables.item_nbrs[u[:, None], cols] if len(u) else \
+                np.zeros((0, k), np.int64)
+            nbr_gids[t] = dict(
+                unbr=np.clip(unbr, 0, nu - 1), umask=unbr >= 0,
+                inbr=np.clip(inbr, nu, nu + ni - 1), imask=inbr >= nu)
+
+        # neighbour-only extras per pack (valid neighbours not already
+        # endpoint uniques of that type)
+        extras, e_pad = {}, {}
+        for t, key_m in (("user", "umask"), ("item", "imask")):
+            key_g = "unbr" if t == "user" else "inbr"
+            valid = [nbr_gids[s][key_g][nbr_gids[s][key_m]]
+                     for s in ("user", "item")]
+            allv = np.unique(np.concatenate(valid))
+            extras[t] = np.setdiff1d(allv, uniq[t], assume_unique=True)
+            e_pad[t] = _round_up(len(uniq[t]))
+
+        def pack_index(t: str, gids: np.ndarray, mask: np.ndarray
+                       ) -> np.ndarray:
+            """Pack-relative index of global ids (masked entries -> 0)."""
+            u, ex = uniq[t], extras[t]
+            if len(u) == 0:   # a type with no endpoints: extras only
+                idx = e_pad[t] + np.searchsorted(ex, gids)
+            else:
+                pos = np.minimum(np.searchsorted(u, gids), len(u) - 1)
+                idx = np.where(u[pos] == gids, pos,
+                               e_pad[t] + np.searchsorted(ex, gids))
+            return np.where(mask, idx, 0).astype(np.int32)
+
+        sides: Dict[str, Dict[str, np.ndarray]] = {}
+        for t in ("user", "item"):
+            E, Ep = len(uniq[t]), e_pad[t]
+            u_pad = _round_up(Ep + len(extras[t]))
+            local = np.zeros(u_pad, np.int64)
+            off, hi = (0, nu - 1) if t == "user" else (nu, ni - 1)
+            local[:E] = np.clip(uniq[t] - off, 0, hi)
+            local[Ep:Ep + len(extras[t])] = np.clip(extras[t] - off, 0, hi)
+            n = nbr_gids[t]
+            unbr_idx = np.zeros((Ep, k), np.int32)
+            inbr_idx = np.zeros((Ep, k), np.int32)
+            umask = np.zeros((Ep, k), np.float32)
+            imask = np.zeros((Ep, k), np.float32)
+            unbr_idx[:E] = pack_index("user", n["unbr"], n["umask"])
+            inbr_idx[:E] = pack_index("item", n["inbr"], n["imask"])
+            umask[:E] = n["umask"].astype(np.float32)
+            imask[:E] = n["imask"].astype(np.float32)
+            sides[t] = dict(unbr_idx=unbr_idx, unbr_mask=umask,
+                            inbr_idx=inbr_idx, inbr_mask=imask,
+                            ids=local.astype(np.int32))
+
+        out_edges = {}
+        for et, (sg, dg, w) in edges.items():
+            st, dt = _ET_SIDES[et]
+            out_edges[et] = dict(
+                src_map=np.searchsorted(uniq[st], sg).astype(np.int32),
+                dst_map=np.searchsorted(uniq[dt], dg).astype(np.int32),
+                weight=w,
+                src_ids=sg.astype(np.int32), dst_ids=dg.astype(np.int32))
+        return {"nodes": sides, "edges": out_edges}

@@ -97,7 +97,9 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 
 class CudaKernel:
-    """One C entry point ``<symbol>`` of ``csrc/<name>.cu``.
+    """One C entry point ``<symbol>`` of ``csrc/<source>.cu``, counted
+    under ``name`` (``source`` defaults to ``name``; two entry points of
+    one source, such as a forward and a backward, share its library).
 
     ``argtypes`` are the ctypes of the entry's arguments (pointers and
     the stream as ``c_void_p``).  The library is built and loaded at the
@@ -106,8 +108,9 @@ class CudaKernel:
     """
 
     def __init__(self, name: str, symbol: str,
-                 argtypes: Sequence[type]):
+                 argtypes: Sequence[type], source: Optional[str] = None):
         self.name = name
+        self.source = source or name
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
@@ -117,12 +120,12 @@ class CudaKernel:
 
     def _load(self):
         if self._fn is None:
-            build([self.name])
-            lib = ctypes.CDLL(str(library_path(self.name)))
+            build([self.source])
+            lib = ctypes.CDLL(str(library_path(self.source)))
             fn = getattr(lib, self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
-            err = getattr(lib, f"{self.name}_error_string")
+            err = getattr(lib, f"{self.source}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p
             self._lib, self._err, self._fn = lib, err, fn

@@ -35,6 +35,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert len(names) >= 20, names\n"
+        "for want in ('core.graph_builder', 'core.ppr', 'core.losses',\n"
+        "             'core.negatives', 'core.pipeline', 'data.synthetic',\n"
+        "             'optim.optimizers', 'kernels.ppr_walk.ops',\n"
+        "             'kernels.fused_contrastive.ops'):\n"
+        "    assert 'repro_torch.' + want in names, want\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], env=_env(),
                        capture_output=True, text=True, timeout=300)
