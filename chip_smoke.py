@@ -32,9 +32,25 @@ same batches and draws, which must agree step by step, and the main
 path's 20 steps again on the card, whose first step must agree with the
 bf16 run's; it prints both runs' trajectories.
 
+Phase 4 runs the recsys serve-and-train path at the full width of
+``dlrm-rm2`` (13 dense, 26 sparse fields, embed 64, MLPs 13-512-256-64
+and 415-512-512-256-1, bf16 compute, f32 params) with random weights
+from ``--seed``: 26 tables of 10,000,000 rows (66.56 GB) fed multi-hot
+bags (lengths uniform in 1..16, ids uniform; the config is single-hot,
+and the bags are made up to drive the kernel), 8 serve_p99 batches of
+512 and one serve_bulk batch of 262,144 (embedding_bag forward kernel),
+one retrieval query against 1,000,000 candidates, then 20 train steps
+of 65,536 rows at a vocab cut to 1,000,000 per field (embedding_bag
+forward and backward kernels); wide-deep, sasrec and bst serve one
+serve_bulk batch each.  It checks 512 bulk logits, spread evenly over
+the batch, against the CPU on only the rows they touch, the top 100 against the CPU ranking,
+that the losses are finite and every parameter moved, and four f32
+steps on the card against the CPU.
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
-``ppr_walk`` and ``fused_contrastive_*`` Phase 3's.
+``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
+Phase 4's serve and train stages.
 
 The second-to-last line is a JSON object listing every ported kernel
 (launches on the main path, error against the plain version, times and
@@ -60,7 +76,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs.base import RANKGRAPH2_SHAPES  # noqa: E402
+from repro_torch.configs.base import (RANKGRAPH2_SHAPES,  # noqa: E402
+                                      RECSYS_SHAPES, get_arch)
 from repro_torch.configs.rankgraph2 import CONFIG  # noqa: E402
 from repro_torch.core import model as M  # noqa: E402
 from repro_torch.core.graph_builder import EngagementLog  # noqa: E402
@@ -80,6 +97,10 @@ from repro_torch.data.edge_dataset import (EdgeDataset,  # noqa: E402
                                            NeighborTables)
 from repro_torch.data.synthetic import SyntheticWorld  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
+from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    embedding_bag as EB)
+from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
+    embedding_bag_bwd_ref, embedding_bag_ref)
 from repro_torch.kernels.fused_contrastive import (  # noqa: E402
     fused_contrastive as FC)
 from repro_torch.kernels.fused_contrastive.ref import (  # noqa: E402
@@ -92,8 +113,12 @@ from repro_torch.kernels.queue_gather.ref import (  # noqa: E402
     dup_of_earlier, queue_gather_ref, ring_window)
 from repro_torch.kernels.rq_assign import rq_assign as RQA  # noqa: E402
 from repro_torch.kernels.rq_assign.ref import rq_assign_ref  # noqa: E402
+from repro_torch.launch.steps import (recsys_retrieval_step,  # noqa: E402
+                                      recsys_serve_step, recsys_train_step,
+                                      top_k)
 from repro_torch.lifecycle.publish import (build_snapshot,  # noqa: E402
                                            snapshot_health)
+from repro_torch.models.recsys import models as R  # noqa: E402
 from repro_torch.optim.optimizers import rankgraph2_optimizer  # noqa: E402
 
 N_USERS, N_ITEMS = 1_048_576, 262_144
@@ -120,6 +145,22 @@ CARD_CPU_REL, CARD_CPU_ABS = 5e-2, 1e-2   # bf16 vs f32 losses
 F32_REL, F32_RQ_REL, F32_ABS = 1e-3, 1e-2, 1e-3  # f32 card vs f32 CPU
 F32_STEPS = 4                # steps of the f32 card-vs-CPU trajectory
 DST_TYPE = {"uu": "user", "ui": "item", "iu": "user", "ii": "item"}
+DLRM = get_arch("dlrm-rm2").config   # bf16 compute, f32 params, embed 64
+RS = {s.name: s.dims for s in RECSYS_SHAPES}
+RS_P99, RS_BULK = RS["serve_p99"]["batch"], RS["serve_bulk"]["batch"]
+RS_TRAIN = RS["train_batch"]["batch"]                     # 65,536
+RS_CAND = RS["retrieval_cand"]["n_candidates"]            # 1,000,000
+BAG = 16                     # ids per multi-hot bag (lengths 1..BAG)
+EB_ROWS = DLRM.n_sparse * DLRM.default_vocab      # 2.6e8 flat table rows
+EB_BWD_ROWS = 40_000_000     # backward table: 2.56e9 elements > 2^31
+BIG_ID = 1 << 24             # the TPU kernel's one-hot id cap
+TRAIN_VOCAB = 1_000_000      # per field in Phase 4's train stage
+CHECK_VOCAB, CHECK_BATCH = 100_000, 1024   # Phase 4's f32 card-vs-CPU steps
+P4_STEPS, P4_F32_STEPS = 20, 4
+P4_REL = 2.0 ** -5           # bf16 logits: card vs CPU, of the largest
+# parameters after the f32 card-vs-CPU steps, as tests/test_torch_recsys.py
+# holds them: median gap, and the share of entries beyond PARAM_FAR
+PARAM_MEDIAN, PARAM_FAR, PARAM_FAR_SHARE = 1e-4, 1e-3, 0.01
 
 
 def card_peaks(name: str):
@@ -463,6 +504,230 @@ def phase1_fused_contrastive(g: torch.Generator, dev, peaks) -> list:
                  replaces=f"{jax_file}:118", max_abs_err=b_err, ms=b_ms,
                  plain_ms=b_plain, bound_ms=bb, bound_by=bby,
                  library_ms=None)]
+
+
+def random_bags(g: torch.Generator, n: int, L: int, rows: int, dev, *,
+                lo: int = 0) -> torch.Tensor:
+    """(n, L) int32 bags: lengths uniform in 1..L, ids uniform in
+    [lo, rows), -1 after each bag's length."""
+    length = torch.randint(1, L + 1, (n, 1), generator=g, device=dev)
+    ids = torch.randint(lo, rows, (n, L), generator=g, device=dev)
+    cols = torch.arange(L, device=dev)[None, :]
+    return torch.where(cols < length, ids, -1).to(torch.int32)
+
+
+def eb_bound(ids: torch.Tensor, D: int, V: int, backward: bool,
+             peaks) -> tuple:
+    """(bound ms, what bounds it) of the main path's call on the (N, L)
+    bags ``ids``: an f32 (V, D) table, bf16 compute, no weights (weights
+    would add their read, the rows' read and the d_weights write).
+    Forward: ids read once, each distinct valid row read once, the bf16
+    output written once; a multiply and an add per valid element.
+    Backward: ids and the bf16 cotangent read once, the dense f32 d_table
+    written once; an add per valid element.  Operations at the FP32
+    rate."""
+    N, L = ids.shape
+    valid = ids[ids >= 0]
+    nbytes = 4.0 * N * L + 2.0 * N * D
+    if backward:
+        ops = 1.0 * valid.numel() * D
+        nbytes += 4.0 * V * D
+    else:
+        ops = 2.0 * valid.numel() * D
+        nbytes += 4.0 * torch.unique(valid).numel() * D
+    t_b, t_o = nbytes / peaks[1], ops / peaks[0]
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def eb_atomic_ms(ids: torch.Tensor, D: int, peaks) -> float:
+    """The backward design's own traffic, outside the bound: one f32
+    read-modify-write per valid element for the atomics, at the memory
+    rate."""
+    return 8.0 * int((ids >= 0).sum()) * D / peaks[1] * 1e3
+
+
+def eb_library(table: torch.Tensor, ids: torch.Tensor):
+    """``F.embedding_bag`` (sum, pads as weight 0 on row 0): the library
+    yardstick of the forward, f32 throughout (no bf16 rounding)."""
+    mask = (ids >= 0).to(table.dtype)
+    safe = ids.clamp_min(0).long()
+    return lambda: torch.nn.functional.embedding_bag(
+        safe, table, mode="sum", per_sample_weights=mask)
+
+
+def phase1_embedding_bag(g: torch.Generator, dev, peaks) -> list:
+    """Forward and backward kernels against the plain versions.
+    Tolerances (``close``): f32 outputs, f32 d_table and d_weights within
+    1e-5 relative (the same f32 sums in another order; the backward's
+    atomics change the order from run to run); bf16 outputs and bf16-
+    rounded d_table within one bf16 step, 2^-7 relative."""
+    D, F_ = DLRM.embed_dim, DLRM.n_sparse
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def held(a, b, dtype, what):
+        """``close`` in chunks of rows (no temporaries of a table's size);
+        returns the largest absolute gap."""
+        rel = 2.0 ** -7 if dtype == bf16 else 1e-5
+        floor = 1e-4 * max(float(b[r:r + (1 << 22)].float().abs().max())
+                           for r in range(0, b.shape[0], 1 << 22))
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"embedding_bag {what}: type or shape")
+        err = 0.0
+        for r in range(0, b.shape[0], 1 << 22):
+            x, y = a[r:r + (1 << 22)].float(), b[r:r + (1 << 22)].float()
+            gap = (x - y).abs()
+            check(bool((gap <= rel * y.abs() + floor).all()),
+                  f"embedding_bag {what} off the plain version")
+            err = max(err, float(gap.max()))
+        return err
+
+    # (a) every mode, weighting and type at small shapes
+    small = 0
+    for Dm, L, tdt, cdt in ((64, 16, f32, bf16), (64, 40, f32, f32),
+                            (50, 16, bf16, bf16), (16, 5, f32, bf16)):
+        table = torch.randn((100_000, Dm), generator=g, device=dev).to(tdt)
+        ids = random_bags(g, 4096, L, 100_000, dev)
+        ids[7] = -1                                      # an empty bag
+        w = torch.rand((4096, L), generator=g, device=dev)
+        gout = torch.randn((4096, Dm), generator=g, device=dev).to(cdt)
+        for mode in ("sum", "mean"):
+            for wt in (None, w):
+                held(EB.embedding_bag_fwd(table, ids, wt, mode, cdt),
+                     embedding_bag_ref(table, ids, wt, mode, cdt), cdt,
+                     f"fwd {mode} D={Dm} {tdt}/{cdt}")
+                dk, wk = EB.embedding_bag_bwd(gout, table, ids, wt, mode,
+                                              cdt)
+                dp, wp = embedding_bag_bwd_ref(gout, table, ids, wt, mode,
+                                               cdt)
+                held(dk, dp, bf16 if bf16 in (tdt, cdt) else f32,
+                     f"d_table {mode} D={Dm} {tdt}/{cdt}")
+                if wt is not None:
+                    check(close(wk, wp, 1e-4),
+                          f"embedding_bag d_weights {mode} D={Dm} off")
+                small += 1
+        del table, ids, w, gout
+    print(f"[phase1] embedding_bag: {small} small cases (sum/mean x "
+          f"weighted/unweighted x 4 shapes and types, fwd and bwd) held")
+
+    # (b) the train stage's shape: 1,703,936 bags on its 26M-row table
+    N, V = RS_TRAIN * F_, F_ * TRAIN_VOCAB
+    table = torch.empty((V, D), device=dev).normal_(generator=g).mul_(0.01)
+    ids = random_bags(g, N, BAG, V, dev)
+    n_valid = int((ids >= 0).sum())
+    gout = (torch.randn((N, D), generator=g, device=dev) * 1e-3).to(bf16)
+    out_k = EB.embedding_bag_fwd(table, ids, None, "sum", bf16)
+    f_err = held(out_k, embedding_bag_ref(table, ids, None, "sum", bf16),
+                 bf16, "fwd at the train shape")
+    dk, _ = EB.embedding_bag_bwd(gout, table, ids, None, "sum", bf16)
+    dp, _ = embedding_bag_bwd_ref(gout, table, ids, None, "sum", bf16)
+    b_err = held(dk, dp, bf16, "d_table at the train shape")
+    del out_k, dk, dp
+    torch.cuda.empty_cache()
+    f_ms = time_ms(lambda: EB.embedding_bag_fwd(table, ids, None, "sum",
+                                                bf16), 10)
+    f_plain = time_ms(lambda: embedding_bag_ref(table, ids, None, "sum",
+                                                bf16), 3)
+    f_lib = time_ms(eb_library(table, ids), 10)
+    b_ms = time_ms(lambda: EB.embedding_bag_bwd(gout, table, ids, None,
+                                                "sum", bf16), 10)
+    b_plain = time_ms(lambda: embedding_bag_bwd_ref(gout, table, ids, None,
+                                                    "sum", bf16), 3)
+    valid = ids.flatten() >= 0
+    flat = ids.flatten()[valid].long()
+    contrib = (gout.float()[:, None, :].expand(N, BAG, D).reshape(-1, D)
+               [valid])
+    acc = torch.zeros((V, D), device=dev)
+    b_lib = time_ms(lambda: acc.index_add_(0, flat, contrib), 10)
+    del acc, contrib, flat, valid
+    fb, fby = eb_bound(ids, D, V, False, peaks)
+    bb, bby = eb_bound(ids, D, V, True, peaks)
+    print(f"[phase1] embedding_bag train shape: bags={N} L<={BAG} D={D} "
+          f"table=({V}, {D}) f32, bf16 compute, valid ids={n_valid}: fwd "
+          f"max_abs_err={f_err:.3g} kernel_ms={f_ms:.4f} plain_ms="
+          f"{f_plain:.4f} F.embedding_bag_ms={f_lib:.4f} bound_ms={fb:.4f} "
+          f"({fby}); bwd max_abs_err={b_err:.3g} kernel_ms={b_ms:.4f} "
+          f"plain_ms={b_plain:.4f} index_add_ms={b_lib:.4f} bound_ms="
+          f"{bb:.4f} ({bby}), atomics' read-modify-write alone "
+          f"{eb_atomic_ms(ids, D, peaks):.4f} ms")
+    del table, ids, gout
+    torch.cuda.empty_cache()
+
+    # (c) the serving table, 2.6e8 x 64 f32 (66.56 GB): ids above 2^24,
+    # element offsets above 2^31; bags at the serve_p99, serve_bulk (the
+    # main path's largest launch) and train shapes
+    V = EB_ROWS
+    table = torch.empty((V, D), device=dev)
+    for r0 in range(0, V, 1 << 26):
+        table[r0:r0 + (1 << 26)].normal_(generator=g).mul_(0.01)
+    big = {}
+    for name, N in (("serve_p99", RS_P99 * F_), ("serve_bulk", RS_BULK * F_),
+                    ("train_batch", RS_TRAIN * F_)):
+        ids = random_bags(g, N, BAG, V, dev, lo=BIG_ID)
+        ids[:64, 0] = V - 1 - torch.arange(64, device=dev, dtype=torch.int32)
+        out_k = EB.embedding_bag_fwd(table, ids, None, "sum", bf16)
+        err = 0.0
+        for c0 in range(0, N, 1 << 18):              # plain, in chunks
+            err = max(err, held(out_k[c0:c0 + (1 << 18)], embedding_bag_ref(
+                table, ids[c0:c0 + (1 << 18)], None, "sum", bf16), bf16,
+                f"fwd on the 2.6e8-row table at {name}"))
+        ms = time_ms(lambda: EB.embedding_bag_fwd(table, ids, None, "sum",
+                                                  bf16), 10)
+        bound, by = eb_bound(ids, D, V, False, peaks)
+        if name == "serve_p99":
+            big[name] = ids
+        print(f"[phase1] embedding_bag fwd on ({V}, {D}) f32 at {name}: "
+              f"bags={N} min_id={int(ids[ids >= 0].min())} max_id="
+              f"{int(ids.max())} max_abs_err={err:.3g} kernel_ms={ms:.4f} "
+              f"bound_ms={bound:.4f} ({by})")
+        del out_k
+    p99_plain = time_ms(lambda: embedding_bag_ref(
+        table, big["serve_p99"], None, "sum", bf16), 3)
+    p99_lib = time_ms(eb_library(table, big["serve_p99"]), 10)
+    print(f"[phase1] embedding_bag fwd serve_p99 on the 2.6e8-row table: "
+          f"plain_ms={p99_plain:.4f} F.embedding_bag_ms={p99_lib:.4f}")
+    del table, big
+    torch.cuda.empty_cache()
+
+    # (d) the backward with ids above 2^24 and element offsets above 2^31:
+    # a 40M-row table (2.56e9 elements), train_batch bags
+    V, N = EB_BWD_ROWS, RS_TRAIN * F_
+    table = torch.empty((V, D), device=dev)
+    ids = random_bags(g, N, BAG, V, dev, lo=BIG_ID)
+    ids[:64, 0] = V - 1 - torch.arange(64, device=dev, dtype=torch.int32)
+    gout = (torch.randn((N, D), generator=g, device=dev) * 1e-3).to(bf16)
+    dk, _ = EB.embedding_bag_bwd(gout, table, ids, None, "sum", bf16)
+    dp, _ = embedding_bag_bwd_ref(gout, table, ids, None, "sum", bf16)
+    err = held(dk, dp, bf16, "d_table with offsets above 2^31")
+    # the top rows (element offsets near 2.56e9) entry by entry, with no
+    # floor; no row below 2^24 was written
+    top_dk, top_p = dk[V - 64:], dp[V - 64:]
+    check(bool(((top_dk - top_p).abs() <= 2.0 ** -7 * top_p.abs()).all())
+          and float((top_p != 0).float().mean()) > 0.9,
+          "embedding_bag d_table: the top rows differ from the plain ones")
+    check(float(dk[:BIG_ID].abs().max()) == 0,
+          "embedding_bag d_table: a row below 2^24 was written")
+    del dk, dp
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: EB.embedding_bag_bwd(gout, table, ids, None, "sum",
+                                              bf16), 5)
+    bound, by = eb_bound(ids, D, V, True, peaks)
+    print(f"[phase1] embedding_bag bwd on ({V}, {D}) f32 at train_batch: "
+          f"bags={N} ids in [2^24, {V}) max_abs_err={err:.3g} kernel_ms="
+          f"{ms:.4f} bound_ms={bound:.4f} ({by}), atomics' read-modify-"
+          f"write alone {eb_atomic_ms(ids, D, peaks):.4f} ms")
+    del table, ids, gout
+    torch.cuda.empty_cache()
+
+    src_file = "src/repro_torch/csrc/embedding_bag.cu"
+    jax_file = "src/repro/kernels/embedding_bag"
+    return [dict(name="embedding_bag_fwd", route="cuda", source=src_file,
+                 replaces=f"{jax_file}/embedding_bag.py:57",
+                 max_abs_err=f_err, ms=f_ms, plain_ms=f_plain, bound_ms=fb,
+                 bound_by=fby, library_ms=f_lib),
+            dict(name="embedding_bag_bwd", route="cuda", source=src_file,
+                 replaces=f"{jax_file}/ops.py:34", max_abs_err=b_err,
+                 ms=b_ms, plain_ms=b_plain, bound_ms=bb, bound_by=bby,
+                 library_ms=b_lib)]
 
 
 # ---------------------------------------------------------------------------
@@ -927,6 +1192,273 @@ def phase3(seed: int, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 4: the recsys serve-and-train slice at full width
+# ---------------------------------------------------------------------------
+
+def recsys_batch(cfg, g: torch.Generator, n: int, dev, *, bags: int = 0,
+                 labels: bool = True) -> dict:
+    """A batch of ``n`` requests made on ``dev`` from ``g``: ids uniform
+    over the vocab; with ``bags``, dlrm multi-hot ids (n, F, bags) whose
+    lengths are uniform in 1..bags (-1 after)."""
+    V = cfg.default_vocab
+
+    def ids(*shape, lo=0):
+        return torch.randint(lo, V, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+    b = {}
+    if cfg.kind == "dlrm":
+        b["dense"] = torch.randn((n, cfg.n_dense), generator=g, device=dev)
+        b["sparse"] = (random_bags(g, n * cfg.n_sparse, bags, V, dev).view(
+            n, cfg.n_sparse, bags) if bags else ids(n, cfg.n_sparse))
+    elif cfg.kind == "wide_deep":
+        b["sparse"] = ids(n, cfg.n_sparse)
+    elif cfg.kind == "sasrec":
+        b["seq"] = ids(n, cfg.seq_len, lo=-1)
+    else:
+        b.update(seq=ids(n, cfg.seq_len, lo=-1), target=ids(n),
+                 other=ids(n, cfg.n_sparse))
+    if labels and cfg.kind != "sasrec":
+        b["labels"] = (torch.rand(n, generator=g, device=dev) > 0.5).float()
+    return b
+
+
+def compact_dlrm(params, batch, sel: torch.Tensor):
+    """The requests ``sel`` of a multi-hot dlrm batch on the CPU, with
+    only the table rows they touch: each field's valid ids re-indexed
+    into a compact (F, U, D) table (U the largest count of a field)."""
+    ids = batch["sparse"][sel].cpu().long()
+    tables = params["tables"]
+    per, width = [], 1
+    for f in range(ids.shape[1]):
+        valid = ids[:, f] >= 0
+        uniq, inv = torch.unique(ids[:, f][valid], return_inverse=True)
+        per.append((valid, uniq, inv))
+        width = max(width, len(uniq))
+    compact = torch.zeros((ids.shape[1], width, tables.shape[2]))
+    new = torch.full_like(ids, -1)
+    for f, (valid, uniq, inv) in enumerate(per):
+        compact[f, : len(uniq)] = tables[f, uniq.to(tables.device)].cpu()
+        new[:, f][valid] = inv
+    cpu = {k: v for k, v in params.items() if k != "tables"}
+    cpu = {k: [{q: t.detach().cpu() for q, t in layer.items()}
+               for layer in v] for k, v in cpu.items()}
+    cpu["tables"] = compact
+    return cpu, {"dense": batch["dense"][sel].cpu(), "sparse": new}
+
+
+def params_gap(a: dict, b: dict) -> dict:
+    """Per parameter: (median gap, share of entries beyond PARAM_FAR,
+    largest gap)."""
+    out = {}
+    for k in b:
+        d = (a[k].detach().float().cpu() - b[k].detach().float()).abs()
+        out[k] = (float(d.median()), float((d > PARAM_FAR).float().mean()),
+                  float(d.max()))
+    return out
+
+
+def phase4(seed: int, dev) -> dict:
+    """dlrm-rm2 serve (8 serve_p99 batches, one serve_bulk), retrieval
+    and 20 train steps; wide-deep, sasrec and bst one serve_bulk batch
+    each.  Returns the embedding_bag launches of the serve and train
+    stages."""
+    cfg = DLRM
+    secs, peaks, checks = {}, {}, {}
+    g = torch.Generator(dev).manual_seed(seed + 40)
+
+    def begin():
+        """A stage starts: its peak memory counts from here."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def stage(name, t0):
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+
+    # --- serve: 26 x 10,000,000 x 64 f32 tables, multi-hot bags --------
+    t = begin()
+    params = R.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        seed), device=dev)
+    stage("init", t)
+    common.reset_launches()                  # serve path starts here
+    t = begin()
+    p99_s = []
+    for _ in range(P99_REPS):
+        b = recsys_batch(cfg, g, RS_P99, dev, bags=BAG, labels=False)
+        t1 = time.perf_counter()
+        out = recsys_serve_step(params, cfg, b)
+        torch.cuda.synchronize()
+        p99_s.append(time.perf_counter() - t1)
+        check(out.shape == (RS_P99,) and bool(torch.isfinite(out).all()),
+              "serve_p99 logits are not finite")
+    bulk = recsys_batch(cfg, g, RS_BULK, dev, bags=BAG, labels=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits = recsys_serve_step(params, cfg, bulk)
+    torch.cuda.synchronize()
+    secs["serve_bulk"] = time.perf_counter() - t1
+    stage("serve", t)
+    serve_launches = common.launch_counts()  # serve path ends here
+    check(logits.shape == (RS_BULK,) and logits.dtype == torch.bfloat16
+          and bool(torch.isfinite(logits).all()), "serve_bulk logits")
+    rows = int((bulk["sparse"] >= 0).sum())
+    # serve_p99 requests spread evenly over the bulk batch (so over the
+    # whole kernel grid), on the CPU, from only the rows they touch
+    sel = torch.arange(0, RS_BULK, RS_BULK // RS_P99, device=dev)
+    cpu_params, cpu_batch = compact_dlrm(params, bulk, sel)
+    ref = R.dlrm_forward(cpu_params, cfg, cpu_batch["dense"],
+                         cpu_batch["sparse"]).float()
+    gap = float((logits[sel].float().cpu() - ref).abs().max())
+    checks["serve_cpu_gap"] = gap / float(ref.abs().max())
+    check(gap <= P4_REL * float(ref.abs().max()),
+          f"serve_bulk logits vs the CPU: {gap} of {float(ref.abs().max())}")
+    del bulk, logits, cpu_params, cpu_batch
+
+    # --- retrieval: one query against 1,000,000 candidates --------------
+    t = begin()
+    q = recsys_batch(cfg, g, 1, dev, labels=False)
+    cand = torch.randint(0, 4 * cfg.default_vocab, (RS_CAND,), generator=g,
+                         device=dev, dtype=torch.int32)
+    vals, idx = recsys_retrieval_step(params, cfg, q, cand, k=100)
+    stage("retrieval", t)
+    # the same bf16 scores on the card, ranked on the CPU
+    tab = params["tables"][0]
+    u = tab[q["sparse"][0].long()].mean(dim=0, keepdim=True).to(
+        torch.bfloat16)
+    cvec = tab[torch.remainder(cand, tab.shape[0]).long()].to(torch.bfloat16)
+    scores = (u @ cvec.T)[0].cpu()
+    _, want = top_k(scores, 100)
+    check(torch.equal(idx.cpu(), want),
+          "retrieval top-100 differs from the CPU ranking of its scores")
+    # and the scores recomputed on the CPU
+    cpu_scores = (u.cpu() @ cvec.cpu().T)[0]
+    s_gap = float((cpu_scores.float() - scores.float()).abs().max())
+    check(s_gap <= 2.0 ** -7 * float(scores.float().abs().max()),
+          f"retrieval scores: card vs CPU {s_gap}")
+    cpu_ids = top_k(cpu_scores, 100)[1]
+    checks["retrieval_ties_in_top100"] = 100 - len(set(vals.float().tolist()))
+    checks["retrieval_cpu_scores_same_ids"] = bool(torch.equal(
+        cpu_ids, idx.cpu()))
+    del params, tab, u, cvec, cand
+    torch.cuda.empty_cache()
+
+    # --- train: 20 steps at train_batch, vocab cut to 1,000,000 ---------
+    tcfg = dataclasses.replace(cfg, default_vocab=TRAIN_VOCAB)
+    t = begin()
+    params = R.init_params(tcfg, generator=torch.Generator(dev).manual_seed(
+        seed + 1), device=dev)
+    flat = R.flatten_params(params)
+    start = {k: v.clone() for k, v in flat.items()}
+    opt = rankgraph2_optimizer()
+    st = opt.init(flat)
+    stage("train_init", t)
+    common.reset_launches()                  # train path starts here
+    t = begin()
+    losses = []
+    for _ in range(P4_STEPS):
+        b = recsys_batch(tcfg, g, RS_TRAIN, dev, bags=BAG)
+        loss, st = recsys_train_step(params, st, b, tcfg, opt)
+        losses.append(float(loss))
+    stage("train", t)
+    train_launches = common.launch_counts()  # train path ends here
+    check(all(np.isfinite(losses)), f"train losses {losses}")
+    still = [k for k, v in flat.items() if torch.equal(v, start[k])]
+    check(not still, f"parameters that did not move: {still}")
+    del params, flat, start, st, opt, b, loss
+    torch.cuda.empty_cache()
+
+    # --- the train chain in f32, card vs CPU: same init and batches ------
+    t = begin()
+    ccfg = dataclasses.replace(cfg, default_vocab=CHECK_VOCAB,
+                               dtype="float32")
+    p_cpu = R.init_params(ccfg, generator=torch.Generator().manual_seed(
+        seed + 2), device="cpu")
+    p_dev = {k: (v.to(dev) if torch.is_tensor(v) else
+                 [{q_: x.to(dev) for q_, x in layer.items()} for layer in v])
+             for k, v in p_cpu.items()}
+    traj = {}
+    gb = torch.Generator().manual_seed(seed + 3)
+    batches = [recsys_batch(ccfg, gb, CHECK_BATCH, "cpu", bags=BAG)
+               for _ in range(P4_F32_STEPS)]
+    for d, p in ((dev, p_dev), ("cpu", p_cpu)):
+        o = rankgraph2_optimizer()
+        ost = o.init(R.flatten_params(p))
+        traj[str(d)] = []
+        for bb in batches:
+            loss, ost = recsys_train_step(
+                p, ost, {k: v.to(d) for k, v in bb.items()}, ccfg, o)
+            traj[str(d)].append(float(loss))
+    stage("f32_check", t)
+    worst = max(abs(a - b_) / (F32_REL * abs(b_) + F32_ABS)
+                for a, b_ in zip(traj[str(dev)], traj["cpu"]))
+    check(worst <= 1, f"f32 losses card {traj[str(dev)]} vs cpu "
+          f"{traj['cpu']}")
+    pg = params_gap(R.flatten_params(p_dev), R.flatten_params(p_cpu))
+    for k, (med, far, mx) in pg.items():
+        check(med <= PARAM_MEDIAN and far <= PARAM_FAR_SHARE,
+              f"f32 param {k}: median {med}, share beyond {PARAM_FAR} "
+              f"{far}, max {mx}")
+    del p_dev, p_cpu
+    torch.cuda.empty_cache()
+
+    # --- the other archs: one serve_bulk batch each at full width -------
+    other = {}
+    for arch in ("wide-deep", "sasrec", "bst"):
+        acfg = get_arch(arch).config
+        t = begin()
+        params = R.init_params(acfg, generator=torch.Generator(
+            dev).manual_seed(seed), device=dev)
+        b = recsys_batch(acfg, g, RS_BULK, dev, labels=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = recsys_serve_step(params, acfg, b)
+        torch.cuda.synchronize()
+        other[arch] = time.perf_counter() - t1
+        check(out.shape[0] == RS_BULK and bool(torch.isfinite(out).all()),
+              f"{arch} serve_bulk outputs are not finite")
+        stage(arch, t)
+        del params, b, out
+        torch.cuda.empty_cache()
+
+    fwd, bwd = "embedding_bag_fwd", "embedding_bag_bwd"
+    check(serve_launches.get(fwd, 0) >= P99_REPS + 1,
+          f"serve: {serve_launches.get(fwd, 0)} {fwd} launches")
+    check(train_launches.get(fwd, 0) >= P4_STEPS
+          and train_launches.get(bwd, 0) >= P4_STEPS,
+          f"train: {train_launches.get(fwd, 0)} {fwd}, "
+          f"{train_launches.get(bwd, 0)} {bwd} launches")
+    print(f"[phase4] dlrm-rm2 serve: tables {cfg.n_sparse} x "
+          f"{cfg.default_vocab} x {cfg.embed_dim} f32, bags of 1..{BAG}; "
+          f"serve_p99 batch={RS_P99} seconds per batch "
+          f"{[round(v, 5) for v in p99_s]}; serve_bulk batch={RS_BULK} "
+          f"({rows} rows gathered) {secs['serve_bulk']:.4f} s; "
+          f"{RS_P99} strided logits vs the CPU on compact tables: worst gap "
+          f"{checks['serve_cpu_gap']:.3g} of the largest (tolerance "
+          f"{P4_REL})")
+    print(f"[phase4] retrieval: {RS_CAND} candidates, top 100 equal to the "
+          f"CPU ranking of the card's scores; CPU-computed scores give the "
+          f"same ids: {checks['retrieval_cpu_scores_same_ids']}; tied "
+          f"scores in the top 100: {checks['retrieval_ties_in_top100']}")
+    print(f"[phase4] train: {P4_STEPS} steps x {RS_TRAIN} rows, vocab "
+          f"{TRAIN_VOCAB} per field; loss {[round(v, 5) for v in losses]}")
+    print(f"[phase4] f32 card vs cpu, {P4_F32_STEPS} steps at vocab "
+          f"{CHECK_VOCAB}, {CHECK_BATCH} rows: loss {traj} (worst gap "
+          f"{worst:.3f} of the tolerance); parameters (median gap, share "
+          f"beyond {PARAM_FAR}, largest gap): "
+          f"{json.dumps({k: [float(f'{x:.3g}') for x in v] for k, v in pg.items() if v[2] > 0})}")
+    print(f"[phase4] other archs serve_bulk seconds "
+          f"{json.dumps({k: round(v, 4) for k, v in other.items()})}")
+    print(f"[phase4] seconds={json.dumps({k: round(v, 4) for k, v in secs.items()})}")
+    print(f"[phase4] peak device memory GB per stage="
+          f"{json.dumps({k: round(v, 3) for k, v in peaks.items()})}")
+    print(f"[phase4] launches serve={serve_launches} train={train_launches}")
+    return {fwd: serve_launches.get(fwd, 0) + train_launches.get(fwd, 0),
+            bwd: train_launches.get(bwd, 0)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -945,7 +1477,7 @@ def main() -> int:
     print(smi)
     t = time.perf_counter()
     logs = common.build(["rq_assign", "queue_gather", "ppr_walk",
-                         "fused_contrastive"])
+                         "fused_contrastive", "embedding_bag"])
     print(f"[phase0] built {sorted(logs)} in "
           f"{time.perf_counter() - t:.2f} s")
     for kname, log in logs.items():
@@ -956,13 +1488,19 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(args.seed)
     rows = [phase1_rq_assign(g, dev, peaks), phase1_queue_gather(g, dev, peaks),
             phase1_ppr_walk(g, dev, peaks),
-            *phase1_fused_contrastive(g, dev, peaks)]
+            *phase1_fused_contrastive(g, dev, peaks),
+            *phase1_embedding_bag(g, dev, peaks)]
     t = time.perf_counter()
     launches = phase2(args.seed, dev)
     print(f"[phase2] wall {time.perf_counter() - t:.2f} s")
     launches3 = phase3(args.seed, dev)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    launches4 = phase4(args.seed, dev)
+    print(f"[phase4] wall {time.perf_counter() - t:.2f} s")
     for r in rows:
         r["launches"] = (launches[r["name"]] if r["name"] in SLICE1
+                         else launches4[r["name"]] if r["name"] in launches4
                          else launches3[r["name"]])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,9 +1,42 @@
-"""RankGraph-2 config dataclasses, field for field as in the JAX package
-(``repro/configs/base.py``), plus the rankgraph2 shape table."""
+"""Config dataclasses, field for field as in the JAX package
+(``repro/configs/base.py``): the recsys family's ``RecsysConfig`` and
+RankGraph-2's own, their shape tables, and the architecture registry
+(``--arch <id>`` -> ``ArchSpec``) for the archs the port has: the four
+recsys archs and ``rankgraph2``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
+
+
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str = "dlrm-rm2"
+    kind: str = "dlrm"          # dlrm | wide_deep | sasrec | bst
+    n_dense: int = 13
+    n_sparse: int = 26
+    embed_dim: int = 64
+    vocab_sizes: Tuple[int, ...] = ()        # per sparse field
+    default_vocab: int = 10_000_000
+    multi_hot: int = 1                       # ids per field (bag size)
+    bot_mlp: Tuple[int, ...] = (512, 256, 64)
+    top_mlp: Tuple[int, ...] = (512, 512, 256, 1)
+    interaction: str = "dot"                 # dot | concat | self_attn | transformer
+    # sequence models (sasrec / bst)
+    seq_len: int = 50
+    n_blocks: int = 2
+    n_heads: int = 1
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+
+# ---------------------------------------------------------------------------
+# RankGraph-2 (the paper's own architecture)
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +86,10 @@ class RankGraph2Config:
     param_dtype: str = "float32"
 
 
+# ---------------------------------------------------------------------------
+# Shapes + registry
+# ---------------------------------------------------------------------------
+
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
@@ -60,9 +97,58 @@ class ShapeSpec:
     dims: Dict[str, int]
 
 
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str                   # "recsys" | "rankgraph2"
+    config: Any
+    shapes: Tuple[ShapeSpec, ...]
+    source: str = ""
+
+
+_REGISTRY: Dict[str, ArchSpec] = {}
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    _REGISTRY[spec.arch_id] = spec
+    return spec
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    _ensure_loaded()
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[arch_id]
+
+
+def list_archs() -> list[str]:
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "train", dict(batch=65536)),
+    ShapeSpec("serve_p99", "serve", dict(batch=512)),
+    ShapeSpec("serve_bulk", "serve", dict(batch=262144)),
+    ShapeSpec("retrieval_cand", "serve", dict(batch=1, n_candidates=1_000_000)),
+)
+
 RANKGRAPH2_SHAPES = (
     ShapeSpec("train_batch", "train", dict(batch=32768)),
     ShapeSpec("serve_p99", "serve", dict(batch=512)),
     ShapeSpec("serve_bulk", "serve", dict(batch=262144)),
     ShapeSpec("retrieval_cand", "serve", dict(batch=1, n_candidates=1_000_000)),
 )
+
+
+_LOADED = False
+
+
+def _ensure_loaded() -> None:
+    """Import every config module so that its ``register`` call runs."""
+    global _LOADED
+    if _LOADED:
+        return
+    _LOADED = True
+    from repro_torch.configs import (  # noqa: F401
+        bst, dlrm_rm2, rankgraph2, sasrec, wide_deep)

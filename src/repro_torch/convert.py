@@ -7,7 +7,9 @@ aggregators ``agg_user`` / ``agg_item``, the RQ codebooks
 and computes ``x @ w``; ``nn.Linear`` keeps ``(d_out, d_in)``, so ``w``
 is transposed here.  ``rq_state_from_jax`` and ``pool_from_jax`` carry
 the RQ histograms and the negative pool over, so the port can start a
-train step from the exact JAX state.
+train step from the exact JAX state.  ``recsys_params_from_jax`` carries
+a recsys model's tree over (MLP ``w`` transposed, everything else as
+it is).
 """
 from __future__ import annotations
 
@@ -82,3 +84,32 @@ def pool_from_jax(pool, *, device=None) -> NegPoolState:
     return NegPoolState(_f32(pool.user, dev), _f32(pool.item, dev),
                         int(pool.user_ptr), int(pool.item_ptr),
                         int(pool.user_fill), int(pool.item_fill))
+
+
+RECSYS_KEYS = {"dlrm": {"tables", "bot", "top"},
+               "wide_deep": {"tables", "wide", "deep"},
+               "sasrec": {"items", "pos", "blocks"},
+               "bst": {"items", "pos", "other", "blocks", "mlp"}}
+
+
+def _recsys_tree(tree, dev):
+    if isinstance(tree, dict):
+        if set(tree) == {"w", "b"}:                  # a linear layer
+            return {"w": _tensor(tree["w"]).T.contiguous().to(dev),
+                    "b": _tensor(tree["b"]).to(dev)}
+        return {k: _recsys_tree(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_recsys_tree(v, dev) for v in tree]
+    return _tensor(tree).to(dev)
+
+
+def recsys_params_from_jax(tree: Dict[str, Any], kind: str, *,
+                           device=None) -> Dict[str, Any]:
+    """A JAX recsys params tree (numpy leaves) of model ``kind`` (dlrm,
+    wide_deep, sasrec, bst) -> the port's tree on ``device``: linear
+    layers ``{"w", "b"}`` with ``w`` transposed to ``(d_out, d_in)``;
+    tables and the attention matrices as they are."""
+    if set(tree) != RECSYS_KEYS[kind]:
+        raise ValueError(f"a {kind} tree has keys {sorted(RECSYS_KEYS[kind])}"
+                         f", got {sorted(tree)}")
+    return _recsys_tree(tree, resolve_device(device))

@@ -38,7 +38,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "for want in ('core.graph_builder', 'core.ppr', 'core.losses',\n"
         "             'core.negatives', 'core.pipeline', 'data.synthetic',\n"
         "             'optim.optimizers', 'kernels.ppr_walk.ops',\n"
-        "             'kernels.fused_contrastive.ops'):\n"
+        "             'kernels.fused_contrastive.ops',\n"
+        "             'kernels.embedding_bag.ops',\n"
+        "             'kernels.embedding_bag.embedding_bag',\n"
+        "             'kernels.embedding_bag.ref', 'models.recsys.models',\n"
+        "             'launch.steps', 'launch.train', 'configs.dlrm_rm2',\n"
+        "             'configs.wide_deep', 'configs.sasrec', 'configs.bst'):\n"
         "    assert 'repro_torch.' + want in names, want\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], env=_env(),
