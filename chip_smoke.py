@@ -47,10 +47,26 @@ the batch, against the CPU on only the rows they touch, the top 100 against the 
 that the losses are finite and every parameter moved, and four f32
 steps on the card against the CPU.
 
+Phase 5 runs the dense LM serve path at the full width of
+``llama3.2-3b`` (28 layers, d 3,072, 24 query heads over 8 KV heads,
+head dim 128, ff 8,192, vocab 128,256, f32 params, bf16 compute) with
+random weights from ``--seed``: prefill at 32,768 tokens (B 1, cut from
+32), 16 greedy decode steps from its cache, one decode_32k step at B 8
+(cut from 128) on a random cache filled to 32,767, and one long_500k step
+on a random cache of 524,288 positions (60.1 GB beside 14.43 GB of
+params: the stage needs the whole 80 GB card); then ``gemma-2b`` at full
+width (18 layers, MQA, head dim 256) prefills 8,192 tokens and decodes
+16.  All attention runs on the flash_attention kernel (decode with a
+split kv range: partials, then ``flash_attention_merge``).  It checks
+shapes and finite values, the launch counts, llama at 2 layers card vs
+CPU in f32 (prefill logits, caches, one decode step within 1e-3), and
+the prefill/decode consistency on the card in bf16.
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
 ``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
-Phase 4's serve and train stages.
+Phase 4's serve and train stages, ``flash_attention*`` Phase 5's serve
+stages.
 
 The second-to-last line is a JSON object listing every ported kernel
 (launches on the main path, error against the plain version, times and
@@ -76,8 +92,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch.configs.base import (RANKGRAPH2_SHAPES,  # noqa: E402
-                                      RECSYS_SHAPES, get_arch)
+from repro_torch.configs.base import (LM_SHAPES,  # noqa: E402
+                                      RANKGRAPH2_SHAPES, RECSYS_SHAPES,
+                                      get_arch)
 from repro_torch.configs.rankgraph2 import CONFIG  # noqa: E402
 from repro_torch.core import model as M  # noqa: E402
 from repro_torch.core.graph_builder import EngagementLog  # noqa: E402
@@ -101,6 +118,10 @@ from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag as EB)
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
     embedding_bag_bwd_ref, embedding_bag_ref)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention as FA, ops as FA_OPS)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref, chunked_attention_ref, merge_ref)
 from repro_torch.kernels.fused_contrastive import (  # noqa: E402
     fused_contrastive as FC)
 from repro_torch.kernels.fused_contrastive.ref import (  # noqa: E402
@@ -113,11 +134,13 @@ from repro_torch.kernels.queue_gather.ref import (  # noqa: E402
     dup_of_earlier, queue_gather_ref, ring_window)
 from repro_torch.kernels.rq_assign import rq_assign as RQA  # noqa: E402
 from repro_torch.kernels.rq_assign.ref import rq_assign_ref  # noqa: E402
-from repro_torch.launch.steps import (recsys_retrieval_step,  # noqa: E402
+from repro_torch.launch.steps import (lm_decode_step,  # noqa: E402
+                                      lm_prefill_step, recsys_retrieval_step,
                                       recsys_serve_step, recsys_train_step,
                                       top_k)
 from repro_torch.lifecycle.publish import (build_snapshot,  # noqa: E402
                                            snapshot_health)
+from repro_torch.models.lm import model as LM  # noqa: E402
 from repro_torch.models.recsys import models as R  # noqa: E402
 from repro_torch.optim.optimizers import rankgraph2_optimizer  # noqa: E402
 
@@ -161,19 +184,31 @@ P4_REL = 2.0 ** -5           # bf16 logits: card vs CPU, of the largest
 # parameters after the f32 card-vs-CPU steps, as tests/test_torch_recsys.py
 # holds them: median gap, and the share of entries beyond PARAM_FAR
 PARAM_MEDIAN, PARAM_FAR, PARAM_FAR_SHARE = 1e-4, 1e-3, 0.01
+LLAMA = get_arch("llama3.2-3b").config  # bf16 compute, f32 params
+GEMMA = get_arch("gemma-2b").config
+LM_SH = {s.name: s.dims for s in LM_SHAPES}
+P5_PREFILL_B = 1             # prefill_32k's batch, cut from 32
+P5_DECODE_B = 8              # decode_32k's batch, cut from 128
+GEN_STEPS = 16               # greedy decode steps after a prefill
+P5_DECODE_REPS, P5_LONG_REPS = 3, 2
+P5_GEMMA_SEQ = 8192          # gemma-2b's prefill length
+CHECK_LM_B, CHECK_LM_S = 2, 256   # Phase 5's f32 card-vs-CPU check
+CARD_CPU_LM_REL = 1e-3       # f32 logits and caches: card vs CPU
+BF16_LM_TOL = 5e-2           # bf16 prefill/decode consistency, of the largest
 
 
 def card_peaks(name: str):
-    """(FP32 FLOP/s without tensor cores, memory bytes/s) from NVIDIA's
-    data sheets for the card ``nvidia-smi`` names."""
+    """(FP32 FLOP/s without tensor cores, memory bytes/s, dense bf16
+    tensor-core FLOP/s) from NVIDIA's data sheets for the card
+    ``nvidia-smi`` names."""
     if "H100" in name and "PCIe" in name:
-        return 51.2e12, 2.0e12
+        return 51.2e12, 2.0e12, 756e12
     if "H100" in name and "NVL" in name:
-        return 60.0e12, 3.9e12
+        return 60.0e12, 3.9e12, 835e12
     if "H200" in name:
-        return 67.0e12, 4.8e12
+        return 67.0e12, 4.8e12, 989e12
     if "H100" in name:
-        return 67.0e12, 3.35e12               # SXM
+        return 67.0e12, 3.35e12, 989e12       # SXM
     raise RuntimeError(f"no data-sheet peaks for {name!r}")
 
 
@@ -728,6 +763,191 @@ def phase1_embedding_bag(g: torch.Generator, dev, peaks) -> list:
                  replaces=f"{jax_file}/ops.py:34", max_abs_err=b_err,
                  ms=b_ms, plain_ms=b_plain, bound_ms=bb, bound_by=bby,
                  library_ms=b_lib)]
+
+
+FA_SHAPES = (
+    # (name, B, S, Hq, Hkv, T, D, causal): the main path's launches; the
+    # decode ones read a cache filled to T (kv_len T, one new row)
+    ("prefill_32k", 1, 32768, 24, 8, 32768, 128, True),
+    ("decode_32k", 8, 1, 24, 8, 32768, 128, False),
+    ("long_500k", 1, 1, 24, 8, 524288, 128, False),
+    ("gemma_prefill_8k", 1, 8192, 8, 1, 8192, 256, True),
+)
+FA_SMALL = (
+    # tests/test_kernels.py's sweep (B, Hq, Hkv, S, T, D, causal), in the
+    # (B, H, S, D) contract through strided views, plus D 256
+    (2, 4, 2, 256, 256, 64, True), (1, 2, 2, 200, 200, 32, True),
+    (2, 4, 1, 1, 300, 64, True), (1, 2, 2, 128, 256, 64, False),
+    (1, 8, 8, 96, 96, 128, True), (1, 8, 1, 70, 333, 256, True),
+    (1, 8, 1, 1, 2000, 256, True),           # gemma-like decode, split
+)
+BF16_STEP = 2.0 ** -7        # one bf16 rounding, relative
+
+
+def fa_work(B, S, Hq, Hkv, T, D, causal, esize) -> tuple:
+    """(operations, bytes) the attention needs: 4 D per (query, key) pair
+    that the mask keeps (2 D for q.k, 2 D for p.v), q, k, v read once and
+    o written once."""
+    pairs = S * (S + 1) // 2 if causal and S == T else S * T
+    ops = 4.0 * D * pairs * B * Hq
+    nbytes = esize * (2.0 * B * S * Hq * D + 2.0 * B * T * Hkv * D)
+    return ops, nbytes
+
+
+def sdpa_library(q, k, v, causal, scale):
+    """``scaled_dot_product_attention(enable_gqa=True)`` in the (B, H, S,
+    D) layout (views of the (B, S, H, D) tensors), kept off the math
+    backend, which would hold the whole score matrix; None where no fused
+    backend takes it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+        qt, kt, vt, is_causal=causal, scale=scale, enable_gqa=True)
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION]):
+            out = fn()
+            ms = time_ms(fn, 5)
+    except RuntimeError as e:
+        print(f"[phase1] SDPA refuses this shape: {str(e).splitlines()[0]}")
+        return None, None
+    return ms, out.transpose(1, 2)
+
+
+def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
+    """The forward kernel (whole op: one launch, or partials and merge
+    when ``plan`` splits the kv range) against ``chunked_attention_ref``
+    at the main path's four launch shapes in bf16, and on small cases in
+    f32 against ``attention_ref``.  Tolerances: bf16 outputs within one
+    bf16 step, 2^-7 relative (``close``: plus 1e-4 of the largest for the
+    entries near zero), since both sides compute the same f32 values up
+    to summation order and round once; f32 within 3e-4 as
+    tests/test_kernels.py holds the Pallas kernel (f32 sums in another
+    order); the merge kernel within 1e-5 of ``merge_ref`` on the same
+    partials (the same f32 sums in another order)."""
+    bf16 = torch.bfloat16
+    # (a) small cases, f32, (B, H, S, D) contract through transposed views
+    for B, Hq, Hkv, S, T, D, causal in FA_SMALL:
+        q = torch.randn((B, Hq, S, D), generator=g, device=dev)
+        k = torch.randn((B, Hkv, T, D), generator=g, device=dev)
+        v = torch.randn((B, Hkv, T, D), generator=g, device=dev)
+        got = FA_OPS.attention(q, k, v, causal=causal)
+        want = attention_ref(q, k, v, causal=causal)
+        check(close(got, want, 3e-4), f"flash_attention small case "
+              f"{(B, Hq, Hkv, S, T, D, causal)} off attention_ref")
+        # the same in bf16 against the model contract's plain version
+        qb, kb, vb = (x.transpose(1, 2).to(bf16) for x in (q, k, v))
+        gb = FA.flash_attention(qb, kb, vb, causal=causal, scale=D ** -0.5,
+                                q_offset=T - S if causal else 0)
+        wb = chunked_attention_ref(qb, kb, vb, causal=causal,
+                                   q_offset=T - S if causal else 0,
+                                   scale=D ** -0.5)
+        check(close(gb, wb, BF16_STEP), f"flash_attention small bf16 case "
+              f"{(B, Hq, Hkv, S, T, D, causal)} off the plain version")
+    # a ragged kv_len tensor, an offset and forced splits
+    q = torch.randn((3, 5, 6, 64), generator=g, device=dev)
+    k = torch.randn((3, 700, 2, 64), generator=g, device=dev)
+    v = torch.randn((3, 700, 2, 64), generator=g, device=dev)
+    kvl = torch.tensor([1, 333, 700], dtype=torch.int32, device=dev)
+    for causal in (False, True):
+        want = chunked_attention_ref(q, k, v, causal=causal, q_offset=600,
+                                     kv_len=kvl, scale=0.125)
+        got = FA.flash_attention(q, k, v, causal=causal, q_offset=600,
+                                 kv_len=kvl, scale=0.125)
+        check(close(got, want, 3e-4), f"flash_attention ragged kv_len "
+              f"(causal={causal}) off the plain version")
+        for splits in (2, 5, 11):
+            part = FA.flash_attention_partials(
+                q, k, v, causal=causal, q_offset=600, kv_len=kvl,
+                scale=0.125, splits=splits, rpt=4)
+            got = FA.flash_attention_merge(*part, n_heads=6,
+                                           dtype=torch.float32)
+            check(close(got, want, 3e-4), f"flash_attention with {splits} "
+                  f"forced splits (causal={causal}) off the plain version")
+    print(f"[phase1] flash_attention: {2 * len(FA_SMALL)} small cases (f32 "
+          f"vs attention_ref, bf16 vs chunked_attention_ref) and ragged "
+          f"kv_len / offset / forced-split cases held")
+
+    # (b) the main path's launch shapes, bf16
+    rows = {}
+    for name, B, S, Hq, Hkv, T, D, causal in FA_SHAPES:
+        q = torch.randn((B, S, Hq, D), generator=g, device=dev).to(bf16)
+        k = torch.empty((B, T, Hkv, D), dtype=bf16, device=dev).normal_(
+            generator=g)
+        v = torch.empty((B, T, Hkv, D), dtype=bf16, device=dev).normal_(
+            generator=g)
+        kw = dict(causal=causal, scale=D ** -0.5,
+                  kv_len=None if causal else T)
+        got = FA.flash_attention(q, k, v, **kw)
+        want = chunked_attention_ref(q, k, v, block_q=1024 if causal else 1,
+                                     **kw)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(got.dtype == bf16 and close(got, want, BF16_STEP),
+              f"flash_attention at {name} off the plain version ({err})")
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        rpt, splits = FA.plan(B, S, Hq, Hkv, T, n_sm)
+        reps = 3 if causal else 20
+        ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), reps)
+        plain_ms = time_ms(lambda: chunked_attention_ref(
+            q, k, v, block_q=1024 if causal else 1, **kw), 2)
+        lib_ms, lib_out = sdpa_library(q, k, v, causal, D ** -0.5)
+        lib_err = (None if lib_out is None else
+                   float((lib_out.float() - want.float()).abs().max()))
+        ops, nbytes = fa_work(B, S, Hq, Hkv, T, D, causal, 2)
+        t_o, t_b = ops / peaks[2], nbytes / peaks[1]
+        bound_ms, by = max(t_o, t_b) * 1e3, ("operations" if t_o >= t_b
+                                             else "bytes")
+        fp32_ms = max(ops / peaks[0], t_b) * 1e3
+        extra = ""
+        if splits > 1:
+            part = FA.flash_attention_partials(q, k, v, rpt=rpt,
+                                               splits=splits, **kw)
+            m_got = FA.flash_attention_merge(*part, n_heads=Hq, dtype=bf16)
+            m_want = merge_ref(*part, n_heads=Hq, dtype=torch.float32)
+            m_err = float((m_got.float() - m_want).abs().max())
+            check(close(m_got, m_want, BF16_STEP),
+                  f"flash_attention_merge at {name} off merge_ref")
+            # the merge alone: in f32 against merge_ref, no bf16 rounding
+            m32 = FA.flash_attention_merge(*part, n_heads=Hq,
+                                           dtype=torch.float32)
+            check(close(m32, m_want, 1e-5),
+                  f"flash_attention_merge (f32) at {name} off merge_ref")
+            p_ms = time_ms(lambda: FA.flash_attention_partials(
+                q, k, v, rpt=rpt, splits=splits, **kw), reps)
+            m_ms = time_ms(lambda: FA.flash_attention_merge(
+                *part, n_heads=Hq, dtype=bf16), reps)
+            m_plain = time_ms(lambda: merge_ref(*part, n_heads=Hq,
+                                                dtype=bf16), reps)
+            m_bytes = 4.0 * sum(p.numel() for p in part) + 2.0 * q.numel()
+            rows[f"merge_{name}"] = (float((m32 - m_want).abs().max()), m_ms,
+                                     m_plain, m_bytes / peaks[1] * 1e3)
+            extra = (f" splits={splits}: partials_ms={p_ms:.4f} merge_ms="
+                     f"{m_ms:.4f} (merge max_abs_err {m_err:.3g}, plain "
+                     f"{m_plain:.4f} ms)")
+        rows[name] = (err, ms, plain_ms, bound_ms, by, lib_ms)
+        print(f"[phase1] flash_attention {name}: q {tuple(q.shape)} k/v "
+              f"{tuple(k.shape)} bf16 causal={causal} rows/thread={rpt}"
+              f"{extra} max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms="
+              f"{plain_ms:.4f} sdpa_ms={lib_ms} (max_abs_err vs plain "
+              f"{lib_err}) bound_ms={bound_ms:.4f} ({by}; "
+              f"{ops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB) "
+              f"fp32_rate_bound_ms={fp32_ms:.4f}")
+        del q, k, v, got, want, lib_out
+        torch.cuda.empty_cache()
+    src_file = "src/repro_torch/csrc/flash_attention.cu"
+    jax_file = "src/repro/kernels/flash_attention/flash_attention.py:91"
+    err, ms, plain_ms, bound_ms, by, lib_ms = rows["prefill_32k"]
+    m_err, m_ms, m_plain, m_bound = rows["merge_decode_32k"]
+    return [dict(name="flash_attention", route="cuda", source=src_file,
+                 replaces=jax_file, max_abs_err=err, ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                 library_ms=lib_ms),
+            dict(name="flash_attention_merge", route="cuda", source=src_file,
+                 replaces=jax_file, max_abs_err=m_err, ms=m_ms,
+                 plain_ms=m_plain, bound_ms=m_bound, bound_by="bytes",
+                 library_ms=None)]
 
 
 # ---------------------------------------------------------------------------
@@ -1459,6 +1679,307 @@ def phase4(seed: int, dev) -> dict:
             bwd: train_launches.get(bwd, 0)}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the dense LM serve slice at full width
+# ---------------------------------------------------------------------------
+
+def lm_tokens(cfg, g: torch.Generator, B: int, S: int, dev) -> torch.Tensor:
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=g, device=dev)
+
+
+def random_caches(cfg, B: int, T: int, g: torch.Generator, dev) -> dict:
+    """(L, B, T, Hkv, hd) bf16 caches of N(0, 1) values from ``g``, drawn
+    layer by layer (no f32 temporary of a cache's size)."""
+    shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.resolved_head_dim)
+    caches = {n: torch.empty(shape, dtype=torch.bfloat16, device=dev)
+              for n in ("k", "v")}
+    for c in caches.values():
+        for layer in c:
+            layer.normal_(generator=g)
+    return caches
+
+
+def attention_share_ms(cfg, caches: dict, cache_len: int,
+                       g: torch.Generator) -> float:
+    """CUDA-event time of the attention launches of one decode step (all
+    layers, random queries) on these caches: the attention part of a
+    step, the rest being everything else."""
+    B, hd = caches["k"].shape[1], cfg.resolved_head_dim
+    q = torch.randn((B, 1, cfg.n_heads, hd), generator=g,
+                    device=caches["k"].device).to(torch.bfloat16)
+
+    def run():
+        for i in range(cfg.n_layers):
+            FA.flash_attention(q, caches["k"][i], caches["v"][i],
+                               causal=False, scale=hd ** -0.5,
+                               kv_len=cache_len + 1)
+    return time_ms(run, 3)
+
+
+def near(a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
+    """``max |a - b| / (tol * max |b|)``: at most 1 passes."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).abs().max()) / (tol * float(b.abs().max()))
+
+
+def phase5(seed: int, dev) -> dict:
+    """llama3.2-3b at full width: prefill_32k (B 1), 16 greedy decode
+    steps from its cache, decode_32k (B 8), long_500k (B 1); gemma-2b
+    prefill at 8k and 16 decode steps; then llama at 2 layers card vs CPU
+    in f32 and the prefill/decode consistency on the card in bf16.
+    Returns the flash-attention launches of the serve stages."""
+    cfg = LLAMA
+    secs, peaks, launches, notes = {}, {}, {}, {}
+    g = torch.Generator(dev).manual_seed(seed + 50)
+    hd, L = cfg.resolved_head_dim, cfg.n_layers
+
+    def begin(name=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if name:
+            common.reset_launches()          # a serve stage starts here
+        return time.perf_counter()
+
+    def stage(name, t0, serve=True):
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        if serve:
+            launches[name] = {k: v for k, v in common.launch_counts().items()
+                              if k.startswith("flash_attention") and v}
+
+    # --- 1. init: 14.43 GB of f32 params -----------------------------------
+    t = begin()
+    params = LM.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        seed), device=dev)
+    stage("init", t, serve=False)
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in R.flatten_params(params).values())
+    check(abs(n_bytes - 4 * cfg.n_params()) == 0,
+          f"llama params {n_bytes} bytes, want {4 * cfg.n_params()}")
+
+    # --- 2. prefill_32k at B 1 -------------------------------------------
+    S = LM_SH["prefill_32k"]["seq_len"]
+    prompt = lm_tokens(cfg, g, P5_PREFILL_B, S, dev)
+    t = begin("prefill_32k")
+    last, caches = lm_prefill_step(params, cfg, prompt)
+    stage("prefill_32k", t)
+    check(last.shape == (P5_PREFILL_B, cfg.vocab_size)
+          and bool(torch.isfinite(last).all()), "prefill logits")
+    for c in caches.values():
+        check(c.shape == (L, P5_PREFILL_B, S, cfg.n_kv_heads, hd)
+              and c.dtype == torch.bfloat16 and bool(torch.isfinite(c).all()),
+              "prefill caches")
+
+    # --- 3. generate: 16 greedy steps from the prompt's cache -------------
+    gen = {n: torch.empty((L, P5_PREFILL_B, S + GEN_STEPS, cfg.n_kv_heads,
+                           hd), dtype=torch.bfloat16, device=dev)
+           for n in ("k", "v")}
+    for n in gen:
+        gen[n][:, :, :S] = caches[n]
+    del caches
+    torch.cuda.empty_cache()
+    tok = torch.argmax(last, dim=-1, keepdim=True)
+    out_tokens, step_s = [], []
+    t = begin("generate")
+    for i in range(GEN_STEPS):
+        t1 = time.perf_counter()
+        logits, gen = LM.decode_step(params, cfg, tok, gen, S + i)
+        tok = torch.argmax(logits, dim=-1, keepdim=True)
+        out_tokens.append(int(tok[0, 0]))          # syncs
+        step_s.append(time.perf_counter() - t1)
+    stage("generate", t)
+    check(bool(torch.isfinite(logits).all())
+          and all(0 <= x < cfg.vocab_size for x in out_tokens),
+          "generated tokens")
+    notes["generate_s_per_token"] = statistics.median(step_s[1:])
+    notes["generate_attention_ms"] = attention_share_ms(cfg, gen, S + 8, g)
+    del gen, last, logits
+    torch.cuda.empty_cache()
+
+    # --- 4. decode_32k at B 8: one step at cache_len 32,767 ---------------
+    T = LM_SH["decode_32k"]["seq_len"]
+    t = begin()
+    caches = random_caches(cfg, P5_DECODE_B, T, g, dev)
+    stage("decode_32k_fill", t, serve=False)
+    tok = lm_tokens(cfg, g, P5_DECODE_B, 1, dev)
+    t = begin("decode_32k")
+    logits, caches = lm_decode_step(params, cfg, caches, tok)
+    stage("decode_32k", t)
+    check(logits.shape == (P5_DECODE_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "decode_32k logits")
+    torch.cuda.synchronize()
+    reps = []
+    for _ in range(P5_DECODE_REPS):
+        t1 = time.perf_counter()
+        again, caches = lm_decode_step(params, cfg, caches, tok)
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t1)
+    notes["decode_32k_repeat_bitwise"] = bool(torch.equal(again, logits))
+    check(near(again, logits, 1e-3) <= 1, "decode_32k is not repeatable")
+    notes["decode_32k_step_s"] = reps
+    notes["decode_32k_attention_ms"] = attention_share_ms(
+        cfg, caches, T - 1, g)
+    del caches, logits, again
+    torch.cuda.empty_cache()
+
+    # --- 5. long_500k at B 1: one step at cache_len 524,287 ---------------
+    T = LM_SH["long_500k"]["seq_len"]
+    need = 2 * L * T * cfg.n_kv_heads * hd * 2 / 1e9
+    t = begin()
+    try:
+        caches = random_caches(cfg, 1, T, g, dev)
+        stage("long_500k_fill", t, serve=False)
+        tok = lm_tokens(cfg, g, 1, 1, dev)
+        t = begin("long_500k")
+        logits, caches = lm_decode_step(params, cfg, caches, tok)
+        stage("long_500k", t)
+    except torch.cuda.OutOfMemoryError as e:
+        raise AssertionError(
+            f"long_500k does not fit: caches {need:.2f} GB beside "
+            f"{n_bytes / 1e9:.2f} GB of params, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated of "
+            f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.2f}"
+            f" GB: {e}") from e
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "long_500k logits")
+    reps = []
+    for _ in range(P5_LONG_REPS):
+        t1 = time.perf_counter()
+        logits, caches = lm_decode_step(params, cfg, caches, tok)
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t1)
+    notes["long_500k_step_s"] = reps
+    notes["long_500k_attention_ms"] = attention_share_ms(cfg, caches, T - 1,
+                                                         g)
+    del caches, logits, params
+    torch.cuda.empty_cache()
+
+    # --- 6. gemma-2b at full width: prefill at 8k, 16 decode steps --------
+    gcfg = GEMMA
+    t = begin()
+    gparams = LM.init_params(gcfg, generator=torch.Generator(
+        dev).manual_seed(seed + 1), device=dev)
+    stage("gemma_init", t, serve=False)
+    S = P5_GEMMA_SEQ
+    t = begin("gemma_prefill_8k")
+    last, caches = lm_prefill_step(gparams, gcfg, lm_tokens(gcfg, g, 1, S,
+                                                            dev))
+    stage("gemma_prefill_8k", t)
+    check(bool(torch.isfinite(last).all()), "gemma prefill logits")
+    gen = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, GEN_STEPS))
+           for n, c in caches.items()}
+    del caches
+    tok = torch.argmax(last, dim=-1, keepdim=True)
+    t = begin("gemma_generate")
+    for i in range(GEN_STEPS):
+        logits, gen = LM.decode_step(gparams, gcfg, tok, gen, S + i)
+        tok = torch.argmax(logits, dim=-1, keepdim=True)
+    stage("gemma_generate", t)
+    check(bool(torch.isfinite(logits).all()), "gemma decode logits")
+    del gparams, gen, last, logits
+    torch.cuda.empty_cache()
+
+    # --- 7. card vs CPU: llama at full width, 2 layers, f32 ---------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = begin()
+    ccfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    p_dev = LM.init_params(ccfg, generator=torch.Generator(dev).manual_seed(
+        seed + 2), device=dev)
+    p_cpu = {k: ([{n: x.cpu() for n, x in lp.items()} for lp in v]
+                 if k == "layers" else v.cpu()) for k, v in p_dev.items()}
+    toks = lm_tokens(ccfg, g, CHECK_LM_B, CHECK_LM_S, dev)
+    gaps, out, nxt = {}, {}, None
+    for side, p, d in (("card", p_dev, dev), ("cpu", p_cpu, "cpu")):
+        last, caches = LM.prefill(p, ccfg, toks.to(d))
+        caches = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 1))
+                  for n, c in caches.items()}
+        if nxt is None:                     # the card's pick, on both sides
+            nxt = torch.argmax(last, dim=-1, keepdim=True).cpu()
+        dec, caches = LM.decode_step(p, ccfg, nxt.to(d), caches, CHECK_LM_S)
+        out[side] = (last, dec, caches)
+    for i, name in enumerate(("prefill_logits", "decode_logits")):
+        gaps[name] = near(out["card"][i], out["cpu"][i], 1.0)
+        check(close(out["card"][i].cpu(), out["cpu"][i], CARD_CPU_LM_REL),
+              f"card vs CPU {name}: worst gap {gaps[name]:.3g} of the "
+              f"largest")
+    for n in ("k", "v"):
+        check(close(out["card"][2][n].cpu(), out["cpu"][2][n],
+                    CARD_CPU_LM_REL), f"card vs CPU caches {n}")
+        gaps[f"caches_{n}"] = near(out["card"][2][n], out["cpu"][2][n], 1.0)
+    del p_cpu, out
+    # prefill / decode consistency on the card in bf16
+    bcfg = dataclasses.replace(ccfg, dtype="bfloat16")
+    toks = lm_tokens(bcfg, g, 2, 16, dev)
+    full = LM.forward(p_dev, bcfg, toks)
+    last, caches = LM.prefill(p_dev, bcfg, toks, block_q=8)
+    gaps["bf16_prefill_vs_forward"] = near(last, full[:, -1], BF16_LM_TOL)
+    caches = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 16))
+              for n, c in caches.items()}
+    nxt = torch.argmax(last, dim=-1, keepdim=True)
+    dec, caches = LM.decode_step(p_dev, bcfg, nxt, caches, 16)
+    full2 = LM.forward(p_dev, bcfg, torch.cat([toks, nxt], dim=1))
+    gaps["bf16_decode_vs_forward"] = near(dec, full2[:, -1], BF16_LM_TOL)
+    check(gaps["bf16_prefill_vs_forward"] <= 1
+          and gaps["bf16_decode_vs_forward"] <= 1,
+          f"bf16 prefill/decode consistency on the card: {gaps}")
+    stage("card_vs_cpu", t, serve=False)
+    del p_dev
+    torch.cuda.empty_cache()
+
+    total = {}
+    for per in launches.values():
+        for k, v in per.items():
+            total[k] = total.get(k, 0) + v
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def per_step(c, B, kv):
+        """Launches of one decode step: one per layer, two when the kv
+        range is split (partials, merge)."""
+        _, splits = FA.plan(B, 1, c.n_heads, c.n_kv_heads, kv, n_sm)
+        return c.n_layers * (1 + (splits > 1))
+    S, Sg = LM_SH["prefill_32k"]["seq_len"], P5_GEMMA_SEQ
+    want = {"prefill_32k": L,
+            "generate": sum(per_step(cfg, P5_PREFILL_B, S + i + 1)
+                            for i in range(GEN_STEPS)),
+            "decode_32k": per_step(cfg, P5_DECODE_B,
+                                   LM_SH["decode_32k"]["seq_len"]),
+            "long_500k": per_step(cfg, 1, LM_SH["long_500k"]["seq_len"]),
+            "gemma_prefill_8k": gcfg.n_layers,
+            "gemma_generate": sum(per_step(gcfg, 1, Sg + i + 1)
+                                  for i in range(GEN_STEPS))}
+    for name, n in want.items():
+        got = sum(launches[name].values())
+        check(got == n, f"{name}: {got} flash-attention launches, want {n}")
+    print(f"[phase5] llama3.2-3b: {L} layers, d {cfg.d_model}, {cfg.n_heads}"
+          f" heads over {cfg.n_kv_heads}, head dim {hd}, ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, f32 params ({n_bytes / 1e9:.3f} GB), "
+          f"bf16 compute; gemma-2b: {gcfg.n_layers} layers, head dim "
+          f"{gcfg.resolved_head_dim}, MQA")
+    print(f"[phase5] seconds={json.dumps({k: round(v, 4) for k, v in secs.items()})}")
+    print(f"[phase5] peak device memory GB per stage="
+          f"{json.dumps({k: round(v, 3) for k, v in peaks.items()})}")
+    print(f"[phase5] generate: {GEN_STEPS} tokens {out_tokens}; seconds per "
+          f"token {[round(v, 5) for v in step_s]} (median after the first "
+          f"{notes['generate_s_per_token']:.5f}); attention of one step "
+          f"(CUDA events) {notes['generate_attention_ms']:.4f} ms")
+    for name in ("decode_32k", "long_500k"):
+        s_ = statistics.median(notes[f"{name}_step_s"])
+        a_ms = notes[f"{name}_attention_ms"]
+        print(f"[phase5] {name}: step seconds "
+              f"{[round(v, 5) for v in notes[f'{name}_step_s']]}; attention "
+              f"{a_ms:.4f} ms of the median {s_ * 1e3:.4f} ms, the rest "
+              f"{s_ * 1e3 - a_ms:.4f} ms")
+    print(f"[phase5] decode_32k repeated steps bitwise equal: "
+          f"{notes['decode_32k_repeat_bitwise']}")
+    print(f"[phase5] card vs CPU (2 layers, f32, B {CHECK_LM_B}, S "
+          f"{CHECK_LM_S}) and bf16 consistency, gap / tolerance: "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in gaps.items()})}")
+    print(f"[phase5] launches per stage={json.dumps(launches)}")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1477,7 +1998,8 @@ def main() -> int:
     print(smi)
     t = time.perf_counter()
     logs = common.build(["rq_assign", "queue_gather", "ppr_walk",
-                         "fused_contrastive", "embedding_bag"])
+                         "fused_contrastive", "embedding_bag",
+                         "flash_attention"])
     print(f"[phase0] built {sorted(logs)} in "
           f"{time.perf_counter() - t:.2f} s")
     for kname, log in logs.items():
@@ -1490,6 +2012,7 @@ def main() -> int:
             phase1_ppr_walk(g, dev, peaks),
             *phase1_fused_contrastive(g, dev, peaks),
             *phase1_embedding_bag(g, dev, peaks)]
+    rows += phase1_flash_attention(g, dev, peaks)
     t = time.perf_counter()
     launches = phase2(args.seed, dev)
     print(f"[phase2] wall {time.perf_counter() - t:.2f} s")
@@ -1498,10 +2021,14 @@ def main() -> int:
     t = time.perf_counter()
     launches4 = phase4(args.seed, dev)
     print(f"[phase4] wall {time.perf_counter() - t:.2f} s")
+    torch.cuda.empty_cache()             # Phase 4's tables took 66.56 GB
+    t = time.perf_counter()
+    launches5 = phase5(args.seed, dev)
+    print(f"[phase5] wall {time.perf_counter() - t:.2f} s")
     for r in rows:
-        r["launches"] = (launches[r["name"]] if r["name"] in SLICE1
-                         else launches4[r["name"]] if r["name"] in launches4
-                         else launches3[r["name"]])
+        r["launches"] = next(ls[r["name"]] for ls in (
+            {n: launches[n] for n in SLICE1}, launches4, launches5,
+            launches3) if r["name"] in ls)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

@@ -1,12 +1,74 @@
 """Config dataclasses, field for field as in the JAX package
-(``repro/configs/base.py``): the recsys family's ``RecsysConfig`` and
-RankGraph-2's own, their shape tables, and the architecture registry
-(``--arch <id>`` -> ``ArchSpec``) for the archs the port has: the four
-recsys archs and ``rankgraph2``."""
+(``repro/configs/base.py``): the LM family's ``LMConfig``, the recsys
+family's ``RecsysConfig`` and RankGraph-2's own, their shape tables, and
+the architecture registry (``--arch <id>`` -> ``ArchSpec``) for the
+archs the port has: the three dense LMs (``olmo-1b``, ``llama3.2-3b``,
+``gemma-2b``), the four recsys archs and ``rankgraph2``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str = "lm"
+    n_layers: int = 4
+    d_model: int = 256
+    n_heads: int = 4
+    n_kv_heads: int = 4
+    head_dim: Optional[int] = None          # default d_model // n_heads
+    d_ff: int = 1024
+    vocab_size: int = 1024
+    act: str = "silu"                        # silu (swiglu) | gelu (geglu)
+    norm: str = "rmsnorm"                    # rmsnorm | layernorm_np (olmo)
+    rope_theta: float = 500000.0
+    tie_embeddings: bool = False
+    # MoE (n_experts == 0 -> dense)
+    n_experts: int = 0
+    n_experts_per_tok: int = 2
+    moe_d_ff: Optional[int] = None           # expert hidden dim
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # execution
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    remat: bool = True
+    scan_layers: bool = True
+    unroll_chunks: bool = False               # cost-probe mode: no scans
+    decode_chunk: int = 2048                  # KV chunk for long decode
+    optimizer: str = "adamw"                  # adafactor for the giants
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def _n(self, experts: int) -> int:
+        hd = self.resolved_head_dim
+        attn = self.d_model * hd * (2 * self.n_heads + 2 * self.n_kv_heads)
+        if self.n_experts:
+            ff = 3 * self.d_model * (self.moe_d_ff or self.d_ff) * experts
+        else:
+            ff = 3 * self.d_model * self.d_ff
+        per_layer = attn + ff + 2 * self.d_model
+        emb = self.vocab_size * self.d_model * (1 if self.tie_embeddings
+                                                else 2)
+        return self.n_layers * per_layer + emb + self.d_model
+
+    def n_params(self) -> int:
+        n = self._n(self.n_experts)
+        if self.n_experts:                    # router
+            n += self.n_layers * self.d_model * self.n_experts
+        return n
+
+    def n_active_params(self) -> int:
+        if not self.n_experts:
+            return self.n_params()
+        return self._n(self.n_experts_per_tok)
 
 
 # ---------------------------------------------------------------------------
@@ -93,14 +155,14 @@ class RankGraph2Config:
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    step: str                     # "train" | "serve"
+    step: str                     # "train" | "prefill" | "decode" | "serve"
     dims: Dict[str, int]
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                   # "recsys" | "rankgraph2"
+    family: str                   # "lm" | "recsys" | "rankgraph2"
     config: Any
     shapes: Tuple[ShapeSpec, ...]
     source: str = ""
@@ -125,6 +187,13 @@ def list_archs() -> list[str]:
     _ensure_loaded()
     return sorted(_REGISTRY)
 
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+    ShapeSpec("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
+    ShapeSpec("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
+    ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
+)
 
 RECSYS_SHAPES = (
     ShapeSpec("train_batch", "train", dict(batch=65536)),
@@ -151,4 +220,5 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
-        bst, dlrm_rm2, rankgraph2, sasrec, wide_deep)
+        bst, dlrm_rm2, gemma_2b, llama3_2_3b, olmo_1b, rankgraph2, sasrec,
+        wide_deep)

@@ -9,7 +9,8 @@ is transposed here.  ``rq_state_from_jax`` and ``pool_from_jax`` carry
 the RQ histograms and the negative pool over, so the port can start a
 train step from the exact JAX state.  ``recsys_params_from_jax`` carries
 a recsys model's tree over (MLP ``w`` transposed, everything else as
-it is).
+it is).  ``lm_params_from_jax`` carries a dense LM's tree over, its
+stacked layers split into one dict per layer.
 """
 from __future__ import annotations
 
@@ -113,3 +114,20 @@ def recsys_params_from_jax(tree: Dict[str, Any], kind: str, *,
         raise ValueError(f"a {kind} tree has keys {sorted(RECSYS_KEYS[kind])}"
                          f", got {sorted(tree)}")
     return _recsys_tree(tree, resolve_device(device))
+
+
+def lm_params_from_jax(tree: Dict[str, Any], *, device=None
+                       ) -> Dict[str, Any]:
+    """A JAX dense-LM params tree (numpy leaves; ``layers`` stacked
+    (L, ...) from ``scan_layers=True``, or a list of per-layer dicts) ->
+    the port's tree on ``device``: the same keys and layout (``x @ w``),
+    ``layers`` a list of per-layer dicts."""
+    dev = resolve_device(device)
+    layers = tree["layers"]
+    if isinstance(layers, dict):
+        n = len(next(iter(layers.values())))
+        layers = [{k: v[i] for k, v in layers.items()} for i in range(n)]
+    out = {k: _tensor(v).to(dev) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [{k: _tensor(v).to(dev) for k, v in lp.items()}
+                     for lp in layers]
+    return out

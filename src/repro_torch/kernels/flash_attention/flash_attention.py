@@ -1,0 +1,201 @@
+"""ctypes wrappers of the CUDA flash-attention kernels
+(``csrc/flash_attention.cu``): the forward kernel (counted as
+``flash_attention``) and, when the kv range is split over blocks, the
+merge of the splits' partials (``flash_attention_merge``).
+
+Replaces the Pallas TPU kernel ``_kernel`` of
+``repro/kernels/flash_attention/flash_attention.py``; the source note in
+the ``.cu`` file says what bounds it on Hopper and how the design answers
+that.  ``flash_attention`` takes the LM model's ``(B, S, H, D)`` layout
+and its contract (``causal``, ``q_offset``, ``kv_len``); ``ops.py`` also
+offers the Pallas wrapper's ``(B, H, S, D)`` one.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple, Union
+
+import torch
+
+from repro_torch.kernels.common import (CudaKernel, check_cuda,
+                                        stream_ptr)
+
+HEAD_DIMS = (32, 64, 128, 256)
+BK = 64                        # keys per tile
+SPLIT_TARGET = 4               # blocks per SM a split-KV launch aims at
+MIN_SPLIT_TILES = 4            # kv tiles per split, at least
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+FWD = CudaKernel("flash_attention", "flash_attention_launch",
+                 [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                  ctypes.POINTER(_LL), _I, _I, _P, _I, _F, _I, _I, _P, _P,
+                  _P, _P])
+MERGE = CudaKernel("flash_attention_merge", "flash_attention_merge_launch",
+                   [_I, _I, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _P, _P,
+                    _P, _P], source="flash_attention")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(B: int, S: int, Hq: int, Hkv: int, kv_max: int,
+         n_sm: int) -> Tuple[int, int]:
+    """(rows per thread, kv splits) of a launch.  A block takes 16 * rpt
+    of the (position, head-in-group) rows of one (b, KV head): 16 when
+    the group has at most 16 rows (decode), else 64.  The kv tiles are
+    split over blocks only when the blocks alone leave SMs idle, aiming
+    at ``SPLIT_TARGET`` blocks per SM with at least ``MIN_SPLIT_TILES``
+    tiles each."""
+    rows = S * (Hq // Hkv)
+    rpt = 1 if rows <= 16 else 4
+    blocks = B * Hkv * _cdiv(rows, 16 * rpt)
+    splits = 1
+    if blocks < n_sm:
+        splits = max(1, min(_cdiv(SPLIT_TARGET * n_sm, blocks),
+                            _cdiv(kv_max, BK) // MIN_SPLIT_TILES))
+    return rpt, splits
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
+                             f"got {t.device}")
+        if t.dtype not in _DTYPE_CODE or t.dtype != q.dtype:
+            raise ValueError(f"q, k and v must share one type, float32 or "
+                             f"bfloat16; got {q.dtype}, {k.dtype}, "
+                             f"{v.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must have 4 dims, got "
+                             f"{tuple(t.shape)}")
+        vec = 16 // t.element_size()
+        if t.stride(3) != 1 or t.data_ptr() % 16 or any(
+                t.stride(i) % vec for i in range(3) if t.shape[i] > 1):
+            raise ValueError(f"{name}: the last axis must be contiguous and "
+                             f"rows 16-byte aligned, got strides "
+                             f"{t.stride()}")
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if tuple(k.shape) != (B, T, Hkv, D) or v.shape != k.shape:
+        raise ValueError(f"k and v must be {(B, T, Hkv, D)}, got "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{Hq} query heads over {Hkv} KV heads")
+
+
+def check_kv_len(kv_len: Union[None, int, torch.Tensor]) -> None:
+    """Refuses a batch row with no key.  The kernel would write 0 there,
+    where a softmax over scores all masked to -1e30 (the plain version,
+    as JAX's ``_chunked_attention``) gives the mean of v."""
+    if kv_len is not None and int(torch.as_tensor(kv_len).min()) < 1:
+        raise ValueError(f"every batch row needs a key, got kv_len {kv_len}")
+
+
+def _kv(kv_len, q: torch.Tensor, B: int, T: int) -> Tuple[Optional[int], int]:
+    """(device pointer of a (B,) kv_len tensor or None, kv_max)."""
+    check_kv_len(kv_len)
+    kv_ptr, kv_max = None, T
+    if isinstance(kv_len, torch.Tensor):
+        if (kv_len.device != q.device or kv_len.dtype != torch.int32
+                or tuple(kv_len.shape) != (B,) or not kv_len.is_contiguous()):
+            raise ValueError(f"kv_len must be a contiguous int32 ({B},) "
+                             f"tensor on {q.device}")
+        kv_ptr = kv_len.data_ptr()
+    elif kv_len is not None:
+        kv_max = min(T, int(kv_len))
+    if kv_max < 1:
+        raise ValueError(f"no keys to attend to (kv_len {kv_len})")
+    return kv_ptr, kv_max
+
+
+def _fwd(q, k, v, out, ws, *, causal, scale, q_offset, kv_len, rpt, splits):
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    kv_ptr, kv_max = _kv(kv_len, q, B, T)
+    o = out if out is not None else q           # strides unused with splits
+    strides = (ctypes.c_longlong * 12)(*(
+        t.stride(i) for t in (q, k, v, o) for i in range(3)))
+    ptrs = [None] * 3 if ws is None else [w.data_ptr() for w in ws]
+    FWD.launch(_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), None if out is None else out.data_ptr(), B, S,
+               Hq, Hkv, strides, int(causal), q_offset, kv_ptr, kv_max,
+               scale, rpt, splits, *ptrs, stream_ptr(q))
+
+
+def flash_attention_partials(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool, scale: float,
+                             q_offset: int = 0,
+                             kv_len: Union[None, int, torch.Tensor] = None,
+                             splits: int, rpt: int = 1
+                             ) -> Tuple[torch.Tensor, ...]:
+    """The split-KV forward launch alone: the kv tiles of every (b, KV
+    head) split into ``splits`` ranges, each range's partial softmax
+    state in f32: (m, l) (splits, B, Hkv, rows) and acc (splits, B, Hkv,
+    rows, D), rows being the S * Hq / Hkv (position, head-in-group)
+    pairs, position-major."""
+    _check(q, k, v)
+    B, S, Hq, D = q.shape
+    rows = S * (Hq // k.shape[2])
+    ws = [torch.empty((splits, B, k.shape[2], rows), dtype=torch.float32,
+                      device=q.device) for _ in range(2)]
+    ws.append(torch.empty((splits, B, k.shape[2], rows, D),
+                          dtype=torch.float32, device=q.device))
+    _fwd(q, k, v, None, ws, causal=causal, scale=scale, q_offset=q_offset,
+         kv_len=kv_len, rpt=rpt, splits=splits)
+    return tuple(ws)
+
+
+def flash_attention_merge(m: torch.Tensor, l: torch.Tensor,
+                          acc: torch.Tensor, *, n_heads: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """Combines split-KV partials (``flash_attention_partials``' layout)
+    into the output (B, S, n_heads, D) in ``dtype``."""
+    splits, B, Hkv, rows, D = acc.shape
+    for name, t, shape in (("m", m, acc.shape[:4]), ("l", l, acc.shape[:4]),
+                           ("acc", acc, acc.shape)):
+        check_cuda(name, t, torch.float32, len(shape))
+        if t.shape != shape or t.device != acc.device:
+            raise ValueError(f"{name} must be {tuple(shape)} on "
+                             f"{acc.device}, got {tuple(t.shape)}")
+    if dtype not in _DTYPE_CODE or n_heads % Hkv or rows % (n_heads // Hkv):
+        raise ValueError(f"merge into {dtype}, {n_heads} heads over {Hkv} "
+                         f"KV heads and {rows} rows")
+    S = rows // (n_heads // Hkv)
+    out = torch.empty((B, S, n_heads, D), dtype=dtype, device=acc.device)
+    MERGE.launch(_DTYPE_CODE[dtype], D, out.data_ptr(), B, S, n_heads, Hkv,
+                 out.stride(0), out.stride(1), out.stride(2), splits,
+                 m.data_ptr(), l.data_ptr(), acc.data_ptr(), stream_ptr(acc))
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, scale: float, q_offset: int = 0,
+                    kv_len: Union[None, int, torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """q (B, S, Hq, D), k/v (B, T, Hkv, D), one type (f32 or bf16), on one
+    card, any strides with a contiguous last axis.  Row i of q sits at
+    position ``q_offset + i``; ``causal`` masks keys past it; ``kv_len``
+    (an int, a CUDA int32 (B,) tensor, or None for T; at least 1 for every
+    row) masks keys at or past it, which are never read.  Returns (B, S, Hq, D) in q's type: one
+    launch, or two (partials, merge) when ``plan`` splits the kv range."""
+    _check(q, k, v)
+    B, S, Hq, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    rpt, splits = plan(B, S, Hq, Hkv, _kv(kv_len, q, B, T)[1], n_sm)
+    if splits > 1:
+        m, l, acc = flash_attention_partials(
+            q, k, v, causal=causal, scale=scale, q_offset=q_offset,
+            kv_len=kv_len, splits=splits, rpt=rpt)
+        return flash_attention_merge(m, l, acc, n_heads=Hq, dtype=q.dtype)
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    _fwd(q, k, v, out, None, causal=causal, scale=scale, q_offset=q_offset,
+         kv_len=kv_len, rpt=rpt, splits=1)
+    return out

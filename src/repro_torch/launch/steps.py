@@ -1,6 +1,16 @@
-"""The recsys steps a production job runs, as the functions
-``repro/launch/steps.py::_recsys_cell`` builds (without its mesh,
-shardings and shape stand-ins):
+"""The steps a production job runs, as the functions
+``repro/launch/steps.py::_lm_cell`` and ``_recsys_cell`` build (without
+their mesh, shardings and shape stand-ins).
+
+The LM serve steps:
+
+  * ``lm_prefill_step``: a prompt batch (B, S) -> last-position logits
+    and the caches (L, B, S, Hkv, hd);
+  * ``lm_decode_step``: one token (B, 1) against caches (L, B, S, Hkv,
+    hd) filled to ``S - 1``, as the JAX decode cell takes it; the caches
+    are written in place.
+
+The recsys steps:
 
   * ``recsys_train_step``: loss, gradients, ``clip_by_global_norm(1.0)``
     and the ``rankgraph2_optimizer`` update (AdaGrad on ``tables``,
@@ -22,7 +32,8 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import RecsysConfig
+from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.models.lm import model as LM
 from repro_torch.models.recsys import models as R
 from repro_torch.optim import optimizers as O
 
@@ -126,3 +137,16 @@ def recsys_retrieval_step(params: R.Params, cfg: RecsysConfig,
                        u.dtype)
     scores = (u @ cvec.T)[0]
     return top_k(scores, k)
+
+
+@torch.no_grad()
+def lm_prefill_step(params: LM.Params, cfg: LMConfig, tokens: torch.Tensor
+                    ) -> Tuple[torch.Tensor, LM.Caches]:
+    return LM.prefill(params, cfg, tokens)
+
+
+@torch.no_grad()
+def lm_decode_step(params: LM.Params, cfg: LMConfig, caches: LM.Caches,
+                   tokens: torch.Tensor) -> Tuple[torch.Tensor, LM.Caches]:
+    return LM.decode_step(params, cfg, tokens, caches,
+                          caches["k"].shape[2] - 1)

@@ -1,0 +1,276 @@
+"""The dense LM family on one card: olmo-1b, llama3.2-3b and gemma-2b, as
+the single-device dense half of ``repro/models/lm/model.py``.
+
+  olmo-1b      non-parametric LayerNorm, SwiGLU, no grouping
+  llama3.2-3b  RMSNorm, SwiGLU, GQA (kv 8)
+  gemma-2b     RMSNorm(+1), GeGLU, MQA (kv 1), head_dim 256, sqrt(d)
+               embedding scaling, tied head
+
+Parameters are the JAX package's tree in its layout (``x @ w``):
+``embed`` (V, d), ``final_norm`` (d,), ``lm_head`` (d, V) unless tied,
+and ``layers``, a list with one dict per layer (``wq`` (d, H*hd), ``wk``
+and ``wv`` (d, Hkv*hd), ``wo`` (H*hd, d), ``w_gate`` / ``w_up`` (d, ff),
+``w_down`` (ff, d), and ``ln1`` / ``ln2`` (d,) except under OLMo's
+non-parametric norm).  Every matrix is cast to the compute type where it
+is used (``x @ w.to(x.dtype)``), as the reference does.  The final norm
+is RMSNorm for every config, as in the reference (``model.py:524``).
+
+Attention goes through ``kernels.flash_attention.ops.chunked_attention``:
+the CUDA flash-attention kernel on the card, ``_chunked_attention``'s
+plain loop on the CPU.  KV caches are dicts ``{"k", "v"}`` of
+``(L, B, T, Hkv, hd)`` tensors.  Two departures from the reference that
+keep its values and save memory: ``decode_step`` writes the new keys and
+values into the caches in place (the reference's
+``dynamic_update_slice`` builds new arrays), and ``prefill`` applies the
+final norm and the head to the last position only (the reference
+computes logits for every position and keeps the last: 8.4 GB of bf16
+logits at llama's 32k).  ``forward`` keeps every position.
+
+MoE configs (``n_experts > 0``: grok, kimi) raise: their expert layers
+wait for the ROADMAP item "MoE LM layers".
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.flash_attention.ops import chunked_attention
+from repro_torch.nn import core as nn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+Params = Dict[str, Any]
+Caches = Dict[str, torch.Tensor]
+
+
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) are not "
+            f"ported yet; see ROADMAP 'MoE LM layers'")
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (B, S, H, D), positions (B, S); rotation in f32, back to x's
+    type."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].to(torch.float32) * freqs      # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# parameter init
+# ---------------------------------------------------------------------------
+
+def _layer_init(g: torch.Generator, cfg: LMConfig, dtype: torch.dtype,
+                device) -> Dict[str, torch.Tensor]:
+    hd = cfg.resolved_head_dim
+    d, ff = cfg.d_model, cfg.d_ff
+    init = nn.variance_scaling(1.0, "fan_in", "normal")
+
+    def w(*shape):
+        return init(g, shape, dtype, device=device)
+    p = {"wq": w(d, cfg.n_heads * hd), "wk": w(d, cfg.n_kv_heads * hd),
+         "wv": w(d, cfg.n_kv_heads * hd), "wo": w(cfg.n_heads * hd, d)}
+    if cfg.norm != "layernorm_np":     # olmo: non-parametric -> no params
+        fill = 0.0 if cfg.norm == "rmsnorm_p1" else 1.0
+        p["ln1"] = torch.full((d,), fill, dtype=dtype, device=device)
+        p["ln2"] = torch.full((d,), fill, dtype=dtype, device=device)
+    p["w_gate"], p["w_up"], p["w_down"] = w(d, ff), w(d, ff), w(ff, d)
+    return p
+
+
+def init_params(cfg: LMConfig, *, generator: Optional[torch.Generator] = None,
+                device=None) -> Params:
+    """Random parameters in ``cfg.param_dtype`` on ``device``, drawn from
+    ``generator`` (which must live there; by default one seeded 0):
+    fan-in normal matrices, N(0, 1) * 0.02 embeddings and head, norms at
+    their identity.  The values differ from the JAX package's draws."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    g = generator or torch.Generator(dev).manual_seed(0)
+    if g.device.type != dev.type:
+        raise ValueError(f"generator on {g.device}, parameters on {dev}: "
+                         f"draw them where they live")
+    dtype = DTYPES[cfg.param_dtype]
+
+    def normal(*shape):
+        return torch.empty(shape, dtype=dtype, device=dev).normal_(
+            0.0, 1.0, generator=g).mul_(0.02)
+    params = {"embed": normal(cfg.vocab_size, cfg.d_model),
+              "layers": [_layer_init(g, cfg, dtype, dev)
+                         for _ in range(cfg.n_layers)],
+              "final_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal(cfg.d_model, cfg.vocab_size)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+def _norm(cfg: LMConfig, x: torch.Tensor,
+          scale: Optional[torch.Tensor]) -> torch.Tensor:
+    if cfg.norm == "layernorm_np":
+        return nn.layernorm_apply(x)
+    return nn.rmsnorm_apply(scale, x, plus_one=cfg.norm == "rmsnorm_p1")
+
+
+def _dense_mlp(p, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    g = x @ p["w_gate"].to(x.dtype)
+    u = x @ p["w_up"].to(x.dtype)
+    act = F.silu(g) if cfg.act == "silu" else F.gelu(g, approximate="tanh")
+    return (act * u) @ p["w_down"].to(x.dtype)
+
+
+def _attn_block(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
+                cache_len: int, causal: bool, block_q: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (out, k, v).  ``kv``: None (prefill from scratch) or one
+    layer's caches (B, T, Hkv, hd), into which the new keys and values
+    are written at ``cache_len`` (in place) before attending over the
+    first ``cache_len + S`` positions."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
+    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, Hkv, hd)
+    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, Hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv is not None:
+        ck, cv = kv
+        if cache_len + S > ck.shape[1]:
+            raise ValueError(f"cache of {ck.shape[1]} positions cannot take "
+                             f"{S} more at {cache_len}")
+        ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
+        cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
+        out = chunked_attention(q, ck, cv, causal=False, q_offset=0,
+                                kv_len=cache_len + S, block_q=block_q,
+                                scale=hd ** -0.5)
+        k, v = ck, cv
+    else:
+        out = chunked_attention(q, k, v, causal=causal, q_offset=0,
+                                kv_len=None, block_q=block_q,
+                                scale=hd ** -0.5)
+    return out.reshape(B, S, H * hd) @ p["wo"].to(x.dtype), k, v
+
+
+def _layer(p, cfg: LMConfig, x, positions, kv, cache_len, causal, block_q):
+    h = _norm(cfg, x, p.get("ln1"))
+    attn, k, v = _attn_block(p, cfg, h, positions, kv, cache_len, causal,
+                             block_q)
+    x = x + attn
+    h = _norm(cfg, x, p.get("ln2"))
+    return x + _dense_mlp(p, cfg, h), k, v
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
+           positions: Optional[torch.Tensor], kv_caches: Optional[Caches],
+           cache_len: int, causal: bool, block_q: int, keep_cache: bool
+           ) -> Tuple[torch.Tensor, Optional[Caches]]:
+    """tokens (B, S) -> (residual stream after the last layer (B, S, d),
+    caches): the given ``kv_caches`` (written in place), or with
+    ``keep_cache`` new (L, B, S, Hkv, hd) ones in the compute type."""
+    _dense_only(cfg)
+    compute = DTYPES[cfg.dtype]
+    B, S = tokens.shape
+    dev = tokens.device
+    if positions is None:
+        positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+    x = params["embed"][tokens].to(compute)
+    if cfg.norm == "rmsnorm_p1":     # gemma scales embeddings by sqrt(d)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute)
+    caches = kv_caches
+    if kv_caches is None and keep_cache:
+        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
+        caches = {n: torch.empty(shape, dtype=compute, device=dev)
+                  for n in ("k", "v")}
+    for i, lp in enumerate(params["layers"]):
+        kv = None if kv_caches is None else (kv_caches["k"][i],
+                                             kv_caches["v"][i])
+        x, k, v = _layer(lp, cfg, x, positions, kv, cache_len, causal,
+                         block_q)
+        if kv_caches is None and keep_cache:
+            caches["k"][i] = k
+            caches["v"][i] = v
+    return x, caches
+
+
+def _head(params: Params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    x = nn.rmsnorm_apply(params["final_norm"], x)
+    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    return x @ head.to(x.dtype)
+
+
+def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
+            block_q: int = 1024) -> torch.Tensor:
+    """tokens (B, S) -> causal logits (B, S, V) in the compute type, for
+    every position (``prefill`` and ``decode_step`` serve; the reference's
+    cache options of ``forward`` live there)."""
+    x, _ = _trunk(params, cfg, tokens, positions=None, kv_caches=None,
+                  cache_len=0, causal=True, block_q=block_q,
+                  keep_cache=False)
+    return _head(params, cfg, x)
+
+
+def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
+                  device=None) -> Caches:
+    """Zeroed (L, B, T, Hkv, hd) caches in ``dtype`` (default: the compute
+    type) on ``device``."""
+    dtype = dtype or DTYPES[cfg.dtype]
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    dev = resolve_device(device)
+    return {n: torch.zeros(shape, dtype=dtype, device=dev)
+            for n in ("k", "v")}
+
+
+def decode_step(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+                kv_caches: Caches, cache_len: int
+                ) -> Tuple[torch.Tensor, Caches]:
+    """One decode step: tokens (B, 1) against caches filled to
+    ``cache_len``.  Writes the step's keys and values into the caches in
+    place at ``cache_len``; returns (logits (B, V), the caches)."""
+    B = tokens.shape[0]
+    positions = torch.full((B, 1), cache_len, dtype=torch.int64,
+                           device=tokens.device)
+    x, caches = _trunk(params, cfg, tokens, positions=positions,
+                       kv_caches=kv_caches, cache_len=cache_len,
+                       causal=False, block_q=1, keep_cache=True)
+    return _head(params, cfg, x[:, -1]), caches
+
+
+def prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
+            block_q: int = 1024) -> Tuple[torch.Tensor, Caches]:
+    """Prefill: returns (last-position logits (B, V), caches (L, B, S,
+    Hkv, hd) in the compute type).  The head runs on the last position
+    only."""
+    x, caches = _trunk(params, cfg, tokens, positions=None, kv_caches=None,
+                       cache_len=0, causal=True, block_q=block_q,
+                       keep_cache=True)
+    return _head(params, cfg, x[:, -1]), caches
+

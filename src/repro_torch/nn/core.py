@@ -1,6 +1,6 @@
 """Layer helpers: initialisers drawn from an explicit ``torch.Generator``,
-the linear layer, the MLP, RMSNorm and ``l2_normalize``, as in
-``repro/nn/core.py``.
+the linear layer, the MLP, RMSNorm, non-parametric LayerNorm and
+``l2_normalize``, as in ``repro/nn/core.py``.
 
 Weights use PyTorch's ``nn.Linear`` layout ``(d_out, d_in)``; the JAX
 package keeps ``(d_in, d_out)`` and computes ``x @ w``, so
@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 RMS_EPS = 1e-6
+LN_EPS = 1e-5
 
 
 def variance_scaling(scale: float, mode: str, distribution: str):
@@ -95,12 +96,26 @@ def mlp_apply(params: List[Dict[str, torch.Tensor]], x: torch.Tensor, *,
     return x
 
 
-def rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm in f32, back to ``x``'s type."""
+def rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor, *,
+                  plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm in f32, back to ``x``'s type; ``plus_one`` is gemma's
+    convention, the weight being ``1 + scale``."""
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + RMS_EPS)
-    return (y * scale.to(torch.float32)).to(x.dtype)
+    scale = scale.to(torch.float32)
+    if plus_one:
+        scale = 1.0 + scale
+    return (y * scale).to(x.dtype)
+
+
+def layernorm_apply(x: torch.Tensor) -> torch.Tensor:
+    """Non-parametric LayerNorm (OLMo) in f32, back to ``x``'s type; the
+    variance is the mean squared deviation, as ``jnp.var``."""
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + LN_EPS)).to(x.dtype)
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,

@@ -43,7 +43,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "             'kernels.embedding_bag.embedding_bag',\n"
         "             'kernels.embedding_bag.ref', 'models.recsys.models',\n"
         "             'launch.steps', 'launch.train', 'configs.dlrm_rm2',\n"
-        "             'configs.wide_deep', 'configs.sasrec', 'configs.bst'):\n"
+        "             'configs.wide_deep', 'configs.sasrec', 'configs.bst',\n"
+        "             'configs.llama3_2_3b', 'configs.gemma_2b',\n"
+        "             'configs.olmo_1b', 'models.lm.model',\n"
+        "             'kernels.flash_attention.ops',\n"
+        "             'kernels.flash_attention.flash_attention',\n"
+        "             'kernels.flash_attention.ref'):\n"
         "    assert 'repro_torch.' + want in names, want\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], env=_env(),
