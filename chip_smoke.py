@@ -56,11 +56,14 @@ random weights from ``--seed``: prefill at 32,768 tokens (B 1, cut from
 on a random cache of 524,288 positions (60.1 GB beside 14.43 GB of
 params: the stage needs the whole 80 GB card); then ``gemma-2b`` at full
 width (18 layers, MQA, head dim 256) prefills 8,192 tokens and decodes
-16.  All attention runs on the flash_attention kernel (decode with a
-split kv range: partials, then ``flash_attention_merge``).  It checks
-shapes and finite values, the launch counts, llama at 2 layers card vs
-CPU in f32 (prefill logits, caches, one decode step within 1e-3), and
-the prefill/decode consistency on the card in bf16.
+16.  The bf16 attention runs on the tensor-core kernels: prefill on
+``flash_attention`` (wgmma, head dims 128 and gemma's 256),
+decode on ``flash_attention_decode`` with a split kv range (partials,
+then ``flash_attention_merge``); the f32 check runs
+``flash_attention_f32``.  It checks shapes and finite values, the launch
+counts by kernel, llama at 2 layers card vs CPU in f32 (prefill logits,
+caches, one decode step within 1e-3), and the prefill/decode consistency
+on the card in bf16.
 
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
@@ -78,6 +81,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import dataclasses
 import json
 import statistics
@@ -815,59 +819,102 @@ def sdpa_library(q, k, v, causal, scale):
     return ms, out.transpose(1, 2)
 
 
+def fa_launches(fn):
+    """``fn()`` and the flash-attention launches it made, by kernel."""
+    before = common.launch_counts()
+    out = fn()
+    after = common.launch_counts()
+    return out, {k: n - before.get(k, 0) for k, n in after.items()
+                 if k.startswith("flash_attention") and n != before.get(k, 0)}
+
+
+def check_fa_launches(got: dict, kernel: str, splits: int, what: str):
+    want = {kernel: 1, **({"flash_attention_merge": 1} if splits > 1
+                          else {})}
+    check(got == want, f"{what}: launches {got}, want {want}")
+
+
 def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
-    """The forward kernel (whole op: one launch, or partials and merge
+    """The forward kernels (whole op: one launch, or partials and merge
     when ``plan`` splits the kv range) against ``chunked_attention_ref``
     at the main path's four launch shapes in bf16, and on small cases in
-    f32 against ``attention_ref``.  Tolerances: bf16 outputs within one
-    bf16 step, 2^-7 relative (``close``: plus 1e-4 of the largest for the
-    entries near zero), since both sides compute the same f32 values up
-    to summation order and round once; f32 within 3e-4 as
+    f32 against ``attention_ref``.  bf16 runs the tensor-core kernels
+    (``flash_attention`` above 16 rows per KV head, else
+    ``flash_attention_decode``), f32 the FP32-pipe ``flash_attention_f32``;
+    every call's launches are checked by name.  Tolerances: bf16 outputs
+    within one bf16 step, 2^-7 relative (``close``: plus 1e-4 of the
+    largest for the entries near zero), since both sides compute the same
+    f32 scores, the kernels' P.V carries P to about 16 bits (split in two
+    bf16 parts), and both round once; f32 within 3e-4 as
     tests/test_kernels.py holds the Pallas kernel (f32 sums in another
     order); the merge kernel within 1e-5 of ``merge_ref`` on the same
     partials (the same f32 sums in another order)."""
     bf16 = torch.bfloat16
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def planned(q, k, T):
+        B, S, Hq, D = q.shape
+        return FA.plan(B, S, Hq, k.shape[2], T, n_sm, D=D, dtype=q.dtype)
+
     # (a) small cases, f32, (B, H, S, D) contract through transposed views
     for B, Hq, Hkv, S, T, D, causal in FA_SMALL:
         q = torch.randn((B, Hq, S, D), generator=g, device=dev)
         k = torch.randn((B, Hkv, T, D), generator=g, device=dev)
         v = torch.randn((B, Hkv, T, D), generator=g, device=dev)
-        got = FA_OPS.attention(q, k, v, causal=causal)
+        got, n = fa_launches(lambda: FA_OPS.attention(q, k, v,
+                                                      causal=causal))
         want = attention_ref(q, k, v, causal=causal)
+        case = (B, Hq, Hkv, S, T, D, causal)
         check(close(got, want, 3e-4), f"flash_attention small case "
-              f"{(B, Hq, Hkv, S, T, D, causal)} off attention_ref")
+              f"{case} off attention_ref")
+        check_fa_launches(n, *planned(got.transpose(1, 2), k.transpose(1, 2),
+                                      T), f"f32 small case {case}")
         # the same in bf16 against the model contract's plain version
         qb, kb, vb = (x.transpose(1, 2).to(bf16) for x in (q, k, v))
-        gb = FA.flash_attention(qb, kb, vb, causal=causal, scale=D ** -0.5,
-                                q_offset=T - S if causal else 0)
-        wb = chunked_attention_ref(qb, kb, vb, causal=causal,
-                                   q_offset=T - S if causal else 0,
-                                   scale=D ** -0.5)
+        kw = dict(causal=causal, scale=D ** -0.5,
+                  q_offset=T - S if causal else 0)
+        gb, n = fa_launches(lambda: FA.flash_attention(qb, kb, vb, **kw))
+        wb = chunked_attention_ref(qb, kb, vb, **kw)
         check(close(gb, wb, BF16_STEP), f"flash_attention small bf16 case "
-              f"{(B, Hq, Hkv, S, T, D, causal)} off the plain version")
-    # a ragged kv_len tensor, an offset and forced splits
-    q = torch.randn((3, 5, 6, 64), generator=g, device=dev)
-    k = torch.randn((3, 700, 2, 64), generator=g, device=dev)
-    v = torch.randn((3, 700, 2, 64), generator=g, device=dev)
+              f"{case} off the plain version")
+        check_fa_launches(n, *planned(qb, kb, T), f"bf16 small case {case}")
+    # a ragged kv_len tensor, an offset and forced splits: f32, then bf16
+    # on both tensor-core kernels (15 rows per KV head: the decode kernel
+    # takes them, and so does the 128-row one)
     kvl = torch.tensor([1, 333, 700], dtype=torch.int32, device=dev)
-    for causal in (False, True):
-        want = chunked_attention_ref(q, k, v, causal=causal, q_offset=600,
-                                     kv_len=kvl, scale=0.125)
-        got = FA.flash_attention(q, k, v, causal=causal, q_offset=600,
-                                 kv_len=kvl, scale=0.125)
-        check(close(got, want, 3e-4), f"flash_attention ragged kv_len "
-              f"(causal={causal}) off the plain version")
-        for splits in (2, 5, 11):
-            part = FA.flash_attention_partials(
-                q, k, v, causal=causal, q_offset=600, kv_len=kvl,
-                scale=0.125, splits=splits, rpt=4)
-            got = FA.flash_attention_merge(*part, n_heads=6,
-                                           dtype=torch.float32)
-            check(close(got, want, 3e-4), f"flash_attention with {splits} "
-                  f"forced splits (causal={causal}) off the plain version")
+    for dtype, S, kernels in ((torch.float32, 5, ("flash_attention_f32",)),
+                              (bf16, 5, ("flash_attention_decode",
+                                         "flash_attention")),
+                              (bf16, 50, ("flash_attention",))):
+        q = torch.randn((3, S, 6, 64), generator=g, device=dev).to(dtype)
+        k = torch.randn((3, 700, 2, 64), generator=g, device=dev).to(dtype)
+        v = torch.randn((3, 700, 2, 64), generator=g, device=dev).to(dtype)
+        tol = 3e-4 if dtype == torch.float32 else BF16_STEP
+        for causal in (False, True):
+            kw = dict(causal=causal, q_offset=600, kv_len=kvl, scale=0.125)
+            want = chunked_attention_ref(q, k, v, **kw)
+            got, n = fa_launches(lambda: FA.flash_attention(q, k, v, **kw))
+            check(close(got, want, tol), f"flash_attention ragged kv_len "
+                  f"({dtype}, S {S}, causal={causal}) off the plain version")
+            check_fa_launches(n, *planned(q, k, 700), f"ragged kv_len "
+                              f"({dtype}, S {S})")
+            check(kernels[0] in n, f"ragged kv_len ({dtype}, S {S}): "
+                  f"launches {n}, want {kernels[0]}")
+            for kernel in kernels:
+                for splits in (2, 5, 11):
+                    part = FA.flash_attention_partials(
+                        q, k, v, splits=splits, kernel=kernel,
+                        rpt=4 if dtype == torch.float32 else None, **kw)
+                    got = FA.flash_attention_merge(*part, n_heads=6,
+                                                   dtype=dtype)
+                    check(close(got, want, tol), f"{kernel} with {splits} "
+                          f"forced splits (S {S}, causal={causal}) off the "
+                          f"plain version")
     print(f"[phase1] flash_attention: {2 * len(FA_SMALL)} small cases (f32 "
           f"vs attention_ref, bf16 vs chunked_attention_ref) and ragged "
-          f"kv_len / offset / forced-split cases held")
+          f"kv_len / offset / forced-split cases held (f32 on "
+          f"flash_attention_f32, bf16 on flash_attention and "
+          f"flash_attention_decode), launches as planned")
 
     # (b) the main path's launch shapes, bf16
     rows = {}
@@ -879,15 +926,15 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
             generator=g)
         kw = dict(causal=causal, scale=D ** -0.5,
                   kv_len=None if causal else T)
-        got = FA.flash_attention(q, k, v, **kw)
+        kernel, splits = planned(q, k, T)
+        got, n = fa_launches(lambda: FA.flash_attention(q, k, v, **kw))
+        check_fa_launches(n, kernel, splits, f"flash_attention at {name}")
         want = chunked_attention_ref(q, k, v, block_q=1024 if causal else 1,
                                      **kw)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
         check(got.dtype == bf16 and close(got, want, BF16_STEP),
               f"flash_attention at {name} off the plain version ({err})")
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        rpt, splits = FA.plan(B, S, Hq, Hkv, T, n_sm)
         reps = 3 if causal else 20
         ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), reps)
         plain_ms = time_ms(lambda: chunked_attention_ref(
@@ -899,11 +946,14 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
         t_o, t_b = ops / peaks[2], nbytes / peaks[1]
         bound_ms, by = max(t_o, t_b) * 1e3, ("operations" if t_o >= t_b
                                              else "bytes")
-        fp32_ms = max(ops / peaks[0], t_b) * 1e3
+        per_s = 1e3 / ms
+        rate = (f"{ops * per_s / 1e12:.1f} TFLOP/s ({ops * per_s / peaks[2]:.1%}"
+                f" of the bf16 peak)" if by == "operations" else
+                f"{nbytes * per_s / 1e9:.1f} GB/s "
+                f"({nbytes * per_s / peaks[1]:.1%} of the memory rate)")
         extra = ""
         if splits > 1:
-            part = FA.flash_attention_partials(q, k, v, rpt=rpt,
-                                               splits=splits, **kw)
+            part = FA.flash_attention_partials(q, k, v, splits=splits, **kw)
             m_got = FA.flash_attention_merge(*part, n_heads=Hq, dtype=bf16)
             m_want = merge_ref(*part, n_heads=Hq, dtype=torch.float32)
             m_err = float((m_got.float() - m_want).abs().max())
@@ -915,7 +965,7 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
             check(close(m32, m_want, 1e-5),
                   f"flash_attention_merge (f32) at {name} off merge_ref")
             p_ms = time_ms(lambda: FA.flash_attention_partials(
-                q, k, v, rpt=rpt, splits=splits, **kw), reps)
+                q, k, v, splits=splits, **kw), reps)
             m_ms = time_ms(lambda: FA.flash_attention_merge(
                 *part, n_heads=Hq, dtype=bf16), reps)
             m_plain = time_ms(lambda: merge_ref(*part, n_heads=Hq,
@@ -927,27 +977,30 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
                      f"{m_ms:.4f} (merge max_abs_err {m_err:.3g}, plain "
                      f"{m_plain:.4f} ms)")
         rows[name] = (err, ms, plain_ms, bound_ms, by, lib_ms)
-        print(f"[phase1] flash_attention {name}: q {tuple(q.shape)} k/v "
-              f"{tuple(k.shape)} bf16 causal={causal} rows/thread={rpt}"
-              f"{extra} max_abs_err={err:.3g} kernel_ms={ms:.4f} plain_ms="
-              f"{plain_ms:.4f} sdpa_ms={lib_ms} (max_abs_err vs plain "
-              f"{lib_err}) bound_ms={bound_ms:.4f} ({by}; "
-              f"{ops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB) "
-              f"fp32_rate_bound_ms={fp32_ms:.4f}")
+        print(f"[phase1] {kernel} {name}: q {tuple(q.shape)} k/v "
+              f"{tuple(k.shape)} bf16 causal={causal}{extra} "
+              f"max_abs_err={err:.3g} kernel_ms={ms:.4f} ({rate}) "
+              f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms} (max_abs_err vs "
+              f"plain {lib_err}) bound_ms={bound_ms:.4f} ({by}; "
+              f"{ops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB)")
         del q, k, v, got, want, lib_out
         torch.cuda.empty_cache()
     src_file = "src/repro_torch/csrc/flash_attention.cu"
     jax_file = "src/repro/kernels/flash_attention/flash_attention.py:91"
-    err, ms, plain_ms, bound_ms, by, lib_ms = rows["prefill_32k"]
+    out = []
+    for kname, shape in (("flash_attention", "prefill_32k"),
+                         ("flash_attention_decode", "decode_32k")):
+        err, ms, plain_ms, bound_ms, by, lib_ms = rows[shape]
+        out.append(dict(name=kname, route="cuda", source=src_file,
+                        replaces=jax_file, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                        library_ms=lib_ms))
     m_err, m_ms, m_plain, m_bound = rows["merge_decode_32k"]
-    return [dict(name="flash_attention", route="cuda", source=src_file,
-                 replaces=jax_file, max_abs_err=err, ms=ms,
-                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                 library_ms=lib_ms),
-            dict(name="flash_attention_merge", route="cuda", source=src_file,
-                 replaces=jax_file, max_abs_err=m_err, ms=m_ms,
-                 plain_ms=m_plain, bound_ms=m_bound, bound_by="bytes",
-                 library_ms=None)]
+    out.append(dict(name="flash_attention_merge", route="cuda",
+                    source=src_file, replaces=jax_file, max_abs_err=m_err,
+                    ms=m_ms, plain_ms=m_plain, bound_ms=m_bound,
+                    bound_by="bytes", library_ms=None))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1928,30 +1981,40 @@ def phase5(seed: int, dev) -> dict:
     del p_dev
     torch.cuda.empty_cache()
 
-    total = {}
-    for per in launches.values():
-        for k, v in per.items():
-            total[k] = total.get(k, 0) + v
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
+    def add(d, more):
+        for k, v in more.items():
+            d[k] = d.get(k, 0) + v
+        return d
+
     def per_step(c, B, kv):
-        """Launches of one decode step: one per layer, two when the kv
-        range is split (partials, merge)."""
-        _, splits = FA.plan(B, 1, c.n_heads, c.n_kv_heads, kv, n_sm)
-        return c.n_layers * (1 + (splits > 1))
+        """Launches of one decode step by kernel: one per layer, plus a
+        merge per layer when the kv range is split."""
+        kernel, splits = FA.plan(B, 1, c.n_heads, c.n_kv_heads, kv, n_sm,
+                                 D=c.resolved_head_dim)
+        return {kernel: c.n_layers,
+                **({"flash_attention_merge": c.n_layers} if splits > 1
+                   else {})}
+
+    def steps(c, B, kv0):
+        want = {}
+        for i in range(GEN_STEPS):
+            add(want, per_step(c, B, kv0 + i + 1))
+        return want
     S, Sg = LM_SH["prefill_32k"]["seq_len"], P5_GEMMA_SEQ
-    want = {"prefill_32k": L,
-            "generate": sum(per_step(cfg, P5_PREFILL_B, S + i + 1)
-                            for i in range(GEN_STEPS)),
+    want = {"prefill_32k": {"flash_attention": L},
+            "generate": steps(cfg, P5_PREFILL_B, S),
             "decode_32k": per_step(cfg, P5_DECODE_B,
                                    LM_SH["decode_32k"]["seq_len"]),
             "long_500k": per_step(cfg, 1, LM_SH["long_500k"]["seq_len"]),
-            "gemma_prefill_8k": gcfg.n_layers,
-            "gemma_generate": sum(per_step(gcfg, 1, Sg + i + 1)
-                                  for i in range(GEN_STEPS))}
+            "gemma_prefill_8k": {"flash_attention": gcfg.n_layers},
+            "gemma_generate": steps(gcfg, 1, Sg)}
     for name, n in want.items():
-        got = sum(launches[name].values())
-        check(got == n, f"{name}: {got} flash-attention launches, want {n}")
+        # the bf16 serve stages run the tensor-core kernels, never the
+        # FP32-pipe flash_attention_f32
+        check(launches[name] == n, f"{name}: flash-attention launches "
+              f"{launches[name]}, want {n}")
     print(f"[phase5] llama3.2-3b: {L} layers, d {cfg.d_model}, {cfg.n_heads}"
           f" heads over {cfg.n_kv_heads}, head dim {hd}, ff {cfg.d_ff}, "
           f"vocab {cfg.vocab_size}, f32 params ({n_bytes / 1e9:.3f} GB), "
@@ -1977,6 +2040,9 @@ def phase5(seed: int, dev) -> dict:
           f"{CHECK_LM_S}) and bf16 consistency, gap / tolerance: "
           f"{json.dumps({k: float(f'{v:.3g}') for k, v in gaps.items()})}")
     print(f"[phase5] launches per stage={json.dumps(launches)}")
+    total = {}
+    for per in launches.values():
+        add(total, per)
     return total
 
 
@@ -2003,9 +2069,19 @@ def main() -> int:
     print(f"[phase0] built {sorted(logs)} in "
           f"{time.perf_counter() - t:.2f} s")
     for kname, log in logs.items():
+        fn = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[phase0] {kname}: {line.strip()}")
+            if "Function properties for" in line:
+                fn = line.split("for", 1)[1].strip()
+            elif "registers" in line or "spill" in line:
+                print(f"[phase0] {kname} {fn}: {line.strip()}")
+    fa_lib = ctypes.CDLL(str(common.library_path("flash_attention")))
+    for kname, dec in (("tile (fa_wgmma at D 64-256, fa_mma at D 32)",
+                        0), ("decode (fa_decode)", 1)):
+        print(f"[phase0] flash_attention {kname} dynamic shared memory "
+              f"bytes by head dim: " + ", ".join(
+                  f"D {d}: {fa_lib.flash_attention_smem(dec, d)}"
+                  for d in FA.HEAD_DIMS))
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     rows = [phase1_rq_assign(g, dev, peaks), phase1_queue_gather(g, dev, peaks),

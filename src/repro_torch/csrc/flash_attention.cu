@@ -8,63 +8,103 @@
 //   s[j]  = (q_i . k_j) * scale                       (f32 products and sums)
 //   s[j]  = -1e30 where key j is masked
 //   o_i   = sum_j exp(s[j] - m) v_j / max(sum_j exp(s[j] - m), 1e-30)
-// with q, k and v upcast to f32 before both products, the max m, the
-// normaliser and the accumulator kept in f32 and updated online tile by
-// tile (flash_attention.py:51-77), and o cast to q's type once.  Key j is
-// masked for row i when j >= kv_len[b] (the ragged kv / decode length)
-// or, under `causal`, when j > q_offset + s(i): q_offset is the absolute
-// position of query row 0, so the Pallas kernel's decode offset
-// (valid_k - valid_q, flash_attention.py:36) is q_offset = T - S and
-// repro/models/lm/model.py::_chunked_attention's contract is taken as is.
-// GQA: query head h reads KV head h / (Hq / Hkv) in place; nothing is
-// repeated (flash_attention.py:124-126 and model.py:165-167 repeat).
+// with the max m, the normaliser and the accumulator kept in f32 and
+// updated online tile by tile (flash_attention.py:51-77), and o cast to
+// q's type once.  Key j is masked for row i when j >= kv_len[b] (the
+// ragged kv / decode length) or, under `causal`, when j > q_offset + s(i):
+// q_offset is the absolute position of query row 0, so the Pallas
+// kernel's decode offset (valid_k - valid_q, flash_attention.py:36) is
+// q_offset = T - S and repro/models/lm/model.py::_chunked_attention's
+// contract is taken as is.  GQA: query head h reads KV head h / (Hq / Hkv)
+// in place; nothing is repeated (flash_attention.py:124-126 and
+// model.py:165-167 repeat).
 //
 // Layout.  q is (B, S, Hq, D) and k/v (B, T, Hkv, D), as the LM model
-// holds them and its KV cache stores them; the kernel takes element
+// holds them and its KV cache stores them; the kernels take element
 // strides for the batch, sequence and head axes (the last axis is
 // contiguous), so a permuted view of the (B, H, S, D) layout, or a cache
 // longer than kv_len, is read in place with no copy.  The output has its
-// own strides.
+// own strides.  Every block takes one (b, KV head) pair and a tile of its
+// flattened (position, head-in-group) query rows, position-major, so the
+// group's heads share every K/V tile it loads.  Tiles wholly past the
+// causal frontier of the block's last row or past kv_len are never
+// loaded; keys at or past kv_len are never read (zero-filled).
 //
-// Bound on this card.  Prefill (S = T, causal) does 4*S*T*D/2 operations
-// per head on (S + 2T)*D elements: about 6.6 TFLOP a layer at llama's
-// 32k, operations-bound (6.7 ms at the bf16 tensor rate, 98 ms at the
-// FP32 rate).  Decode (S = 1) reads the whole cache for one row per head:
-// bytes-bound (1.07 GB a layer at B 8 x 32k, 0.32 ms at 3.35 TB/s).
+// Bound on this card (H100 SXM: 989 TFLOP/s bf16 dense, 3.35 TB/s).
+// llama3.2-3b prefill_32k (S = T = 32,768, 24 heads over 8, D 128,
+// causal): 4 D per kept (query, key) pair, 6.6 TFLOP a layer, bound by
+// operations (6.7 ms).  gemma-2b prefill at 8k (8 heads over 1, D 256):
+// 0.28 ms, operations.  Decode (one row per head): bound by bytes, the
+// cache read once: 1.07 GB a layer at decode_32k B 8 (0.32 ms), 2.15 GB
+// at long_500k (0.64 ms).
 //
-// Design.  A block of 256 threads takes one (b, KV head) pair and BQ
-// rows of its flattened (position, head-in-group) query rows, so the
-// group's heads share every K/V tile it loads: BQ = 64 rows (RPT = 4 per
-// thread) for prefill, 16 (RPT = 1) when the group has at most 16 rows,
-// as at decode.  It loops over 64-key tiles: K and V are loaded once,
-// converted to f32 into shared memory (rows padded so the 16-byte reads
-// of the score loop do not collide in banks), scores are computed on the
-// FP32 pipes (no TF32; thread (ty, tx) holds rows ty*RPT.. and keys
-// tx + 16c), the row max and sum are reduced over the 16 lanes that
-// share a row, P goes through shared memory, and P.V accumulates in f32
-// registers (thread (ty, tx) holds columns tx + 16c of its rows).  Tiles
-// wholly past the causal frontier of the block's last row or past
-// kv_len are never loaded; keys at or past kv_len are never read.  The
-// first kernel is simple: no tensor cores, no TMA, no double buffering
-// (those are for later work), and the score loop runs at the FP32 rate.
+// bf16 (the serving path): two launches, both on the tensor cores with
+// bf16 operands and f32 accumulators.  K and V stay bf16 in shared
+// memory (never widened), copied by cp.async into a ring of stages, in a
+// 128-byte XOR swizzle, so ldmatrix (and ldmatrix.trans for V) or the
+// wgmma descriptors read them without bank conflicts.
+//  * The tile kernel (prefill, and any call with more than 16 rows per
+//    KV head), one block per SM:
+//    - fa_wgmma (D 64-256): a producer warpgroup fills a ring of 3
+//      stages of K and V tiles (mbarriers for full and free stages);
+//      consumer warpgroups of 64 rows run S = Q.K^T with wgmma from
+//      shared memory (Q and K K-major), the online softmax on S in
+//      registers, and O += P.V with wgmma, P from registers and V from
+//      shared memory read transposed (MN-major).  Up to D 128: two
+//      consumer warpgroups (128 rows) and 128-key tiles (225 KB at D
+//      128).  At D 256: one consumer warpgroup (64 rows) and 64-key
+//      tiles, because a 384-thread block leaves 168 registers a thread
+//      and the 64 x 256 accumulator alone takes 128 (a 256-thread block
+//      allows 255).  gemma's MQA K/V at 8k (8 MB) stays in L2, so 64-row
+//      blocks cost little there.
+//    - fa_mma (D 32, whose 64-byte rows are below the 128-byte swizzle):
+//      8 warps of 16 rows, mma.sync.m16n8k16 with ldmatrix and
+//      ldmatrix.trans, 64-key tiles in a ring of 3 stages.
+//    In both, the score fragment is the A fragment of P.V: P never
+//    leaves registers.
+//  * fa_decode (at most 16 rows per (b, KV head): 3 for llama, 8 for
+//    gemma's MQA): the group's rows fill one 16-row mma.sync tile and the
+//    4 warps split each 64-key tile 16 keys apiece, so the block streams
+//    K and V once through a ring of 3 stages (96 KB at D 128: two blocks
+//    per SM) and the idle MMA rows cost no bytes; the warps' softmax
+//    states are combined in shared memory at the end.
+//  Scores are f32 sums of exact products (bf16 x bf16 is exact in f32),
+//  as the reference's f32 einsum; only the order of the sums differs.
+//  P.V runs on P split in two: P_hi = bf16(P) and P_lo = bf16(P - P_hi),
+//  two products into one f32 accumulator, so P carries 16 bits (within
+//  2^-16 of each weight).  P rounded once to bf16 (up to 2^-8 off) would
+//  put outputs near zero past the one-bf16-step check's floor of 1e-4 of
+//  the largest; the split costs 1.5x the bound's operations.  The online
+//  softmax is f32 with the reference's -1e30 mask (exp as exp2 of
+//  log2(e)-scaled scores; keys masked so far weigh 0); no atomics, so a
+//  run repeats bitwise.
 //
-// Split-KV.  On a GPU the Pallas kernel's in-order kv axis becomes a loop
-// inside the block.  When the (b, KV head, q-tile) blocks alone cannot
-// fill the card (decode: 8 blocks at long_500k, each over 524,288 keys),
-// the wrapper splits the kv tiles over `splits` blocks; each writes its
+// f32 (checks against the CPU, small cases): fa_fwd, FP32 pipes, no
+// tensor cores.  A block of 256 threads takes 64 rows (RPT = 4 per
+// thread), or 16 (RPT = 1) when the group has at most 16 rows; it loads
+// each 64-key K/V tile into shared memory (rows padded so the 16-byte
+// reads of the score loop do not collide in banks), computes scores on
+// the FP32 pipes (no TF32), reduces the row max and sum over the 16
+// lanes that share a row, passes P through shared memory and
+// accumulates P.V in f32 registers.
+//
+// Split-KV (all kernels).  On a GPU the Pallas kernel's in-order kv axis
+// becomes a loop inside the block.  When the blocks alone cannot fill the
+// card (decode: 8 blocks at long_500k, each over 524,288 keys), the
+// wrapper splits the kv tiles over `splits` blocks; each writes its
 // partial (m, l, acc) in f32 to a workspace the wrapper allocates, and a
 // second launch (flash_attention_merge) combines them:
 //   M = max_s m_s,  L = sum_s l_s e^(m_s - M),  o = sum_s acc_s e^(m_s - M) / max(L, 1e-30).
 // Every valid row sees key 0, so the first split's max is a real score
 // and a split whose keys are all masked for a row weighs e^(-1e30 - M) = 0.
 //
-// Head dims 32, 64, 128, 256 (template); f32 or bf16 inputs, q, k and v
-// of one type.  Shared memory is dynamic: 216 KB at D 256 with BQ 64.
+// Head dims 32, 64, 128, 256 (templates).  Shared memory is dynamic.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
 
-#define NT 256                  // threads per block: 16 x 16
-#define BK 64                   // keys per tile
+#define NT 256                  // threads per block of fa_fwd: 16 x 16
+#define BK 64                   // keys per tile of fa_fwd
 #define NEG_INF (-1e30f)
 
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
@@ -72,22 +112,11 @@ __device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);     // round to nearest even, as astype
 }
 
-// 16 bytes of a row (4 f32 or 8 bf16 values) from device memory, as f32
-// into shared memory at dst (16-byte aligned).
+// 16 bytes of a row (4 f32 values) from device memory into shared memory
+// at dst (16-byte aligned).
 __device__ __forceinline__ void load16(const float* __restrict__ src,
                                        float* dst) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* __restrict__ src,
-                                       float* dst) {
-  // a bf16 is the top half of its f32; the lower address is the low half
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  *reinterpret_cast<float4*>(dst) = make_float4(
-      __uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-      __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-  *reinterpret_cast<float4*>(dst + 4) = make_float4(
-      __uint_as_float(u.z << 16), __uint_as_float(u.z & 0xffff0000u),
-      __uint_as_float(u.w << 16), __uint_as_float(u.w & 0xffff0000u));
 }
 
 __device__ __forceinline__ void zero16(float* dst, int n) {
@@ -360,6 +389,1020 @@ static cudaError_t launch_d(const Args& a, int D, int rpt, cudaStream_t st) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+namespace tc {
+
+typedef __nv_bfloat16 bf16;
+constexpr int BKT = 64;                 // keys per K/V tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory, asynchronously (L2
+// only); with ok false nothing is read and the 16 bytes are zeroed.
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of rows of D bf16
+// values.  The chunk index is XORed with the row (a 128-byte swizzle), so
+// the 8 rows an ldmatrix reads at one logical chunk sit in 8 different
+// bank groups.
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  constexpr int CH = D / 8;             // chunks per row
+  const int p = CH >= 8 ? (c ^ (r & 7)) : (c ^ ((r >> 1) & 3));
+  return (uint32_t)(r * D * 2 + p * 16);
+}
+
+__device__ __forceinline__ void ldm4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldm4t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulator
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// p (two f32 weights) as hi = bf16(p) and lo = bf16(p - hi): hi + lo
+// carries about 16 bits of p (p - hi is exact in f32).
+__device__ __forceinline__ void split2(float p0, float p1, uint32_t& hi,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = pack(h);
+  lo = pack(__floats2bfloat162_rn(p0 - hf.x, p1 - hf.y));
+}
+
+// Rows [0, R) of a K or V tile (keys j0 + r) into the swizzled tile at
+// dst; keys at or past j_end are zeroed, never read.
+template <int D, int R, int NTH>
+__device__ __forceinline__ void load_kv(uint32_t dst, const bf16* g,
+                                        long long stride, int j0, int j_end,
+                                        int tid) {
+  constexpr int CH = D / 8;
+  static_assert(R * CH % NTH == 0, "whole chunks per thread");
+#pragma unroll
+  for (int k = 0; k < R * CH / NTH; ++k) {
+    const int i = tid + k * NTH;
+    const int r = i / CH, c = i % CH, j = j0 + r;
+    const bool ok = j < j_end;
+    cp16(dst + swz<D>(r, c), ok ? g + (long long)j * stride + c * 8 : g, ok);
+  }
+}
+
+// Rows [r0, r0 + R) of the block's flattened (position, head-in-group)
+// query rows into the swizzled tile at dst; rows past `rows` are zeroed.
+template <int D, int R, int NTH>
+__device__ __forceinline__ void load_q(uint32_t dst, const bf16* q,
+                                       const Args& a, int kvh, int rep,
+                                       int r0, int rows, int tid) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int k = 0; k < (R * CH + NTH - 1) / NTH; ++k) {
+    const int i = tid + k * NTH;
+    if (i >= R * CH) break;
+    const int rr = i / CH, c = i % CH, r = r0 + rr;
+    const bool ok = r < rows;
+    const bf16* src = q;
+    if (ok) src = q + (r / rep) * a.qss + (kvh * rep + r % rep) * a.qsh + c * 8;
+    cp16(dst + swz<D>(rr, c), src, ok);
+  }
+}
+
+// The online-softmax state of one warp's 16 rows: this thread holds rows
+// g and g + 8 (g = lane / 4), output columns 8 n + 2 (lane % 4) + {0, 1}.
+template <int D>
+struct Rows {
+  float m[2], l[2];                     // l: this thread's columns only
+  float acc[D / 8][4];
+  __device__ __forceinline__ void init() {
+    m[0] = m[1] = NEG_INF;
+    l[0] = l[1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  }
+};
+
+// One warp, one tile of scores s (16 rows x 8 NB keys, raw q.k): scaled,
+// masked, folded into the running max and sums; s becomes P (f32), and
+// alpha the factor that rescales the accumulator (rescale).  Key of
+// s[n][e]: kbase + 8 n + 2 (lane % 4) + (e & 1); row position
+// pos[e >> 1].  The accumulator has the same fragment layout (mma.sync's
+// C, or a warp's share of wgmma's).
+template <int D, int NB>
+__device__ __forceinline__ void softmax_step(Rows<D>& st, float (&s)[NB][4],
+                                             const Args& a, bool need_mask,
+                                             int kbase, int kv_end,
+                                             const int (&pos)[2], int lane,
+                                             float (&alpha)[2]) {
+  const int t4 = lane & 3;
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[n][e] * a.scale;
+      if (need_mask) {
+        const int j = kbase + 8 * n + 2 * t4 + (e & 1);
+        const bool ok = j < kv_end && (!a.causal || j <= pos[e >> 1]);
+        x = ok ? x : NEG_INF;
+      }
+      s[n][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float ms[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(st.m[i], mx[i]);
+    // every key so far masked: weigh them 0, not e^0
+    ms[i] = m_new == NEG_INF ? 0.f : m_new * LOG2E;
+    alpha[i] = exp2f(st.m[i] * LOG2E - ms[i]);
+    st.m[i] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(s[n][e], LOG2E, -ms[e >> 1]));
+      s[n][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) st.l[i] = st.l[i] * alpha[i] + sum[i];
+}
+
+// The accumulator's rows rescaled by softmax_step's alpha (its new max).
+template <int D>
+__device__ __forceinline__ void rescale(Rows<D>& st, const float (&alpha)[2]) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    st.acc[n][0] *= alpha[0];
+    st.acc[n][1] *= alpha[0];
+    st.acc[n][2] *= alpha[1];
+    st.acc[n][3] *= alpha[1];
+  }
+}
+
+// acc += (P_hi + P_lo) V for one warp's 16 rows and 8 NB keys of P (the
+// score fragments after softmax_step).  v_s: the V tile's shared
+// address, v_row0: the tile row of this warp's first key.
+template <int D, int NB>
+__device__ __forceinline__ void pv_mma(Rows<D>& st, const float (&s)[NB][4],
+                                       uint32_t v_s, int v_row0, int lane) {
+  // the score fragment of keys 16 kk.. is the A fragment of the product,
+  // V^T comes from ldmatrix.trans: the score fragment of keys 16 kk.. is the A
+  // fragment of the product, V^T comes from ldmatrix.trans
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) {
+    uint32_t ph[4], pl[4];
+    split2(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+    split2(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+    split2(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+    split2(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+    const int vr = v_row0 + 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int db = 0; db < D / 16; ++db) {
+      uint32_t b[4];
+      ldm4t(v_s + swz<D>(vr, 2 * db + (lane >> 4)), b);
+      mma(st.acc[2 * db], ph, b[0], b[1]);
+      mma(st.acc[2 * db], pl, b[0], b[1]);
+      mma(st.acc[2 * db + 1], ph, b[2], b[3]);
+      mma(st.acc[2 * db + 1], pl, b[2], b[3]);
+    }
+  }
+}
+
+// s (16 x 8 NB) = Q (16 rows at q_row0 of the Q tile) . K^T (keys at tile
+// rows k_row0..), Q's A fragments from registers (qf) or shared memory.
+template <int D, int NB, bool QREG>
+__device__ __forceinline__ void scores(float (&s)[NB][4],
+                                       const uint32_t (&qf)[QREG ? D / 16
+                                                                 : 1][4],
+                                       uint32_t q_s, int q_row0, uint32_t k_s,
+                                       int k_row0, int lane) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < D / 16; ++kd) {
+    uint32_t af[4];
+    if constexpr (QREG) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) af[e] = qf[kd][e];
+    } else {
+      ldm4(q_s + swz<D>(q_row0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                        2 * kd + (lane >> 4)), af);
+    }
+#pragma unroll
+    for (int nb = 0; nb < NB / 2; ++nb) {
+      uint32_t b[4];
+      ldm4(k_s + swz<D>(k_row0 + 16 * nb + (lane & 7) + ((lane >> 4) & 1) * 8,
+                        2 * kd + ((lane >> 3) & 1)), b);
+      mma(s[2 * nb], af, b[0], b[1]);
+      mma(s[2 * nb + 1], af, b[2], b[3]);
+    }
+  }
+}
+
+template <int D, bool QREG>
+__device__ __forceinline__ void load_qf(uint32_t (&qf)[QREG ? D / 16 : 1][4],
+                                        uint32_t q_s, int q_row0, int lane) {
+  if constexpr (QREG) {
+#pragma unroll
+    for (int kd = 0; kd < D / 16; ++kd)
+      ldm4(q_s + swz<D>(q_row0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                        2 * kd + (lane >> 4)), qf[kd]);
+  }
+}
+
+// This block's keys: [0, kv_end) masked by kv_len, tiles [t_lo, t_hi)
+// of its split, cut at the causal frontier of the block's last row.
+struct Range { int kv_end, t_lo, t_hi; };
+template <int BN = BKT>
+__device__ __forceinline__ Range key_range(const Args& a, int b, int split,
+                                           int last_row, int rep) {
+  Range r;
+  r.kv_end = a.kv_max;
+  if (a.kv_len) r.kv_end = min(r.kv_end, a.kv_len[b]);
+  int hi = r.kv_end;
+  if (a.causal) hi = min(hi, a.q_offset + last_row / rep + 1);
+  const int n_all = (a.kv_max + BN - 1) / BN;
+  const int per = (n_all + a.splits - 1) / a.splits;
+  r.t_lo = split * per;
+  r.t_hi = min((hi + BN - 1) / BN, r.t_lo + per);
+  return r;
+}
+
+// Writes a finished row (o = acc / max(l, 1e-30) in bf16) or this split's
+// partial (m, l, acc in f32).  l must already be the whole row's sum.
+template <int D>
+__device__ __forceinline__ void write_row(const Args& a, int b, int kvh,
+                                          int split, int rep, int rows, int r,
+                                          float m, float l, float x0, float x1,
+                                          int col) {
+  // x0, x1: the accumulator at columns col, col + 1
+  if (r >= rows) return;
+  if (a.splits == 1) {
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    bf16* o = static_cast<bf16*>(a.o) + b * a.osb + (r / rep) * a.oss
+              + (kvh * rep + r % rep) * a.osh + col;
+    *reinterpret_cast<__nv_bfloat162*>(o) =
+        __floats2bfloat162_rn(x0 * inv, x1 * inv);
+  } else {
+    const long long w = (((long long)split * a.B + b) * a.Hkv + kvh) * rows + r;
+    if (col == 0) {
+      a.ws_m[w] = m;
+      a.ws_l[w] = l;
+    }
+    *reinterpret_cast<float2*>(a.ws_acc + w * D + col) =
+        make_float2(x0, x1);
+  }
+}
+
+// The tile kernel at head dim 32 (fa_wgmma takes the others).  A block of
+// 8 warps takes one (b, KV head) pair and 128 of its flattened query rows;
+// warp w owns rows 16 w .. 16 w + 15 and every key of each 64-key tile.
+// K and V tiles stream through a ring of STAGES stages by cp.async.
+template <int D, int STAGES>
+__global__ void __launch_bounds__(256, 1) fa_mma(Args a) {
+  constexpr int NW = 8, NTH = 32 * NW, BQ = 16 * NW;
+  constexpr int TILE = BKT * D * 2;     // bytes of a K or V tile
+  constexpr bool QREG = D <= 128;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t ring = q_s + BQ * D * 2;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = gridDim.x - 1 - blockIdx.x;    // the heaviest tiles first
+  const int b = blockIdx.y / a.Hkv, kvh = blockIdx.y % a.Hkv;
+  const int split = blockIdx.z;
+  const int rep = a.Hq / a.Hkv, rows = a.S * rep, r0 = qt * BQ;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qsb;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
+  const Range kr = key_range(a, b, split, min(r0 + BQ, rows) - 1, rep);
+
+  load_q<D, BQ, NTH>(q_s, q, a, kvh, rep, r0, rows, tid);
+#pragma unroll
+  for (int sg = 0; sg < STAGES - 1; ++sg) {
+    const int t = kr.t_lo + sg;
+    if (t < kr.t_hi) {
+      load_kv<D, BKT, NTH>(ring + sg * 2 * TILE, kp, a.kst, t * BKT,
+                           kr.kv_end, tid);
+      load_kv<D, BKT, NTH>(ring + sg * 2 * TILE + TILE, vp, a.vst, t * BKT,
+                           kr.kv_end, tid);
+    }
+    cp_commit();
+  }
+
+  const int g = lane >> 2, wr = warp * 16;
+  const int pos[2] = {a.q_offset + (r0 + wr + g) / rep,
+                      a.q_offset + (r0 + wr + g + 8) / rep};
+  const int first_pos = a.q_offset + r0 / rep;
+  const int warp_last_pos = a.q_offset + (r0 + wr + 15) / rep;
+  Rows<D> rs;
+  rs.init();
+  uint32_t qf[QREG ? D / 16 : 1][4];
+
+  for (int t = kr.t_lo; t < kr.t_hi; ++t) {
+    const int it = t - kr.t_lo;
+    cp_wait<STAGES - 2>();
+    __syncthreads();                    // tile t is in; tile t-1 is done
+    {
+      const int tn = t + STAGES - 1, sn = (it + STAGES - 1) % STAGES;
+      if (tn < kr.t_hi) {
+        load_kv<D, BKT, NTH>(ring + sn * 2 * TILE, kp, a.kst, tn * BKT,
+                             kr.kv_end, tid);
+        load_kv<D, BKT, NTH>(ring + sn * 2 * TILE + TILE, vp, a.vst,
+                             tn * BKT, kr.kv_end, tid);
+      }
+      cp_commit();
+    }
+    if (it == 0) load_qf<D, QREG>(qf, q_s, wr, lane);
+    const int j0 = t * BKT;
+    if (a.causal && warp_last_pos < j0) continue;   // all masked: adds 0
+    const uint32_t k_s = ring + (it % STAGES) * 2 * TILE;
+    float s[BKT / 8][4];
+    scores<D, BKT / 8, QREG>(s, qf, q_s, wr, k_s, 0, lane);
+    const bool need_mask =
+        j0 + BKT > kr.kv_end || (a.causal && j0 + BKT - 1 > first_pos);
+    float alpha[2];
+    softmax_step<D, BKT / 8>(rs, s, a, need_mask, j0, kr.kv_end, pos, lane,
+                             alpha);
+    rescale(rs, alpha);
+    pv_mma<D, BKT / 8>(rs, s, k_s + TILE, 0, lane);
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rs.l[i] += __shfl_xor_sync(0xffffffffu, rs.l[i], 1);
+    rs.l[i] += __shfl_xor_sync(0xffffffffu, rs.l[i], 2);
+  }
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    write_row<D>(a, b, kvh, split, rep, rows, r0 + wr + g, rs.m[0], rs.l[0],
+                 rs.acc[n][0], rs.acc[n][1], 8 * n + col);
+    write_row<D>(a, b, kvh, split, rep, rows, r0 + wr + g + 8, rs.m[1],
+                 rs.l[1], rs.acc[n][2], rs.acc[n][3], 8 * n + col);
+  }
+}
+
+// Decode: at most 16 query rows per (b, KV head), a long kv range.  A
+// block of 4 warps takes one (b, KV head, split); the group's rows fill
+// one 16-row MMA tile, and warp w takes keys 16 w .. 16 w + 15 of each
+// 64-key tile, so the block streams K and V (a ring of STAGES tiles, by
+// cp.async) and every byte is read once.  The 4 warps' softmax states are
+// combined through shared memory at the end.
+template <int D, int STAGES>
+__global__ void __launch_bounds__(128) fa_decode(Args a) {
+  constexpr int NW = 4, NTH = 32 * NW, BQ = 16;
+  constexpr int TILE = BKT * D * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t q_s = smem_u32(smem);
+  unsigned char* ring_p = smem + BQ * D * 2;
+  const uint32_t ring = smem_u32(ring_p);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y / a.Hkv, kvh = blockIdx.y % a.Hkv;
+  const int split = blockIdx.z;
+  const int rep = a.Hq / a.Hkv, rows = a.S * rep;
+  const bf16* q = static_cast<const bf16*>(a.q) + b * a.qsb;
+  const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
+  const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
+  const Range kr = key_range(a, b, split, rows - 1, rep);
+
+  load_q<D, BQ, NTH>(q_s, q, a, kvh, rep, 0, rows, tid);
+#pragma unroll
+  for (int sg = 0; sg < STAGES - 1; ++sg) {
+    const int t = kr.t_lo + sg;
+    if (t < kr.t_hi) {
+      load_kv<D, BKT, NTH>(ring + sg * 2 * TILE, kp, a.kst, t * BKT,
+                           kr.kv_end, tid);
+      load_kv<D, BKT, NTH>(ring + sg * 2 * TILE + TILE, vp, a.vst, t * BKT,
+                           kr.kv_end, tid);
+    }
+    cp_commit();
+  }
+
+  const int g = lane >> 2;
+  const int pos[2] = {a.q_offset + g / rep, a.q_offset + (g + 8) / rep};
+  const int first_pos = a.q_offset;
+  Rows<D> rs;
+  rs.init();
+  constexpr bool QREG = D <= 128;        // at D 256: registers for acc
+  uint32_t qf[QREG ? D / 16 : 1][4];
+
+  for (int t = kr.t_lo; t < kr.t_hi; ++t) {
+    const int it = t - kr.t_lo;
+    cp_wait<STAGES - 2>();
+    __syncthreads();
+    {
+      const int tn = t + STAGES - 1, sn = (it + STAGES - 1) % STAGES;
+      if (tn < kr.t_hi) {
+        load_kv<D, BKT, NTH>(ring + sn * 2 * TILE, kp, a.kst, tn * BKT,
+                             kr.kv_end, tid);
+        load_kv<D, BKT, NTH>(ring + sn * 2 * TILE + TILE, vp, a.vst,
+                             tn * BKT, kr.kv_end, tid);
+      }
+      cp_commit();
+    }
+    if (it == 0) load_qf<D, QREG>(qf, q_s, 0, lane);
+    const int j0 = t * BKT;
+    const uint32_t k_s = ring + (it % STAGES) * 2 * TILE;
+    float s[2][4];
+    scores<D, 2, QREG>(s, qf, q_s, 0, k_s, 16 * warp, lane);
+    const bool need_mask =
+        j0 + BKT > kr.kv_end || (a.causal && j0 + BKT - 1 > first_pos);
+    float alpha[2];
+    softmax_step<D, 2>(rs, s, a, need_mask, j0 + 16 * warp, kr.kv_end, pos,
+                       lane, alpha);
+    rescale(rs, alpha);
+    pv_mma<D, 2>(rs, s, k_s + TILE, 16 * warp, lane);
+  }
+  cp_wait<0>();
+  __syncthreads();                      // the ring is free: combine there
+
+  // per warp: m and l (16 rows), acc (16 x D), f32
+  float* cm = reinterpret_cast<float*>(ring_p);
+  float* cl = cm + NW * BQ;
+  float* cacc = cl + NW * BQ;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rs.l[i] += __shfl_xor_sync(0xffffffffu, rs.l[i], 1);
+    rs.l[i] += __shfl_xor_sync(0xffffffffu, rs.l[i], 2);
+    if ((lane & 3) == 0) {
+      cm[warp * BQ + g + 8 * i] = rs.m[i];
+      cl[warp * BQ + g + 8 * i] = rs.l[i];
+    }
+  }
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float* p0 = cacc + (warp * BQ + g) * D + 8 * n + col;
+    *reinterpret_cast<float2*>(p0) = make_float2(rs.acc[n][0], rs.acc[n][1]);
+    *reinterpret_cast<float2*>(p0 + 8 * D) =
+        make_float2(rs.acc[n][2], rs.acc[n][3]);
+  }
+  __syncthreads();
+  for (int i = tid; i < BQ * D / 2; i += NTH) {
+    const int r = i / (D / 2), c = 2 * (i % (D / 2));
+    if (r >= rows) break;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) M = fmaxf(M, cm[w * BQ + r]);
+    float L = 0.f, A[2] = {0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float e = expf(cm[w * BQ + r] - M);
+      L += cl[w * BQ + r] * e;
+      const float2 x = *reinterpret_cast<const float2*>(
+          cacc + (w * BQ + r) * D + c);
+      A[0] += x.x * e;
+      A[1] += x.y * e;
+    }
+    write_row<D>(a, b, kvh, split, rep, rows, r, M, L, A[0], A[1], c);
+  }
+}
+
+// --- wgmma: warpgroup products from shared memory, a producer warp ----
+
+// d (64 x 64, f32) (+)= A (64 x 16, shared, desc a) . B (16 x 64, shared,
+// K-major, desc b); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4],
+                                             uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 16, shared, desc a) . B (16 x 128, shared,
+// K-major, desc b); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4],
+                                              uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, shared,
+// MN-major: transposed, desc b).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, shared,
+// MN-major: transposed, desc b).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 256, f32) += A (64 x 16, registers) . B (16 x 256, shared,
+// MN-major: transposed, desc b).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[32][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Byte offset of 16-byte chunk c of row r in a tile of R rows of D bf16
+// values, laid out as wgmma's 128-byte-swizzle canonical form: the row's
+// D / 64 blocks of 64 values sit in separate R x 128-byte planes, and
+// chunk c % 8 of row r is stored at (c % 8) ^ (r % 8).  The tile must
+// start on 1,024 bytes.  The same layout is K-major for Q and K (the
+// products' K is the head dim) and MN-major for V.
+template <int R>
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (uint32_t)((c >> 3) * R * 128 + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// A shared-memory matrix descriptor of that layout: start address, the
+// leading and stride byte offsets, 128-byte swizzle.
+__device__ __forceinline__ uint64_t gdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16
+         | (uint64_t)(sbo >> 4) << 32 | (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of d across a wgmma in flight
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// arrives on bar once this thread's cp.async copies so far have landed
+__device__ __forceinline__ void mbar_cp_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// Waits for the phase of the given parity to complete.  A wait of more
+// than about ten seconds traps: a fault in the ring's accounting then
+// ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    if (clock64() - t0 > 20000000000LL) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_qk(float (&d)[BN / 8][4], uint64_t a,
+                                         uint64_t b, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&d)[8][4], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  wgmma_ss_n64(d, a, b, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&d)[16][4], uint64_t a,
+                                              uint64_t b, int scale_d) {
+  wgmma_ss_n128(d, a, b, scale_d);
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 8][4],
+                                         const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[8][4],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  wgmma_rs_n64(o, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[16][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs_n128(o, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[32][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  wgmma_rs_n256(o, a, b);
+}
+
+// Prefill and any tile of many rows, head dims 64-256.  A block takes one
+// (b, KV head) pair and 64 NC of its flattened query rows: a producer
+// warpgroup (warps 0-3) and NC consumer warpgroups of 64 rows.  The
+// producer copies K and V tiles of BN keys (cp.async, zero-filled past
+// kv_len) into a ring of STAGES stages and signals each on an mbarrier;
+// the consumers free a stage on another.  Per tile a consumer warpgroup
+// runs S = Q.K^T (wgmma, Q and K from shared memory), the online softmax
+// on S in registers, and O += P_hi.V + P_lo.V (wgmma, P from registers,
+// V from shared memory, transposed).
+template <int D, int NC, int BN, int STAGES>
+__global__ void __launch_bounds__(128 * (NC + 1), 1) fa_wgmma(Args a) {
+  constexpr int BQ = 64 * NC;
+  constexpr int TILE = BN * D * 2, QBYTES = BQ * D * 2;
+  constexpr int CH = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t q_s = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t ring = q_s + QBYTES;
+  const uint32_t bars = ring + STAGES * 2 * TILE;
+  // bars: full[STAGES], empty[STAGES], then the Q tile's
+  const uint32_t q_full = bars + 16 * STAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = gridDim.x - 1 - blockIdx.x;    // the heaviest tiles first
+  const int b = blockIdx.y / a.Hkv, kvh = blockIdx.y % a.Hkv;
+  const int split = blockIdx.z;
+  const int rep = a.Hq / a.Hkv, rows = a.S * rep, r0 = qt * BQ;
+  const Range kr = key_range<BN>(a, b, split, min(r0 + BQ, rows) - 1, rep);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 128);                // the producer's threads
+      mbar_init(bars + 8 * (STAGES + s), 4 * NC);  // the consumer warps
+    }
+    mbar_init(q_full, 128);
+  }
+  __syncthreads();
+
+  if (warp < 4) {                                  // the producer
+    const bf16* q = static_cast<const bf16*>(a.q) + b * a.qsb;
+    const bf16* kp = static_cast<const bf16*>(a.k) + b * a.ksb + kvh * a.ksh;
+    const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
+#pragma unroll 1
+    for (int i = tid; i < BQ * CH; i += 128) {
+      const int rr = i / CH, c = i % CH, r = r0 + rr;
+      const bool ok = r < rows;
+      const bf16* src = q;
+      if (ok)
+        src = q + (r / rep) * a.qss + (kvh * rep + r % rep) * a.qsh + c * 8;
+      cp16(q_s + sw128<BQ>(rr, c), src, ok);
+    }
+    mbar_cp_arrive(q_full);
+#pragma unroll 1
+    for (int t = kr.t_lo; t < kr.t_hi; ++t) {
+      const int it = t - kr.t_lo, s = it % STAGES, f = it / STAGES;
+      if (f > 0) mbar_wait(bars + 8 * (STAGES + s), (f - 1) & 1);
+      const uint32_t k_s = ring + s * 2 * TILE;
+#pragma unroll 2
+      for (int i = tid; i < BN * CH; i += 128) {
+        const int r = i / CH, c = i % CH, j = t * BN + r;
+        const bool ok = j < kr.kv_end;
+        cp16(k_s + sw128<BN>(r, c), ok ? kp + (long long)j * a.kst + c * 8
+                                       : kp, ok);
+        cp16(k_s + TILE + sw128<BN>(r, c),
+             ok ? vp + (long long)j * a.vst + c * 8 : vp, ok);
+      }
+      mbar_cp_arrive(bars + 8 * s);
+    }
+    cp_wait<0>();
+    return;
+  }
+
+  // the consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63
+  const int wg = (warp >> 2) - 1, g = lane >> 2;
+  const int rw = 64 * wg + 16 * (warp & 3);        // this warp's first row
+  const int pos[2] = {a.q_offset + (r0 + rw + g) / rep,
+                      a.q_offset + (r0 + rw + g + 8) / rep};
+  const int first_pos = a.q_offset + r0 / rep;
+  const int wg_last_pos = a.q_offset + (r0 + 64 * wg + 63) / rep;
+  Rows<D> rs;
+  rs.init();
+  mbar_wait(q_full, 0);
+
+  for (int t = kr.t_lo; t < kr.t_hi; ++t) {
+    const int it = t - kr.t_lo, s = it % STAGES, f = it / STAGES;
+    const int j0 = t * BN;
+    mbar_wait(bars + 8 * s, f & 1);
+    if (!(a.causal && wg_last_pos < j0)) {         // else all masked: adds 0
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const uint32_t k_s = ring + s * 2 * TILE, v_s = k_s + TILE;
+      float sc[BN / 8][4];
+      reg_fence(sc);
+      wg_fence();
+#pragma unroll
+      for (int kd = 0; kd < D / 16; ++kd)
+        wgmma_qk<BN>(sc,
+                     gdesc(q_s + (kd >> 2) * BQ * 128 + wg * 64 * 128
+                           + (kd & 3) * 32, 16, 1024),
+                     gdesc(k_s + (kd >> 2) * BN * 128 + (kd & 3) * 32, 16,
+                           1024),
+                     kd > 0);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(sc);
+      const bool need_mask =
+          j0 + BN > kr.kv_end || (a.causal && j0 + BN - 1 > first_pos);
+      float alpha[2];
+      softmax_step<D, BN / 8>(rs, sc, a, need_mask, j0, kr.kv_end, pos,
+                              lane, alpha);
+      rescale(rs, alpha);
+      uint32_t ph[BN / 16][4], pl[BN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        split2(sc[2 * kk][0], sc[2 * kk][1], ph[kk][0], pl[kk][0]);
+        split2(sc[2 * kk][2], sc[2 * kk][3], ph[kk][1], pl[kk][1]);
+        split2(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[kk][2], pl[kk][2]);
+        split2(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[kk][3], pl[kk][3]);
+      }
+      reg_fence(rs.acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint64_t vd = gdesc(v_s + kk * 16 * 128, BN * 128, 1024);
+        wgmma_pv<D>(rs.acc, ph[kk], vd);
+        wgmma_pv<D>(rs.acc, pl[kk], vd);
+      }
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(rs.acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (STAGES + s));
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rs.l[i] += __shfl_xor_sync(0xffffffffu, rs.l[i], 1);
+    rs.l[i] += __shfl_xor_sync(0xffffffffu, rs.l[i], 2);
+  }
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    write_row<D>(a, b, kvh, split, rep, rows, r0 + rw + g, rs.m[0], rs.l[0],
+                 rs.acc[n][0], rs.acc[n][1], 8 * n + col);
+    write_row<D>(a, b, kvh, split, rep, rows, r0 + rw + g + 8, rs.m[1],
+                 rs.l[1], rs.acc[n][2], rs.acc[n][3], 8 * n + col);
+  }
+}
+
+constexpr int MMA_STAGES = 3;           // fa_mma's ring of 64-key tiles
+template <int D>
+constexpr size_t mma_smem() {
+  return 128 * D * 2 + MMA_STAGES * 2 * BKT * D * 2;
+}
+constexpr int DECODE_STAGES = 3;
+template <int D>
+constexpr size_t decode_smem() {
+  return 16 * D * 2 + DECODE_STAGES * 2 * BKT * D * 2;
+}
+
+template <int D>
+static cudaError_t launch_mma(const Args& a, cudaStream_t st) {
+  constexpr size_t bytes = mma_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      fa_mma<D, MMA_STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return e;
+  const int rows = a.S * (a.Hq / a.Hkv);
+  dim3 grid((rows + 127) / 128, a.B * a.Hkv, a.splits);
+  fa_mma<D, MMA_STAGES><<<grid, 256, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+// fa_wgmma: up to D 128 two consumer warpgroups and 128-key tiles; at D
+// 256 one, with 64-key tiles, so that the 64 x 256 accumulator has the
+// registers of a 256-thread block (a 384-thread block allows 168).
+template <int D> constexpr int wgmma_nc() { return D <= 128 ? 2 : 1; }
+template <int D> constexpr int wgmma_bn() { return D <= 128 ? 128 : 64; }
+constexpr int WGMMA_STAGES = 3;
+template <int D>
+constexpr size_t wgmma_smem() {
+  // tiles, the mbarriers, and room to align the tiles on 1,024 bytes
+  return 64 * wgmma_nc<D>() * D * 2 + WGMMA_STAGES * 2 * wgmma_bn<D>() * D * 2
+         + 8 * (2 * WGMMA_STAGES + 1) + 1024;
+}
+
+template <int D>
+static cudaError_t launch_wgmma(const Args& a, cudaStream_t st) {
+  constexpr int NC = wgmma_nc<D>(), BN = wgmma_bn<D>();
+  constexpr size_t bytes = wgmma_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(
+      fa_wgmma<D, NC, BN, WGMMA_STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  const int rows = a.S * (a.Hq / a.Hkv);
+  dim3 grid((rows + 64 * NC - 1) / (64 * NC), a.B * a.Hkv, a.splits);
+  fa_wgmma<D, NC, BN, WGMMA_STAGES><<<grid, 128 * (NC + 1), bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D>
+static cudaError_t launch_decode(const Args& a, cudaStream_t st) {
+  constexpr size_t bytes = decode_smem<D>();
+  static_assert(DECODE_STAGES * 2 * BKT * D * 2 >= (4 * 16 * (D + 2)) * 4,
+                "the combine must fit in the ring");
+  if (a.S * (a.Hq / a.Hkv) > 16) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      fa_decode<D, DECODE_STAGES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  dim3 grid(1, a.B * a.Hkv, a.splits);
+  fa_decode<D, DECODE_STAGES><<<grid, 128, bytes, st>>>(a);
+  return cudaGetLastError();
+}
+
+// The tile kernel (DECODE false): wgmma at D 64-256, mma.sync at D 32
+// (rows of 64 bytes, below the 128-byte swizzle); or the decode kernel.
+template <bool DECODE>
+static cudaError_t launch_bf16(const Args& a, int D, cudaStream_t st) {
+  switch (D) {
+    case 32: return DECODE ? launch_decode<32>(a, st) : launch_mma<32>(a, st);
+    case 64:
+      return DECODE ? launch_decode<64>(a, st) : launch_wgmma<64>(a, st);
+    case 128:
+      return DECODE ? launch_decode<128>(a, st) : launch_wgmma<128>(a, st);
+    case 256:
+      return DECODE ? launch_decode<256>(a, st) : launch_wgmma<256>(a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
+
 static Args make_args(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int Hq, int Hkv,
                       const long long* st, int causal, int q_offset,
@@ -381,26 +1424,64 @@ static Args make_args(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 f32, 1 bf16.  strides: 12 element strides (q b/s/h, k b/t/h,
-// v b/t/h, o b/s/h), in host memory.  rpt: 1 or 4.  With splits > 1 the
-// outputs are the f32 partials in ws_*; flash_attention_merge then writes o.
-int flash_attention_launch(int dtype, int D, const void* q, const void* k,
-                           const void* v, void* o, int B, int S, int Hq,
-                           int Hkv, const long long* strides,
-                           int causal, int q_offset, const int* kv_len,
-                           int kv_max, float scale, int rpt, int splits,
-                           float* ws_m, float* ws_l, float* ws_acc,
-                           void* stream) {
+// Common arguments.  strides: 12 element strides (q b/s/h, k b/t/h, v
+// b/t/h, o b/s/h), in host memory.  With splits > 1 the outputs are the
+// f32 partials in ws_*; flash_attention_merge then writes o.
+
+// f32 inputs, the FP32-pipe kernel; rpt: 1 or 4.
+int flash_attention_f32_launch(int D, const void* q, const void* k,
+                               const void* v, void* o, int B, int S, int Hq,
+                               int Hkv, const long long* strides, int causal,
+                               int q_offset, const int* kv_len, int kv_max,
+                               float scale, int rpt, int splits, float* ws_m,
+                               float* ws_l, float* ws_acc, void* stream) {
   if ((rpt != 1 && rpt != 4) || splits < 1 || Hkv < 1 || Hq % Hkv)
     return cudaErrorInvalidValue;
   Args a = make_args(q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset,
                      kv_len, kv_max, scale, splits, ws_m, ws_l, ws_acc);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(a, D, rpt, st);
-  if (dtype == 1) return launch_d<__nv_bfloat16>(a, D, rpt, st);
-  return cudaErrorInvalidValue;
+  return launch_d<float>(a, D, rpt, static_cast<cudaStream_t>(stream));
 }
 
+// bf16 inputs: `decode` 0 for the tensor-core tile kernel (fa_mma), 1 for
+// the streaming decode kernel (fa_decode: S * Hq / Hkv <= 16).
+static int bf16_launch(int decode, int D, const void* q, const void* k,
+                       const void* v, void* o, int B, int S, int Hq, int Hkv,
+                       const long long* strides, int causal, int q_offset,
+                       const int* kv_len, int kv_max, float scale, int splits,
+                       float* ws_m, float* ws_l, float* ws_acc,
+                       void* stream) {
+  if (splits < 1 || Hkv < 1 || Hq % Hkv) return cudaErrorInvalidValue;
+  Args a = make_args(q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset,
+                     kv_len, kv_max, scale, splits, ws_m, ws_l, ws_acc);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return decode ? tc::launch_bf16<true>(a, D, st)
+                : tc::launch_bf16<false>(a, D, st);
+}
+
+int flash_attention_mma_launch(int D, const void* q, const void* k,
+                               const void* v, void* o, int B, int S, int Hq,
+                               int Hkv, const long long* strides, int causal,
+                               int q_offset, const int* kv_len, int kv_max,
+                               float scale, int splits, float* ws_m,
+                               float* ws_l, float* ws_acc, void* stream) {
+  return bf16_launch(0, D, q, k, v, o, B, S, Hq, Hkv, strides, causal,
+                     q_offset, kv_len, kv_max, scale, splits, ws_m, ws_l,
+                     ws_acc, stream);
+}
+
+int flash_attention_decode_launch(int D, const void* q, const void* k,
+                                  const void* v, void* o, int B, int S,
+                                  int Hq, int Hkv, const long long* strides,
+                                  int causal, int q_offset,
+                                  const int* kv_len, int kv_max, float scale,
+                                  int splits, float* ws_m, float* ws_l,
+                                  float* ws_acc, void* stream) {
+  return bf16_launch(1, D, q, k, v, o, B, S, Hq, Hkv, strides, causal,
+                     q_offset, kv_len, kv_max, scale, splits, ws_m, ws_l,
+                     ws_acc, stream);
+}
+
+// dtype of the output: 0 f32, 1 bf16.
 int flash_attention_merge_launch(int dtype, int D, void* o, int B, int S,
                                  int Hq, int Hkv, long long osb,
                                  long long oss, long long osh, int splits,
@@ -417,6 +1498,21 @@ int flash_attention_merge_launch(int dtype, int D, void* o, int B, int S,
   else if (dtype == 1) fa_merge<__nv_bfloat16><<<blocks, D, 0, stm>>>(a, D);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
+}
+
+// Dynamic shared memory of a bf16 kernel (decode 0: the tile kernel, 1:
+// fa_decode) at head dim D; 0 for a head dim it does not take.
+int flash_attention_smem(int decode, int D) {
+  switch (D) {
+    case 32: return (int)(decode ? tc::decode_smem<32>() : tc::mma_smem<32>());
+    case 64:
+      return (int)(decode ? tc::decode_smem<64>() : tc::wgmma_smem<64>());
+    case 128:
+      return (int)(decode ? tc::decode_smem<128>() : tc::wgmma_smem<128>());
+    case 256:
+      return (int)(decode ? tc::decode_smem<256>() : tc::wgmma_smem<256>());
+    default: return 0;
+  }
 }
 
 const char* flash_attention_error_string(int code) {

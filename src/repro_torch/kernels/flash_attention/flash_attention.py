@@ -1,14 +1,24 @@
 """ctypes wrappers of the CUDA flash-attention kernels
-(``csrc/flash_attention.cu``): the forward kernel (counted as
-``flash_attention``) and, when the kv range is split over blocks, the
-merge of the splits' partials (``flash_attention_merge``).
+(``csrc/flash_attention.cu``), each counted under its own name:
 
-Replaces the Pallas TPU kernel ``_kernel`` of
-``repro/kernels/flash_attention/flash_attention.py``; the source note in
-the ``.cu`` file says what bounds it on Hopper and how the design answers
-that.  ``flash_attention`` takes the LM model's ``(B, S, H, D)`` layout
-and its contract (``causal``, ``q_offset``, ``kv_len``); ``ops.py`` also
-offers the Pallas wrapper's ``(B, H, S, D)`` one.
+  * ``flash_attention``: bf16 on the tensor cores, a block of 128 query
+    rows (prefill, and any call with more than 16 rows per KV head):
+    ``wgmma`` at head dims 64 to 256, ``mma.sync`` at 32;
+  * ``flash_attention_decode``: bf16, at most 16 rows per KV head (a
+    decode step), streaming K and V once (``mma.sync``);
+  * ``flash_attention_f32``: f32 inputs, the FP32-pipe kernel (the f32
+    card-vs-CPU checks);
+  * ``flash_attention_merge``: the merge of the splits' partials when the
+    kv range is split over blocks.
+
+The input type picks the kernel: a bf16 call never runs the f32 kernel,
+and a shape no kernel takes raises.  Replaces the Pallas TPU kernel
+``_kernel`` of ``repro/kernels/flash_attention/flash_attention.py``; the
+source note in the ``.cu`` file says what bounds it on Hopper and how
+the design answers that.  ``flash_attention`` takes the LM model's
+``(B, S, H, D)`` layout and its contract (``causal``, ``q_offset``,
+``kv_len``); ``ops.py`` also offers the Pallas wrapper's ``(B, H, S, D)``
+one.
 """
 from __future__ import annotations
 
@@ -22,41 +32,65 @@ from repro_torch.kernels.common import (CudaKernel, check_cuda,
 
 HEAD_DIMS = (32, 64, 128, 256)
 BK = 64                        # keys per tile
-SPLIT_TARGET = 4               # blocks per SM a split-KV launch aims at
+MMA_ROWS = 128                 # query rows of a tensor-core block
+DECODE_ROWS = 16               # rows per KV head the decode kernel takes
+SPLIT_TARGET = 4               # f32: blocks per SM a split-KV launch aims at
 MIN_SPLIT_TILES = 4            # kv tiles per split, at least
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-FWD = CudaKernel("flash_attention", "flash_attention_launch",
-                 [_I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
-                  ctypes.POINTER(_LL), _I, _I, _P, _I, _F, _I, _I, _P, _P,
-                  _P, _P])
+# D, q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset, kv_len, kv_max,
+# scale, [rpt,] splits, ws_m, ws_l, ws_acc, stream
+_ARGS = [_I, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_LL), _I, _I,
+         _P, _I, _F]
+MMA = CudaKernel("flash_attention", "flash_attention_mma_launch",
+                 _ARGS + [_I, _P, _P, _P, _P])
+DECODE = CudaKernel("flash_attention_decode", "flash_attention_decode_launch",
+                    _ARGS + [_I, _P, _P, _P, _P], source="flash_attention")
+F32 = CudaKernel("flash_attention_f32", "flash_attention_f32_launch",
+                 _ARGS + [_I, _I, _P, _P, _P, _P], source="flash_attention")
 MERGE = CudaKernel("flash_attention_merge", "flash_attention_merge_launch",
                    [_I, _I, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _P, _P,
                     _P, _P], source="flash_attention")
+_FWD = {k.name: k for k in (MMA, DECODE, F32)}
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(B: int, S: int, Hq: int, Hkv: int, kv_max: int,
-         n_sm: int) -> Tuple[int, int]:
-    """(rows per thread, kv splits) of a launch.  A block takes 16 * rpt
-    of the (position, head-in-group) rows of one (b, KV head): 16 when
-    the group has at most 16 rows (decode), else 64.  The kv tiles are
-    split over blocks only when the blocks alone leave SMs idle, aiming
-    at ``SPLIT_TARGET`` blocks per SM with at least ``MIN_SPLIT_TILES``
-    tiles each."""
+def plan(B: int, S: int, Hq: int, Hkv: int, kv_max: int, n_sm: int, *,
+         D: int = 128, dtype: torch.dtype = torch.bfloat16
+         ) -> Tuple[str, int]:
+    """(kernel, kv splits) of a launch.  bf16: ``flash_attention_decode``
+    when one (b, KV head) has at most ``DECODE_ROWS`` (position,
+    head-in-group) rows, else ``flash_attention`` (128 rows a block).
+    Their kv tiles are split over blocks only when the blocks alone
+    leave slots idle, into as many splits as fill one wave (two decode
+    blocks per SM at D <= 128, one otherwise) with at least
+    ``MIN_SPLIT_TILES`` tiles each.  f32: ``flash_attention_f32``
+    (16 rows a block up to 16 rows, else 64), split when the blocks
+    leave SMs idle, aiming at ``SPLIT_TARGET`` blocks per SM."""
     rows = S * (Hq // Hkv)
-    rpt = 1 if rows <= 16 else 4
-    blocks = B * Hkv * _cdiv(rows, 16 * rpt)
+    n_tiles = _cdiv(kv_max, BK)
+    if dtype == torch.float32:
+        blocks = B * Hkv * _cdiv(rows, 16 if rows <= 16 else 64)
+        splits = 1
+        if blocks < n_sm:
+            splits = max(1, min(_cdiv(SPLIT_TARGET * n_sm, blocks),
+                                n_tiles // MIN_SPLIT_TILES))
+        return F32.name, splits
+    if rows <= DECODE_ROWS:
+        kernel, blocks = DECODE.name, B * Hkv
+        slots = n_sm * (2 if D <= 128 else 1)
+    else:
+        kernel, blocks = MMA.name, B * Hkv * _cdiv(rows, MMA_ROWS)
+        slots = n_sm
     splits = 1
-    if blocks < n_sm:
-        splits = max(1, min(_cdiv(SPLIT_TARGET * n_sm, blocks),
-                            _cdiv(kv_max, BK) // MIN_SPLIT_TILES))
-    return rpt, splits
+    if blocks < slots:
+        splits = max(1, min(slots // blocks, n_tiles // MIN_SPLIT_TILES))
+    return kernel, splits
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -113,42 +147,69 @@ def _kv(kv_len, q: torch.Tensor, B: int, T: int) -> Tuple[Optional[int], int]:
     return kv_ptr, kv_max
 
 
-def _fwd(q, k, v, out, ws, *, causal, scale, q_offset, kv_len, rpt, splits):
+def _fwd(q, k, v, out, ws, *, causal, scale, q_offset, kv_len, kernel,
+         splits, rpt=None):
     B, S, Hq, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    rows = S * (Hq // Hkv)
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    want = torch.float32 if kernel == F32.name else torch.bfloat16
+    if kernel not in _FWD or q.dtype != want:
+        raise ValueError(f"{kernel} does not take {q.dtype}")
+    if kernel == DECODE.name and rows > DECODE_ROWS:
+        raise ValueError(f"{kernel} takes at most {DECODE_ROWS} rows per KV "
+                         f"head, got {rows}")
+    if rpt is not None and kernel != F32.name:
+        raise ValueError("rows per thread (rpt) is a flash_attention_f32 "
+                         "option")
     kv_ptr, kv_max = _kv(kv_len, q, B, T)
     o = out if out is not None else q           # strides unused with splits
     strides = (ctypes.c_longlong * 12)(*(
         t.stride(i) for t in (q, k, v, o) for i in range(3)))
     ptrs = [None] * 3 if ws is None else [w.data_ptr() for w in ws]
-    FWD.launch(_DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), None if out is None else out.data_ptr(), B, S,
-               Hq, Hkv, strides, int(causal), q_offset, kv_ptr, kv_max,
-               scale, rpt, splits, *ptrs, stream_ptr(q))
+    extra = [splits]
+    if kernel == F32.name:
+        extra = [rpt or (1 if rows <= 16 else 4), splits]
+    _FWD[kernel].launch(D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        None if out is None else out.data_ptr(), B, S, Hq,
+                        Hkv, strides, int(causal), q_offset, kv_ptr, kv_max,
+                        scale, *extra, *ptrs, stream_ptr(q))
+
+
+def _plan(q: torch.Tensor, k: torch.Tensor, kv_max: int) -> Tuple[str, int]:
+    B, S, Hq, D = q.shape
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return plan(B, S, Hq, k.shape[2], kv_max, n_sm, D=D, dtype=q.dtype)
 
 
 def flash_attention_partials(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool, scale: float,
                              q_offset: int = 0,
                              kv_len: Union[None, int, torch.Tensor] = None,
-                             splits: int, rpt: int = 1
+                             splits: int, kernel: Optional[str] = None,
+                             rpt: Optional[int] = None
                              ) -> Tuple[torch.Tensor, ...]:
     """The split-KV forward launch alone: the kv tiles of every (b, KV
     head) split into ``splits`` ranges, each range's partial softmax
     state in f32: (m, l) (splits, B, Hkv, rows) and acc (splits, B, Hkv,
     rows, D), rows being the S * Hq / Hkv (position, head-in-group)
-    pairs, position-major."""
+    pairs, position-major.  ``kernel`` defaults to ``plan``'s choice;
+    ``rpt`` (1 or 4 rows per thread) is ``flash_attention_f32``'s.
+    ``splits`` must be at least 2: with one the kernels write the
+    finished output, which this call does not take."""
+    if splits < 2:
+        raise ValueError(f"partials need at least 2 splits, got {splits}")
     _check(q, k, v)
     B, S, Hq, D = q.shape
     rows = S * (Hq // k.shape[2])
+    kernel = kernel or _plan(q, k, _kv(kv_len, q, B, k.shape[1])[1])[0]
     ws = [torch.empty((splits, B, k.shape[2], rows), dtype=torch.float32,
                       device=q.device) for _ in range(2)]
     ws.append(torch.empty((splits, B, k.shape[2], rows, D),
                           dtype=torch.float32, device=q.device))
     _fwd(q, k, v, None, ws, causal=causal, scale=scale, q_offset=q_offset,
-         kv_len=kv_len, rpt=rpt, splits=splits)
+         kv_len=kv_len, kernel=kernel, splits=splits, rpt=rpt)
     return tuple(ws)
 
 
@@ -183,19 +244,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     card, any strides with a contiguous last axis.  Row i of q sits at
     position ``q_offset + i``; ``causal`` masks keys past it; ``kv_len``
     (an int, a CUDA int32 (B,) tensor, or None for T; at least 1 for every
-    row) masks keys at or past it, which are never read.  Returns (B, S, Hq, D) in q's type: one
-    launch, or two (partials, merge) when ``plan`` splits the kv range."""
+    row) masks keys at or past it, which are never read.  Returns (B, S,
+    Hq, D) in q's type: one launch of ``plan``'s kernel, or two (partials,
+    merge) when it splits the kv range."""
     _check(q, k, v)
     B, S, Hq, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    rpt, splits = plan(B, S, Hq, Hkv, _kv(kv_len, q, B, T)[1], n_sm)
+    kernel, splits = _plan(q, k, _kv(kv_len, q, B, k.shape[1])[1])
     if splits > 1:
         m, l, acc = flash_attention_partials(
             q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-            kv_len=kv_len, splits=splits, rpt=rpt)
+            kv_len=kv_len, splits=splits, kernel=kernel)
         return flash_attention_merge(m, l, acc, n_heads=Hq, dtype=q.dtype)
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     _fwd(q, k, v, out, None, causal=causal, scale=scale, q_offset=q_offset,
-         kv_len=kv_len, rpt=rpt, splits=1)
+         kv_len=kv_len, kernel=kernel, splits=1)
     return out

@@ -178,17 +178,19 @@ def test_merge_ref_of_split_partials_is_one_softmax(S, H, Hkv, kv_len,
     np.testing.assert_allclose(got.numpy(), want.numpy(), **CHUNK_TOL)
 
 
-@pytest.mark.parametrize("shape,want", [
-    # (B, S, Hq, Hkv, kv_max) on 132 SMs -> (rows per thread, splits)
-    ((1, 32768, 24, 8, 32768), (4, 1)),      # llama prefill_32k
-    ((8, 1, 24, 8, 32768), (1, 9)),          # llama decode_32k at B 8
-    ((1, 1, 24, 8, 524288), (1, 66)),        # llama long_500k
-    ((1, 8192, 8, 1, 8192), (4, 1)),         # gemma prefill at 8k
-    ((1, 1, 8, 1, 8208), (1, 32)),           # gemma decode
-    ((2, 1, 4, 2, 200), (1, 1)),             # a short cache: no split
+@pytest.mark.parametrize("shape,D,want", [
+    # (B, S, Hq, Hkv, kv_max), head dim, bf16 on 132 SMs -> (kernel,
+    # splits): one wave of split blocks (two decode blocks per SM at
+    # D <= 128, one at D 256), at least MIN_SPLIT_TILES kv tiles each
+    ((1, 32768, 24, 8, 32768), 128, ("flash_attention", 1)),   # prefill_32k
+    ((8, 1, 24, 8, 32768), 128, ("flash_attention_decode", 4)),  # decode_32k
+    ((1, 1, 24, 8, 524288), 128, ("flash_attention_decode", 33)),  # long_500k
+    ((1, 8192, 8, 1, 8192), 256, ("flash_attention", 1)),      # gemma 8k
+    ((1, 1, 8, 1, 8208), 256, ("flash_attention_decode", 32)),  # gemma decode
+    ((2, 1, 4, 2, 200), 128, ("flash_attention_decode", 1)),   # short: no split
 ])
-def test_launch_plan(shape, want):
-    assert K.plan(*shape, n_sm=132) == want
+def test_launch_plan(shape, D, want):
+    assert K.plan(*shape, n_sm=132, D=D) == want
 
 
 def test_cuda_is_refused_or_required():
@@ -196,9 +198,10 @@ def test_cuda_is_refused_or_required():
                _qkv(1, 2, 2, 8, 8, 32, 0, layout="bshd"))
     with pytest.raises(ValueError):
         K.flash_attention(q, k, v, causal=True, scale=0.1)
-    with pytest.raises(ValueError):
-        K.flash_attention_partials(q, k, v, causal=True, scale=0.1,
-                                   splits=2)
+    for splits in (1, 2):       # one split has no partials to return
+        with pytest.raises(ValueError):
+            K.flash_attention_partials(q, k, v, causal=True, scale=0.1,
+                                       splits=splits)
     m = torch.zeros((2, 1, 2, 8))
     with pytest.raises(ValueError):
         K.flash_attention_merge(m, m, torch.zeros((2, 1, 2, 8, 32)),
