@@ -578,11 +578,20 @@ def eb_bound(ids: torch.Tensor, D: int, V: int, backward: bool,
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
-def eb_atomic_ms(ids: torch.Tensor, D: int, peaks) -> float:
-    """The backward design's own traffic, outside the bound: one f32
-    read-modify-write per valid element for the atomics, at the memory
-    rate."""
-    return 8.0 * int((ids >= 0).sum()) * D / peaks[1] * 1e3
+def eb_plan_share(ids: torch.Tensor, V: int, op_ms: float) -> str:
+    """The segment plan's time (CUDA events, the op's own tiles at D 64)
+    and its share of the whole backward's ``op_ms``."""
+    tile = EB.rows_per_tile(DLRM.embed_dim)
+    ms = time_ms(lambda: EB.segment_plan(ids, V, tile), 10)
+    return f"segment_plan {ms:.4f} ms = {ms / op_ms:.1%} of the op"
+
+
+def eb_repeat(gout, table, ids, first: torch.Tensor, what: str) -> None:
+    """The backward again on the same inputs: d_table bitwise equal."""
+    again, _ = EB.embedding_bag_bwd(gout, table, ids, None, "sum",
+                                    torch.bfloat16)
+    check(torch.equal(again, first),
+          f"embedding_bag d_table {what}: a repeat differs bitwise")
 
 
 def eb_library(table: torch.Tensor, ids: torch.Tensor):
@@ -597,9 +606,11 @@ def eb_library(table: torch.Tensor, ids: torch.Tensor):
 def phase1_embedding_bag(g: torch.Generator, dev, peaks) -> list:
     """Forward and backward kernels against the plain versions.
     Tolerances (``close``): f32 outputs, f32 d_table and d_weights within
-    1e-5 relative (the same f32 sums in another order; the backward's
-    atomics change the order from run to run); bf16 outputs and bf16-
-    rounded d_table within one bf16 step, 2^-7 relative."""
+    1e-5 relative (the same f32 sums in another order: the plain
+    backward's ``index_add_`` adds with atomics on the card); bf16
+    outputs and bf16-rounded d_table within one bf16 step, 2^-7
+    relative.  The backward's d_table must also repeat bitwise (its sums
+    run in the segment plan's fixed order)."""
     D, F_ = DLRM.embed_dim, DLRM.n_sparse
     bf16, f32 = torch.bfloat16, torch.float32
 
@@ -660,7 +671,9 @@ def phase1_embedding_bag(g: torch.Generator, dev, peaks) -> list:
     dk, _ = EB.embedding_bag_bwd(gout, table, ids, None, "sum", bf16)
     dp, _ = embedding_bag_bwd_ref(gout, table, ids, None, "sum", bf16)
     b_err = held(dk, dp, bf16, "d_table at the train shape")
-    del out_k, dk, dp
+    del out_k, dp
+    eb_repeat(gout, table, ids, dk, "at the train shape")
+    del dk
     torch.cuda.empty_cache()
     f_ms = time_ms(lambda: EB.embedding_bag_fwd(table, ids, None, "sum",
                                                 bf16), 10)
@@ -686,8 +699,34 @@ def phase1_embedding_bag(g: torch.Generator, dev, peaks) -> list:
           f"{f_plain:.4f} F.embedding_bag_ms={f_lib:.4f} bound_ms={fb:.4f} "
           f"({fby}); bwd max_abs_err={b_err:.3g} kernel_ms={b_ms:.4f} "
           f"plain_ms={b_plain:.4f} index_add_ms={b_lib:.4f} bound_ms="
-          f"{bb:.4f} ({bby}), atomics' read-modify-write alone "
-          f"{eb_atomic_ms(ids, D, peaks):.4f} ms")
+          f"{bb:.4f} ({bby}), {eb_plan_share(ids, V, b_ms)}; repeat "
+          f"bitwise equal")
+
+    # (b') skewed: one row takes 10% of the valid ids (a hot item)
+    hot = V // 2
+    ids[(torch.rand(ids.shape, generator=g, device=dev) < 0.1)
+        & (ids >= 0)] = hot
+    share = float((ids == hot).sum()) / n_valid
+    dk, _ = EB.embedding_bag_bwd(gout, table, ids, None, "sum", bf16)
+    dp, _ = embedding_bag_bwd_ref(gout, table, ids, None, "sum", bf16)
+    s_err = held(dk, dp, bf16, "d_table with a hot row")
+    del dp
+    eb_repeat(gout, table, ids, dk, "with a hot row")
+    del dk
+    s_ms = time_ms(lambda: EB.embedding_bag_bwd(gout, table, ids, None,
+                                                "sum", bf16), 10)
+    # the same without the hot row's split: no sorted piece is whole
+    piece, EB.PIECE = EB.PIECE, 1 << 30
+    try:
+        u_ms = time_ms(lambda: EB.embedding_bag_bwd(gout, table, ids, None,
+                                                    "sum", bf16), 2)
+    finally:
+        EB.PIECE = piece
+    print(f"[phase1] embedding_bag bwd at the train shape with row {hot} "
+          f"holding {share:.2%} of the valid ids: max_abs_err={s_err:.3g} "
+          f"kernel_ms={s_ms:.4f} ({s_ms / b_ms:.2f}x the uniform case; "
+          f"without the split into pieces of {EB.PIECE} ids "
+          f"{u_ms:.4f} ms, {u_ms / b_ms:.2f}x); repeat bitwise equal")
     del table, ids, gout
     torch.cuda.empty_cache()
 
@@ -744,16 +783,18 @@ def phase1_embedding_bag(g: torch.Generator, dev, peaks) -> list:
           and float((top_p != 0).float().mean()) > 0.9,
           "embedding_bag d_table: the top rows differ from the plain ones")
     check(float(dk[:BIG_ID].abs().max()) == 0,
-          "embedding_bag d_table: a row below 2^24 was written")
-    del dk, dp
+          "embedding_bag d_table: a row below 2^24 is not zero")
+    del dp
+    eb_repeat(gout, table, ids, dk, "with offsets above 2^31")
+    del dk
     torch.cuda.empty_cache()
     ms = time_ms(lambda: EB.embedding_bag_bwd(gout, table, ids, None, "sum",
                                               bf16), 5)
     bound, by = eb_bound(ids, D, V, True, peaks)
     print(f"[phase1] embedding_bag bwd on ({V}, {D}) f32 at train_batch: "
           f"bags={N} ids in [2^24, {V}) max_abs_err={err:.3g} kernel_ms="
-          f"{ms:.4f} bound_ms={bound:.4f} ({by}), atomics' read-modify-"
-          f"write alone {eb_atomic_ms(ids, D, peaks):.4f} ms")
+          f"{ms:.4f} bound_ms={bound:.4f} ({by}), "
+          f"{eb_plan_share(ids, V, ms)}; repeat bitwise equal")
     del table, ids, gout
     torch.cuda.empty_cache()
 
@@ -798,11 +839,12 @@ def fa_work(B, S, Hq, Hkv, T, D, causal, esize) -> tuple:
     return ops, nbytes
 
 
-def sdpa_library(q, k, v, causal, scale):
+def sdpa_library(q, k, v, causal, scale, math: bool = False):
     """``scaled_dot_product_attention(enable_gqa=True)`` in the (B, H, S,
     D) layout (views of the (B, S, H, D) tensors), kept off the math
-    backend, which would hold the whole score matrix; None where no fused
-    backend takes it."""
+    backend, which would hold the whole score matrix, unless ``math``
+    (for a small f32 shape, where no fused backend takes GQA); None where
+    no allowed backend takes it."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     fn = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
@@ -810,7 +852,8 @@ def sdpa_library(q, k, v, causal, scale):
     try:
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
                           SDPBackend.EFFICIENT_ATTENTION,
-                          SDPBackend.CUDNN_ATTENTION]):
+                          SDPBackend.CUDNN_ATTENTION]
+                         + ([SDPBackend.MATH] if math else [])):
             out = fn()
             ms = time_ms(fn, 5)
     except RuntimeError as e:
@@ -985,6 +1028,34 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
               f"{ops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB)")
         del q, k, v, got, want, lib_out
         torch.cuda.empty_cache()
+    # (c) the FP32-pipe kernel at the shape of Phase 5's f32 card-vs-CPU
+    # check (llama heads, B 2 x 256 tokens, causal prefill)
+    B, S, Hq, Hkv, D = (CHECK_LM_B, CHECK_LM_S, LLAMA.n_heads,
+                        LLAMA.n_kv_heads, LLAMA.resolved_head_dim)
+    q = torch.randn((B, S, Hq, D), generator=g, device=dev)
+    k = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    v = torch.randn((B, S, Hkv, D), generator=g, device=dev)
+    kw = dict(causal=True, scale=D ** -0.5)
+    got, n = fa_launches(lambda: FA.flash_attention(q, k, v, **kw))
+    check(n == {"flash_attention_f32": 1}, f"f32 attention at the check "
+          f"shape: launches {n}")
+    want = chunked_attention_ref(q, k, v, **kw)
+    err = float((got - want).abs().max())
+    check(close(got, want, 3e-4), "flash_attention_f32 at the f32 check "
+          "shape off the plain version")
+    ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), 20)
+    plain_ms = time_ms(lambda: chunked_attention_ref(q, k, v, **kw), 5)
+    lib_ms, _ = sdpa_library(q, k, v, True, D ** -0.5, math=True)
+    ops, nbytes = fa_work(B, S, Hq, Hkv, S, D, True, 4)
+    t_o, t_b = ops / peaks[0], nbytes / peaks[1]
+    print(f"[phase1] flash_attention_f32 at Phase 5's f32 check shape: q "
+          f"{tuple(q.shape)} k/v {tuple(k.shape)} f32 causal max_abs_err="
+          f"{err:.3g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"sdpa_ms={lib_ms} (math backend allowed) bound_ms="
+          f"{max(t_o, t_b) * 1e3:.4f} "
+          f"({'operations' if t_o >= t_b else 'bytes'} at the FP32 rate)")
+    del q, k, v, got, want
+
     src_file = "src/repro_torch/csrc/flash_attention.cu"
     jax_file = "src/repro/kernels/flash_attention/flash_attention.py:91"
     out = []

@@ -5,7 +5,9 @@ Replaces the Pallas TPU kernel ``_kernel`` of
 ``repro/kernels/embedding_bag/embedding_bag.py`` and the backward of its
 custom VJP (``repro/kernels/embedding_bag/ops.py::_bwd``); the source
 note in the ``.cu`` file says what bounds them on Hopper and how the
-design answers that.  ``ops.EmbeddingBag`` joins the two.
+design answers that.  ``ops.EmbeddingBag`` joins the two.  The backward
+is a sorted segment-sum: ``segment_plan`` (plain torch, either device)
+sorts the ids by row, and the kernel writes each row of ``d_table`` once.
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch
 from repro_torch.kernels.common import CudaKernel, check_cuda, stream_ptr
 
 MAX_DIM = 256                  # one warp holds a row: 8 columns a lane
+PIECE = 512                    # sorted ids per partial sum of a hot row
+TILE_FLOATS = 1024             # f32 sums a warp of the row kernel holds
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MODES = {"sum": 0, "mean": 1}
 
@@ -25,8 +29,8 @@ FWD = CudaKernel("embedding_bag_fwd", "embedding_bag_fwd_launch",
                  [_I, _I, _P, _LL, _I, _P, _P, _LL, _I, _I, _P, _P, _I],
                  source="embedding_bag")
 BWD = CudaKernel("embedding_bag_bwd", "embedding_bag_bwd_launch",
-                 [_I, _I, _P, _P, _LL, _I, _P, _P, _LL, _I, _I, _P, _P, _P,
-                  _P, _I], source="embedding_bag")
+                 [_I, _I, _P, _P, _LL, _I, _P, _P, _LL, _I, _P, _P, _P, _I,
+                  _I, _P, _P, _P, _P, _P, _I], source="embedding_bag")
 
 
 def _check(table: torch.Tensor, ids: torch.Tensor,
@@ -79,6 +83,30 @@ def embedding_bag_fwd(table: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+def rows_per_tile(D: int) -> int:
+    """Rows of d_table per warp of the row kernel: a multiple of 4 whose
+    f32 sums fit ``TILE_FLOATS`` (16 at D 64, 4 at D 256)."""
+    return TILE_FLOATS // D // 4 * 4
+
+
+def segment_plan(ids: torch.Tensor, V: int, tile: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward's segments, in plain torch on ``ids``' device and
+    stream, with no host sync.  ids (N, L) int -> (keys, slots, bounds):
+    the flat ids keyed by row (padding and ids >= V keyed V, so they sort
+    last), sorted stably, int32 (N*L,); their flat positions b*L + l,
+    int64 (N*L,), increasing within a row; bounds (ceil(V / tile) + 1,)
+    int32, where bounds[t] is the first sorted position whose key is >=
+    min(t * tile, V).  With ``tile`` 1 these are the rows' offsets: row
+    v's ids are at sorted positions bounds[v] .. bounds[v+1] - 1."""
+    # clamped to -1 .. V, then -1 -> V: two passes over the ids
+    keys = torch.remainder(ids.clamp(-1, V), V + 1).to(torch.int32).flatten()
+    keys, slots = torch.sort(keys, stable=True)
+    rows = torch.arange(0, V + tile, tile, device=ids.device).clamp_max_(V)
+    return keys, slots, torch.searchsorted(keys, rows.to(torch.int32),
+                                           out_int32=True)
+
+
 def embedding_bag_bwd(g: torch.Tensor, table: torch.Tensor,
                       ids: torch.Tensor,
                       weights: Optional[torch.Tensor] = None,
@@ -91,26 +119,36 @@ def embedding_bag_bwd(g: torch.Tensor, table: torch.Tensor,
     cotangent; the table is read only for d_weights.  Returns (d_table
     (V, D) in the table's type, or None without ``table_grad``;
     d_weights (N, L) f32, or None without weights or ``weight_grad``).
-    d_table is dense: a fresh (V, D) f32 accumulator, rounded in place
-    for an f32 table."""
+    d_table is dense and each row is written once: the f32 sum of its
+    ids' terms in ``segment_plan``'s order, rounded once to the compute
+    type (a row that holds ``PIECE`` ids or more adds partial sums of
+    whole pieces of the sorted order, in order), so it repeats bitwise."""
     compute_dtype = compute_dtype or table.dtype
     V, D, N, L = _check(table, ids, weights, mode, compute_dtype)
     check_cuda("g", g, compute_dtype, 2)
     if tuple(g.shape) != (N, D) or g.device != table.device:
         raise ValueError(f"g must be {(N, D)} on {table.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
-    acc = d_table = d_weights = None
+    if N * L + PIECE >= 2 ** 31:
+        raise ValueError(f"embedding_bag_bwd takes fewer than "
+                         f"{2 ** 31 - PIECE} ids, got {N * L}")
+    dev, tile = table.device, rows_per_tile(D)
+    d_table = d_weights = keys = slots = bounds = partials = cnt = None
     if table_grad:
-        acc = torch.empty((V, D), dtype=torch.float32, device=table.device)
-        d_table = acc if table.dtype == torch.float32 else torch.empty_like(
-            table)
+        d_table = torch.empty_like(table)
+        keys, slots, bounds = segment_plan(ids, V, tile)
+        if N * L >= PIECE:
+            partials = torch.empty((N * L // PIECE, D), dtype=torch.float32,
+                                   device=dev)
     if weights is not None and weight_grad:
-        d_weights = torch.empty((N, L), dtype=torch.float32,
-                                device=table.device)
-    if acc is None and d_weights is None:
+        d_weights = torch.empty((N, L), dtype=torch.float32, device=dev)
+    if d_table is None and d_weights is None:
         return None, None
+    if mode == "mean":
+        cnt = torch.empty(N, dtype=torch.float32, device=dev)
     BWD.launch(_DTYPE_CODE[table.dtype], _DTYPE_CODE[compute_dtype],
                g.data_ptr(), table.data_ptr(), V, D, ids.data_ptr(),
-               _ptr(weights), N, L, _MODES[mode], _ptr(acc), _ptr(d_table),
-               _ptr(d_weights), stream_ptr(table), table.device.index)
+               _ptr(weights), N, L, _ptr(keys), _ptr(slots), _ptr(bounds),
+               tile, PIECE, _ptr(partials), _ptr(cnt), _ptr(d_table),
+               _ptr(d_weights), stream_ptr(table), dev.index)
     return d_table, d_weights

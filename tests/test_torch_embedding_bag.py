@@ -13,7 +13,12 @@ same numpy inputs:
     (``compute_dtype``), equals JAX's op on the bf16-cast table, and the
     gradient of the f32 table through that cast equals JAX's, both up to
     the order of the f32 sum: within one bf16 rounding, 2^-7 relative;
-  * bags of padding only; the kernel wrappers refuse CPU tensors.
+  * bags of padding only; the kernel wrappers refuse CPU tensors;
+  * the backward kernel's segment plan (``segment_plan``) against numpy's
+    stable argsort and searchsorted, and d_table summed in the kernel's
+    order (each row's terms in plan order, a hot row's whole pieces
+    summed apart, then rounded once) against JAX's custom VJP: GRAD_TOL
+    in f32, BF16_REL with bf16 compute.
 """
 import jax
 import jax.numpy as jnp
@@ -24,6 +29,8 @@ import torch
 from repro.kernels.embedding_bag.ops import embedding_bag as jax_op
 from repro.kernels.embedding_bag.ref import embedding_bag_ref as jax_ref
 from repro_torch.kernels.embedding_bag import embedding_bag as K
+from repro_torch.kernels.embedding_bag.embedding_bag import (rows_per_tile,
+                                                             segment_plan)
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_bwd_ref,
                                                    embedding_bag_ref)
@@ -159,3 +166,122 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         K.embedding_bag_fwd(_t(table), _t(ids), _t(w))
     with pytest.raises(ValueError, match="CUDA"):
         K.embedding_bag_bwd(_t(g), _t(table), _t(ids), _t(w))
+
+
+def _plan_ids(case):
+    """(ids, V) of one segment-plan case: (N, L) int32, -1 = padding."""
+    rng = np.random.default_rng(len(case))
+    V = 50
+    ids = rng.integers(-1, V, (12, 7)).astype(np.int32)
+    if case == "last_row":
+        ids[::2, 3] = V - 1
+    elif case == "empty_bag":
+        ids[4] = -1
+    elif case == "all_padding":
+        ids[:] = -1
+    elif case == "shared_row":
+        ids[:, :4] = 17                  # one row in every bag, 48 times
+    elif case == "out_of_range":
+        ids[1, :3] = [V, V + 9, -5]      # keyed V: dropped like padding
+    return ids, V
+
+
+@pytest.mark.parametrize("case", ["padding", "last_row", "empty_bag",
+                                  "all_padding", "shared_row",
+                                  "out_of_range"])
+@pytest.mark.parametrize("tile", [1, 4])
+def test_segment_plan_matches_numpy(case, tile):
+    ids, V = _plan_ids(case)
+    keys, slots, bounds = segment_plan(_t(ids), V, tile)
+    keyed = np.where((ids >= 0) & (ids < V), ids, V).ravel()
+    order = np.argsort(keyed, kind="stable")
+    rows = np.minimum(np.arange(0, V + tile, tile), V)
+    assert (keys.dtype, slots.dtype, bounds.dtype) == (
+        torch.int32, torch.int64, torch.int32)
+    np.testing.assert_array_equal(slots.numpy(), order)
+    np.testing.assert_array_equal(keys.numpy(), keyed[order])
+    np.testing.assert_array_equal(bounds.numpy(),
+                                  np.searchsorted(keyed[order], rows))
+    if tile == 1:                        # each row's ids, in slot order
+        for v in (0, 17, V - 1):
+            got = slots.numpy()[bounds[v]:bounds[v + 1]]
+            np.testing.assert_array_equal(got, np.flatnonzero(
+                ids.ravel() == v))
+
+
+def test_rows_per_tile_fits_the_kernel():
+    for D in range(1, K.MAX_DIM + 1):
+        tile = rows_per_tile(D)
+        assert tile >= 4 and tile % 4 == 0
+        assert tile * D <= K.TILE_FLOATS < (tile + 4) * D
+
+
+def _plan_order_d_table(g, ids, weights, mode, V, piece, compute_dtype):
+    """d_table as the backward kernel sums it: each row's terms g[b] *
+    w_eff (f32 products) added in ``segment_plan``'s order from 0, except
+    that a row holding whole pieces of ``piece`` sorted positions adds
+    each piece's own sum, in order, between its head and tail terms;
+    rounded once to the compute type."""
+    N, L = ids.shape
+    keys, slots, bounds = segment_plan(ids, V, 1)
+    w = ((ids >= 0) & (ids < V)).float()
+    if weights is not None:
+        w = w * weights
+    if mode == "mean":
+        w = w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-9)
+    terms = g.float()[slots // L] * w.flatten()[slots][:, None]
+    zero = torch.zeros(g.shape[1])
+
+    def run(lo, hi, acc):
+        for x in range(lo, hi):
+            acc = acc + terms[x]
+        return acc
+    out = torch.zeros((V, g.shape[1]))
+    for v in range(V):
+        a, b = int(bounds[v]), int(bounds[v + 1])
+        p0, p1 = -(-a // piece), b // piece
+        if p1 > p0:
+            acc = run(a, p0 * piece, zero)
+            for p in range(p0, p1):
+                acc = acc + run(p * piece, (p + 1) * piece, zero)
+            out[v] = run(p1 * piece, b, acc)
+        else:
+            out[v] = run(a, b, zero)
+    return out.to(compute_dtype).float()
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_plan_order_sum_matches_jax_bwd(mode, weighted):
+    V, D, B, L = 40, 16, 24, 6
+    table, ids, w, g = _inputs(V, D, B, L, weighted, 11)
+    ids[:, 0] = 9                        # a hot row: 24 ids, 6 pieces of 4
+    jids = jnp.asarray(ids)
+    if weighted:
+        _, vjp = jax.vjp(lambda t, ww: jax_op(t, jids, ww, mode, False),
+                         jnp.asarray(table), jnp.asarray(w))
+    else:
+        _, vjp = jax.vjp(lambda t: jax_op(t, jids, None, mode, False),
+                         jnp.asarray(table))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = _plan_order_d_table(_t(g), _t(ids), _t(w), mode, V, 4,
+                              torch.float32)
+    np.testing.assert_allclose(got.numpy(), want, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("piece", [4, 512])
+def test_plan_order_sum_matches_jax_bwd_bf16(piece):
+    V, D, B, L = 300, 64, 32, 16
+    table, ids, _, g = _inputs(V, D, B, L, False, V)
+    ids[:, 1] = V - 1                    # a row shared by every bag
+    gb = jnp.asarray(g).astype(jnp.bfloat16)
+    _, vjp = jax.vjp(lambda t: jax_op(t.astype(jnp.bfloat16),
+                                      jnp.asarray(ids), None, "sum", False),
+                     jnp.asarray(table))
+    want = np.asarray(vjp(gb)[0])
+    g16 = torch.from_numpy(np.array(gb.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = _plan_order_d_table(g16, _t(ids), None, "sum", V, piece,
+                              torch.bfloat16)
+    _bf16_close(got.numpy(), want)
+    assert torch.equal(got, got.to(torch.bfloat16).float())

@@ -372,4 +372,3 @@ def test_chip_smoke_embedding_bag_bound_counts_only_needed_bytes():
     assert fwd == (4 * 6 + 4 * 2 * D + 2 * 2 * D) / 1e3 * 1e3
     bwd, _ = cs.eb_bound(ids, D, V, True, peaks)
     assert bwd == (4 * 6 + 2 * 2 * D + 4 * V * D) / 1e3 * 1e3
-    assert cs.eb_atomic_ms(ids, D, peaks) == 8 * 3 * D / 1e3 * 1e3
