@@ -143,7 +143,7 @@ from repro_torch.launch.steps import (lm_decode_step,  # noqa: E402
                                       recsys_serve_step, recsys_train_step,
                                       top_k)
 from repro_torch.lifecycle.publish import (build_snapshot,  # noqa: E402
-                                           snapshot_health)
+                                           encode_corpus, snapshot_health)
 from repro_torch.models.lm import model as LM  # noqa: E402
 from repro_torch.models.recsys import models as R  # noqa: E402
 from repro_torch.optim.optimizers import rankgraph2_optimizer  # noqa: E402
@@ -158,6 +158,15 @@ P99_REPS = 8
 RQ_ROWS = 65_536             # rq_assign_corpus chunk on the main path
 QG_CLUSTERS = 250_000        # 5000 x 50 RQ clusters
 NEAR_TIE = 1e-4              # |d2 gap| <= NEAR_TIE * (1 + |d2|)
+RQ_OFFSET = 4133             # a chunk start that is not a multiple of 128
+RQ_EDGES = (                 # (what, rows, d, codebook sizes)
+    ("B 65,573", RQ_ROWS + 37, 256, (5000, 50)),
+    ("B 1", 1, 256, (5000, 50)),
+    ("n 129, 1 and 50", 4133, 256, (129, 1, 50)),
+    ("d 36, L 3", 8192, 36, (300, 77, 5)),
+    ("d 260, L 8", 8192, 260, (200, 100, 64, 50, 33, 17, 2, 1)),
+    (f"d {RQA.D_MAX}, the largest", 8192, RQA.D_MAX, (1000, 50)),
+)
 PPR_DEG = 32                 # max_deg_per_type: D2 = 64
 PPR_STARTS = 4096            # starts per walk chunk on the main path
 PPR_NODES = 1_310_720        # adjacency rows of the Phase 1 walk
@@ -251,12 +260,20 @@ def close(a: torch.Tensor, b: torch.Tensor, rel: float) -> bool:
 # Phase 1: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def phase1_rq_assign(g: torch.Generator, dev, peaks) -> dict:
-    d = CONFIG.d_embed
-    x = torch.randn((RQ_ROWS, d), generator=g, device=dev)
+def rq_inputs(g: torch.Generator, B: int, d: int, sizes, dev):
+    x = torch.randn((B, d), generator=g, device=dev)
     x = x / x.norm(dim=1, keepdim=True)
     books = [torch.randn((n, d), generator=g, device=dev) * (0.1 / (l + 1))
-             for l, n in enumerate(CONFIG.rq.codebook_sizes)]
+             for l, n in enumerate(sizes)]
+    return x, books
+
+
+def rq_held(x, books, what: str):
+    """Hold ``rq_assign`` against ``rq_assign_ref`` on (x, books): every
+    differing row a near-tie at its first differing layer, recon within
+    1e-6 on matching rows, and exact ties broken to the lowest index.
+    Returns the kernel's (codes, recon), near-tie rows, recon error and
+    tied rows."""
     ck, rk = RQA.rq_assign(x, books)
     cp, rp = rq_assign_ref(x, books)
     torch.cuda.synchronize()
@@ -271,37 +288,78 @@ def phase1_rq_assign(g: torch.Generator, dev, peaks) -> dict:
                 da = float(((r - C[a].double()) ** 2).sum())
                 db = float(((r - C[b].double()) ** 2).sum())
                 check(abs(da - db) <= NEAR_TIE * (1 + abs(db)),
-                      f"rq_assign row {row} layer {l}: code {a} (d2 {da}) "
-                      f"vs plain {b} (d2 {db}) is not a near-tie")
+                      f"rq_assign {what} row {row} layer {l}: code {a} "
+                      f"(d2 {da}) vs plain {b} (d2 {db}) is not a near-tie")
                 near += 1
                 break
             r = r - C[a].double()
     err = float((rk[same] - rp[same]).abs().max()) if same.any() else 0.0
-    check(err <= 1e-6, f"rq_assign recon differs on matching rows: {err}")
-    # exact ties: copy the most used layer-0 code to the last index; every
-    # row that picked it must keep the lower index
-    last = books[0].shape[0] - 1
-    top = int(torch.mode(ck[:, 0][ck[:, 0] < last]).values)
+    check(err <= 1e-6, f"rq_assign {what}: recon differs on matching rows: "
+          f"{err}")
+    # exact ties: in the first layer with two codes or more, copy the
+    # most chosen code to another index; every row that chose it must
+    # take the lower of the two, none the higher (the residual entering
+    # that layer is unchanged, so the two distances are bitwise equal)
+    l0 = next(l for l, C in enumerate(books) if C.shape[0] > 1)
+    last = books[l0].shape[0] - 1
+    top = int(torch.mode(ck[:, l0]).values)
+    other = last if top != last else 0
     tied = [b.clone() for b in books]
-    tied[0][last] = tied[0][top]
+    tied[l0][other] = tied[l0][top]
     ct, _ = RQA.rq_assign(x, tied)
-    n_tied = int((ct[:, 0] == top).sum())
-    check(n_tied > 0 and not bool((ct[:, 0] == last).any()),
-          "rq_assign does not break exact ties to the lowest index")
+    lo, hi = min(top, other), max(top, other)
+    n_tied = int((ct[:, l0] == lo).sum())
+    check(n_tied > 0 and not bool((ct[:, l0] == hi).any()),
+          f"rq_assign {what} does not break exact ties to the lowest index")
+    return ck, rk, near, err, n_tied
+
+
+def phase1_rq_assign(g: torch.Generator, dev, peaks) -> dict:
+    d = CONFIG.d_embed
+    sizes = CONFIG.rq.codebook_sizes
+    x, books = rq_inputs(g, RQ_ROWS, d, sizes, dev)
+    ck, rk, near, err, n_tied = rq_held(x, books, "main shape")
+    # bitwise: a chunk that starts mid-block, and a repeat
+    s = RQ_OFFSET
+    cs, rs = RQA.rq_assign(x[s:], books)
+    check(torch.equal(cs, ck[s:]) and torch.equal(rs, rk[s:]),
+          f"rq_assign(x[{s}:]) differs from rq_assign(x)[{s}:]")
+    c2, r2 = RQA.rq_assign(x, books)
+    check(torch.equal(c2, ck) and torch.equal(r2, rk),
+          "rq_assign does not repeat bitwise")
+    for what, B, de, sz in RQ_EDGES:
+        xe, be = rq_inputs(g, B, de, sz, dev)
+        _, _, ne, ee, te = rq_held(xe, be, what)
+        err = max(err, ee)
+        print(f"[phase1] rq_assign edge {what}: rows={B} d={de} books={sz} "
+              f"near_tie_rows={ne} recon_max_abs_err={ee:.3g} "
+              f"exact_tie_rows={te} (lowest index kept)")
     ms = time_ms(lambda: RQA.rq_assign(x, books), 10)
     plain_ms = time_ms(lambda: rq_assign_ref(x, books), 3)
-    n_sum = sum(CONFIG.rq.codebook_sizes)
+    # x @ C_0^T alone in cuBLAS SGEMM (TF32 off, PyTorch's default): what
+    # this card's FP32 GEMM reaches at the cross term's shape.  Not the
+    # same function (no norms, no argmin, no second layer), so it is no
+    # library_ms.
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sgemm_ms = time_ms(lambda: x @ books[0].T, 10)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    n_sum = sum(sizes)
     L = len(books)
     ops = 2.0 * RQ_ROWS * d * n_sum
     nbytes = 4.0 * (2 * RQ_ROWS * d + n_sum * d + RQ_ROWS * L)
     bound_ms = max(ops / peaks[0], nbytes / peaks[1]) * 1e3
     bound_by = "operations" if ops / peaks[0] >= nbytes / peaks[1] \
         else "bytes"
-    print(f"[phase1] rq_assign rows={RQ_ROWS} books={CONFIG.rq.codebook_sizes}"
+    tflops = ops / ms * 1e-9
+    print(f"[phase1] rq_assign rows={RQ_ROWS} books={sizes}"
           f" near_tie_rows={near} recon_max_abs_err={err:.3g} "
           f"exact_tie_rows={n_tied} (lowest index kept) "
+          f"offset_{s}_bitwise=True repeat_bitwise=True "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"bound_ms={bound_ms:.4f} ({bound_by})")
+          f"bound_ms={bound_ms:.4f} ({bound_by}) tflops={tflops:.2f} "
+          f"fp32_peak_share={tflops * 1e12 / peaks[0]:.3f} "
+          f"sgemm_ms={sgemm_ms:.4f} (x @ C_0.T, TF32 off)")
     return dict(name="rq_assign", route="cuda",
                 source="src/repro_torch/csrc/rq_assign.cu",
                 replaces="src/repro/kernels/rq_assign/rq_assign.py:74",
@@ -1157,6 +1215,10 @@ def phase2(seed: int, dev) -> dict:
     launches = common.launch_counts()        # main path ends here
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     secs["serve_p99_max"] = max(p99_s)
+    # build_snapshot's card share: its two corpus encodes (rq_assign), once
+    # more after the count, in CUDA-event time
+    encode_ms = time_ms(lambda: [encode_corpus(rq, e, cfg.rq.codebook_sizes)
+                                 for e in (user_emb, item_emb)], 3)
 
     # --- checks --------------------------------------------------------
     check(tuple(user_emb.shape) == (N_USERS, cfg.d_embed)
@@ -1235,6 +1297,9 @@ def phase2(seed: int, dev) -> dict:
           f"{[round(v, 5) for v in p99_s]}; serve_bulk batch={BULK_BATCH} "
           f"rows with a seed={filled:.4f}; store={store.stats()}")
     print(f"[phase2] snapshot_health={json.dumps(health)}")
+    print(f"[phase2] build_snapshot's encodes (rq_assign, "
+          f"{launches['rq_assign']} launches) {encode_ms:.4f} ms of "
+          f"{secs['build_snapshot'] * 1e3:.4f} ms")
     print(f"[phase2] embed card-bf16 vs cpu-f32 max_abs_err={emb_err:.4g}; "
           f"peak device memory {peak_gb:.3f} GB; launches={launches}")
     return launches
@@ -2146,6 +2211,16 @@ def main() -> int:
                 fn = line.split("for", 1)[1].strip()
             elif "registers" in line or "spill" in line:
                 print(f"[phase0] {kname} {fn}: {line.strip()}")
+    rq_lib = ctypes.CDLL(str(common.library_path("rq_assign")))
+    rq_lib.rq_assign_smem.restype = ctypes.c_size_t
+    for d in (CONFIG.d_embed, RQA.D_MAX):
+        check(rq_lib.rq_assign_smem(d) == RQA.smem_bytes(d),
+              f"rq_assign shared memory at d {d}: the wrapper's "
+              f"{RQA.smem_bytes(d)} is not the library's "
+              f"{rq_lib.rq_assign_smem(d)}")
+    print(f"[phase0] rq_assign dynamic shared memory bytes: "
+          f"d {CONFIG.d_embed}: {RQA.smem_bytes(CONFIG.d_embed)}, "
+          f"d {RQA.D_MAX} (the largest it takes): {RQA.smem_bytes(RQA.D_MAX)}")
     fa_lib = ctypes.CDLL(str(common.library_path("flash_attention")))
     for kname, dec in (("tile (fa_wgmma at D 64-256, fa_mma at D 32)",
                         0), ("decode (fa_decode)", 1)):

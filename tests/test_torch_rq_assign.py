@@ -7,6 +7,9 @@ deciding top-2 squared-distance gap is within 1e-4 * (1 + |d2|) (float
 rounding may legitimately flip such a near-tie; each is reported).
 Recon must match to 1e-5 (f32) on rows whose codes match.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +27,12 @@ torch.set_num_threads(2)
 
 NEAR_TIE = 1e-4
 SWEEP = [(64, 32, (16,)), (100, 64, (32, 8)), (256, 128, (500, 50)),
-         (33, 16, (7, 5, 3))]
+         (33, 16, (7, 5, 3)),
+         # the kernel's edges: one row, one code, d not a multiple of the
+         # k-tile, MAX_L layers, the largest d the kernel takes
+         (1, 36, (5, 1)), (40, 36, (9, 1, 3)),
+         (17, 260, (7, 6, 5, 4, 3, 2, 1, 1)),
+         (130, port_kernel.D_MAX, (129, 50))]
 
 
 def near_tie_mismatches(x, books, codes_a, codes_b) -> int:
@@ -114,3 +122,40 @@ def test_kernel_wrapper_takes_only_cuda_tensors():
     with pytest.raises(ValueError, match="cuda or cpu"):
         rq_assign(torch.zeros((4, 8), device="meta"),
                   [torch.zeros((3, 8), device="meta")])
+
+
+def test_kernel_constants_match_the_cuda_source():
+    src = (Path(port_kernel.__file__).resolve().parents[2] / "csrc"
+           / "rq_assign.cu").read_text()
+    defs = dict(re.findall(r"^#define (\w+) (\d+)", src, re.M))
+    assert (int(defs["BM"]), int(defs["BN"]), int(defs["BK"]),
+            int(defs["STAGES"]), int(defs["MAX_L"])) == (
+        port_kernel._BM, port_kernel._BN, port_kernel._BK,
+        port_kernel._STAGES, port_kernel.MAX_L)
+
+
+def test_shared_memory_plan_fits_at_the_main_width():
+    assert port_kernel.smem_bytes(256) <= port_kernel.SMEM_LIMIT == 232448
+
+
+def test_stated_d_limit_agrees_with_smem_bytes():
+    d_max = port_kernel.D_MAX
+    assert d_max % 4 == 0 and d_max >= 256
+    assert port_kernel.smem_bytes(d_max) <= port_kernel.SMEM_LIMIT
+    assert port_kernel.smem_bytes(d_max + 4) > port_kernel.SMEM_LIMIT
+    port_kernel.check_shape(d_max, port_kernel.MAX_L)
+    for d, L in ((d_max + 4, 1), (6, 1), (0, 1)):
+        with pytest.raises(ValueError, match=f"d <= {d_max}"):
+            port_kernel.check_shape(d, L)
+    for L in (0, port_kernel.MAX_L + 1):
+        with pytest.raises(ValueError, match="codebooks"):
+            port_kernel.check_shape(256, L)
+
+
+def test_scratch_holds_padded_transposes_and_norms():
+    # each layer: d x npad transposed codes plus npad norms, npad = n
+    # rounded up to the code tile
+    bn = port_kernel._BN
+    assert port_kernel.scratch_floats(256, (5000, 50)) == (
+        257 * (40 * bn) + 257 * bn)
+    assert port_kernel.scratch_floats(36, (1,)) == 37 * bn
