@@ -7,7 +7,9 @@ Phase 0 prints the card (``nvidia-smi`` name and power limit) and
 builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, one
 process per source, all at once.  Phase 1 holds each kernel against its
 plain PyTorch version on the card, at the shapes the main path gives it,
-and times both with CUDA events.
+and times both with CUDA events; ``ppr_walk`` also at its edge shapes
+(dangling starts, restart 1.0, one walker of one step, the largest
+trace, D2 100 and 8), each bitwise.
 
 Phase 2 runs the publish-and-serve path at the full width of the
 ``rankgraph2`` configuration (bf16 compute, d 256, 4 heads, hidden
@@ -24,9 +26,11 @@ items made with numpy: ``build_graph`` on the host, the PPR tables
 (ppr_walk kernel, 4,096 starts per launch), 20 train steps of 10,922
 edges per type (the fused_contrastive forward and backward kernels, 7
 of each per step), then ``embed_all`` and ``assign_codes`` (rq_assign).
-It checks the traces and tables against the numpy walker and top-k, the
-losses, that every parameter moved, the launch counts, one step's
-losses on the card against the CPU, and the embeddings.  In f32 it runs
+It re-runs the PPR stage piece by piece and prints where its time goes
+(host adjacency build, uniforms, copies, launches, top-k), and checks
+the traces and tables against the numpy walker and top-k, the losses,
+that every parameter moved, the launch counts, one step's losses on the
+card against the CPU, and the embeddings.  In f32 it runs
 four steps from the initial state on the card and on the CPU with the
 same batches and draws, which must agree step by step, and the main
 path's 20 steps again on the card, whose first step must agree with the
@@ -105,10 +109,10 @@ from repro_torch.core.graph_builder import EngagementLog  # noqa: E402
 from repro_torch.core.negatives import negative_draws  # noqa: E402
 from repro_torch.core.pipeline import run_pipeline  # noqa: E402
 from repro_torch.core.ppr import (_topk_from_counts,  # noqa: E402
-                                  _walk_device, _walk_numpy,
+                                  _topk_from_counts_device, _walk_numpy,
                                   adjacency_to_device,
                                   build_padded_hetero_adj,
-                                  global_visit_mass)
+                                  global_visit_mass, walk_uniforms)
 from repro_torch.core.rq_index import init_rq  # noqa: E402
 from repro_torch.core.serving import ClusterQueueStore  # noqa: E402
 from repro_torch.core.trainer import (FeatureStore, embed_all,  # noqa: E402
@@ -131,6 +135,8 @@ from repro_torch.kernels.fused_contrastive import (  # noqa: E402
 from repro_torch.kernels.fused_contrastive.ref import (  # noqa: E402
     bwd_ref, fwd_ref)
 from repro_torch.kernels.ppr_walk import ppr_walk as PW  # noqa: E402
+from repro_torch.kernels.ppr_walk.ops import (  # noqa: E402
+    ppr_walk as ppr_walk_op)
 from repro_torch.kernels.ppr_walk.ref import (  # noqa: E402
     last_valid_cols as ppr_last_valid_cols, ppr_walk_ref)
 from repro_torch.kernels.queue_gather import queue_gather as QG  # noqa: E402
@@ -171,6 +177,9 @@ PPR_DEG = 32                 # max_deg_per_type: D2 = 64
 PPR_STARTS = 4096            # starts per walk chunk on the main path
 PPR_NODES = 1_310_720        # adjacency rows of the Phase 1 walk
 BIG_NODES = (1 << 24) + 4096  # a walk over ids above 2^24
+PPR_EDGE_NODES = 65_536      # adjacency rows of the D2 100 and 8 walks
+PPR_BIG_TRACE_STARTS = 64    # starts of the largest-trace walk
+LEAD_CYCLES = 2_000_000      # time_ms(lead=True): about 1 ms of spinning
 CF_ROWS = SHAPES["train_batch"]["batch"] // 3   # edges per type: 10,922
 SLICE1 = ("rq_assign", "queue_gather")  # their launches: Phase 2's path
 P3_USERS, P3_ITEMS = 262_144, 65_536
@@ -225,15 +234,21 @@ def card_peaks(name: str):
     raise RuntimeError(f"no data-sheet peaks for {name!r}")
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, reps: int, lead: bool = False) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, after one
-    warm-up run."""
+    warm-up run.  The card is idle when the first event is recorded, so
+    the time includes what the host spends in ``fn`` before its first
+    launch; with ``lead`` the card first spins for about a millisecond
+    (``torch.cuda._sleep``), which hides that host time and leaves the
+    device's own."""
     fn()
     torch.cuda.synchronize()
     ts = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if lead:
+            torch.cuda._sleep(LEAD_CYCLES)
         a.record()
         fn()
         b.record()
@@ -470,9 +485,25 @@ def random_adjacency(g: torch.Generator, N: int, D2: int, dev, *,
 def ppr_walk_bytes(n: int, W: int, L: int) -> float:
     """Bytes the walk needs: the uniforms and starts read once, visited
     and counts written once, and per walker step one cum value and one
-    id of the walker's row."""
+    id of the walker's row.  A random 4-byte read moves at least a
+    32-byte sector, so no walk comes near this bound."""
     return float(4 * n * W * 2 * L + 4 * n + 2 * 4 * n * W * L
                  + 8 * n * W * L)
+
+
+def ppr_held(case: str, layout, nbrs, cum, last, starts, u,
+             restart: float):
+    """Hold the ``ppr_walk`` kernel on ``layout`` bitwise against
+    ``ppr_walk_ref`` on (nbrs, cum), counts summing to the trace length
+    in every row.  Returns the kernel's (visited, counts)."""
+    vk, ck = PW.ppr_walk(layout, starts, u, restart=restart)
+    vp, cp = ppr_walk_ref(nbrs, cum, starts, u, restart=restart, last=last)
+    torch.cuda.synchronize()
+    check(torch.equal(vk, vp) and torch.equal(ck, cp),
+          f"ppr_walk ({case}) differs from its plain version")
+    check(bool((ck.sum(dim=1) == u.shape[1] * u.shape[2] // 2).all()),
+          f"ppr_walk ({case}) counts do not sum to the trace length")
+    return vk, ck
 
 
 def phase1_ppr_walk(g: torch.Generator, dev, peaks) -> dict:
@@ -483,21 +514,23 @@ def phase1_ppr_walk(g: torch.Generator, dev, peaks) -> dict:
                         ("ids above 2^24", BIG_NODES, 1 << 24)):
         nbrs, cum = random_adjacency(g, N, D2, dev, lo=lo)
         last = ppr_last_valid_cols(cum)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        layout = PW.walk_layout(nbrs, cum, last)
+        b.record()
+        b.synchronize()
+        layout_ms = a.elapsed_time(b)
         starts = torch.randint(lo, N, (PPR_STARTS,), generator=g,
                                device=dev, dtype=torch.int32)
         u = torch.rand((PPR_STARTS, W, 2 * L), generator=g, device=dev)
-        vk, ck = PW.ppr_walk(nbrs, cum, last, starts, u, restart=restart)
-        vp, cp = ppr_walk_ref(nbrs, cum, starts, u, restart=restart,
-                              last=last)
-        torch.cuda.synchronize()
-        check(torch.equal(vk, vp) and torch.equal(ck, cp),
-              f"ppr_walk ({case}) differs from its plain version")
-        check(bool((ck.sum(dim=1) == W * L).all()),
-              f"ppr_walk ({case}) counts do not sum to the trace length")
+        vk, _ = ppr_held(case, layout, nbrs, cum, last, starts, u, restart)
         if lo:
             check(int(vk.min()) >= lo, "big-id walk left the top ids")
-        ms = time_ms(lambda: PW.ppr_walk(nbrs, cum, last, starts, u,
-                                         restart=restart), 20)
+        def walk():
+            return PW.ppr_walk(layout, starts, u, restart=restart)
+
+        ms, device_ms = time_ms(walk, 20), time_ms(walk, 20, lead=True)
         plain_ms = time_ms(lambda: ppr_walk_ref(
             nbrs, cum, starts, u, restart=restart, last=last), 3)
         nbytes = ppr_walk_bytes(PPR_STARTS, W, L)
@@ -507,10 +540,14 @@ def phase1_ppr_walk(g: torch.Generator, dev, peaks) -> dict:
         print(f"[phase1] ppr_walk {case}: N={N} D2={D2} starts="
               f"{PPR_STARTS} walks={W} len={L} bitwise_equal=True "
               f"max_id={int(vk.max())} share_away_from_start={moved:.4f} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound_ms:.5f} (bytes {nbytes:.0f})")
+              f"kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.5f} (bytes {nbytes:.0f}) "
+              f"walk_layout_ms={layout_ms:.4f} (once per adjacency)")
         out[case] = (ms, plain_ms, bound_ms)
-        del nbrs, cum, last
+        if not lo:
+            ppr_edges(g, dev, nbrs, cum, last, layout, starts, u)
+        del nbrs, cum, last, layout
         torch.cuda.empty_cache()
     ms, plain_ms, bound_ms = out["1.3M nodes"]
     return dict(name="ppr_walk", route="cuda",
@@ -518,6 +555,53 @@ def phase1_ppr_walk(g: torch.Generator, dev, peaks) -> dict:
                 replaces="src/repro/kernels/ppr_walk/ppr_walk.py:106",
                 max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by="bytes", library_ms=None)
+
+
+def ppr_edges(g: torch.Generator, dev, nbrs, cum, last, layout, starts,
+              u) -> None:
+    """``ppr_walk`` at its edge shapes, each bitwise against the plain
+    version: on the 1.3M-node adjacency, starts on dangling rows, restart
+    1.0 (timed: every step goes home and reads no adjacency, so this is
+    the walk's floor of uniforms, hash count and writes), one walker of
+    one step, and the largest trace (1,024 walkers of 12 steps); then
+    widths D2 100 and 8 on adjacencies of their own."""
+    W, L, restart = CONFIG.ppr_walks, CONFIG.ppr_len, CONFIG.ppr_restart
+    n = PPR_STARTS
+    dang = torch.nonzero(cum[:, -1] <= 0).flatten()[:n].to(torch.int32)
+    vk, ck = ppr_held("dangling starts", layout, nbrs, cum, last, dang,
+                      u[:len(dang)], restart)
+    check(bool((vk == dang[:, None]).all()) and bool((ck[:, 0] == W * L)
+                                                      .all()),
+          "ppr_walk from a dangling start left it")
+    vk, ck = ppr_held("restart 1.0", layout, nbrs, cum, last, starts, u,
+                      1.0)
+    check(bool((vk == starts[:, None]).all()), "restart 1.0 left home")
+    def home():
+        return PW.ppr_walk(layout, starts, u, restart=1.0)
+
+    home_ms, home_device_ms = time_ms(home, 20), time_ms(home, 20, lead=True)
+    u1 = torch.rand((n, 1, 2), generator=g, device=dev)
+    ppr_held("W 1 L 1", layout, nbrs, cum, last, starts, u1, restart)
+    big = torch.rand((PPR_BIG_TRACE_STARTS, PW.MAX_WALKS, 2 * 12),
+                     generator=g, device=dev)
+    ppr_held("W 1024 L 12", layout, nbrs, cum, last,
+             starts[:PPR_BIG_TRACE_STARTS], big, restart)
+    cases = [f"dangling starts ({len(dang)})", "restart 1.0", "W 1 L 1",
+             f"W {PW.MAX_WALKS} L 12 (S {PW.MAX_WALKS * 12}, "
+             f"{PW.smem_bytes(PW.MAX_WALKS * 12)} B shared)"]
+    del big
+    for D2 in (100, 8):
+        nb2, cum2 = random_adjacency(g, PPR_EDGE_NODES, D2, dev)
+        last2 = ppr_last_valid_cols(cum2)
+        st2 = torch.randint(0, PPR_EDGE_NODES, (n,), generator=g,
+                            device=dev, dtype=torch.int32)
+        ppr_held(f"D2 {D2}", PW.walk_layout(nb2, cum2, last2), nb2, cum2,
+                 last2, st2, u, restart)
+        cases.append(f"D2 {D2} (N {PPR_EDGE_NODES})")
+    print(f"[phase1] ppr_walk edge shapes bitwise equal to the plain "
+          f"version, counts summing to S: {'; '.join(cases)}; restart 1.0 "
+          f"at the main shape (no adjacency read) kernel_ms={home_ms:.4f} "
+          f"device_ms={home_device_ms:.4f}")
 
 
 def contrastive_bound(B: int, N: int, d: int, esize: int, backward: bool,
@@ -1437,6 +1521,89 @@ def card_vs_cpu_losses(res, world, seed: int, dev) -> dict:
     return out
 
 
+def ppr_split(g, cfg, seed: int, dev):
+    """The ``ppr`` stage of ``run_pipeline`` (``precompute_ppr_neighbors``
+    with the device backend) re-run piece by piece, a sync after each:
+    the host adjacency build, its copy to the card (with ``last`` and the
+    kernel's ``walk_layout``, also timed alone by CUDA events), the
+    host ``walk_uniforms`` of every chunk, the chunks' host-to-device
+    copies, the ``ppr_walk`` launches (device time: CUDA events around
+    each, the card kept busy ahead so that the op's host time, reported
+    beside it, does not count), and the top-k (global visit mass, device
+    top-k, tables to the host).  Returns the host adjacency, the split
+    (seconds; the launches and the layout in ms; the tables under
+    "users" and "items"), visited and counts."""
+    W, L = cfg.ppr_walks, cfg.ppr_len
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    adj, adj_s = synced(lambda: build_padded_hetero_adj(g, PPR_DEG))
+    dadj, to_card_s = synced(lambda: adjacency_to_device(adj, dev))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    PW.walk_layout(dadj.nbrs, dadj.cum, dadj.last)
+    b.record()
+    b.synchronize()
+    layout_ms = a.elapsed_time(b)
+    n = adj.n_nodes
+    starts = np.arange(n, dtype=np.int64)
+    vis = torch.empty((n, W * L), dtype=torch.int32, device=dev)
+    cnt = torch.empty_like(vis)
+    rows = max(1, (1 << 18) // W)           # _walk_device's chunk
+    uni_s = copy_s = call_s = 0.0
+    events = []
+    for lo in range(0, n, rows):
+        hi = min(n, lo + rows)
+        u, s = synced(lambda: walk_uniforms(seed, starts[lo:hi], W, L,
+                                            adj.n_users))
+        uni_s += s
+        (u, st), s = synced(lambda: (
+            torch.from_numpy(u).to(dev),
+            torch.from_numpy(starts[lo:hi].astype(np.int32)).to(dev)))
+        copy_s += s
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        torch.cuda._sleep(LEAD_CYCLES)      # hides the host's call time
+        ev[0].record()
+        t = time.perf_counter()
+        v, c = ppr_walk_op(dadj.nbrs, dadj.cum, st, u,
+                           restart=cfg.ppr_restart, last=dadj.last,
+                           layout=dadj.layout)
+        call_s += time.perf_counter() - t
+        ev[1].record()
+        events.append(ev)
+        vis[lo:hi], cnt[lo:hi] = v, c
+    torch.cuda.synchronize()
+    launches_ms = sum(x.elapsed_time(y) for x, y in events)
+
+    def topk():
+        glob = torch.bincount(vis.reshape(-1).to(torch.int64), minlength=n
+                              ).to(torch.float64).cpu().numpy()
+        u_, i_ = _topk_from_counts_device(
+            vis, cnt, torch.from_numpy(starts).to(dev), cfg.k_imp,
+            g.n_users, 0.5, glob)
+        return u_.cpu().numpy(), i_.cpu().numpy()
+
+    (users, items), topk_s = synced(topk)
+    split = {"adjacency_host_s": round(adj_s, 4),
+             "adjacency_to_card_s": round(to_card_s, 4),
+             "walk_layout_ms": round(layout_ms, 4),
+             "walk_uniforms_host_s": round(uni_s, 4),
+             "uniforms_to_card_s": round(copy_s, 4),
+             "chunks": len(events),
+             "launches_ms": round(launches_ms, 4),
+             "op_calls_host_s": round(call_s, 4),
+             "topk_s": round(topk_s, 4),
+             "users": users, "items": items}
+    return adj, split, vis, cnt
+
+
 def phase3(seed: int, dev) -> dict:
     cfg = CONFIG
     t = time.perf_counter()
@@ -1494,13 +1661,14 @@ def phase3(seed: int, dev) -> dict:
     check(int(res.user_codes.min()) >= 0
           and int(res.user_codes.max()) < n_cl, "codes out of range")
 
-    # traces of 4,096 starts against the numpy walker; the full tables
-    # against the numpy top-k on the same visits and counts
-    adj = build_padded_hetero_adj(g, PPR_DEG)
+    # the ppr stage again, piece by piece (split below); its traces of
+    # 4,096 starts against the numpy walker, its device tables and the
+    # numpy top-k on the same visits and counts against the stage's
+    adj, split, vis, cnt = ppr_split(g, cfg, seed, dev)
+    check(np.array_equal(split.pop("users"), res.tables.user_nbrs)
+          and np.array_equal(split.pop("items"), res.tables.item_nbrs),
+          "the re-walk's device top-k differs from the ppr stage's tables")
     starts = np.arange(n_nodes, dtype=np.int64)
-    vis, cnt = _walk_device(adjacency_to_device(adj, dev), starts,
-                            n_walks=cfg.ppr_walks, walk_len=cfg.ppr_len,
-                            restart=cfg.ppr_restart, seed=seed)
     vis = vis.cpu().numpy().astype(np.int64)
     cnt = cnt.cpu().numpy().astype(np.int64)
     rng = np.random.default_rng(seed + 3)
@@ -1594,6 +1762,11 @@ def phase3(seed: int, dev) -> dict:
               f"{[round(m['grad_norm'], 3) for m in h]}")
     print(f"[phase3] step 0 bf16 vs f32: worst gap {w0:.3f} of the "
           f"tolerance")
+    split_s = sum(v for k, v in split.items() if k.endswith("_s"))
+    print(f"[phase3] ppr split (the stage's pieces, each synced; host "
+          f"seconds, the launches' device ms): {json.dumps(split)}; sum "
+          f"{split_s + split['launches_ms'] / 1e3:.4f} s against the "
+          f"stage's ppr {res.seconds['ppr']:.4f} s")
     print(f"[phase3] traces of {len(sample)} starts bitwise equal to the "
           f"numpy walker; tables equal to the numpy top-k; rows with a "
           f"user neighbour {filled:.4f}; peak device memory {peak_gb:.3f} "
@@ -2221,6 +2394,17 @@ def main() -> int:
     print(f"[phase0] rq_assign dynamic shared memory bytes: "
           f"d {CONFIG.d_embed}: {RQA.smem_bytes(CONFIG.d_embed)}, "
           f"d {RQA.D_MAX} (the largest it takes): {RQA.smem_bytes(RQA.D_MAX)}")
+    pw_lib = ctypes.CDLL(str(common.library_path("ppr_walk")))
+    pw_lib.ppr_walk_smem.restype = ctypes.c_size_t
+    traces = (CONFIG.ppr_walks * CONFIG.ppr_len, PW.MAX_TRACE)
+    for S in traces:
+        check(pw_lib.ppr_walk_smem(S) == PW.smem_bytes(S),
+              f"ppr_walk shared memory at S {S}: the wrapper's "
+              f"{PW.smem_bytes(S)} is not the library's "
+              f"{pw_lib.ppr_walk_smem(S)}")
+    print("[phase0] ppr_walk dynamic shared memory bytes: " + ", ".join(
+        f"S {S}: {PW.smem_bytes(S)}" for S in traces)
+        + " (the main path's trace, the largest it takes)")
     fa_lib = ctypes.CDLL(str(common.library_path("flash_attention")))
     for kname, dec in (("tile (fa_wgmma at D 64-256, fa_mma at D 32)",
                         0), ("decode (fa_decode)", 1)):

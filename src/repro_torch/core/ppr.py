@@ -31,6 +31,7 @@ from repro_torch.core.graph_builder import (EdgeSet, HeteroGraph,
                                             padded_adjacency)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.ppr_walk.ops import ppr_walk
+from repro_torch.kernels.ppr_walk.ppr_walk import WalkLayout, walk_layout
 from repro_torch.kernels.ppr_walk.ref import last_valid_cols as _last_dev
 
 
@@ -188,11 +189,13 @@ def _walk_numpy(adj: PaddedHeteroAdj, starts: np.ndarray, *, n_walks: int,
 
 @dataclasses.dataclass
 class DeviceAdj:
-    """A ``PaddedHeteroAdj`` on a device: int32 ids, f32 cum, and the
-    per-row last positive column the walk clamps to."""
+    """A ``PaddedHeteroAdj`` on a device: int32 ids, f32 cum, the per-row
+    last positive column the walk clamps to, and the kernel's
+    ``walk_layout`` of them, built once for every chunk's walk."""
     nbrs: torch.Tensor
     cum: torch.Tensor
     last: torch.Tensor
+    layout: WalkLayout
     n_users: int
     n_items: int
 
@@ -205,7 +208,9 @@ def adjacency_to_device(adj: PaddedHeteroAdj, device=None) -> DeviceAdj:
     dev = resolve_device(device)
     nbrs = torch.as_tensor(adj.nbrs.astype(np.int32)).to(dev)
     cum = torch.as_tensor(np.asarray(adj.cum, np.float32)).to(dev)
-    return DeviceAdj(nbrs, cum, _last_dev(cum), adj.n_users, adj.n_items)
+    last = _last_dev(cum)
+    return DeviceAdj(nbrs, cum, last, walk_layout(nbrs, cum, last),
+                     adj.n_users, adj.n_items)
 
 
 def _walk_device(adj: DeviceAdj, starts: np.ndarray, *, n_walks: int,
@@ -230,7 +235,8 @@ def _walk_device(adj: DeviceAdj, starts: np.ndarray, *, n_walks: int,
                                            walk_len, adj.n_users)).to(dev)
         st = torch.from_numpy(starts[lo:hi].astype(np.int32)).to(dev)
         visited[lo:hi], counts[lo:hi] = ppr_walk(
-            adj.nbrs, adj.cum, st, u, restart=restart, last=adj.last)
+            adj.nbrs, adj.cum, st, u, restart=restart, last=adj.last,
+            layout=adj.layout)
     return visited, counts
 
 
