@@ -2,14 +2,20 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) once on one GPU.
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --selection-sweep STEPS   # Phase 3's RQ check
 
 Phase 0 prints the card (``nvidia-smi`` name and power limit) and
 builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, one
 process per source, all at once.  Phase 1 holds each kernel against its
 plain PyTorch version on the card, at the shapes the main path gives it,
-and times both with CUDA events; ``ppr_walk`` also at its edge shapes
-(dangling starts, restart 1.0, one walker of one step, the largest
-trace, D2 100 and 8), each bitwise.
+and times both with CUDA events (for ``ppr_walk``, ``queue_gather`` and
+the decode merge also the device's own time, with the card kept busy
+before the first event); ``ppr_walk`` also at its edge shapes (dangling
+starts, restart 1.0, one walker of one step, the largest trace, D2 100
+and 8) and ``queue_gather`` at its own (empty rings, no seed in the
+recency window, a window that needs whole rings, one repeated item, the
+largest R and k, K 15 and 1, unknown clusters, ids above 2^24, a
+repeat), each bitwise.
 
 Phase 2 runs the publish-and-serve path at the full width of the
 ``rankgraph2`` configuration (bf16 compute, d 256, 4 heads, hidden
@@ -18,7 +24,9 @@ Phase 2 runs the publish-and-serve path at the full width of the
 ``embed_all`` for both node types, ``build_snapshot`` (rq_assign
 kernel), a ``ClusterQueueStore`` fed 8,388,608 events over two hours,
 then ``serve_batch`` (queue_gather kernel) for 8 batches of 512 requests
-and one of 262,144, and checks what comes out.
+and one of 262,144, and checks what comes out.  It then serves the bulk
+batch once more piece by piece, each piece synced, and prints where its
+host time goes.
 
 Phase 3 runs the construct-and-train path, ``run_pipeline``, at the same
 width on a topic-clustered one-day log of 262,144 users and 65,536
@@ -30,7 +38,9 @@ It re-runs the PPR stage piece by piece and prints where its time goes
 (host adjacency build, uniforms, copies, launches, top-k), and checks
 the traces and tables against the numpy walker and top-k, the losses,
 that every parameter moved, the launch counts, one step's losses on the
-card against the CPU, and the embeddings.  In f32 it runs
+card against the CPU (the CPU on the card's RQ selections, which bf16
+rounding flips for some rows in some trained states), and the
+embeddings.  In f32 it runs
 four steps from the initial state on the card and on the CPU with the
 same batches and draws, which must agree step by step, and the main
 path's 20 steps again on the card, whose first step must agree with the
@@ -140,6 +150,7 @@ from repro_torch.kernels.ppr_walk.ops import (  # noqa: E402
 from repro_torch.kernels.ppr_walk.ref import (  # noqa: E402
     last_valid_cols as ppr_last_valid_cols, ppr_walk_ref)
 from repro_torch.kernels.queue_gather import queue_gather as QG  # noqa: E402
+from repro_torch.kernels.queue_gather import ops as QG_OPS  # noqa: E402
 from repro_torch.kernels.queue_gather.ref import (  # noqa: E402
     dup_of_earlier, queue_gather_ref, ring_window)
 from repro_torch.kernels.rq_assign import rq_assign as RQA  # noqa: E402
@@ -404,6 +415,20 @@ def queue_gather_bytes(items, times, cursor, clusters, i2i, cutoff,
                  + B * (8 + 4 * (R + k)))
 
 
+def qg_held(case: str, items, times, cursor, cl, i2i, cutoff: float,
+            R: int, k: int):
+    """Hold ``queue_gather`` on these inputs bitwise against
+    ``queue_gather_ref``.  Returns the kernel's (seeds, union)."""
+    sk, uk = QG.queue_gather(items, times, cursor, cl, i2i, cutoff=cutoff,
+                             n_recent=R, k=k)
+    sp, up = queue_gather_ref(items, times, cursor, cl, i2i, cutoff=cutoff,
+                              n_recent=R, k=k)
+    torch.cuda.synchronize()
+    check(torch.equal(sk, sp) and torch.equal(uk, up),
+          f"queue_gather ({case}) differs from its plain version")
+    return sk, uk
+
+
 def phase1_queue_gather(g: torch.Generator, dev, peaks) -> dict:
     C, Q, N, K = QG_CLUSTERS, QUEUE_LEN, N_ITEMS, I2I_K
     # half the rings draw from a ~300-item window (duplicate-heavy), half
@@ -415,6 +440,7 @@ def phase1_queue_gather(g: torch.Generator, dev, peaks) -> dict:
     items = torch.where(dup_heavy, narrow, wide)
     items = torch.where(torch.rand((C, Q), generator=g, device=dev) < 0.05,
                         -1, items).to(torch.int32)
+    del base, narrow, wide
     times = torch.rand((C, Q), generator=g, device=dev) * SPAN_S
     cursor = torch.randint(0, 3 * Q, (C,), generator=g, device=dev,
                            dtype=torch.int32)
@@ -426,35 +452,95 @@ def phase1_queue_gather(g: torch.Generator, dev, peaks) -> dict:
         cl = torch.randint(0, C, (B,), generator=g, device=dev,
                            dtype=torch.int32)
         cl[:: 97] = -1                                  # unknown users
-        sk, uk = QG.queue_gather(items, times, cursor, cl, i2i,
-                                 cutoff=cutoff, n_recent=N_RECENT, k=K_UNION)
-        sp, up = queue_gather_ref(items, times, cursor, cl, i2i,
-                                  cutoff=cutoff, n_recent=N_RECENT,
-                                  k=K_UNION)
-        torch.cuda.synchronize()
-        err = max(int((sk - sp).abs().max()), int((uk - up).abs().max()))
-        check(torch.equal(sk, sp) and torch.equal(uk, up),
-              f"queue_gather differs from its plain version at B={B}")
-        ms = time_ms(lambda: QG.queue_gather(
-            items, times, cursor, cl, i2i, cutoff=cutoff,
-            n_recent=N_RECENT, k=K_UNION), 20)
+        sk, uk = qg_held(f"B {B}", items, times, cursor, cl, i2i, cutoff,
+                         N_RECENT, K_UNION)
+        def run():
+            return QG.queue_gather(items, times, cursor, cl, i2i,
+                                   cutoff=cutoff, n_recent=N_RECENT,
+                                   k=K_UNION)
+
+        ms, device_ms = time_ms(run, 20), time_ms(run, 20, lead=True)
         plain_ms = time_ms(lambda: queue_gather_ref(
             items, times, cursor, cl, i2i, cutoff=cutoff,
             n_recent=N_RECENT, k=K_UNION), 3)
         nbytes = queue_gather_bytes(items, times, cursor, cl, i2i, cutoff,
                                     N_RECENT, K_UNION)
         bound_ms = nbytes / peaks[1] * 1e3
+        rpw, blocks = QG.launch_plan(
+            B, torch.cuda.get_device_properties(dev).multi_processor_count)
         print(f"[phase1] queue_gather C={C} Q={Q} B={B} R={N_RECENT} "
-              f"k={K_UNION} K={K} bitwise_equal=True kernel_ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} (bytes "
-              f"{nbytes:.0f})")
-        out[B] = (err, ms, plain_ms, bound_ms)
+              f"k={K_UNION} K={K} requests_per_warp={rpw} blocks={blocks} "
+              f"bitwise_equal=True kernel_ms={ms:.4f} "
+              f"device_ms={device_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.5f} (bytes {nbytes:.0f}; "
+              f"{nbytes / 1e6 / device_ms:.1f} GB/s of device time)")
+        out[B] = (0, ms, plain_ms, bound_ms)
+        if B == BULK_BATCH:
+            s2, u2 = run()
+            check(torch.equal(s2, sk) and torch.equal(u2, uk),
+                  "queue_gather does not repeat bitwise")
+    qg_edges(g, dev, items, times, cursor, i2i, cutoff)
     err, ms, plain_ms, bound_ms = out[BULK_BATCH]
     return dict(name="queue_gather", route="cuda",
                 source="src/repro_torch/csrc/queue_gather.cu",
                 replaces="src/repro/kernels/queue_gather/queue_gather.py:134",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+
+
+def qg_edges(g: torch.Generator, dev, items, times, cursor, i2i,
+             cutoff: float) -> None:
+    """``queue_gather`` at its edge shapes, each bitwise against the
+    plain version at B 4,096 on the Phase 1 rings: every ring empty,
+    rings of 255 (row starts off 16 bytes), a cutoff above every time, a recency window that passes 3% (the scan
+    reads whole rings), rings of one repeated item, the largest R, k and
+    a wider table (R 32, k 256, K 64), K 15 and K 1 (scalar row loads),
+    R 1 k 1, every cluster unknown, and ids above 2^24 in the rings and
+    the table (a table of 2^24 + 262,144 rows)."""
+    C, Q = items.shape
+    N = i2i.shape[0]
+    B, R, k = 4096, N_RECENT, K_UNION
+    cl = torch.randint(0, C, (B,), generator=g, device=dev,
+                       dtype=torch.int32)
+    def table(K, n=N, lo=0):
+        t = torch.randint(lo, lo + N, (n, K), generator=g, device=dev,
+                          dtype=torch.int32)
+        return torch.where(torch.rand((n, K), generator=g, device=dev)
+                           < 0.05, -1, t)
+
+    held = []
+    def hold(case, *a):
+        sk, uk = qg_held(case, *a)
+        held.append(f"{case} (seeds {float((sk >= 0).float().mean()):.3f}, "
+                    f"union {float((uk >= 0).float().mean()):.3f} filled)")
+
+    hold("every ring empty", items, times, torch.zeros_like(cursor), cl,
+         i2i, cutoff, R, k)
+    hold("Q 255", items[:, 1:].contiguous(),
+         times[:, 1:].contiguous(), cursor, cl, i2i, cutoff, R, k)
+    hold("cutoff above every time", items, times, cursor, cl, i2i,
+         SPAN_S + 1.0, R, k)
+    hold("3% window", items, times, cursor, cl, i2i, SPAN_S * 0.97, R, k)
+    hold("one repeated item", torch.full_like(items, 7), times, cursor, cl,
+         i2i, cutoff, R, k)
+    hold("R 32 k 256 K 64", items, times, cursor, cl, table(64), cutoff,
+         QG.MAX_R, QG.MAX_K)
+    hold("K 15", items, times, cursor, cl, table(15), cutoff, R, k)
+    hold("K 1", items, times, cursor, cl, table(1), cutoff, R, k)
+    hold("R 1 k 1", items, times, cursor, cl, i2i, cutoff, 1, 1)
+    off = torch.randint(0, 1 << 20, (B,), generator=g, device=dev,
+                        dtype=torch.int32)
+    unknown = torch.where(off % 2 == 0, -1 - off, C + off)
+    hold("every cluster -1 or >= C", items, times, cursor, unknown, i2i,
+         cutoff, R, k)
+    big = table(I2I_K, n=BIG_ID + N, lo=BIG_ID)
+    hold("ids above 2^24", torch.where(items >= 0, items + BIG_ID, -1),
+         times, cursor, cl, big, cutoff, R, k)
+    del big
+    torch.cuda.empty_cache()
+    print(f"[phase1] queue_gather edge shapes (B {B}) bitwise equal to the "
+          f"plain version: {'; '.join(held)}; "
+          f"B {BULK_BATCH} repeated bitwise")
 
 
 def random_adjacency(g: torch.Generator, N: int, D2: int, dev, *,
@@ -1151,15 +1237,19 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
                   f"flash_attention_merge (f32) at {name} off merge_ref")
             p_ms = time_ms(lambda: FA.flash_attention_partials(
                 q, k, v, splits=splits, **kw), reps)
-            m_ms = time_ms(lambda: FA.flash_attention_merge(
-                *part, n_heads=Hq, dtype=bf16), reps)
+            def merge():
+                return FA.flash_attention_merge(*part, n_heads=Hq,
+                                                dtype=bf16)
+
+            m_ms, m_dev = time_ms(merge, reps), time_ms(merge, reps, lead=True)
             m_plain = time_ms(lambda: merge_ref(*part, n_heads=Hq,
                                                 dtype=bf16), reps)
             m_bytes = 4.0 * sum(p.numel() for p in part) + 2.0 * q.numel()
             rows[f"merge_{name}"] = (float((m32 - m_want).abs().max()), m_ms,
                                      m_plain, m_bytes / peaks[1] * 1e3)
             extra = (f" splits={splits}: partials_ms={p_ms:.4f} merge_ms="
-                     f"{m_ms:.4f} (merge max_abs_err {m_err:.3g}, plain "
+                     f"{m_ms:.4f} merge_device_ms={m_dev:.4f} (merge "
+                     f"max_abs_err {m_err:.3g}, plain "
                      f"{m_plain:.4f} ms)")
         rows[name] = (err, ms, plain_ms, bound_ms, by, lib_ms)
         print(f"[phase1] {kernel} {name}: q {tuple(q.shape)} k/v "
@@ -1237,6 +1327,46 @@ def make_world(seed: int, n_users: int, n_items: int, k_imp: int):
     return tables, user_feat, item_feat
 
 
+def serve_split(store, users, now: float, i2i) -> tuple:
+    """``serve_batch``'s pieces for one batch, each synced: host
+    ``clusters_of``, the cluster ids masked and cast to int32 on the host,
+    their copy to the card, the ``queue_gather`` op (CUDA-event time, the
+    wrapper's host time included, and host time), the ``.cpu()`` of seeds
+    and union, and their int64 cast.  Returns (seconds by piece, kernel
+    ms, seeds, union)."""
+    sec = {}
+    t = time.perf_counter()
+    cl, known = store.clusters_of(users)
+    sec["clusters_of"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cl32 = np.where(known, cl, -1).astype(np.int32)
+    sec["mask_int32"] = time.perf_counter() - t
+    t = time.perf_counter()
+    cl_t = torch.as_tensor(cl32).to(store.device)
+    torch.cuda.synchronize()
+    sec["ids_to_card"] = time.perf_counter() - t
+    st = store._state
+    i2i_t = store._i2i_device(i2i)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    a.record()
+    s, u = QG_OPS.queue_gather(st["items"], st["times"], st["total"], cl_t,
+                               i2i_t, cutoff=store.rel_cutoff(now),
+                               n_recent=N_RECENT, k=K_UNION)
+    b.record()
+    b.synchronize()
+    sec["queue_gather"] = time.perf_counter() - t
+    kernel_ms = a.elapsed_time(b)
+    t = time.perf_counter()
+    s, u = s.cpu().numpy(), u.cpu().numpy()
+    sec["to_host"] = time.perf_counter() - t
+    t = time.perf_counter()
+    s, u = s.astype(np.int64), u.astype(np.int64)
+    sec["int64_cast"] = time.perf_counter() - t
+    return sec, kernel_ms, s, u
+
+
 def phase2(seed: int, dev) -> dict:
     cfg = CONFIG
     secs = {}
@@ -1303,6 +1433,11 @@ def phase2(seed: int, dev) -> dict:
     # more after the count, in CUDA-event time
     encode_ms = time_ms(lambda: [encode_corpus(rq, e, cfg.rq.codebook_sizes)
                                  for e in (user_emb, item_emb)], 3)
+    # serve_bulk's pieces: the bulk batch once more, each piece synced
+    split, split_kernel_ms, s_split, u_split = serve_split(
+        store, users, now, snap.i2i)
+    check(np.array_equal(s_split, s) and np.array_equal(u_split, u),
+          "serve split: the re-served bulk batch differs")
 
     # --- checks --------------------------------------------------------
     check(tuple(user_emb.shape) == (N_USERS, cfg.d_embed)
@@ -1380,6 +1515,13 @@ def phase2(seed: int, dev) -> dict:
     print(f"[phase2] serve_p99 batch={P99_BATCH} seconds per batch="
           f"{[round(v, 5) for v in p99_s]}; serve_bulk batch={BULK_BATCH} "
           f"rows with a seed={filled:.4f}; store={store.stats()}")
+    print(f"[phase2] serve split (batch {BULK_BATCH}, host seconds, each "
+          f"piece synced): "
+          f"{json.dumps({k_: round(v, 6) for k_, v in split.items()})}; "
+          f"queue_gather "
+          f"{split_kernel_ms:.4f} ms in CUDA events; pieces sum "
+          f"{sum(split.values()):.4f} s of serve_bulk's "
+          f"{secs['serve_bulk']:.4f} s")
     print(f"[phase2] snapshot_health={json.dumps(health)}")
     print(f"[phase2] build_snapshot's encodes (rq_assign, "
           f"{launches['rq_assign']} launches) {encode_ms:.4f} ms of "
@@ -1492,7 +1634,14 @@ def f32_gap(a: dict, b: dict) -> float:
 def card_vs_cpu_losses(res, world, seed: int, dev) -> dict:
     """One step's task losses on the card (bf16, kernels) and on the CPU
     (f32, plain versions) from the same trained state, batch and
-    negative draws, at CHECK_ROWS edges per type."""
+    negative draws, at CHECK_ROWS edges per type.  The CPU takes the
+    card's RQ selections (``rq_codes``): the biased selection (Eq. 13)
+    is an argmax of ``p_soft / phat``, and in some trained states bf16
+    rounding of the embeddings flips it for up to a fifth of the rows,
+    so that ``rq_contrastive`` compares other reconstructions
+    (``--selection-sweep`` prints how often and how far).  Under
+    "cpu_own" are the CPU's losses with its own selections, and under
+    "rows_own" the share of endpoint rows whose selections differ."""
     cfg = CONFIG
     st = res.state
     kw = dict(k_train=cfg.k_train, g=res.graph)
@@ -1508,17 +1657,65 @@ def card_vs_cpu_losses(res, world, seed: int, dev) -> dict:
         st.rq_state, hists=tuple(h.cpu() for h in st.rq_state.hists),
         usage=tuple(u.cpu() for u in st.rq_state.usage))
     cpu_params = copy.deepcopy(st.params).cpu()
-    out = {}
+    out, codes = {}, None
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
     with torch.no_grad():
-        for d, params, c, pool, rq in (
-                (dev, st.params, cfg, st.pool, st.rq_state),
-                ("cpu", cpu_params, dataclasses.replace(cfg, dtype="float32"),
-                 cpu_pool, cpu_rq)):
-            tasks, _ = forward_losses(
+        for key, d, params, c, pool, rq, pin in (
+                (str(dev), dev, st.params, cfg, st.pool, st.rq_state, False),
+                ("cpu", "cpu", cpu_params, cfg32, cpu_pool, cpu_rq, True),
+                ("cpu_own", "cpu", cpu_params, cfg32, cpu_pool, cpu_rq,
+                 False)):
+            tasks, aux = forward_losses(
                 params, c, batch[d], pool, rq, draws=draws,
+                rq_codes=codes.cpu() if pin else None,
                 features=FeatureStore(ds[d].user_feat, ds[d].item_feat))
-            out[str(d)] = {k: float(v) for k, v in tasks.items()}
+            out[key] = {k: float(v) for k, v in tasks.items()}
+            if codes is None:
+                codes = aux["codes"]
+            elif not pin:
+                out["rows_own"] = float(
+                    (aux["codes"] != codes.cpu()).any(dim=1)
+                    .to(torch.float32).mean())
     return out
+
+
+def selection_sweep(seed: int, dev, steps: int) -> None:
+    """Phase 3's ``run_pipeline``, then ``steps`` more train steps; at
+    each of the ``steps + 1`` states ``card_vs_cpu_losses`` and the worst
+    gap over the tasks (of Phase 3's tolerance) with the CPU on the
+    card's RQ selections, as Phase 3 holds it, and on its own, beside
+    the share of rows whose selections differ."""
+    cfg = CONFIG
+    world = make_log_world(seed)
+    res = run_pipeline(world, cfg, steps=P3_STEPS, batch_per_type=CF_ROWS,
+                       pool_size=P3_POOL, seed=seed, device=dev)
+    ds = EdgeDataset(res.tables, world.user_feat, world.item_feat,
+                     k_train=cfg.k_train, device=dev, g=res.graph)
+    step_fn = make_train_step(cfg, rankgraph2_optimizer(),
+                              features=FeatureStore(ds.user_feat,
+                                                    ds.item_feat))
+    per_type = {et: CF_ROWS for et in ("uu", "ui", "ii")}
+    over = {"pinned": 0, "own": 0}
+    for t in range(P3_STEPS, P3_STEPS + steps + 1):
+        losses = card_vs_cpu_losses(res, world, seed, dev)
+        card = losses[str(dev)]
+        gap = {k: within(card, losses[c], CARD_CPU_REL, CARD_CPU_ABS)
+               for k, c in (("pinned", "cpu"), ("own", "cpu_own"))}
+        for k in over:
+            over[k] += gap[k] > 1
+        print(f"[sweep] after {t} steps: worst gap {gap['pinned']:.3f} of "
+              f"the tolerance on the card's selections, {gap['own']:.3f} "
+              f"on the CPU's own, which differ in "
+              f"{losses['rows_own']:.4f} of the rows; rq_contrastive card "
+              f"{card['rq_contrastive']:.5f}, cpu "
+              f"{losses['cpu']['rq_contrastive']:.5f}, cpu own "
+              f"{losses['cpu_own']['rq_contrastive']:.5f}", flush=True)
+        if t < P3_STEPS + steps:
+            step_fn(res.state, ds.sample_batch(t, seed, per_type),
+                    generator=torch.Generator(dev).manual_seed(1000 + t))
+    print(f"[sweep] states over the tolerance, of {steps + 1}: "
+          f"{over['pinned']} on the card's selections, {over['own']} on "
+          f"the CPU's own")
 
 
 def ppr_split(g, cfg, seed: int, dev):
@@ -1749,7 +1946,11 @@ def phase3(seed: int, dev) -> dict:
     print(f"[phase3] last step metrics {json.dumps({k: round(v, 5) for k, v in res.metrics.items()})}")
     print(f"[phase3] one step card-bf16 vs cpu-f32 at {CHECK_ROWS} edges "
           f"per type: {json.dumps({k: [round(card[k], 5), round(cpu[k], 5)] for k in cpu})} "
-          f"(worst gap {worst:.3f} of the tolerance)")
+          f"(worst gap {worst:.3f} of the tolerance; the CPU on the "
+          f"card's RQ selections. With its own, which differ in "
+          f"{losses['rows_own']:.4f} of the endpoint rows: "
+          f"{json.dumps({k: round(losses['cpu_own'][k], 5) for k in cpu if k.startswith('rq_')})}, "
+          f"not held)")
     print(f"[phase3] f32 card vs f32 cpu, {F32_STEPS} steps from the "
           f"initial state at {CHECK_ROWS} edges per type: total "
           f"{[[round(m['total'], 5) for m in f32[k]] for k in f32]}, grad "
@@ -2358,6 +2559,12 @@ def phase5(seed: int, dev) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--selection-sweep", type=int, default=0,
+                    metavar="STEPS",
+                    help="only run Phase 3's pipeline and STEPS more "
+                         "train steps, printing the card-vs-CPU loss gap "
+                         "at each state with the CPU on the card's RQ "
+                         "selections and on its own")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -2371,6 +2578,10 @@ def main() -> int:
     peaks = card_peaks(name)
     print(f"[phase0] torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi)
+    if args.selection_sweep > 0:
+        common.build(["rq_assign", "ppr_walk", "fused_contrastive"])
+        selection_sweep(args.seed, dev, args.selection_sweep)
+        return 0
     t = time.perf_counter()
     logs = common.build(["rq_assign", "queue_gather", "ppr_walk",
                          "fused_contrastive", "embedding_bag",
@@ -2405,6 +2616,18 @@ def main() -> int:
     print("[phase0] ppr_walk dynamic shared memory bytes: " + ", ".join(
         f"S {S}: {PW.smem_bytes(S)}" for S in traces)
         + " (the main path's trace, the largest it takes)")
+    qg_lib = ctypes.CDLL(str(common.library_path("queue_gather")))
+    qg_lib.queue_gather_smem.restype = ctypes.c_size_t
+    qg_shapes = ((N_RECENT, K_UNION), (QG.MAX_R, QG.MAX_K))
+    for R_, k_ in qg_shapes:
+        check(qg_lib.queue_gather_smem(R_, k_) == QG.smem_bytes(R_, k_),
+              f"queue_gather shared memory at R {R_} k {k_}: the wrapper's "
+              f"{QG.smem_bytes(R_, k_)} is not the library's "
+              f"{qg_lib.queue_gather_smem(R_, k_)}")
+    print("[phase0] queue_gather dynamic shared memory bytes a block: "
+          + ", ".join(f"R {R_} k {k_}: {QG.smem_bytes(R_, k_)}"
+                      for R_, k_ in qg_shapes)
+          + " (the main path's, the largest)")
     fa_lib = ctypes.CDLL(str(common.library_path("flash_attention")))
     for kname, dec in (("tile (fa_wgmma at D 64-256, fa_mma at D 32)",
                         0), ("decode (fa_decode)", 1)):

@@ -12,7 +12,7 @@ params tree.  The dead-code reset waits for the lifecycle slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -74,17 +74,22 @@ def _soft_assign(dist: torch.Tensor, zeta1: float, zeta2: float
 
 
 def rq_forward(rq_params, state: RQState, h: torch.Tensor, cfg: RQConfig,
-               *, train: bool = True) -> Dict[str, object]:
+               *, train: bool = True,
+               codes: Optional[torch.Tensor] = None) -> Dict[str, object]:
     """Quantize h (B, d).  Returns codes, recon, losses and the new state.
 
     Code *selection* is discrete; the reconstruction h' = sum_l C_l[k_l]
     is differentiable with respect to the codebooks, and the
     straight-through ``recon_st`` with respect to h.  The distances are
-    a plain f32 ``torch.matmul`` (TF32 stays off: they pick argmins)."""
+    a plain f32 ``torch.matmul`` (TF32 stays off: they pick argmins).
+    ``codes`` (B, L), if given, are taken as the selections (Eq. 9 or
+    13) in place of the ones chosen here, so that two precisions can be
+    held to the same discrete choices; everything else is computed as
+    usual."""
     h32 = h.to(torch.float32)
     resid = h32
     recon = torch.zeros_like(h32)
-    codes, reg_terms, util_terms = [], [], []
+    given, codes, reg_terms, util_terms = codes, [], [], []
     new_counts, hard_counts = [], []
     biased = cfg.biased_selection and train
     B = h32.shape[0]
@@ -98,7 +103,9 @@ def rq_forward(rq_params, state: RQState, h: torch.Tensor, cfg: RQConfig,
         p_soft = _soft_assign(dist, cfg.zeta1, cfg.zeta2)
         phat = _phat(state.hists[l])
         k_hard = torch.argmin(dist, dim=1)                      # Eq. 9
-        if biased:
+        if given is not None:
+            k = given[:, l].to(device=h.device, dtype=torch.long)
+        elif biased:
             k = torch.argmax(p_soft / phat[None, :], dim=1)     # Eq. 13
         else:
             k = k_hard

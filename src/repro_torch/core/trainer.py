@@ -138,12 +138,14 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
                    pool: N.NegPoolState, rq_state: RQ.RQState, *,
                    features: FeatureStore, train: bool = True,
                    generator: Optional[torch.Generator] = None,
-                   draws: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
-                   ):
+                   draws: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                   rq_codes: Optional[torch.Tensor] = None):
     """Returns (task_losses, aux); aux carries the RQ state and the
     endpoint embeddings for the pool update.  ``draws`` maps each of
     ``loss_directions(batch)`` to its ``negatives.negative_draws``;
-    missing ones are drawn from ``generator``."""
+    missing ones are drawn from ``generator``.  ``rq_codes``, if given,
+    are the RQ selections of the endpoint rows (``aux["codes"]`` of
+    another call on the same batch; see ``rq_index.rq_forward``)."""
     tasks: Dict[str, torch.Tensor] = {}
     per_type = _dedup_per_type(params, cfg, batch, features)
     draws = draws or {}
@@ -184,7 +186,7 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
     # --- RQ co-learning on all endpoint embeddings -----------------------
     all_prim = torch.cat(endpoint_prims, dim=0)
     rq_out = RQ.rq_forward(params["rq"], rq_state, all_prim, cfg.rq,
-                           train=train)
+                           train=train, codes=rq_codes)
     tasks["rq_recon"] = rq_out["l_recon"]
     tasks["rq_reg"] = rq_out["l_reg"]
     if cfg.rq.util_coef > 0:

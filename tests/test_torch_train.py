@@ -179,6 +179,60 @@ def test_rq_forward_matches_jax(biased):
     assert RQ.codebook_utilization(ns) == JRQ.codebook_utilization(js)
 
 
+@pytest.mark.parametrize("biased", [True, False])
+def test_rq_forward_on_its_own_codes_is_unchanged(biased):
+    """``codes=`` set to the selections ``rq_forward`` makes itself gives
+    the same outputs, bit for bit."""
+    h, books, hists, usage = _rq_inputs(seed=2)
+    cfg = RQConfig(codebook_sizes=RQ_SIZES, hist_len=5,
+                   biased_selection=biased)
+    rq = RQ.codebooks_module([torch.from_numpy(books[f"layer{l}"])
+                              for l in range(len(RQ_SIZES))])
+    state = RQ.RQState(tuple(map(torch.from_numpy, hists)),
+                       tuple(map(torch.from_numpy, usage)), 7, 5)
+    ht = torch.from_numpy(h)
+    a = RQ.rq_forward(rq, state, ht, cfg)
+    b = RQ.rq_forward(rq, state, ht, cfg, codes=a["codes"].to(torch.int32))
+    for k in ("codes", "recon", "recon_st", "l_recon", "l_reg", "l_util"):
+        assert torch.equal(a[k], b[k]), k
+    for x, y in zip(a["state"].hists + a["state"].usage,
+                    b["state"].hists + b["state"].usage):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_rq_forward_takes_given_codes(train):
+    """Given codes are the selections: the reconstruction is the sum of
+    their codewords, and the histogram row counts them."""
+    h, books, hists, usage = _rq_inputs(seed=3)
+    cfg = RQConfig(codebook_sizes=RQ_SIZES, hist_len=5)
+    rq = RQ.codebooks_module([torch.from_numpy(books[f"layer{l}"])
+                              for l in range(len(RQ_SIZES))])
+    state = RQ.RQState(tuple(map(torch.from_numpy, hists)),
+                       tuple(map(torch.from_numpy, usage)), 7, 5)
+    ht = torch.from_numpy(h)
+    rng = np.random.default_rng(4)
+    codes = torch.from_numpy(np.stack(
+        [rng.integers(0, n, len(h)) for n in RQ_SIZES], axis=1))
+    out = RQ.rq_forward(rq, state, ht, cfg, train=train, codes=codes)
+    assert torch.equal(out["codes"], codes)
+    want = sum(torch.from_numpy(books[f"layer{l}"])[codes[:, l]]
+               for l in range(len(RQ_SIZES)))
+    np.testing.assert_allclose(out["recon"].numpy(), want.numpy(),
+                               atol=1e-6)
+    np.testing.assert_allclose(
+        float(out["l_recon"]),
+        float(((ht - want) ** 2).sum(1).mean() * (1 + cfg.commit_coef)),
+        rtol=1e-5)
+    if train:
+        for l, n in enumerate(RQ_SIZES):
+            row = out["state"].hists[l][state.ptr % cfg.hist_len]
+            assert torch.equal(row, torch.bincount(codes[:, l], minlength=n)
+                               .to(torch.float32))
+    else:
+        assert out["state"] is state
+
+
 def test_rankgraph2_optimizer_two_steps_match_jax():
     rng = np.random.default_rng(0)
     shapes = {"codebooks/layer0": (6, 3), "emb/table": (5, 2),
