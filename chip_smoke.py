@@ -79,11 +79,36 @@ counts by kernel, llama at 2 layers card vs CPU in f32 (prefill logits,
 caches, one decode step within 1e-3), and the prefill/decode consistency
 on the card in bf16.
 
+Phase 6 runs the hour-level refresh cycle at the same width on Phase
+3's log: ``build_graph(keep_state=True)`` and the device PPR tables on
+the events of the first 23 hours, then ``incremental_refresh`` (device
+backend: the ppr_walk kernel re-walks the affected nodes) with the
+trailing hour plus fresh events of 1,024 new users and on 2,048 new
+items (both id spaces grow) and the grown features as ``prev_emb``
+(the Group-2 fill), then 10 train steps on the refreshed graph
+(fused_contrastive), the burst's closing ``reset_dead_codes`` on a
+freshly embedded probe of 512 nodes, and the repair-path reset with the
+probe's code counts (``assign_codes``: rq_assign, before and after),
+one train step and one ``make_eval_step`` after it.  It prints the
+refresh's seconds (the report's pieces, and ``ppr_refresh`` re-run
+piece by piece, each synced, its launches in CUDA events), the touched
+and affected shares and the Group-2 rows filled, and checks: the
+refreshed graph (every edge set, both ``group1`` masks) bitwise equal
+to a from-scratch rebuild on the merged log, the affected table rows
+equal to the rebuild's and the others to the remapped old tables, the
+re-walked traces of a sample of starts equal to the numpy walker's; the
+reset bitwise equal to the same call on a CPU copy of the state, the
+``Parameter`` objects, live codebook rows, every other parameter, the
+optimizer's state, histograms and pool unchanged, every probe row whose
+layer-0 code moves moved to a revived code, finite losses after it, and
+the eval step equal to ``forward_losses(train=False)``.
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
 ``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
 Phase 4's serve and train stages, ``flash_attention*`` Phase 5's serve
-stages.
+stages; Phase 6's launches of ``rq_assign``, ``ppr_walk`` and
+``fused_contrastive_*`` are added to those.
 
 The second-to-last line is a JSON object listing every ported kernel
 (launches on the main path, error against the plain version, times and
@@ -115,21 +140,29 @@ from repro_torch.configs.base import (LM_SHAPES,  # noqa: E402
                                       get_arch)
 from repro_torch.configs.rankgraph2 import CONFIG  # noqa: E402
 from repro_torch.core import model as M  # noqa: E402
-from repro_torch.core.graph_builder import EngagementLog  # noqa: E402
+from repro_torch.core.graph_builder import (EngagementLog,  # noqa: E402
+                                            build_graph)
 from repro_torch.core.negatives import negative_draws  # noqa: E402
 from repro_torch.core.pipeline import run_pipeline  # noqa: E402
-from repro_torch.core.ppr import (_topk_from_counts,  # noqa: E402
+from repro_torch.core.ppr import (_expand_affected,  # noqa: E402
+                                  _topk_from_counts,
                                   _topk_from_counts_device, _walk_numpy,
                                   adjacency_to_device,
                                   build_padded_hetero_adj,
                                   global_visit_mass, walk_uniforms)
-from repro_torch.core.rq_index import init_rq  # noqa: E402
+from repro_torch.core.rq_index import (RQState, assign_codes,  # noqa: E402
+                                       codebooks_module, dead_code_reset,
+                                       init_rq, per_code_counts)
 from repro_torch.core.serving import ClusterQueueStore  # noqa: E402
 from repro_torch.core.trainer import (FeatureStore, embed_all,  # noqa: E402
                                       forward_losses, init_state,
-                                      loss_directions, make_train_step)
+                                      loss_directions, make_eval_step,
+                                      make_train_step, named_params,
+                                      reset_dead_codes)
 from repro_torch.data.edge_dataset import (EdgeDataset,  # noqa: E402
-                                           NeighborTables)
+                                           NeighborTables,
+                                           build_neighbor_tables,
+                                           incremental_refresh)
 from repro_torch.data.synthetic import SyntheticWorld  # noqa: E402
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
@@ -201,6 +234,12 @@ CARD_CPU_REL, CARD_CPU_ABS = 5e-2, 1e-2   # bf16 vs f32 losses
 F32_REL, F32_RQ_REL, F32_ABS = 1e-3, 1e-2, 1e-3  # f32 card vs f32 CPU
 F32_STEPS = 4                # steps of the f32 card-vs-CPU trajectory
 DST_TYPE = {"uu": "user", "ui": "item", "iu": "user", "ii": "item"}
+P6_CUT_S = 82_800.0          # Phase 6's initial build: events up to 23 h
+P6_NEW_USERS, P6_NEW_ITEMS = 1024, 2048   # grown in the delta
+P6_ITEM_EVENTS = 4           # Poisson mean of a new item's events
+P6_STEPS = 10                # the train burst on the refreshed graph
+P6_TRACES = 4096             # re-walked starts held against numpy
+EMBED_BATCH = 2048           # the lifecycle's embed batch (probe embeds)
 DLRM = get_arch("dlrm-rm2").config   # bf16 compute, f32 params, embed 64
 RS = {s.name: s.dims for s in RECSYS_SHAPES}
 RS_P99, RS_BULK = RS["serve_p99"]["batch"], RS["serve_bulk"]["batch"]
@@ -1718,38 +1757,24 @@ def selection_sweep(seed: int, dev, steps: int) -> None:
           f"the CPU's own")
 
 
-def ppr_split(g, cfg, seed: int, dev):
-    """The ``ppr`` stage of ``run_pipeline`` (``precompute_ppr_neighbors``
-    with the device backend) re-run piece by piece, a sync after each:
-    the host adjacency build, its copy to the card (with ``last`` and the
-    kernel's ``walk_layout``, also timed alone by CUDA events), the
-    host ``walk_uniforms`` of every chunk, the chunks' host-to-device
-    copies, the ``ppr_walk`` launches (device time: CUDA events around
-    each, the card kept busy ahead so that the op's host time, reported
-    beside it, does not count), and the top-k (global visit mass, device
-    top-k, tables to the host).  Returns the host adjacency, the split
-    (seconds; the launches and the layout in ms; the tables under
-    "users" and "items"), visited and counts."""
+def synced(fn):
+    """``fn()`` and its host seconds, the card synced before and after."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t
+
+
+def walk_split(dadj, starts: np.ndarray, cfg, seed: int, dev):
+    """``_walk_device`` over ``starts`` re-run piece by piece: the host
+    ``walk_uniforms`` of every chunk, the chunks' host-to-device copies
+    and the ``ppr_walk`` launches (device time: CUDA events around each,
+    the card kept busy ahead so that the op's host time, reported beside
+    it, does not count).  Returns visited, counts (int32 on the card) and
+    the split."""
     W, L = cfg.ppr_walks, cfg.ppr_len
-
-    def synced(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, time.perf_counter() - t
-
-    adj, adj_s = synced(lambda: build_padded_hetero_adj(g, PPR_DEG))
-    dadj, to_card_s = synced(lambda: adjacency_to_device(adj, dev))
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    PW.walk_layout(dadj.nbrs, dadj.cum, dadj.last)
-    b.record()
-    b.synchronize()
-    layout_ms = a.elapsed_time(b)
-    n = adj.n_nodes
-    starts = np.arange(n, dtype=np.int64)
+    n = len(starts)
     vis = torch.empty((n, W * L), dtype=torch.int32, device=dev)
     cnt = torch.empty_like(vis)
     rows = max(1, (1 << 18) // W)           # _walk_device's chunk
@@ -1758,7 +1783,7 @@ def ppr_split(g, cfg, seed: int, dev):
     for lo in range(0, n, rows):
         hi = min(n, lo + rows)
         u, s = synced(lambda: walk_uniforms(seed, starts[lo:hi], W, L,
-                                            adj.n_users))
+                                            dadj.n_users))
         uni_s += s
         (u, st), s = synced(lambda: (
             torch.from_numpy(u).to(dev),
@@ -1777,7 +1802,35 @@ def ppr_split(g, cfg, seed: int, dev):
         events.append(ev)
         vis[lo:hi], cnt[lo:hi] = v, c
     torch.cuda.synchronize()
-    launches_ms = sum(x.elapsed_time(y) for x, y in events)
+    return vis, cnt, {
+        "walk_uniforms_host_s": round(uni_s, 4),
+        "uniforms_to_card_s": round(copy_s, 4),
+        "chunks": len(events),
+        "launches_ms": round(sum(x.elapsed_time(y) for x, y in events), 4),
+        "op_calls_host_s": round(call_s, 4)}
+
+
+def ppr_split(g, cfg, seed: int, dev):
+    """The ``ppr`` stage of ``run_pipeline`` (``precompute_ppr_neighbors``
+    with the device backend) re-run piece by piece, a sync after each:
+    the host adjacency build, its copy to the card (with ``last`` and the
+    kernel's ``walk_layout``, also timed alone by CUDA events), the walk
+    (``walk_split``), and the top-k (global visit mass, device top-k,
+    tables to the host).  Returns the host adjacency, the split
+    (seconds; the launches and the layout in ms; the tables under
+    "users" and "items"), visited and counts."""
+    adj, adj_s = synced(lambda: build_padded_hetero_adj(g, PPR_DEG))
+    dadj, to_card_s = synced(lambda: adjacency_to_device(adj, dev))
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    PW.walk_layout(dadj.nbrs, dadj.cum, dadj.last)
+    b.record()
+    b.synchronize()
+    layout_ms = a.elapsed_time(b)
+    n = adj.n_nodes
+    starts = np.arange(n, dtype=np.int64)
+    vis, cnt, walk = walk_split(dadj, starts, cfg, seed, dev)
 
     def topk():
         glob = torch.bincount(vis.reshape(-1).to(torch.int64), minlength=n
@@ -1790,12 +1843,7 @@ def ppr_split(g, cfg, seed: int, dev):
     (users, items), topk_s = synced(topk)
     split = {"adjacency_host_s": round(adj_s, 4),
              "adjacency_to_card_s": round(to_card_s, 4),
-             "walk_layout_ms": round(layout_ms, 4),
-             "walk_uniforms_host_s": round(uni_s, 4),
-             "uniforms_to_card_s": round(copy_s, 4),
-             "chunks": len(events),
-             "launches_ms": round(launches_ms, 4),
-             "op_calls_host_s": round(call_s, 4),
+             "walk_layout_ms": round(layout_ms, 4), **walk,
              "topk_s": round(topk_s, 4),
              "users": users, "items": items}
     return adj, split, vis, cnt
@@ -2555,6 +2603,395 @@ def phase5(seed: int, dev) -> dict:
         add(total, per)
     return total
 
+# ---------------------------------------------------------------------------
+# Phase 6: the hour-level refresh cycle and the dead-code reset
+# ---------------------------------------------------------------------------
+
+def refresh_logs(world: SyntheticWorld, seed: int):
+    """Phase 3's one-day log split for the refresh: the old log (events up
+    to P6_CUT_S) and the delta, which is the trailing hour plus fresh
+    events of P6_NEW_USERS new users (Poisson(EVENTS_PER_USER / 24)
+    events each, at least one, on items drawn from the hour's events)
+    and on P6_NEW_ITEMS new items (Poisson(P6_ITEM_EVENTS) events each,
+    at least one, by users drawn from the hour's events), event types
+    as in the log; then the merged log and the feature tables grown by
+    standard-normal rows for the new nodes.  Made with numpy from
+    ``seed``.  Returns (old, delta, merged, user_feat, item_feat,
+    fresh events)."""
+    cfg = CONFIG
+    log = world.day0
+    nu, ni = log.n_users, log.n_items
+    nu2, ni2 = nu + P6_NEW_USERS, ni + P6_NEW_ITEMS
+    rng = np.random.default_rng((seed, 6))
+    m = log.timestamp <= P6_CUT_S
+    old = EngagementLog(log.user_id[m], log.item_id[m], log.event_type[m],
+                        log.timestamp[m], nu, ni)
+    hour = log.window(86400.0, 3600.0)
+    fu = np.repeat(np.arange(nu, nu2, dtype=np.int64), np.maximum(
+        rng.poisson(EVENTS_PER_USER / 24, P6_NEW_USERS), 1))
+    fi = rng.choice(hour.item_id, len(fu))
+    gi = np.repeat(np.arange(ni, ni2, dtype=np.int64), np.maximum(
+        rng.poisson(P6_ITEM_EVENTS, P6_NEW_ITEMS), 1))
+    gu = rng.choice(hour.user_id, len(gi))
+    n_fresh = len(fu) + len(gi)
+    fresh = (np.r_[fu, gu], np.r_[fi, gi],
+             rng.choice(4, n_fresh, p=[0.7, 0.15, 0.1, 0.05]
+                        ).astype(np.int32),
+             P6_CUT_S + (1.0 - rng.random(n_fresh)) * 3600.0)
+    delta = EngagementLog(*(np.r_[a, b] for a, b in zip(
+        (hour.user_id, hour.item_id, hour.event_type, hour.timestamp),
+        fresh)), nu2, ni2)
+    merged = EngagementLog(*(np.r_[a, b] for a, b in zip(
+        (old.user_id, old.item_id, old.event_type, old.timestamp),
+        (delta.user_id, delta.item_id, delta.event_type,
+         delta.timestamp))), nu2, ni2)
+    user_feat = np.concatenate([world.user_feat, rng.standard_normal(
+        (P6_NEW_USERS, cfg.d_user_feat), np.float32)])
+    item_feat = np.concatenate([world.item_feat, rng.standard_normal(
+        (P6_NEW_ITEMS, cfg.d_item_feat), np.float32)])
+    return old, delta, merged, user_feat, item_feat, n_fresh
+
+
+def refresh_split(g_new, t_old, cfg, dev):
+    """``incremental_refresh``'s ``ppr_refresh`` re-run piece by piece, a
+    sync after each: the host adjacency build, the change detection with
+    the reverse BFS, the adjacency's copy to the card (``last`` and
+    ``walk_layout``), the walk of the affected ids (``walk_split``) and
+    the top-k (the spliced traces and their global mass on the host, the
+    device top-k, the rows back to the host).  Returns the host
+    adjacency, the affected ids, the split (host seconds, the launches'
+    device ms) and the tables before the Group-2 fill."""
+    st = t_old.ppr
+    adj, adj_s = synced(lambda: build_padded_hetero_adj(
+        g_new, st.max_deg_per_type))
+    nu, old_nu = g_new.n_users, st.n_users
+    n = adj.n_nodes
+
+    def remap(a):
+        return np.where(a >= old_nu, a + (nu - old_nu), a)
+
+    def detect():
+        old_pos = remap(np.arange(st.nbrs.shape[0]))
+        changed = np.ones(n, bool)
+        changed[old_pos] = ((adj.nbrs[old_pos] != remap(st.nbrs)).any(1)
+                            | (adj.cum[old_pos] != st.cum).any(1))
+        return old_pos, np.flatnonzero(
+            _expand_affected(adj.nbrs, changed, st.walk_len - 1))
+
+    (old_pos, ids), detect_s = synced(detect)
+    dadj, to_card_s = synced(lambda: adjacency_to_device(adj, dev))
+    vis, cnt, walk = walk_split(dadj, ids, cfg, st.seed, dev)
+
+    def topk():
+        visited = np.empty((n, vis.shape[1]), np.int64)
+        visited[old_pos] = remap(st.visited)
+        visited[ids] = vis.cpu().numpy()
+        u, i = _topk_from_counts_device(
+            vis, cnt, torch.from_numpy(ids).to(dev), st.k_imp, nu,
+            st.hub_alpha, global_visit_mass(visited, n))
+        tables = []
+        for old_rows, new_rows in ((t_old.user_nbrs, u), (t_old.item_nbrs, i)):
+            rows = np.full((n, st.k_imp), -1, np.int64)
+            rows[old_pos] = remap(old_rows)
+            rows[ids] = new_rows.cpu().numpy()
+            tables.append(rows)
+        return tables
+
+    (users, items), topk_s = synced(topk)
+    split = {"adjacency_host_s": round(adj_s, 4),
+             "detect_and_bfs_s": round(detect_s, 4),
+             "adjacency_to_card_s": round(to_card_s, 4), **walk,
+             "topk_s": round(topk_s, 4)}
+    return adj, ids, split, users, items
+
+
+def layer_codes(flat: torch.Tensor, sizes) -> np.ndarray:
+    """(B,) flat cluster ids -> (B, L) per-layer codes, on the host."""
+    flat = flat.cpu().numpy()
+    out = []
+    for n in reversed(sizes):
+        out.append(flat % n)
+        flat = flat // n
+    return np.stack(out[::-1], axis=1)
+
+
+def probe_embeddings(state, cfg, ds, n_users: int, n_items: int, seed: int,
+                     step: int) -> np.ndarray:
+    """The reset's probe, as the JAX lifecycle runtime draws it:
+    ``cfg.rq.reset_probe`` node ids from ``default_rng((seed, 91,
+    step))``, freshly embedded (users, then items), as f32 numpy."""
+    rng = np.random.default_rng((seed, 91, step))
+    ids = np.sort(rng.choice(n_users + n_items,
+                             min(cfg.rq.reset_probe, n_users + n_items),
+                             replace=False))
+    parts = [embed_all(state.params, cfg, ds, node_type=t, ids=sel,
+                       batch=min(EMBED_BATCH, len(sel)))
+             for t, sel in ((M.USER, ids[ids < n_users]),
+                            (M.ITEM, ids[ids >= n_users])) if len(sel)]
+    return torch.cat(parts).float().cpu().numpy()
+
+
+def phase6(seed: int, dev) -> dict:
+    cfg = CONFIG
+    t = time.perf_counter()
+    world = make_log_world(seed)
+    old, delta, merged, user_feat, item_feat, n_fresh = refresh_logs(
+        world, seed)
+    del world
+    log_s = time.perf_counter() - t
+    nu, ni, nu2, ni2 = old.n_users, old.n_items, delta.n_users, delta.n_items
+    n2 = nu2 + ni2
+    print(f"[phase6] logs (no cut: Phase 3's log at full size): old "
+          f"{len(old.user_id)} events up to {P6_CUT_S:.0f} s on {nu} users "
+          f"and {ni} items; delta {len(delta.user_id)} events (the trailing "
+          f"hour's {len(delta.user_id) - n_fresh}, {n_fresh} fresh ones of "
+          f"{P6_NEW_USERS} new users and on {P6_NEW_ITEMS} new items); "
+          f"made in {log_s:.2f} s")
+    knobs = dict(alpha_pop=cfg.alpha_pop, c_u=cfg.c_u, c_i=cfg.c_i,
+                 k_cap=cfg.k_cap, seed=seed)
+    walk = dict(k_imp=cfg.k_imp, n_walks=cfg.ppr_walks,
+                walk_len=cfg.ppr_len, restart=cfg.ppr_restart, seed=seed)
+    prev_emb = np.concatenate([user_feat, item_feat])
+
+    # the initial build on the first 23 hours (set-up, not the path)
+    g_old, build_s = synced(lambda: build_graph(old, keep_state=True,
+                                                **knobs))
+    t_old, tables_s = synced(lambda: build_neighbor_tables(
+        g_old, backend="device", device=dev, keep_state=True, **walk))
+
+    # --- Phase 6's path: refresh, burst, closing reset, repair reset ---
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    (g_new, t_new, rep), refresh_s = synced(lambda: incremental_refresh(
+        g_old, t_old, delta, prev_emb=prev_emb, backend="device",
+        device=dev))
+    ids = rep["affected_nodes"]
+    ds = EdgeDataset(t_new, user_feat, item_feat, k_train=cfg.k_train,
+                     device=dev, g=g_new)
+    feats = FeatureStore(ds.user_feat, ds.item_feat)
+    state, opt = init_state(cfg, generator=torch.Generator().manual_seed(
+        seed), pool_size=P3_POOL, device=dev)
+    step_fn = make_train_step(cfg, opt, features=feats)
+    per_type = {et: CF_ROWS for et in ("uu", "ui", "ii")}
+    t = time.perf_counter()
+    history = []
+    for s_ in range(P6_STEPS):
+        state, m = step_fn(state, ds.sample_batch(s_, seed, per_type),
+                           generator=torch.Generator(dev).manual_seed(
+                               1000 + s_))
+        history.append({k: float(v) for k, v in m.items()})
+    burst_s = time.perf_counter() - t
+    # the closing pass of the burst (lifecycle runtime: after the final
+    # step of every burst when reset_every > 0)
+    probe = probe_embeddings(state, cfg, ds, nu2, ni2, seed, P6_STEPS)
+    state, rep_close = reset_dead_codes(state, probe, cfg, seed=seed,
+                                        step=P6_STEPS)
+    # the repair path: usage from the probe's published codes
+    sizes = cfg.rq.codebook_sizes
+    probe_dev = torch.from_numpy(probe).to(dev)
+    before = layer_codes(assign_codes(state.params["rq"], probe_dev, cfg.rq),
+                         sizes)
+    usage = per_code_counts(before, sizes)
+    books = state.params["rq"]["codebooks"]
+    cpu_rq = codebooks_module([books[f"layer{l}"].detach().cpu().clone()
+                               for l in range(len(sizes))])
+    rs = state.rq_state
+    cpu_state = RQState(tuple(h.cpu() for h in rs.hists),
+                        tuple(u.cpu() for u in rs.usage), rs.ptr, rs.filled)
+    objs = named_params(state.params)
+    params_before = {k: p.detach().clone() for k, p in objs.items()}
+    opt_before = copy.deepcopy(state.opt_state)
+    hists_before = [h.clone() for h in rs.hists]
+    pool_before = copy.deepcopy(state.pool)
+    t = time.perf_counter()
+    state, rep_repair = reset_dead_codes(state, probe, cfg, seed=seed,
+                                         step=P6_STEPS + 1, usage=usage)
+    repair_s = time.perf_counter() - t
+    after = layer_codes(assign_codes(state.params["rq"], probe_dev, cfg.rq),
+                        sizes)
+    # the reset's guarantees, before anything trains on
+    check(all(a is b for a, b in zip(named_params(state.params).values(),
+                                     objs.values())),
+          "the reset replaced a Parameter object")
+    revived = []
+    for name, p in named_params(state.params).items():
+        same = (p.detach() == params_before[name]).reshape(p.shape[0], -1) \
+            .all(dim=1) if p.dim() else (p.detach() == params_before[name])
+        if name.startswith("rq.codebooks."):
+            revived.append((~same).cpu().numpy())
+            check(int((~same).sum()) == rep_repair["reset_" + name[-6:]],
+                  f"{name}: {int((~same).sum())} rows changed, report "
+                  f"{rep_repair}")
+        else:
+            check(bool(same.all()), f"the reset changed {name}")
+
+    def same_tree(a, b):
+        if isinstance(a, torch.Tensor):
+            return torch.equal(a, b)
+        if isinstance(a, dict):
+            return a.keys() == b.keys() and all(same_tree(a[k], b[k])
+                                                for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(map(same_tree, a, b))
+        return a == b
+
+    check(same_tree(state.opt_state, opt_before),
+          "the reset changed the optimizer's state")
+    check(state.rq_state.hists is rs.hists
+          and all(torch.equal(a, b) for a, b in zip(rs.hists, hists_before))
+          and (state.rq_state.ptr, state.rq_state.filled)
+          == (rs.ptr, rs.filled), "the reset changed the RQ histograms")
+    check(same_tree(dataclasses.asdict(state.pool),
+                    dataclasses.asdict(pool_before)),
+          "the reset changed the pool")
+    # the same call on a CPU copy of the state: bitwise equal
+    cpu_new, cpu_rs, cpu_rep = dead_code_reset(
+        cpu_rq, cpu_state, probe, cfg.rq, seed=seed, step=P6_STEPS + 1,
+        usage=usage)
+    check(cpu_rep == rep_repair, f"reset report: card {rep_repair}, cpu "
+          f"{cpu_rep}")
+    for l in range(len(sizes)):
+        check(torch.equal(books[f"layer{l}"].detach().cpu(),
+                          cpu_new["codebooks"][f"layer{l}"])
+              and torch.equal(state.rq_state.usage[l].cpu(),
+                              cpu_rs.usage[l]),
+              f"layer {l}: the card's reset differs from the CPU's")
+    moved = before[:, 0] != after[:, 0]
+    check(bool(revived[0][after[moved, 0]].all()),
+          "a probe row moved between two live layer-0 codes")
+    # one train step and one eval step after the reset
+    state, m_after = step_fn(state, ds.sample_batch(P6_STEPS, seed,
+                                                    per_type),
+                             generator=torch.Generator(dev).manual_seed(
+                                 1000 + P6_STEPS))
+    ebatch = ds.sample_batch(P6_STEPS + 1, seed, per_type)
+    draws = draws_for(cfg, state.pool, ebatch, CF_ROWS,
+                      torch.Generator().manual_seed(seed + 13))
+    ev = make_eval_step(cfg, features=feats)(state, ebatch, draws=draws)
+    torch.cuda.synchronize()
+    launches = common.launch_counts()        # Phase 6's path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ev = {k: float(v) for k, v in ev.items()}
+    m_after = {k: float(v) for k, v in m_after.items()}
+
+    # --- checks ----------------------------------------------------------
+    want = {"ppr_walk": -(-len(ids) // PPR_STARTS),
+            "fused_contrastive_fwd": 7 * (P6_STEPS + 2),
+            "fused_contrastive_bwd": 7 * (P6_STEPS + 1), "rq_assign": 2}
+    for name, n in want.items():
+        check(launches.get(name, 0) == n,
+              f"{name}: {launches.get(name, 0)} launches, expected {n}")
+    for i, h in enumerate(history + [m_after]):
+        check(all(np.isfinite(v) for v in h.values()),
+              f"burst step {i}: non-finite metrics {h}")
+    check(all(np.isfinite(v) for v in ev.values()),
+          f"eval after the reset: non-finite {ev}")
+    with torch.no_grad():
+        ref, _ = forward_losses(state.params, cfg, ebatch, state.pool,
+                                state.rq_state, features=feats,
+                                train=False, draws=draws)
+    check(all(float(ref[k]) == ev[k] for k in ref) and set(ref) == set(ev),
+          "the eval step differs from forward_losses(train=False)")
+    check(sum(rep_repair.values()) > 0, "the repair reset revived nothing")
+
+    # the refresh's ppr stage again, piece by piece; its tables equal the
+    # refresh's on every row but the same-type rows of the affected
+    # Group-2 nodes, which the fill writes
+    adj, ids_split, split, users, items = refresh_split(g_new, t_old, cfg,
+                                                        dev)
+    fill_u = np.zeros(n2, bool)
+    fill_u[ids[ids < nu2]] = ~g_new.group1_users[ids[ids < nu2]]
+    fill_i = np.zeros(n2, bool)
+    fill_i[ids[ids >= nu2]] = ~g_new.group1_items[ids[ids >= nu2] - nu2]
+    check(np.array_equal(ids_split, ids)
+          and np.array_equal(users[~fill_u], t_new.user_nbrs[~fill_u])
+          and np.array_equal(items[~fill_i], t_new.item_nbrs[~fill_i]),
+          "the re-run's pieces differ from incremental_refresh")
+    # re-walked traces against the numpy walker on the new adjacency
+    rng = np.random.default_rng(seed + 6)
+    fresh_ids = np.r_[np.arange(nu, nu2), nu2 + np.arange(ni, ni2)]
+    edge = min(512, len(ids) // 4)      # first and last, new, random
+    n_new = min(512, len(fresh_ids))
+    n_rand = max(0, min(len(ids), P6_TRACES - 2 * edge - n_new))
+    sample = np.unique(np.r_[ids[:edge], ids[-edge:],
+                             rng.choice(fresh_ids, n_new, replace=False),
+                             rng.choice(ids, n_rand, replace=False)])
+    check(np.isin(fresh_ids, ids).all(), "a new node was not re-walked")
+    ref_vis = _walk_numpy(adj, sample, n_walks=cfg.ppr_walks,
+                          walk_len=cfg.ppr_len, restart=cfg.ppr_restart,
+                          seed=seed, chunk=1 << 18)
+    check(np.array_equal(t_new.ppr.visited[sample], ref_vis),
+          "re-walked traces differ from the numpy walker's")
+
+    # a from-scratch rebuild on the merged log
+    g_full, full_build_s = synced(lambda: build_graph(merged, **knobs))
+    t_full, full_tables_s = synced(lambda: build_neighbor_tables(
+        g_full, prev_emb=prev_emb, backend="device", device=dev, **walk))
+    for et in ("ui", "uu", "ii"):
+        a, b = getattr(g_new, et), getattr(g_full, et)
+        check(all(np.array_equal(getattr(a, f), getattr(b, f))
+                  and getattr(a, f).dtype == getattr(b, f).dtype
+                  for f in ("src", "dst", "weight")),
+              f"refreshed {et} edges differ from the rebuild's")
+    check(np.array_equal(g_new.group1_users, g_full.group1_users)
+          and np.array_equal(g_new.group1_items, g_full.group1_items),
+          "refreshed group1 masks differ from the rebuild's")
+    am = np.zeros(n2, bool)
+    am[ids] = True
+    old_pos = np.where(np.arange(nu + ni) >= nu, np.arange(nu + ni)
+                       + (nu2 - nu), np.arange(nu + ni))
+    carried = ~am[old_pos]
+    for what, a, b, o in (("user", t_new.user_nbrs, t_full.user_nbrs,
+                           t_old.user_nbrs),
+                          ("item", t_new.item_nbrs, t_full.item_nbrs,
+                           t_old.item_nbrs)):
+        check(np.array_equal(a[am], b[am]),
+              f"affected {what} rows differ from the rebuild's")
+        check(np.array_equal(a[old_pos[carried]],
+                             np.where(o >= nu, o + (nu2 - nu), o)[carried]),
+              f"carried {what} rows differ from the remapped old tables")
+
+    g2 = (int(fill_u.sum()), int(fill_i.sum()))
+    sec = {k: round(v, 4) for k, v in rep["seconds"].items()}
+    print(f"[phase6] initial build (23 h): construct {build_s:.4f} s, "
+          f"tables {tables_s:.4f} s; edges "
+          f"{json.dumps({et: len(getattr(g_old, et)) for et in ('ui', 'uu', 'ii')})}")
+    print(f"[phase6] incremental_refresh {refresh_s:.4f} s (synced; report "
+          f"{json.dumps(sec)}, refresh_seconds "
+          f"{rep['refresh_seconds']:.4f}); touched users "
+          f"{len(rep['touched_users'])} of {nu2} "
+          f"({len(rep['touched_users']) / nu2:.4f}), items "
+          f"{len(rep['touched_items'])} of {ni2} "
+          f"({len(rep['touched_items']) / ni2:.4f}); affected nodes "
+          f"{len(ids)} of {n2} ({len(ids) / n2:.4f}); Group-2 rows filled "
+          f"{g2[0]} users, {g2[1]} items; edges "
+          f"{json.dumps({et: len(getattr(g_new, et)) for et in ('ui', 'uu', 'ii')})}")
+    split_s = sum(v for k, v in split.items() if k.endswith("_s"))
+    print(f"[phase6] ppr_refresh split (re-run piece by piece, each synced; "
+          f"host seconds, the launches' device ms): {json.dumps(split)}; sum "
+          f"{split_s + split['launches_ms'] / 1e3:.4f} s against the "
+          f"report's ppr_refresh {rep['seconds']['ppr_refresh']:.4f} s")
+    print(f"[phase6] rebuild on the merged log: construct {full_build_s:.4f}"
+          f" s, tables {full_tables_s:.4f} s; edge sets and group1 masks "
+          f"bitwise equal to the refresh's; affected rows equal the "
+          f"rebuild's, {int(carried.sum())} carried rows the remapped old "
+          f"tables; traces of {len(sample)} re-walked starts bitwise equal "
+          f"to the numpy walker")
+    print(f"[phase6] burst: {P6_STEPS} steps x {3 * CF_ROWS} edges in "
+          f"{burst_s:.4f} s; total {[round(h['total'], 4) for h in history]}")
+    print(f"[phase6] closing reset {json.dumps(rep_close)}; repair reset "
+          f"(usage = the probe's code counts) {json.dumps(rep_repair)} in "
+          f"{repair_s:.4f} s, equal to the CPU's; {int(moved.sum())} of "
+          f"{len(probe)} probe rows moved layer-0 code, all to revived "
+          f"codes; live rows, other parameters, optimizer state bit-"
+          f"unchanged")
+    print(f"[phase6] after the reset: train step total {m_after['total']:.5f}"
+          f", eval {json.dumps({k: round(v, 5) for k, v in ev.items()})} "
+          f"(equal to forward_losses(train=False)); peak device memory "
+          f"{peak_gb:.3f} GB; launches={launches}")
+    return launches
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2648,18 +3085,23 @@ def main() -> int:
     launches3 = phase3(args.seed, dev)
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    launches6 = phase6(args.seed, dev)
+    print(f"[phase6] wall {time.perf_counter() - t:.2f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     launches4 = phase4(args.seed, dev)
     print(f"[phase4] wall {time.perf_counter() - t:.2f} s")
     torch.cuda.empty_cache()             # Phase 4's tables took 66.56 GB
     t = time.perf_counter()
     launches5 = phase5(args.seed, dev)
     print(f"[phase5] wall {time.perf_counter() - t:.2f} s")
-    for r in rows:
+    for r in rows:     # each path's launches, Phase 6's added to its own
         r["launches"] = next(ls[r["name"]] for ls in (
             {n: launches[n] for n in SLICE1}, launches4, launches5,
-            launches3) if r["name"] in ls)
+            launches3) if r["name"] in ls) + launches6.get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(smi)          # again here, where the end of a long output keeps it
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,15 +1,17 @@
 """RankGraph-2 graph construction (paper §4.2), a numpy copy of
-``repro/core/graph_builder.py`` (lines 1-466): engagement log ->
-heterogeneous co-engagement graph with U-I / U-U / I-I edges (Eq. 1-2),
-popularity bias correction on I-I edges (Eq. 3), per-node top-K edge
-subsampling, Group 1 / Group 2 split, and the padded adjacency that
-feeds PPR.
+``repro/core/graph_builder.py``: engagement log -> heterogeneous
+co-engagement graph with U-I / U-U / I-I edges (Eq. 1-2), popularity
+bias correction on I-I edges (Eq. 3), per-node top-K edge subsampling,
+Group 1 / Group 2 split, and the padded adjacency that feeds PPR.
 
 Construction runs on the host, exactly as in the JAX package, and its
 output is bitwise equal to it: the same edges, in the same order, with
-the same weights.  The hour-level refresh (``refresh_graph``) waits for
-the refresh slice; ``RefreshState`` and ``HubDraws`` are kept so that a
-build can retain what it will need.
+the same weights.  So does the hour-level refresh: ``build_graph(...,
+keep_state=True)`` keeps the pre-subsample aggregates in a
+``RefreshState``, and ``refresh_graph`` splices a trailing window's
+delta into them, re-deriving only the co-engagement pairs it reaches;
+the result equals a from-scratch build on the merged window, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -460,3 +462,191 @@ def padded_adjacency(edges: EdgeSet, n_src: int, max_deg: int
     wts[s[keep], rank[keep]] = w[keep]
     return nbrs, wts
 
+
+# ---------------------------------------------------------------------------
+# hour-level incremental refresh (paper §4.2 "hourly rebuild", done as a
+# delta splice instead of a from-scratch batch job)
+# ---------------------------------------------------------------------------
+
+def merge_edge_aggregates(a: EdgeSet, b: EdgeSet, n_dst: int) -> EdgeSet:
+    """Sum two per-(src, dst) aggregated edge sets; canonical key order.
+    Weights accumulate in float64 end-to-end (see ``build_ui_edges``)."""
+    key = np.concatenate([a.src.astype(np.int64) * n_dst + a.dst,
+                          b.src.astype(np.int64) * n_dst + b.dst])
+    w = np.concatenate([a.weight, b.weight]).astype(np.float64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    agg = np.zeros(len(uniq), np.float64)
+    np.add.at(agg, inv, w)
+    keep = agg > 0
+    uniq, agg = uniq[keep], agg[keep]
+    return EdgeSet((uniq // n_dst).astype(np.int64),
+                   (uniq % n_dst).astype(np.int64),
+                   agg)
+
+
+def _canonical_pair_order(e: EdgeSet, n_other: int) -> EdgeSet:
+    """Sort canonical (lo < hi) pairs by packed key — the order
+    ``_co_engagement`` emits, so refreshed raws are bitwise comparable
+    (and bitwise *accumulable*, e.g. in Eq. 3) to a full rebuild's."""
+    order = np.argsort(e.src.astype(np.int64) * n_other + e.dst,
+                       kind="stable")
+    return EdgeSet(e.src[order], e.dst[order], e.weight[order])
+
+
+def _merge_hub_draws(prev: Optional[HubDraws], new: HubDraws,
+                     recomputed: np.ndarray, cap: int) -> HubDraws:
+    """Carry forward persisted hub draws: rows for anchors outside the
+    recomputed set survive from ``prev``; recomputed anchors take their
+    fresh rows from ``new`` (which already reused matching prev rows)."""
+    if prev is None or len(prev.anchor_ids) == 0:
+        return new
+    keep = ~np.isin(prev.anchor_ids, recomputed)
+    ids = np.concatenate([prev.anchor_ids[keep], new.anchor_ids])
+    offs = np.concatenate([prev.offsets[keep], new.offsets]) \
+        if len(ids) else np.zeros((0, cap), np.int64)
+    lens = np.concatenate([prev.lens[keep], new.lens])
+    order = np.argsort(ids, kind="stable")
+    return HubDraws(ids[order], offs[order], lens[order])
+
+
+def _recompute_touching_pairs(anchor: np.ndarray, other: np.ndarray,
+                              w: np.ndarray, touched_other: np.ndarray,
+                              n_other: int, min_common: int, hub_cap: int,
+                              seed: int, tag: str,
+                              prev_draws: Optional[HubDraws]
+                              ) -> Tuple[np.ndarray, ...]:
+    """Re-derive all co-engagement pairs with >= 1 touched endpoint.
+
+    Every anchor adjacent to a touched ``other`` node is re-expanded in
+    full (a touched pair's common anchors are all adjacent to its touched
+    endpoint, so the recomputed weights/counts are complete); pairs whose
+    endpoints are both untouched are discarded — their old values stand.
+
+    Returns ``(lo, hi, w, draws, recomputed_anchor_ids)``.
+    """
+    if len(anchor):
+        a_mask = np.zeros(int(anchor.max()) + 1, bool)
+        a_mask[anchor[touched_other[other]]] = True
+        sel = a_mask[anchor]
+        recomputed = np.flatnonzero(a_mask)
+    else:
+        sel = np.zeros(0, bool)
+        recomputed = np.zeros(0, np.int64)
+    lo, hi, pw, draws = _co_engagement(anchor[sel], other[sel], w[sel],
+                                       n_other, min_common, hub_cap,
+                                       seed, tag, prev_draws)
+    touching = touched_other[lo] | touched_other[hi]
+    return lo[touching], hi[touching], pw[touching], draws, recomputed
+
+
+def _hub_resample_members(old_ui: EdgeSet, new_ui: EdgeSet,
+                          anchor_of, other_of, n_anchor: int,
+                          cap: int) -> np.ndarray:
+    """Other-side members of anchors whose *degree* changed past the hub
+    cap.  A hub anchor's subsample draw is keyed by (anchor id, degree)
+    — a degree change redraws it, which can add or drop co-pairs between
+    endpoints the delta never touched.  Marking every member of such an
+    anchor as touched routes all its pairs through the full
+    re-expansion, preserving refresh == rebuild bitwise."""
+    old_deg = np.bincount(anchor_of(old_ui), minlength=n_anchor)
+    new_deg = np.bincount(anchor_of(new_ui), minlength=n_anchor)
+    changed = ((old_deg != new_deg)
+               & (np.maximum(old_deg, new_deg) > cap))
+    if not changed.any():
+        return np.zeros(0, np.int64)
+    sel_old = changed[anchor_of(old_ui)]
+    sel_new = changed[anchor_of(new_ui)]
+    return np.union1d(other_of(old_ui)[sel_old], other_of(new_ui)[sel_new])
+
+
+def refresh_graph(g: HeteroGraph, delta_log: EngagementLog
+                  ) -> Tuple[HeteroGraph, Dict[str, np.ndarray]]:
+    """Splice a trailing-window delta into an existing graph (paper's
+    hour-level item-coverage path: no from-scratch rebuild).
+
+    Only co-engagement pairs reachable from the delta are re-derived;
+    the cheap O(E) tails (Eq. 3 correction, top-K subsampling) run in
+    full.  Every retained edge matches a from-scratch build on the
+    merged window bit-for-bit — including when ``hub_cap`` triggers:
+    hub-subsample offsets are keyed by (anchor id, degree)
+    (``hub_uniforms``) and persisted per anchor in ``RefreshState``, so
+    untouched anchors reuse their draws and re-expanded anchors
+    regenerate exactly the draws a full rebuild would consume.  Both id
+    spaces may grow (``delta_log.n_users >= g.n_users``,
+    ``delta_log.n_items >= g.n_items``); grown tails count as touched.
+
+    Returns ``(new_graph, report)`` with ``report['touched_users'] /
+    ['touched_items']`` — the nodes whose edge sets may have changed.
+    """
+    st = g.refresh
+    if st is None:
+        raise ValueError("graph was built without keep_state=True; "
+                         "no refresh aggregates retained")
+    p = st.params
+    if p.get("user_budget"):
+        raise ValueError("incremental refresh with a user retention "
+                         "budget is not supported (retention is a "
+                         "global decision; re-run build_graph)")
+    if delta_log.n_users < g.n_users:
+        raise ValueError("user space may only grow")
+    if delta_log.n_items < g.n_items:
+        raise ValueError("item space may only grow")
+    started = time.perf_counter()
+    nu, ni = delta_log.n_users, delta_log.n_items
+    seed = p.get("seed", 0)
+    cap = p["hub_cap"]
+    draws = st.hub_draws or {}
+
+    # 1) merge the delta's aggregated U-I engagements
+    d_ui = build_ui_edges(delta_log, p.get("event_weights"))
+    ui_full = merge_edge_aggregates(st.ui_full, d_ui, ni)
+    touched_u = np.unique(delta_log.user_id)
+    touched_i = np.unique(delta_log.item_id)
+    if nu > g.n_users:       # grown tail = brand-new users
+        touched_u = np.union1d(touched_u, np.arange(g.n_users, nu))
+    if ni > g.n_items:       # grown tail = brand-new items
+        touched_i = np.union1d(touched_i, np.arange(g.n_items, ni))
+    # degree-changed hub anchors redraw their subsample: their
+    # members' co-pairs must be recomputed even if the delta never
+    # touched them
+    touched_u = np.union1d(touched_u, _hub_resample_members(
+        st.ui_full, ui_full, lambda e: e.dst, lambda e: e.src, ni,
+        cap))
+    touched_i = np.union1d(touched_i, _hub_resample_members(
+        st.ui_full, ui_full, lambda e: e.src, lambda e: e.dst, nu,
+        cap))
+    um = np.zeros(nu, bool)
+    um[touched_u] = True
+    im = np.zeros(ni, bool)
+    im[touched_i] = True
+
+    # 2) re-derive co-engagement pairs touching the delta
+    lo, hi, w, uu_new, uu_rec = _recompute_touching_pairs(
+        ui_full.dst, ui_full.src, ui_full.weight, um, nu,
+        p["c_u"], cap, seed, "uu", draws.get("uu"))
+    keep = ~(um[st.uu_raw.src] | um[st.uu_raw.dst])
+    uu_raw = _canonical_pair_order(
+        EdgeSet(np.r_[st.uu_raw.src[keep], lo],
+                np.r_[st.uu_raw.dst[keep], hi],
+                np.r_[st.uu_raw.weight[keep], w]), nu)
+    uu_draws = _merge_hub_draws(draws.get("uu"), uu_new, uu_rec, cap)
+
+    lo, hi, w, ii_new, ii_rec = _recompute_touching_pairs(
+        ui_full.src, ui_full.dst, ui_full.weight, im, ni,
+        p["c_i"], cap, seed, "ii", draws.get("ii"))
+    keep = ~(im[st.ii_raw.src] | im[st.ii_raw.dst])
+    ii_raw = _canonical_pair_order(
+        EdgeSet(np.r_[st.ii_raw.src[keep], lo],
+                np.r_[st.ii_raw.dst[keep], hi],
+                np.r_[st.ii_raw.weight[keep], w]), ni)
+    ii_draws = _merge_hub_draws(draws.get("ii"), ii_new, ii_rec, cap)
+
+    # 3) cheap O(E) tails in full (Eq. 3, top-K, groups)
+    g_new = _finalize_graph(nu, ni, ui_full, uu_raw, ii_raw,
+                            alpha_pop=p["alpha_pop"],
+                            k_cap=p["k_cap"], state_params=p,
+                            keep_state=True, started=started,
+                            hub_draws={"uu": uu_draws,
+                                       "ii": ii_draws})
+    report = dict(touched_users=touched_u, touched_items=touched_i)
+    return g_new, report

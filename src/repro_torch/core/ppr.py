@@ -16,8 +16,14 @@ backends with bit-identical output, selected by ``backend=``:
 
 Both consume the same host-made uniform stream (``walk_uniforms``,
 keyed by node id in ``U_BLOCK`` blocks), so their traces are exactly
-equal.  The incremental refresh (``refresh_ppr_neighbors``) and the
-Group-2 KNN fallback wait for the refresh slice.
+equal, and an incremental refresh that re-walks only the affected nodes
+(``refresh_ppr_neighbors``) reproduces the traces a full rebuild would
+walk for them.
+
+Group-2 handling (nodes without same-type neighbours) lives in
+``group2_neighbors``: KNN over previous-run Group-1 embeddings, host
+numpy as in the reference (a device product would round differently
+and flip near-tie neighbours).
 """
 from __future__ import annotations
 
@@ -243,6 +249,31 @@ def _walk_device(adj: DeviceAdj, starts: np.ndarray, *, n_walks: int,
 BACKENDS = ("numpy", "device")
 
 
+def ppr_visit_counts(adj: PaddedHeteroAdj, starts: np.ndarray, *,
+                     n_walks: int = 64, walk_len: int = 5,
+                     restart: float = 0.15, seed: int = 0,
+                     chunk: int = 1 << 18, backend: str = "numpy",
+                     device=None) -> Tuple[np.ndarray, np.ndarray]:
+    """Returns (visited, starts): (n_starts, n_walks*walk_len) int64 node
+    ids per start, on the host.  Memory-chunked over starts; both
+    backends are bit-identical (shared uniform stream, see
+    ``walk_uniforms``); ``device`` walks on ``device`` (CUDA unless given
+    ``"cpu"``)."""
+    starts = np.asarray(starts, np.int64)
+    if backend == "numpy":
+        visited = _walk_numpy(adj, starts, n_walks=n_walks,
+                              walk_len=walk_len, restart=restart,
+                              seed=seed, chunk=chunk)
+    elif backend == "device":
+        vis, _ = _walk_device(adjacency_to_device(adj, device), starts,
+                              n_walks=n_walks, walk_len=walk_len,
+                              restart=restart, seed=seed, chunk=chunk)
+        visited = vis.cpu().numpy().astype(np.int64)
+    else:
+        raise ValueError(f"unknown backend {backend!r}; want {BACKENDS}")
+    return visited, starts
+
+
 # ---------------------------------------------------------------------------
 # visit counting + top-k (host numpy, and the device counterpart)
 # ---------------------------------------------------------------------------
@@ -365,15 +396,17 @@ def topk_by_count(visited: np.ndarray, starts: np.ndarray, k: int,
 
 
 # ---------------------------------------------------------------------------
-# precompute
+# precompute + incremental refresh
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
 class PPRState:
-    """What an incremental refresh needs to splice new walks into an
-    existing run (the refresh itself waits for the refresh slice): the
-    visit traces, the adjacency snapshot they were walked on, the
-    user/item split of its unified id space, and the walk knobs."""
+    """Everything ``refresh_ppr_neighbors`` needs to splice new walks
+    into an existing run: the visit traces, the adjacency snapshot the
+    traces were walked on (for change detection), the user/item split of
+    its unified id space (user growth shifts item global ids — the
+    remap pass needs the old boundary), and the walk knobs.  All of it
+    lives on the host, whichever backend walked."""
     visited: np.ndarray          # (n_nodes, n_walks*walk_len) int64
     nbrs: np.ndarray             # padded adjacency at build time
     cum: np.ndarray
@@ -432,3 +465,153 @@ def precompute_ppr_neighbors(g: HeteroGraph, *, k_imp: int = 50,
                          k_imp, backend, n_users=g.n_users)
         return users, items, state
     return users, items
+
+
+def _expand_affected(nbrs: np.ndarray, changed: np.ndarray, hops: int
+                     ) -> np.ndarray:
+    """Nodes whose visit trace can differ: anything that reaches a
+    changed adjacency row within ``hops`` steps (reverse BFS).  A walk
+    diverges only after stepping *from* a changed row, and the identical
+    prefix up to that row exists in the new adjacency, so BFS over the
+    new adjacency is sufficient."""
+    n, _ = nbrs.shape
+    src = np.repeat(np.arange(n), nbrs.shape[1])
+    dst = nbrs.reshape(-1)
+    m = dst >= 0
+    src, dst = src[m], dst[m]
+    affected = changed.copy()
+    frontier = changed
+    for _ in range(max(0, hops)):
+        newf = np.zeros(n, bool)
+        newf[src[frontier[dst]]] = True
+        newf &= ~affected
+        if not newf.any():
+            break
+        affected |= newf
+        frontier = newf
+    return affected
+
+
+def refresh_ppr_neighbors(g_new: HeteroGraph, user_nbrs: np.ndarray,
+                          item_nbrs: np.ndarray, state: PPRState, *,
+                          backend: Optional[str] = None, device=None
+                          ) -> Tuple[np.ndarray, np.ndarray, PPRState,
+                                     np.ndarray]:
+    """Splice an incremental graph refresh into existing PPR tables.
+
+    Re-walks only the nodes whose ``walk_len``-hop neighborhoods saw an
+    adjacency change (plus brand-new user/item rows), regenerates
+    exactly the uniform draws a full run would have used for them, and
+    re-ranks those rows against the spliced global visit mass — so every
+    affected row is bit-identical to a from-scratch
+    ``precompute_ppr_neighbors`` on the refreshed graph, and every
+    unaffected row is left untouched (modulo the unified-id remap).
+
+    Either id space may have grown.  Item growth appends rows; *user*
+    growth shifts every item's global id by the number of new users, so
+    carried-over rows first go through a remap pass: row ``r`` of the
+    old layout moves to ``r + shift`` when ``r`` was an item row, and
+    every item id stored *inside* a trace or neighbor table shifts the
+    same way (-1 pads and user ids are fixed points).  The type-keyed
+    uniform stream (``walk_uniforms``) makes the old traces valid
+    verbatim after the remap.
+
+    ``backend="device"`` walks the affected ids with the ``ppr_walk`` op
+    and ranks them on ``device`` (CUDA unless given ``"cpu"``); the
+    adjacency, the change detection, the spliced traces and their global
+    mass stay on the host.  Returns (user_nbrs, item_nbrs, new_state,
+    affected_ids) — ids in the *new* unified space.
+    """
+    backend = backend or state.backend
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; want {BACKENDS}")
+    adj = build_padded_hetero_adj(g_new, state.max_deg_per_type)
+    n_old = state.nbrs.shape[0]
+    n_new = adj.n_nodes
+    nu = g_new.n_users
+    old_nu = state.n_users
+    shift = nu - old_nu
+    S = state.n_walks * state.walk_len
+
+    # remap pass: old row positions + stored ids in the new unified space
+    old_pos = np.arange(n_old)
+    if shift:
+        old_pos = np.where(old_pos >= old_nu, old_pos + shift, old_pos)
+
+    def _remap(a: np.ndarray) -> np.ndarray:
+        if not shift:
+            return a
+        return np.where(a >= old_nu, a + shift, a)   # -1 pads: fixed points
+
+    changed = np.ones(n_new, bool)                 # inserted rows: changed
+    changed[old_pos] = (np.any(adj.nbrs[old_pos] != _remap(state.nbrs),
+                               axis=1)
+                        | np.any(adj.cum[old_pos] != state.cum, axis=1))
+    affected = _expand_affected(adj.nbrs, changed, state.walk_len - 1)
+    ids = np.flatnonzero(affected)
+
+    walk = dict(n_walks=state.n_walks, walk_len=state.walk_len,
+                restart=state.restart, seed=state.seed)
+    visited = np.empty((n_new, S), np.int64)
+    visited[old_pos] = _remap(state.visited)
+    if len(ids):
+        if backend == "device":
+            vis_dev, cnt_dev = _walk_device(
+                adjacency_to_device(adj, device), ids, **walk)
+            vis_new = vis_dev.cpu().numpy().astype(np.int64)
+        else:
+            vis_new, _ = ppr_visit_counts(adj, ids, backend="numpy", **walk)
+        visited[ids] = vis_new
+
+    glob = global_visit_mass(visited, n_new)
+    u_rows = np.full((n_new, state.k_imp), -1, np.int64)
+    i_rows = np.full((n_new, state.k_imp), -1, np.int64)
+    u_rows[old_pos] = _remap(user_nbrs)
+    i_rows[old_pos] = _remap(item_nbrs)
+    if len(ids):
+        if backend == "device":
+            u_new, i_new = _topk_from_counts_device(
+                vis_dev, cnt_dev, torch.from_numpy(ids).to(vis_dev.device),
+                state.k_imp, nu, state.hub_alpha, glob)
+            u_new, i_new = u_new.cpu().numpy(), i_new.cpu().numpy()
+        else:
+            u_new, i_new = topk_by_count(vis_new, ids, state.k_imp, nu,
+                                         nu, hub_alpha=state.hub_alpha,
+                                         glob=glob)
+        u_rows[ids] = u_new
+        i_rows[ids] = i_new
+
+    new_state = dataclasses.replace(state, visited=visited,
+                                    nbrs=adj.nbrs, cum=adj.cum,
+                                    backend=backend, n_users=nu)
+    return u_rows, i_rows, new_state, ids
+
+
+# ---------------------------------------------------------------------------
+# Group 2 fallback (paper: KNN over previous Group-1 embeddings)
+# ---------------------------------------------------------------------------
+
+def group2_neighbors(prev_emb: np.ndarray, group1_ids: np.ndarray,
+                     group2_ids: np.ndarray, k: int,
+                     chunk: int = 4096) -> np.ndarray:
+    """Same-type neighbors for Group-2 nodes = KNN (cosine) over Group-1
+    embeddings from the previous training run (refreshed daily)."""
+    if len(group1_ids) == 0 or len(group2_ids) == 0:
+        return np.full((len(group2_ids), k), -1, np.int64)
+    e1 = prev_emb[group1_ids]
+    e1 = e1 / np.maximum(np.linalg.norm(e1, axis=1, keepdims=True), 1e-8)
+    out = np.empty((len(group2_ids), k), np.int64)
+    kk = min(k, len(group1_ids))
+    for lo in range(0, len(group2_ids), chunk):
+        hi = min(len(group2_ids), lo + chunk)
+        q = prev_emb[group2_ids[lo:hi]]
+        q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-8)
+        sims = q @ e1.T
+        top = np.argpartition(-sims, kk - 1, axis=1)[:, :kk]
+        rows = np.arange(hi - lo)[:, None]
+        o = np.argsort(-sims[rows, top], axis=1, kind="stable")
+        sel = group1_ids[top[rows, o]]
+        if kk < k:
+            sel = np.pad(sel, ((0, 0), (0, k - kk)), constant_values=-1)
+        out[lo:hi] = sel
+    return out

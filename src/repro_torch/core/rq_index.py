@@ -7,7 +7,13 @@ utilisation of published assignments.
 
 Codebooks are a ``ModuleDict({"codebooks": ParameterDict({"layer{l}":
 (n_l, d)})})`` so ``rq["codebooks"]["layer0"]`` reads as in the JAX
-params tree.  The dead-code reset waits for the lifecycle slice.
+params tree.
+
+The dead-code reset (``dead_code_reset``, fed the EMA usage or the
+corpus occupancy ``per_code_counts``) is host numpy, as in the
+reference: its argmin is the norm expansion in numpy, not the
+``rq_assign`` kernel, whose exact direct distance rounds differently
+and would move near-tie donor members.
 """
 from __future__ import annotations
 
@@ -196,4 +202,129 @@ def codes_utilization(codes, codebook_sizes) -> List[float]:
             continue
         used = np.unique(codes[:, l])
         out.append(min(float(len(used)) / float(size), 1.0))
+    return out
+
+
+def per_code_counts(codes, codebook_sizes) -> List[np.ndarray]:
+    """Per-layer code occupancy of ``codes`` ``(N, L)`` (numpy or
+    tensor): how many rows land on each code, f32.  The corpus-side
+    usage signal the repair path feeds to ``dead_code_reset`` (EMA usage
+    can look healthy long after the published assignments collapsed)."""
+    if isinstance(codes, torch.Tensor):
+        codes = codes.cpu().numpy()
+    codes = np.asarray(codes)
+    if codes.ndim == 1:
+        codes = codes[:, None]
+    out = []
+    for l, size in enumerate(codebook_sizes):
+        if size < 1:
+            out.append(np.zeros(0, np.float32))
+        elif len(codes) == 0:
+            out.append(np.zeros(size, np.float32))
+        else:
+            out.append(np.bincount(codes[:, l].astype(np.int64),
+                                   minlength=size).astype(np.float32))
+    return out
+
+
+def _host_f32(x) -> np.ndarray:
+    """A float32 numpy copy of an array or tensor (on any device)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", torch.float32).numpy()
+    return np.array(x, np.float32)
+
+
+def dead_code_reset(rq_params, state: RQState, h, cfg: RQConfig, *,
+                    seed: int, step: int = 0, usage=None
+                    ) -> Tuple[Dict[str, Dict[str, torch.Tensor]], RQState,
+                               Dict[str, int]]:
+    """Re-seed dead codes from high-load clusters' residuals.
+
+    A code of layer ``l`` is *dead* when its usage share falls below
+    ``cfg.dead_floor / n_codes_l``.  Usage defaults to the EMA counters
+    carried in ``state``; the repair path overrides it with the
+    published corpus occupancy (``per_code_counts``), which is what
+    actually collapsed.  Each dead code is re-seeded at the layer-``l``
+    residual of a member of a high-load (donor) cluster — donors are
+    cycled in usage-descending order, the member pick and a tiny
+    de-duplicating jitter are drawn from ``default_rng((seed, step, l,
+    code))``, so the pass is bit-deterministic and independent of probe
+    chunking.  ``h`` (P, d) is a probe of current embeddings.
+
+    Guarantees: live rows are bit-unchanged, so with the pre-reset
+    residuals any assignment that moves can only move *to* a revived
+    code.  Revived codes' EMA usage restarts at the live mean.
+
+    Host numpy throughout, bitwise equal to the JAX package.  Returns
+    ``(new_params, new_state, report)``: ``new_params["codebooks"]``
+    holds new f32 codebooks on the codebooks' devices, ``new_state``
+    the same histograms, ``ptr`` and ``filled`` with the new usage on
+    the usage's devices, and ``report['reset_layer{l}']`` the number of
+    codes re-seeded.
+    """
+    h = _host_f32(h)
+    L = len(cfg.codebook_sizes)
+    params = [rq_params["codebooks"][f"layer{l}"] for l in range(L)]
+    books = [_host_f32(c) for c in params]
+
+    def _argmin(resid: np.ndarray, C: np.ndarray) -> np.ndarray:
+        if not len(resid):
+            return np.zeros(0, np.int64)
+        d2 = (np.sum(resid * resid, axis=1, keepdims=True)
+              - 2.0 * resid @ C.T + np.sum(C * C, axis=1)[None, :])
+        return d2.argmin(axis=1)
+
+    usage_in = usage if usage is not None else state.usage
+    report: Dict[str, int] = {}
+    new_usage: List[np.ndarray] = []
+    # the eval-mode (Eq. 9) residual cascade is recomputed layer by
+    # layer *after* each layer's reseed: a revived coarse code changes
+    # the residuals the next layer quantizes
+    resid = h.copy()
+    for l in range(L):
+        K = cfg.codebook_sizes[l]
+        u = _host_f32(usage_in[l])
+        u = u / max(float(u.sum()), 1e-12)
+        dead = np.flatnonzero(u < cfg.dead_floor / K)
+        live = np.flatnonzero(u >= cfg.dead_floor / K)
+        if len(dead) == 0 or len(live) == 0 or len(h) == 0:
+            report[f"reset_layer{l}"] = 0
+            new_usage.append(u)
+            resid = resid - books[l][_argmin(resid, books[l])]
+            continue
+        # donors: live codes, heaviest first (stable ties by index)
+        donors = live[np.argsort(-u[live], kind="stable")]
+        a = _argmin(resid, books[l])       # pre-reset donor membership
+        rms = float(np.sqrt(np.mean(resid * resid))) or 1.0
+        for j_i, j in enumerate(np.sort(dead)):
+            donor = int(donors[j_i % len(donors)])
+            members = np.flatnonzero(a == donor)
+            pool = members if len(members) else np.arange(len(resid))
+            rng = np.random.default_rng((seed, step, l, int(j)))
+            pick = int(pool[min(int(rng.random() * len(pool)),
+                                len(pool) - 1)])
+            jitter = rng.normal(size=resid.shape[1]).astype(np.float32)
+            books[l][j] = resid[pick] + jitter * (1e-3 * rms)
+        u[dead] = float(u[live].mean())
+        new_usage.append(u / max(float(u.sum()), 1e-12))
+        report[f"reset_layer{l}"] = int(len(dead))
+        resid = resid - books[l][_argmin(resid, books[l])]
+
+    new_params = {"codebooks": {
+        f"layer{l}": torch.from_numpy(books[l]).to(params[l].device)
+        for l in range(L)}}
+    new_state = RQState(state.hists, tuple(
+        torch.from_numpy(u).to(old.device)
+        for u, old in zip(new_usage, state.usage)), state.ptr, state.filled)
+    return new_params, new_state, report
+
+
+def reconstruct(rq_params, codes: torch.Tensor, cfg: RQConfig
+                ) -> torch.Tensor:
+    """codes (B, L) -> reconstructed embeddings (Eq. 10)."""
+    out = None
+    for l in range(len(cfg.codebook_sizes)):
+        C = rq_params["codebooks"][f"layer{l}"]
+        sel = C.index_select(0, codes[:, l].to(C.device, torch.long))
+        out = sel if out is None else out + sel
     return out

@@ -13,7 +13,10 @@ clips, and applies the partitioned AdaGrad/AdamW update.
 
 Unlike the JAX package's pure step, the port updates the state in
 place: the parameters, optimizer moments, RQ histograms and pool are
-rewritten where they lie, so no second copy of the state is held.
+rewritten where they lie, so no second copy of the state is held.  The
+eval step (``make_eval_step``) and the dead-code reset
+(``reset_dead_codes``, which writes re-seeded codebook rows into the
+live parameters) follow the same rule.
 """
 from __future__ import annotations
 
@@ -250,6 +253,57 @@ def make_train_step(cfg: RankGraph2Config, optimizer: opt_lib.Optimizer,
         return state, metrics
 
     return train_step
+
+
+def make_eval_step(cfg: RankGraph2Config, *, features: FeatureStore):
+    """Builds ``eval_step(state, batch, *, generator=None, draws=None)
+    -> task_losses``: ``forward_losses`` with ``train=False`` (Eq. 9
+    hard RQ selection, no state update), under ``no_grad``; negatives
+    as in ``make_train_step``."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch, *,
+                  generator: Optional[torch.Generator] = None, draws=None):
+        tasks, _ = forward_losses(state.params, cfg, batch, state.pool,
+                                  state.rq_state, features=features,
+                                  train=False, generator=generator,
+                                  draws=draws)
+        return tasks
+
+    return eval_step
+
+
+# ---------------------------------------------------------------------------
+# self-healing: dead-code reset over the whole TrainState
+# ---------------------------------------------------------------------------
+
+def reset_dead_codes(state: TrainState, probe_emb, cfg: RankGraph2Config,
+                     *, seed: int, step: int = 0, usage=None
+                     ) -> Tuple[TrainState, Dict[str, int]]:
+    """Run ``rq_index.dead_code_reset`` against a TrainState.
+
+    Host-side; only the dead codebook rows and the RQ usage counters
+    change.  The new codebooks are written into the same
+    ``nn.Parameter`` objects, in place and outside autograd, so the
+    optimizer's state (keyed by parameter name) stays valid; the RQ
+    state is replaced by one with the new usage on its device and the
+    same histograms, ``ptr`` and ``filled``.  Every other parameter, the
+    optimizer's state, the pool and the step are left untouched.
+    ``probe_emb`` is a (P, d_embed) sample of current embeddings (array
+    or tensor) supplying the donor residuals; ``usage`` optionally
+    overrides the EMA counters with published corpus occupancy (the
+    repair path).  Returns ``(state, report)``, ``state`` updated in
+    place.
+    """
+    new_rq, new_rq_state, report = RQ.dead_code_reset(
+        state.params["rq"], state.rq_state, probe_emb, cfg.rq,
+        seed=seed, step=step, usage=usage)
+    books = state.params["rq"]["codebooks"]
+    with torch.no_grad():
+        for name, book in new_rq["codebooks"].items():
+            books[name].copy_(book)
+    state.rq_state = new_rq_state
+    return state, report
 
 
 # ---------------------------------------------------------------------------

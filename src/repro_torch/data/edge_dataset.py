@@ -14,19 +14,23 @@ draws per type, then per node type a user- and an item-neighbour draw),
 and an inference gather re-makes ``np.random.default_rng(seed)`` per
 call.  A batch ships int32 ids, maps and f32 masks to the device.
 
-The Group-2 KNN fill, the refresh state, and the ``legacy`` / ``dedup``
-batch formats wait for later slices.
+Tables can keep the PPR state that powers the hour-level
+``incremental_refresh`` (graph splice, re-walk of the affected nodes,
+Group-2 KNN fill), which matches a from-scratch build on the merged
+window on every affected row.  The ``legacy`` / ``dedup`` batch formats
+wait for a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import ppr as ppr_mod
-from repro_torch.core.graph_builder import HeteroGraph
+from repro_torch.core.graph_builder import HeteroGraph, refresh_graph
 from repro_torch.kernels.common import resolve_device
 
 
@@ -38,20 +42,109 @@ class NeighborTables:
     item_nbrs: np.ndarray    # (n_nodes, k_imp)
     n_users: int
     n_items: int
+    ppr: Optional[ppr_mod.PPRState] = None   # refresh splice state
+
+
+def _fill_group2(g: HeteroGraph, user_nbrs: np.ndarray,
+                 item_nbrs: np.ndarray, prev_emb: np.ndarray, k_imp: int,
+                 only: Optional[np.ndarray] = None) -> None:
+    """Group-2 fallback: same-type neighbors via previous-run KNN
+    (in-place; ``only`` restricts to a node-id subset, e.g. the nodes an
+    incremental refresh actually touched)."""
+    nu = g.n_users
+    g2u = np.flatnonzero(~g.group1_users)
+    g1u = np.flatnonzero(g.group1_users)
+    g2i = np.flatnonzero(~g.group1_items)
+    g1i = np.flatnonzero(g.group1_items)
+    if only is not None:
+        g2u = g2u[np.isin(g2u, only)]
+        g2i = g2i[np.isin(g2i + nu, only)]
+    if len(g2u) and len(g1u):
+        knn = ppr_mod.group2_neighbors(prev_emb[:nu], g1u, g2u, k_imp)
+        user_nbrs[g2u] = np.where(knn >= 0, knn, user_nbrs[g2u])
+    if len(g2i) and len(g1i):
+        knn = ppr_mod.group2_neighbors(prev_emb[nu:], g1i, g2i, k_imp)
+        item_nbrs[nu + g2i] = np.where(knn >= 0, nu + knn,
+                                       item_nbrs[nu + g2i])
 
 
 def build_neighbor_tables(g: HeteroGraph, *, k_imp: int = 50,
                           n_walks: int = 64, walk_len: int = 5,
                           restart: float = 0.15, seed: int = 0,
-                          backend: str = "device",
-                          device=None) -> NeighborTables:
-    """PPR tables over the whole graph (paper §4.2).  ``backend``
-    selects the walker (``numpy`` on the host, ``device``: the
-    ``ppr_walk`` op on ``device``); both give identical tables."""
-    user_nbrs, item_nbrs = ppr_mod.precompute_ppr_neighbors(
+                          prev_emb: Optional[np.ndarray] = None,
+                          backend: str = "device", device=None,
+                          keep_state: bool = False) -> NeighborTables:
+    """PPR tables over the whole graph + Group-2 fallback (paper §4.2).
+    ``backend`` selects the walker (``numpy`` on the host, ``device``:
+    the ``ppr_walk`` op on ``device``); both give identical tables.
+    ``prev_emb`` (previous-run embeddings, [users; items]) fills the
+    same-type rows of Group-2 nodes by KNN; ``keep_state`` retains the
+    visit traces that power ``incremental_refresh`` (opt-in:
+    (n_nodes, n_walks*walk_len) int64 plus an adjacency snapshot)."""
+    out = ppr_mod.precompute_ppr_neighbors(
         g, k_imp=k_imp, n_walks=n_walks, walk_len=walk_len,
-        restart=restart, seed=seed, backend=backend, device=device)
-    return NeighborTables(user_nbrs, item_nbrs, g.n_users, g.n_items)
+        restart=restart, seed=seed, backend=backend,
+        return_state=keep_state, device=device)
+    user_nbrs, item_nbrs = out[:2]
+    state = out[2] if keep_state else None
+    if prev_emb is not None:
+        _fill_group2(g, user_nbrs, item_nbrs, prev_emb, k_imp)
+    return NeighborTables(user_nbrs, item_nbrs, g.n_users, g.n_items,
+                          ppr=state)
+
+
+def incremental_refresh(g: HeteroGraph, tables: NeighborTables,
+                        new_log_window, *,
+                        prev_emb: Optional[np.ndarray] = None,
+                        backend: Optional[str] = None, device=None
+                        ) -> Tuple[HeteroGraph, NeighborTables, Dict]:
+    """Hour-level lifecycle refresh (paper §4.2): splice a trailing log
+    window into an existing graph + PPR tables without a full rebuild.
+
+    Edges are re-derived only for co-engagement pairs reachable from the
+    delta (``graph_builder.refresh_graph``); walks re-run only for nodes
+    whose walk-length neighborhood changed, and new nodes — *both* id
+    spaces may grow — are spliced into the padded adjacencies and
+    tables (``ppr.refresh_ppr_neighbors``, on ``device`` with the
+    ``device`` backend; user growth additionally remaps the unified id
+    space, shifting item global ids).  Fresh nodes that still lack
+    same-type neighbors route through the Group-2 KNN fallback when
+    ``prev_emb`` (previous-run embeddings sized for the *new* space,
+    [users; items]) is given.
+
+    Affected rows match a from-scratch build on the merged window
+    bit-for-bit — including when ``hub_cap`` triggers: hub-subsample
+    draws are keyed per anchor and persisted in ``RefreshState`` (see
+    ``refresh_graph``).  Unaffected rows are left untouched (modulo the
+    id remap).  Returns ``(new_graph, new_tables, report)``; the report
+    carries ``touched_users``, ``touched_items``, ``affected_nodes``,
+    ``refresh_seconds`` and its split ``seconds`` (``refresh_graph``,
+    ``ppr_refresh``, ``group2_fill``; host clock, each piece ends on the
+    host).
+    """
+    if tables.ppr is None:
+        raise ValueError("tables were built without keep_state=True; "
+                         "no refresh state retained")
+    t0 = time.perf_counter()
+    g_new, report = refresh_graph(g, new_log_window)
+    t1 = time.perf_counter()
+    user_nbrs, item_nbrs, state, affected = \
+        ppr_mod.refresh_ppr_neighbors(
+            g_new, tables.user_nbrs, tables.item_nbrs, tables.ppr,
+            backend=backend, device=device)
+    t2 = time.perf_counter()
+    if prev_emb is not None and len(affected):
+        _fill_group2(g_new, user_nbrs, item_nbrs, prev_emb,
+                     tables.ppr.k_imp, only=affected)
+    t3 = time.perf_counter()
+    report["affected_nodes"] = affected
+    report["refresh_seconds"] = t3 - t0
+    report["seconds"] = {"refresh_graph": t1 - t0, "ppr_refresh": t2 - t1,
+                         "group2_fill": t3 - t2}
+    return (g_new,
+            NeighborTables(user_nbrs, item_nbrs, g_new.n_users,
+                           g_new.n_items, ppr=state),
+            report)
 
 
 EDGE_KEYS = ("uu", "ui", "ii")
