@@ -103,12 +103,40 @@ optimizer's state, histograms and pool unchanged, every probe row whose
 layer-0 code moves moved to a revived code, finite losses after it, and
 the eval step equal to ``forward_losses(train=False)``.
 
+Phase 7 runs the lifecycle loop at the same width on Phase 6's
+refreshed graph, tables and grown feature tables (no second build),
+through the entry points a user calls: ``LifecycleRuntime.run_cycle``
+(10-step bursts of 10,922 edges per type, cut from 50; the gate with
+every floor at 0, so both swaps happen, on 100 recall queries, cut from
+400: on the index these bursts publish, one layer-0 list holds nearly
+every user, so each query ranks them all; snapshots in a temporary
+directory), ``SwapServer.ingest`` / ``serve_batch`` and
+``recover_serving``.  The gate's world is a next-day log made with numpy
+from Phase 3's topic model (the same users' home topics, Poisson(2)
+events each; no published source): its first 15 minutes are cycle 1's
+refresh delta and the live traffic, the rest the ground truth.  Cycle 0
+trains, publishes (``embed_all``, ``rq_assign``, the I2I KNN, the gate)
+and brings serving up; the server ingests day 0's last two hours and the
+15 minutes, serves 8 x 512 requests and 262,144 (``queue_gather``);
+cycle 1 refreshes on the device backend (``ppr_walk``), trains,
+publishes and swaps (ring replay, post-swap probe); the server serves
+again; a fresh runtime on the same directory recovers.  It checks: no
+stage failed or degraded, versions 1 and 2 on disk, the swap's replayed
+and stale events against the ring counted in numpy, every response's
+version, 512 bulk rows of each serve stage bitwise against the plain
+version, 4,096 published codes against ``rq_assign``'s plain version
+(near ties aside), version 2's gate recomputed on CPU copies equal to
+the report's, the recovered snapshot bitwise equal to version 2, the trace's
+stage spans under each ``lifecycle.cycle``, and the launches of the five
+main-path kernels.
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
 ``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
 Phase 4's serve and train stages, ``flash_attention*`` Phase 5's serve
 stages; Phase 6's launches of ``rq_assign``, ``ppr_walk`` and
-``fused_contrastive_*`` are added to those.
+``fused_contrastive_*`` and Phase 7's of those and ``queue_gather`` are
+added to those.
 
 The second-to-last line is a JSON object listing every ported kernel
 (launches on the main path, error against the plain version, times and
@@ -126,8 +154,10 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -152,7 +182,8 @@ from repro_torch.core.ppr import (_expand_affected,  # noqa: E402
                                   global_visit_mass, walk_uniforms)
 from repro_torch.core.rq_index import (RQState, assign_codes,  # noqa: E402
                                        codebooks_module, dead_code_reset,
-                                       init_rq, per_code_counts)
+                                       init_rq, layer_books,
+                                       per_code_counts)
 from repro_torch.core.serving import ClusterQueueStore  # noqa: E402
 from repro_torch.core.trainer import (FeatureStore, embed_all,  # noqa: E402
                                       forward_losses, init_state,
@@ -192,9 +223,13 @@ from repro_torch.launch.steps import (lm_decode_step,  # noqa: E402
                                       lm_prefill_step, recsys_retrieval_step,
                                       recsys_serve_step, recsys_train_step,
                                       top_k)
+from repro_torch.lifecycle import (LifecycleConfig,  # noqa: E402
+                                   LifecycleRuntime)
 from repro_torch.lifecycle.publish import (build_snapshot,  # noqa: E402
-                                           encode_corpus, snapshot_health)
+                                           encode_corpus, evaluate_snapshot,
+                                           snapshot_health)
 from repro_torch.models.lm import model as LM  # noqa: E402
+from repro_torch.obs import MemorySink, Telemetry  # noqa: E402
 from repro_torch.models.recsys import models as R  # noqa: E402
 from repro_torch.optim.optimizers import rankgraph2_optimizer  # noqa: E402
 
@@ -240,6 +275,16 @@ P6_ITEM_EVENTS = 4           # Poisson mean of a new item's events
 P6_STEPS = 10                # the train burst on the refreshed graph
 P6_TRACES = 4096             # re-walked starts held against numpy
 EMBED_BATCH = 2048           # the lifecycle's embed batch (probe embeds)
+P7_STEPS = 10                # steps a lifecycle burst, cut from 50
+P7_QUERIES = 100             # the gate's recall queries, cut from 400
+P7_EVENTS = 2                # Poisson mean of a user's next-day events
+P7_DELTA_S = 900.0           # the next day's first 15 minutes
+P7_RECENCY_S, P7_RING = 7200.0, 1 << 20
+P7_TAIL_S = 7200.0           # day 0's last two hours, ingested live
+P7_SAMPLE = 512              # served rows held against the plain version
+P7_CODE_SAMPLE = 4096        # published codes held against the plain version
+SNAP_FIELDS = ("user_codes", "item_codes", "user_clusters", "member_ptr",
+               "member_ids", "coarse_codebook", "i2i")
 DLRM = get_arch("dlrm-rm2").config   # bf16 compute, f32 params, embed 64
 RS = {s.name: s.dims for s in RECSYS_SHAPES}
 RS_P99, RS_BULK = RS["serve_p99"]["batch"], RS["serve_bulk"]["batch"]
@@ -333,19 +378,13 @@ def rq_inputs(g: torch.Generator, B: int, d: int, sizes, dev):
     return x, books
 
 
-def rq_held(x, books, what: str):
-    """Hold ``rq_assign`` against ``rq_assign_ref`` on (x, books): every
-    differing row a near-tie at its first differing layer, recon within
-    1e-6 on matching rows, and exact ties broken to the lowest index.
-    Returns the kernel's (codes, recon), near-tie rows, recon error and
-    tied rows."""
-    ck, rk = RQA.rq_assign(x, books)
-    cp, rp = rq_assign_ref(x, books)
-    torch.cuda.synchronize()
-    same = (ck == cp).all(dim=1)
-    # every differing row must be a near-tie at its first differing layer
+def near_ties(x, ck, cp, books, what: str) -> int:
+    """Every row where codes ``ck`` differ from the plain version's
+    ``cp`` must be a near-tie at its first differing layer: the two
+    codes' squared distances to the residual (in f64) within
+    ``NEAR_TIE * (1 + d2)``.  Returns the number of such rows."""
     near = 0
-    for row in torch.nonzero(~same).flatten().tolist():
+    for row in torch.nonzero(~(ck == cp).all(dim=1)).flatten().tolist():
         r = x[row].double()
         for l, C in enumerate(books):
             a, b = int(ck[row, l]), int(cp[row, l])
@@ -358,6 +397,20 @@ def rq_held(x, books, what: str):
                 near += 1
                 break
             r = r - C[a].double()
+    return near
+
+
+def rq_held(x, books, what: str):
+    """Hold ``rq_assign`` against ``rq_assign_ref`` on (x, books): every
+    differing row a near-tie at its first differing layer, recon within
+    1e-6 on matching rows, and exact ties broken to the lowest index.
+    Returns the kernel's (codes, recon), near-tie rows, recon error and
+    tied rows."""
+    ck, rk = RQA.rq_assign(x, books)
+    cp, rp = rq_assign_ref(x, books)
+    torch.cuda.synchronize()
+    same = (ck == cp).all(dim=1)
+    near = near_ties(x, ck, cp, books, what)
     err = float((rk[same] - rp[same]).abs().max()) if same.any() else 0.0
     check(err <= 1e-6, f"rq_assign {what}: recon differs on matching rows: "
           f"{err}")
@@ -1574,26 +1627,31 @@ def phase2(seed: int, dev) -> dict:
 # Phase 3: the construct-and-train slice at full width
 # ---------------------------------------------------------------------------
 
-def make_log_world(seed: int) -> SyntheticWorld:
-    """A topic-clustered engagement log of one day, made with numpy: each
-    user has a home topic (N_TOPICS topics of equal item count) and
-    Poisson(EVENTS_PER_USER) events, HOME_SHARE of them on items of the
-    home topic and the rest on any item, both Zipf-1.1 by popularity;
-    event types 0-3 with probabilities 0.7 / 0.15 / 0.1 / 0.05;
-    timestamps over one day; standard-normal features."""
-    rng = np.random.default_rng(seed)
-    nu, ni, T_ = P3_USERS, P3_ITEMS, N_TOPICS
-    per_topic = ni // T_
-    topic_items = rng.permutation(ni)        # topic t: a block, rank order
-    global_items = rng.permutation(ni)       # global popularity rank order
+def topic_model(rng: np.random.Generator):
+    """Phase 3's topic model, the first draws of ``default_rng(seed)``:
+    each topic's items (a block of ``P3_ITEMS // N_TOPICS`` in a
+    permutation, in popularity-rank order), the global popularity order,
+    and each user's home topic."""
+    topic_items = rng.permutation(P3_ITEMS)
+    global_items = rng.permutation(P3_ITEMS)
+    home = rng.integers(0, N_TOPICS, P3_USERS)
+    return topic_items, global_items, home
+
+
+def topic_events(rng: np.random.Generator, model, per_user: np.ndarray):
+    """``per_user[u]`` events of each user: HOME_SHARE on items of the
+    home topic, the rest on any item, both Zipf-1.1 by popularity; event
+    types 0-3 with probabilities 0.7 / 0.15 / 0.1 / 0.05.  Returns
+    (users, items, event types)."""
+    topic_items, global_items, home = model
+    ni = P3_ITEMS
+    per_topic = ni // N_TOPICS
 
     def zipf_cdf(n):
         p = 1.0 / np.arange(1, n + 1, dtype=np.float64) ** 1.1
         return np.cumsum(p / p.sum())
 
-    home = rng.integers(0, T_, nu)
-    per_user = np.maximum(rng.poisson(EVENTS_PER_USER, nu), 1)
-    users = np.repeat(np.arange(nu, dtype=np.int64), per_user)
+    users = np.repeat(np.arange(P3_USERS, dtype=np.int64), per_user)
     n_ev = len(users)
     r_loc = np.minimum(np.searchsorted(zipf_cdf(per_topic),
                                        rng.random(n_ev)), per_topic - 1)
@@ -1603,7 +1661,20 @@ def make_log_world(seed: int) -> SyntheticWorld:
                      topic_items[home[users] * per_topic + r_loc],
                      global_items[r_glob]).astype(np.int64)
     etype = rng.choice(4, n_ev, p=[0.7, 0.15, 0.1, 0.05]).astype(np.int32)
-    ts = rng.random(n_ev) * 86400.0
+    return users, items, etype
+
+
+def make_log_world(seed: int) -> SyntheticWorld:
+    """A topic-clustered engagement log of one day, made with numpy: each
+    user has a home topic (N_TOPICS topics of equal item count) and
+    Poisson(EVENTS_PER_USER) events (``topic_events``); timestamps over
+    one day; standard-normal features."""
+    rng = np.random.default_rng(seed)
+    nu, ni = P3_USERS, P3_ITEMS
+    model = topic_model(rng)
+    per_user = np.maximum(rng.poisson(EVENTS_PER_USER, nu), 1)
+    users, items, etype = topic_events(rng, model, per_user)
+    ts = rng.random(len(users)) * 86400.0
     log = EngagementLog(users, items, etype, ts, nu, ni)
     empty = EngagementLog(np.zeros(0, np.int64), np.zeros(0, np.int64),
                           np.zeros(0, np.int32), np.zeros(0), nu, ni)
@@ -2990,6 +3061,302 @@ def phase6(seed: int, dev) -> dict:
           f", eval {json.dumps({k: round(v, 5) for k, v in ev.items()})} "
           f"(equal to forward_losses(train=False)); peak device memory "
           f"{peak_gb:.3f} GB; launches={launches}")
+    return launches, dict(g=g_new, tables=t_new, user_feat=user_feat,
+                          item_feat=item_feat, merged=merged)
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the lifecycle loop at full width
+# ---------------------------------------------------------------------------
+
+def next_day(seed: int, n_users: int, n_items: int):
+    """The next day's log, made with numpy from Phase 3's topic model:
+    the same users' home topics (``topic_model`` of ``default_rng(seed)``)
+    and a separate stream, ``default_rng((seed, 7))``: Poisson(P7_EVENTS)
+    events per user of Phase 3's log (``topic_events``), timestamps over
+    the day after day 0, in time order, ids in the grown spaces.  Returns
+    (the first P7_DELTA_S seconds: cycle 1's refresh delta and the live
+    traffic; the rest: the gate's next-day ground truth)."""
+    model = topic_model(np.random.default_rng(seed))
+    rng = np.random.default_rng((seed, 7))
+    users, items, etype = topic_events(rng, model,
+                                       rng.poisson(P7_EVENTS, P3_USERS))
+    ts = 86400.0 + rng.random(len(users)) * 86400.0
+    o = np.argsort(ts, kind="stable")
+    users, items, etype, ts = users[o], items[o], etype[o], ts[o]
+    early = ts < 86400.0 + P7_DELTA_S
+
+    def log(m):
+        return EngagementLog(users[m], items[m], etype[m], ts[m], n_users,
+                             n_items)
+
+    return log(early), log(~early)
+
+
+def spans_by_cycle(sink) -> list:
+    """Per ``lifecycle.cycle`` span of the trace: its direct children by
+    name (seconds), and the children of its ``lifecycle.swap``."""
+    recs = [json.loads(ln) for ln in sink.lines]
+    spans = [r for r in recs if r["type"] == "span"]
+    out = []
+    for cyc in (r for r in spans if r["name"] == "lifecycle.cycle"):
+        kids = {r["name"]: r for r in spans
+                if r["parent_id"] == cyc["span_id"]}
+        swap = kids.get("lifecycle.swap")
+        swap_kids = ([r["name"] for r in spans
+                      if r["parent_id"] == swap["span_id"]]
+                     if swap else [])
+        out.append(({k: v["dur_s"] for k, v in kids.items()}, swap_kids,
+                    cyc["dur_s"]))
+    return out
+
+
+def codes_held(rt) -> int:
+    """A sample of P7_CODE_SAMPLE user codes of the live snapshot must
+    equal ``rq_assign``'s plain version on the runtime's embeddings but
+    for near ties (Phase 1's rule).  Returns the near-tie rows."""
+    snap = rt.server.handle.acquire().snapshot
+    user = rt._last_user_emb
+    idx = np.sort(np.random.default_rng(snap.version).choice(
+        snap.n_users, P7_CODE_SAMPLE, replace=False))
+    x = user[torch.from_numpy(idx).to(user.device)].float()
+    books = [c.detach().float() for c in layer_books(
+        rt.state.params["rq"], len(snap.codebook_sizes))]
+    cp, _ = rq_assign_ref(x, books)
+    ck = torch.from_numpy(snap.user_codes[idx]).to(x.device)
+    return near_ties(x, ck, cp.to(ck.dtype), books,
+                     f"v{snap.version} published codes")
+
+
+def gate_recheck(rt, world) -> None:
+    """The live snapshot's gate metrics recomputed on CPU copies of the
+    snapshot and the runtime's embeddings (the users' RQ reconstruction
+    encoded again: ``rq_assign`` repeats bitwise) must equal the
+    report's."""
+    snap = rt.server.handle.acquire().snapshot
+    cpu = dataclasses.replace(snap, **{f: getattr(snap, f).copy()
+                                       for f in SNAP_FIELDS})
+    user, item = rt._last_user_emb, rt._last_item_emb
+    _, _, recon = encode_corpus(rt.state.params["rq"], user,
+                                snap.codebook_sizes,
+                                chunk=rt.lcfg.encode_chunk)
+    lc = rt.lcfg
+    m = evaluate_snapshot(cpu, user.cpu(), recon.cpu(), world,
+                          recall_k=lc.recall_k, n_queries=lc.recall_queries,
+                          seed=rt.seed, n_probe_factor=lc.n_probe_factor,
+                          hitrate_pairs=rt._hitrate_pairs(),
+                          item_emb=item.cpu())
+    check(m == snap.metrics, f"v{snap.version}: the gate recomputed on CPU "
+          f"copies {m} differs from the report's {snap.metrics}")
+
+
+def serve_stage(server, users_p99, users_bulk, now: float, version: int):
+    """8 serve_p99 batches and one serve_bulk batch through
+    ``SwapServer.serve_batch`` (``queue_gather``); every response must
+    carry ``version``, and P7_SAMPLE bulk rows must equal the plain
+    version on the same store state.  Returns seconds per p99 batch and
+    the bulk batch's."""
+    p99_s, ver = [], set()
+    for users in users_p99:
+        t = time.perf_counter()
+        _, _, v = server.serve_batch(users, now, n_recent=N_RECENT,
+                                     k=K_UNION)
+        p99_s.append(time.perf_counter() - t)
+        ver.add(v)
+    t = time.perf_counter()
+    s, u, v = server.serve_batch(users_bulk, now, n_recent=N_RECENT,
+                                 k=K_UNION)
+    bulk_s = time.perf_counter() - t
+    ver.add(v)
+    check(ver == {version}, f"responses carry versions {ver}, live is "
+          f"{version}")
+    b = server.handle.acquire()
+    st, store = b.store._state, b.store
+    rows = np.random.default_rng(version).choice(len(users_bulk), P7_SAMPLE,
+                                                 replace=False)
+    cl, known = store.clusters_of(users_bulk[rows])
+    dev = store.device
+    sp, up = queue_gather_ref(
+        st["items"], st["times"], st["total"],
+        torch.as_tensor(np.where(known, cl, -1).astype(np.int32)).to(dev),
+        torch.as_tensor(b.i2i).to(dev, torch.int32),
+        cutoff=store.rel_cutoff(now), n_recent=N_RECENT, k=K_UNION)
+    check(np.array_equal(s[rows], sp.cpu().numpy())
+          and np.array_equal(u[rows], up.cpu().numpy()),
+          f"v{version}: served rows differ from the plain version")
+    check(bool((s[~store.clusters_of(users_bulk)[1]] == -1).all()),
+          "unknown users got seeds")
+    return p99_s, bulk_s, float((s[:, 0] >= 0).mean())
+
+
+def phase7(seed: int, dev, p6: dict) -> dict:
+    cfg = CONFIG
+    g, tables = p6["g"], p6["tables"]
+    nu, ni = g.n_users, g.n_items
+    t = time.perf_counter()
+    delta, day1 = next_day(seed, nu, ni)
+    world = SimpleNamespace(day1=day1)
+    merged = p6["merged"]
+    tail = merged.timestamp > 86400.0 - P7_TAIL_S
+    o = np.argsort(merged.timestamp[tail], kind="stable")
+    live0 = tuple(a[tail][o] for a in (merged.user_id, merged.item_id,
+                                       merged.timestamp))
+    live1 = (delta.user_id, delta.item_id, delta.timestamp)
+    rng = np.random.default_rng(seed + 7)
+    users_p99 = [rng.integers(0, nu, P99_BATCH) for _ in range(P99_REPS)]
+    users_bulk = rng.integers(0, nu, BULK_BATCH)
+    users_bulk[:: 1009] = nu + 5                # post-snapshot ids
+    log_s = time.perf_counter() - t
+    lcfg = LifecycleConfig(
+        steps_per_cycle=P7_STEPS, batch_per_type=CF_ROWS, recall_k=100,
+        recall_queries=P7_QUERIES, i2i_k=I2I_K, queue_len=QUEUE_LEN,
+        recency_s=P7_RECENCY_S, ring_capacity=P7_RING,
+        encode_chunk=RQ_ROWS, embed_batch=EMBED_BATCH)
+    print(f"[phase7] next day (no published source): {len(delta.user_id)} "
+          f"events in its first {P7_DELTA_S:.0f} s (cycle 1's delta and live "
+          f"traffic), {len(day1.user_id)} after them (the gate's ground "
+          f"truth), made in {log_s:.2f} s; live day-0 tail "
+          f"{len(live0[0])} events (last {P7_TAIL_S:.0f} s of Phase 6's "
+          f"merged log); graph {nu} users, {ni} items; {lcfg}")
+    sink = MemorySink()
+    tel = Telemetry(sink=sink)
+    launches: dict = {}
+
+    def on_path(fn):
+        """``fn()`` on Phase 7's path: its launches are added."""
+        common.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        for k_, v_ in common.launch_counts().items():
+            launches[k_] = launches.get(k_, 0) + v_
+        return r
+
+    secs = {}
+    with tempfile.TemporaryDirectory() as snap_dir:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rt, secs["runtime_init"] = synced(lambda: LifecycleRuntime(
+            cfg, lcfg, g, tables, p6["user_feat"], p6["item_feat"],
+            world=world, snapshot_dir=snap_dir, seed=seed, telemetry=tel,
+            device=dev))
+        t = time.perf_counter()
+        rep1 = on_path(lambda: rt.run_cycle(now=86400.0))
+        secs["cycle0"] = time.perf_counter() - t
+        near1 = codes_held(rt)
+        server = rt.server
+
+        def ingest(events, batch):
+            for lo in range(0, len(events[0]), batch):
+                server.ingest(*(a[lo:lo + batch] for a in events))
+
+        t = time.perf_counter()
+        on_path(lambda: (ingest(live0, INGEST_BATCH), ingest(live1, 1 << 30)))
+        secs["ingest"] = time.perf_counter() - t
+        now = 86400.0 + P7_DELTA_S
+        serve1 = on_path(lambda: serve_stage(server, users_p99, users_bulk,
+                                             now, 1))
+        t = time.perf_counter()
+        rep2 = on_path(lambda: rt.run_cycle(delta, now=now,
+                                            backend="device"))
+        secs["cycle1"] = time.perf_counter() - t
+        near2 = codes_held(rt)
+        # the gate once more on CPU copies (v2 only: on an index whose
+        # layer-0 lists hold most users, the gate ranks nearly every user
+        # for each query, which costs as much as the publish itself)
+        _, gate_s = synced(lambda: gate_recheck(rt, world))
+        serve2 = on_path(lambda: serve_stage(server, users_p99, users_bulk,
+                                             now, 2))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        versions = rt.store.versions()
+        # a restart: a fresh runtime on the same directory
+        rt2, secs["restart_init"] = synced(lambda: LifecycleRuntime(
+            cfg, lcfg, rt.g, rt.tables, rt.user_feat, rt.item_feat,
+            world=world, snapshot_dir=snap_dir, seed=seed,
+            telemetry=Telemetry(enabled=False), device=dev))
+        t = time.perf_counter()
+        recovered = on_path(lambda: rt2.recover_serving(now=now))
+        secs["recover_serving"] = time.perf_counter() - t
+        live = rt.server.handle.acquire().snapshot
+        back = rt2.server.handle.acquire().snapshot
+
+    # --- checks ----------------------------------------------------------
+    for i, rep in enumerate((rep1, rep2)):
+        failed = [k_ for k_, v_ in rep.items()
+                  if isinstance(v_, dict) and v_.get("failed")]
+        check(not failed and not rep["degraded"]
+              and not rep["swap"].get("skipped"),
+              f"cycle {i}: failed {failed}, report {rep}")
+        check(rep["publish"]["version"] == i + 1, f"cycle {i}: version "
+              f"{rep['publish']['version']}")
+    check(versions == [1, 2], f"the store holds versions {versions}")
+    sw = rep2["swap"]
+    ring_ts = np.r_[live0[2], live1[2]][-P7_RING:]
+    fresh = int((ring_ts >= now - P7_RECENCY_S).sum())
+    check(sw["replayed_events"] + sw["dropped_stale"] == len(ring_ts)
+          and sw["replayed_events"] == fresh and sw["ring_dropped"] == 0,
+          f"swap accounting {sw}: ring {len(ring_ts)} events, {fresh} in "
+          f"the recency window")
+    check(recovered == 2 and back.version == 2, f"recovered {recovered}")
+    for f in SNAP_FIELDS:
+        a, b = getattr(back, f), getattr(live, f)
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"recovered {f} differs from version 2 in memory")
+    check(back.gate_metrics == live.gate_metrics, "recovered gate metrics")
+    cycles = spans_by_cycle(sink)
+    check(len(cycles) == 2, f"{len(cycles)} lifecycle.cycle spans")
+    for (stages, swap_kids, _), want in zip(
+            cycles, (("lifecycle.train", "lifecycle.publish",
+                      "lifecycle.swap"),
+                     ("lifecycle.refresh", "lifecycle.train",
+                      "lifecycle.publish", "lifecycle.swap"))):
+        check(set(want) <= set(stages) and ("lifecycle.refresh" in stages)
+              == ("lifecycle.refresh" in want),
+              f"cycle spans' children {sorted(stages)}, want {want}")
+    check(cycles[1][1] == ["swap.build", "swap.replay", "swap.catchup",
+                           "swap.flip", "swap.post_drain"],
+          f"swap spans {cycles[1][1]}")
+    n_users_chunks = -(-nu // RQ_ROWS) + -(-ni // RQ_ROWS)
+    want = {"fused_contrastive_fwd": 7 * 2 * P7_STEPS,
+            "fused_contrastive_bwd": 7 * 2 * P7_STEPS,
+            "rq_assign": 2 * n_users_chunks,
+            "ppr_walk": -(-rep2["refresh"]["affected_nodes"] // PPR_STARTS),
+            "queue_gather": 2 * (P99_REPS + 1)}
+    for name, n in want.items():
+        check(launches.get(name, 0) == n,
+              f"{name}: {launches.get(name, 0)} launches on Phase 7's path, "
+              f"expected {n}")
+
+    gate_keys = ("recall_exact", "recall_index", "recall_ratio",
+                 "item_recall_exact", "item_recall_index",
+                 "item_recall_ratio", "codebook_util_min",
+                 "coarse_list_balance", "hitrate10_orig", "hitrate10_recon")
+    for i, ((stages, _, cyc_s), rep, near) in enumerate(zip(
+            cycles, (rep1, rep2), (near1, near2))):
+        st_s = {k_.split(".", 1)[1]: round(v_, 4) for k_, v_ in stages.items()}
+        print(f"[phase7] cycle {i}: {cyc_s:.4f} s, stages (span seconds) "
+              f"{json.dumps(st_s)}; train {json.dumps({k_: round(v_, 4) for k_, v_ in rep['train'].items()})}")
+        print(f"[phase7] cycle {i} gate (v{i + 1}): "
+              f"{json.dumps({k_: rep['publish'].get(k_) for k_ in gate_keys})}"
+              f"; {P7_CODE_SAMPLE} published codes equal the plain "
+              f"version, {near} near ties")
+    print(f"[phase7] v2's gate recomputed on CPU copies: equal to the "
+          f"report's, in {gate_s:.4f} s")
+    print(f"[phase7] refresh (cycle 1): {json.dumps(rep2['refresh'])}")
+    print(f"[phase7] swap (cycle 1): build_ms {sw['build_ms']:.4f}, "
+          f"stall_ms {sw['stall_ms']:.4f}, replayed {sw['replayed_events']:.0f}"
+          f", dropped_stale {sw['dropped_stale']:.0f} of {len(ring_ts)} ring "
+          f"events; bring-up (cycle 0): report "
+          f"{json.dumps({k_: v_ for k_, v_ in rep1['swap'].items() if k_ != 'span_id'})}"
+          f", its span {cycles[0][0]['lifecycle.swap']:.4f} s")
+    for v, (p99_s, bulk_s, filled) in ((1, serve1), (2, serve2)):
+        print(f"[phase7] serve v{v}: serve_p99 batch={P99_BATCH} seconds "
+              f"{[round(x, 5) for x in p99_s]}; serve_bulk batch="
+              f"{BULK_BATCH} {bulk_s:.5f} s, rows with a seed {filled:.4f}; "
+              f"{P7_SAMPLE} bulk rows equal the plain version")
+    print(f"[phase7] seconds {json.dumps({k_: round(v_, 4) for k_, v_ in secs.items()})}; "
+          f"recover_serving -> v{recovered}, leaves bitwise equal to v2 in "
+          f"memory; store versions {versions}; peak device memory "
+          f"{peak_gb:.3f} GB; launches={launches}")
     return launches
 
 
@@ -3085,8 +3452,13 @@ def main() -> int:
     launches3 = phase3(args.seed, dev)
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    launches6 = phase6(args.seed, dev)
+    launches6, p6 = phase6(args.seed, dev)
     print(f"[phase6] wall {time.perf_counter() - t:.2f} s")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    launches7 = phase7(args.seed, dev, p6)
+    print(f"[phase7] wall {time.perf_counter() - t:.2f} s")
+    del p6
     torch.cuda.empty_cache()
     t = time.perf_counter()
     launches4 = phase4(args.seed, dev)
@@ -3095,10 +3467,11 @@ def main() -> int:
     t = time.perf_counter()
     launches5 = phase5(args.seed, dev)
     print(f"[phase5] wall {time.perf_counter() - t:.2f} s")
-    for r in rows:     # each path's launches, Phase 6's added to its own
-        r["launches"] = next(ls[r["name"]] for ls in (
+    for r in rows:     # each path's launches, Phases 6-7's added to its own
+        r["launches"] = (next(ls[r["name"]] for ls in (
             {n: launches[n] for n in SLICE1}, launches4, launches5,
             launches3) if r["name"] in ls) + launches6.get(r["name"], 0)
+            + launches7.get(r["name"], 0))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)          # again here, where the end of a long output keeps it

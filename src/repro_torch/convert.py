@@ -6,8 +6,10 @@ aggregators ``agg_user`` / ``agg_item``, the RQ codebooks
 ``uncertainty``.  The JAX ``linear`` keeps ``w`` as ``(d_in, d_out)``
 and computes ``x @ w``; ``nn.Linear`` keeps ``(d_out, d_in)``, so ``w``
 is transposed here.  ``rq_state_from_jax`` and ``pool_from_jax`` carry
-the RQ histograms and the negative pool over, so the port can start a
-train step from the exact JAX state.  ``recsys_params_from_jax`` carries
+the RQ histograms and the negative pool over, and
+``train_state_from_jax`` a whole ``TrainState`` (parameters, the
+optimizer's moments, RQ state, pool, step), so the port can start a
+train step or a lifecycle runtime from the exact JAX state.  ``recsys_params_from_jax`` carries
 a recsys model's tree over (MLP ``w`` transposed, everything else as
 it is).  ``lm_params_from_jax`` carries a dense LM's tree over, its
 stacked layers split into one dict per layer.
@@ -23,6 +25,8 @@ from repro_torch.core.losses import TASKS
 from repro_torch.core.model import DTYPES, Aggregator, Encoder
 from repro_torch.core.negatives import NegPoolState
 from repro_torch.core.rq_index import RQState, codebooks_module
+from repro_torch.core.trainer import TrainState, named_params
+from repro_torch.optim.optimizers import AdamState, is_sparse
 from repro_torch.kernels.common import resolve_device
 
 
@@ -85,6 +89,45 @@ def pool_from_jax(pool, *, device=None) -> NegPoolState:
     return NegPoolState(_f32(pool.user, dev), _f32(pool.item, dev),
                         int(pool.user_ptr), int(pool.item_ptr),
                         int(pool.user_fill), int(pool.item_fill))
+
+
+def _moments_from_jax(tree, like: Dict[str, torch.Tensor], dev
+                      ) -> Dict[str, torch.Tensor]:
+    """One optimizer-moment tree (the params tree's structure; the JAX
+    ``partition`` leaves a 0-d zero where a leaf is routed to the other
+    optimizer) -> ``name -> tensor`` over the names of ``like``, laid
+    out as the port's parameters (linear ``w`` transposed)."""
+    def fill(t, p):
+        if isinstance(t, dict):
+            return {k: fill(v, p[k]) for k, v in t.items()}
+        t = np.asarray(t, np.float32)
+        return np.zeros(np.shape(p), np.float32) if t.shape != np.shape(p) \
+            else t
+    return {k: v.detach().to(torch.float32) for k, v in named_params(
+        params_from_jax(fill(tree, like), device=dev)).items()}
+
+
+def train_state_from_jax(state, *, device=None) -> TrainState:
+    """A JAX ``TrainState`` (``rankgraph2_optimizer``'s partitioned
+    AdaGrad/AdamW state) -> the port's, on ``device``, with gradients
+    on: parameters and every moment in the port's layout, the AdamW
+    count, RQ state, pool and step as they are."""
+    dev = resolve_device(device)
+    tree = state.params
+    params = params_from_jax(tree, device=dev, trainable=True)
+    sparse, dense = state.opt_state["true"], state.opt_state["false"]
+    acc = _moments_from_jax(sparse, tree, dev)
+    mu = _moments_from_jax(dense.mu, tree, dev)
+    nu = _moments_from_jax(dense.nu, tree, dev)
+    opt_state = {"true": {k: v for k, v in acc.items() if is_sparse(k)},
+                 "false": AdamState(
+                     {k: v for k, v in mu.items() if not is_sparse(k)},
+                     {k: v for k, v in nu.items() if not is_sparse(k)},
+                     int(np.asarray(dense.count)))}
+    return TrainState(params, opt_state,
+                      rq_state_from_jax(state.rq_state, device=dev),
+                      pool_from_jax(state.pool, device=dev),
+                      int(np.asarray(state.step)))
 
 
 RECSYS_KEYS = {"dlrm": {"tables", "bot", "top"},

@@ -9,10 +9,12 @@ similar-item lists of the user's recent items.
 
 ``ClusterQueueStore`` keeps its rings as tensors on one device, in
 direct mode (every ingest batch is scattered straight into the ring;
-the JAX package's ``delta_cap`` mode is not ported yet).
+the JAX package's ``delta_cap`` mode and its ``ShardedQueueStore`` are
+``ROADMAP.md`` queue 1 item 5, and asking for them raises).
 ``serve_batch`` with an I2I table answers the whole request batch with
 the fused ``queue_gather`` op: the CUDA kernel on a card, its plain
-version on the CPU.
+version on the CPU.  The store reports the JAX store's ``serving.*``
+counters, gauges and latency histogram to its telemetry.
 
 Design notes (as in the JAX package):
 
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import resolve_device
+from repro_torch.obs import get_telemetry
 from repro_torch.kernels.queue_gather.ops import queue_gather
 from repro_torch.kernels.queue_gather.ref import (ring_window, select_first,
                                                   union_topk)
@@ -62,13 +65,21 @@ class ClusterQueueStore:
     rings plus a per-cluster write counter ``total`` (int32; write
     position = ``total % queue_len``).  ``_cursor_host`` mirrors
     ``total`` on the host, so ingest prep never waits for the device.
-    Writers rebind ``_state`` under ``write_lock`` (an RLock); readers
-    take no lock.
+    Writers rebind ``_state`` under ``write_lock`` (an RLock: the swap
+    server's ring drain wraps ``ingest`` in the same lock); readers take
+    no lock.  ``ring_seen`` is the swap server's ``EventRing`` watermark.
+    ``delta_cap`` must be 0 (direct mode).
     """
 
     def __init__(self, user_clusters: np.ndarray, *, queue_len: int = 256,
                  recency_s: float = 900.0,
-                 n_clusters: Optional[int] = None, device=None):
+                 n_clusters: Optional[int] = None, telemetry=None,
+                 delta_cap: int = 0, device=None):
+        if delta_cap:
+            raise NotImplementedError(
+                "delta_cap > 0 (the delta-run ingest) is not ported yet: "
+                "ROADMAP.md queue 1 item 5")
+        self.tel = telemetry if telemetry is not None else get_telemetry()
         self.device = resolve_device(device)
         self.user_clusters = np.asarray(user_clusters, np.int64)
         self.queue_len = int(queue_len)
@@ -88,6 +99,7 @@ class ClusterQueueStore:
         self._cursor_host = np.zeros(C, np.int64)
         self.epoch: Optional[float] = None
         self.write_lock = threading.RLock()
+        self.ring_seen = 0     # EventRing watermark (maintained by swap)
         self._i2i_cache: Optional[Tuple[int, torch.Tensor]] = None
 
     # -- cluster assignment lookup ------------------------------------------
@@ -119,6 +131,10 @@ class ClusterQueueStore:
         ts64 = np.asarray(timestamps, np.float64).ravel()
         cl_all, known = self.clusters_of(user_ids)
         if not known.all():
+            # post-snapshot users are shed, not errored, and counted
+            if self.tel.enabled:
+                self.tel.counter("serving.unknown_user_events",
+                                 float((~known).sum()))
             cl_all, item_ids, ts64 = cl_all[known], item_ids[known], \
                 ts64[known]
         if cl_all.size == 0:
@@ -128,9 +144,16 @@ class ClusterQueueStore:
                 self.epoch = float(ts64.min())
             rel = (ts64 - self.epoch).astype(np.float32)
             order = np.argsort(rel, kind="stable")
-            self._direct_ingest(cl_all.astype(np.int32)[order],
-                                item_ids.astype(np.int32)[order],
+            cl = cl_all.astype(np.int32)[order]
+            self._direct_ingest(cl, item_ids.astype(np.int32)[order],
                                 rel[order])
+        tel = self.tel
+        if tel.enabled:
+            tel.counter("serving.ingest_events", float(cl.size))
+            fill = np.minimum(self._cursor_host[np.unique(cl)],
+                              self.queue_len)
+            tel.gauge("serving.queue_depth_max", float(fill.max()))
+            tel.gauge("serving.queue_depth_mean", float(fill.mean()))
 
     def _direct_ingest(self, cl: np.ndarray, it: np.ndarray,
                        rel: np.ndarray) -> None:
@@ -206,16 +229,29 @@ class ClusterQueueStore:
         ucl, inv = np.unique(cl, return_inverse=True)
         return ucl, inv, known
 
+    def _observe(self, t0: float, known: np.ndarray) -> None:
+        """One request batch's telemetry: latency, count, unknown users."""
+        tel = self.tel
+        tel.observe("serving.retrieve_latency_s", tel.clock.perf() - t0)
+        tel.counter("serving.retrieve_requests")
+        if not known.all():
+            tel.counter("serving.unknown_user_requests",
+                        float((~known).sum()))
+
     def retrieve_batch(self, user_ids: np.ndarray, now: float,
                        k: int) -> np.ndarray:
         """Batched U2U2I: ``(B,)`` user ids -> ``(B, k)`` item ids,
         newest-first, recency-filtered, ``-1``-padded."""
-        ucl, inv, _ = self._unique_clusters(user_ids)
+        t0 = self.tel.clock.perf() if self.tel.enabled else 0.0
+        ucl, inv, known = self._unique_clusters(user_ids)
         st = self._state                 # one snapshot read
         cand, valid = _candidate_window(
             st, torch.as_tensor(ucl).to(self.device), self.rel_cutoff(now))
         out = _select_topk(cand, valid, int(k))
-        return out.cpu().numpy()[inv].astype(np.int64)
+        res = out.cpu().numpy()[inv].astype(np.int64)
+        if self.tel.enabled:
+            self._observe(t0, known)
+        return res
 
     def retrieve(self, user_id: int, now: float, k: int) -> List[int]:
         """Single-request U2U2I — a batch of one."""
@@ -255,6 +291,7 @@ class ClusterQueueStore:
         if i2i is None:
             seeds = self.retrieve_batch(user_ids, now, n_recent)
             return seeds, np.full((seeds.shape[0], k), -1, np.int64)
+        t0 = self.tel.clock.perf() if self.tel.enabled else 0.0
         cl, known = self.clusters_of(user_ids)
         st = self._state
         s, u = queue_gather(
@@ -263,10 +300,18 @@ class ClusterQueueStore:
                             ).to(self.device),
             self._i2i_device(i2i), cutoff=self.rel_cutoff(now),
             n_recent=int(n_recent), k=int(k))
-        return (s.cpu().numpy().astype(np.int64),
-                u.cpu().numpy().astype(np.int64))
+        seeds = s.cpu().numpy().astype(np.int64)
+        union = u.cpu().numpy().astype(np.int64)
+        if self.tel.enabled:
+            self._observe(t0, known)
+        return seeds, union
 
     # -- introspection ------------------------------------------------------
+
+    def partitions(self) -> Tuple["ClusterQueueStore", ...]:
+        """Uniform shard view: an unsharded store is its own single
+        partition."""
+        return (self,)
 
     def stats(self) -> Dict[str, float]:
         fill = np.minimum(self._cursor_host, self.queue_len)

@@ -48,7 +48,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "             'configs.olmo_1b', 'models.lm.model',\n"
         "             'kernels.flash_attention.ops',\n"
         "             'kernels.flash_attention.flash_attention',\n"
-        "             'kernels.flash_attention.ref'):\n"
+        "             'kernels.flash_attention.ref', 'obs', 'obs.clock',\n"
+        "             'obs.sink', 'obs.metrics', 'obs.telemetry', 'faults',\n"
+        "             'faults.plan', 'checkpoint', 'checkpoint.checkpointer',\n"
+        "             'core.evaluation', 'lifecycle', 'lifecycle.publish',\n"
+        "             'lifecycle.snapshot', 'lifecycle.swap',\n"
+        "             'lifecycle.runtime'):\n"
         "    assert 'repro_torch.' + want in names, want\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], env=_env(),
