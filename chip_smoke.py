@@ -130,13 +130,41 @@ the report's, the recovered snapshot bitwise equal to version 2, the trace's
 stage spans under each ``lifecycle.cycle``, and the launches of the five
 main-path kernels.
 
+Phase 8 runs serving scale-out right after Phase 2, on its snapshot,
+embeddings and event stream, in four parts.  8a feeds the 8,388,608
+events into four stores on the card: unsharded direct, unsharded with
+a delta run of 512 (the reference's depth, ``delta_cap``), 4 shards
+direct and 4 shards with the delta run (``ShardedQueueStore``, every
+shard on the one card), serves 8 x 512 and 262,144 requests on each
+(``queue_gather``, one launch a shard), and checks: the seeds, unions
+and cursors bitwise equal across the four, 512 bulk rows equal to the
+plain ``queue_gather`` on the CPU, one launch a shard for each serve
+batch, the ``.shard{i}`` ingest counters summing to the aggregate.  8b
+is ``benchmarks/serving_scaleout.py``'s shard measurement on the card
+(C 4,096, Q 256, delta 512, 200,000 users, 1,000,000 items, 4 x 100,000
+warm events, mixed cycles of 12,000 events and a 2,048-user retrieve at
+k 32, shards 1/2/4, best of 12 interleaved rounds; each round's events
+go to all three stores, whose rows must be equal); it prints the times
+and the scaling and gates nothing.  8c builds version 2 with
+``build_snapshot`` from Phase 2's embeddings plus noise (rq_assign),
+pushes every 8th batch of the stream (1,048,576 events, half of them
+older than the recency window) through two ``SwapServer`` instances, one with
+4 shards and the delta run and one unsharded direct, swaps both to
+version 2 and checks their swap accounting against the ring counted in
+numpy, and their served rows and versions equal.  8d runs
+``run_chaos`` (``default_specs()``, 6 cycles, its small world) on the
+card and checks the four invariants, every required fault site, a
+crash and a recovery, and prints the span tree that
+``repro_torch.obs.report`` renders from its trace.
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
 ``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
 Phase 4's serve and train stages, ``flash_attention*`` Phase 5's serve
 stages; Phase 6's launches of ``rq_assign``, ``ppr_walk`` and
-``fused_contrastive_*`` and Phase 7's of those and ``queue_gather`` are
-added to those.
+``fused_contrastive_*``, Phase 7's of those and ``queue_gather`` and
+Phase 8's of ``queue_gather``, ``rq_assign`` and
+``fused_contrastive_*`` are added to those.
 
 The second-to-last line is a JSON object listing every ported kernel
 (launches on the main path, error against the plain version, times and
@@ -184,7 +212,8 @@ from repro_torch.core.rq_index import (RQState, assign_codes,  # noqa: E402
                                        codebooks_module, dead_code_reset,
                                        init_rq, layer_books,
                                        per_code_counts)
-from repro_torch.core.serving import ClusterQueueStore  # noqa: E402
+from repro_torch.core.serving import (ClusterQueueStore,  # noqa: E402
+                                      ShardedQueueStore)
 from repro_torch.core.trainer import (FeatureStore, embed_all,  # noqa: E402
                                       forward_losses, init_state,
                                       loss_directions, make_eval_step,
@@ -195,6 +224,8 @@ from repro_torch.data.edge_dataset import (EdgeDataset,  # noqa: E402
                                            build_neighbor_tables,
                                            incremental_refresh)
 from repro_torch.data.synthetic import SyntheticWorld  # noqa: E402
+from repro_torch.faults import (REQUIRED_SITES,  # noqa: E402
+                                default_specs, run_chaos)
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag as EB)
@@ -228,13 +259,16 @@ from repro_torch.lifecycle import (LifecycleConfig,  # noqa: E402
 from repro_torch.lifecycle.publish import (build_snapshot,  # noqa: E402
                                            encode_corpus, evaluate_snapshot,
                                            snapshot_health)
+from repro_torch.lifecycle.swap import SwapServer  # noqa: E402
 from repro_torch.models.lm import model as LM  # noqa: E402
-from repro_torch.obs import MemorySink, Telemetry  # noqa: E402
 from repro_torch.models.recsys import models as R  # noqa: E402
+from repro_torch.obs import MemorySink, Telemetry  # noqa: E402
+from repro_torch.obs.report import render  # noqa: E402
 from repro_torch.optim.optimizers import rankgraph2_optimizer  # noqa: E402
 
 N_USERS, N_ITEMS = 1_048_576, 262_144
 N_EVENTS, INGEST_BATCH, SPAN_S = 8_388_608, 65_536, 7200.0
+T0 = 1.7e9                   # Phase 2's first event (unix seconds)
 QUEUE_LEN, RECENCY_S, N_RECENT, K_UNION, I2I_K = 256, 3600.0, 8, 32, 16
 SHAPES = {s.name: s.dims for s in RANKGRAPH2_SHAPES}
 P99_BATCH = SHAPES["serve_p99"]["batch"]       # 512
@@ -283,6 +317,18 @@ P7_RECENCY_S, P7_RING = 7200.0, 1 << 20
 P7_TAIL_S = 7200.0           # day 0's last two hours, ingested live
 P7_SAMPLE = 512              # served rows held against the plain version
 P7_CODE_SAMPLE = 4096        # published codes held against the plain version
+P8_DELTA = 512               # the reference's delta depth (serving_scaleout)
+P8_SHARDS = 4
+P8_SWAP_EVERY = 8            # 8c's ring: every 8th batch of Phase 2's stream
+P8_NOISE = 0.02              # 8c: version 2's embedding perturbation
+P8_CHAOS_CYCLES = 6
+# 8a's mixed traffic: rounds of one ingest of P8_MIX_EVENTS (four delta
+# runs of 512, so every serve after it finds a pending run) and one
+# serve_p99 batch, as a swap server drains its ring between serves
+P8_MIX_ROUNDS, P8_MIX_EVENTS = 32, 2_048
+P8_TREE_LINES = 16
+SO_USERS, SO_ITEMS = 200_000, 1_000_000      # 8b: the reference's shape
+SO_C, SO_WARM, SO_E, SO_ROUNDS = 4096, 100_000, 12_000, 12
 SNAP_FIELDS = ("user_codes", "item_codes", "user_clusters", "member_ptr",
                "member_ids", "coarse_codebook", "i2i")
 DLRM = get_arch("dlrm-rm2").config   # bf16 compute, f32 params, embed 64
@@ -1419,6 +1465,18 @@ def make_world(seed: int, n_users: int, n_items: int, k_imp: int):
     return tables, user_feat, item_feat
 
 
+def event_batches(rng: np.random.Generator):
+    """Phase 2's engagement stream: N_EVENTS events in batches of
+    INGEST_BATCH, uniform users and items, timestamps over SPAN_S seconds
+    from T0 in time order.  Yields (users, items, timestamps)."""
+    n_batches = N_EVENTS // INGEST_BATCH
+    dt = SPAN_S / n_batches
+    for b in range(n_batches):
+        ts = T0 + dt * (b + np.sort(rng.random(INGEST_BATCH)))
+        yield (rng.integers(0, N_USERS, INGEST_BATCH),
+               rng.integers(0, N_ITEMS, INGEST_BATCH), ts)
+
+
 def serve_split(store, users, now: float, i2i) -> tuple:
     """``serve_batch``'s pieces for one batch, each synced: host
     ``clusters_of``, the cluster ids masked and cast to int32 on the host,
@@ -1492,17 +1550,12 @@ def phase2(seed: int, dev) -> dict:
                               recency_s=RECENCY_S,
                               n_clusters=snap.n_clusters, device=dev)
     rng = np.random.default_rng(seed + 1)
-    t0 = 1.7e9
-    n_batches = N_EVENTS // INGEST_BATCH
-    dt = SPAN_S / n_batches
-    for b in range(n_batches):
-        ts = t0 + dt * (b + np.sort(rng.random(INGEST_BATCH)))
-        store.ingest(rng.integers(0, N_USERS, INGEST_BATCH),
-                     rng.integers(0, N_ITEMS, INGEST_BATCH), ts)
+    for batch in event_batches(rng):
+        store.ingest(*batch)
     torch.cuda.synchronize()
     secs["ingest"] = time.perf_counter() - t
 
-    now = t0 + SPAN_S
+    now = T0 + SPAN_S
     p99_s, results = [], []
     for _ in range(P99_REPS):
         users = rng.integers(0, N_USERS, P99_BATCH)
@@ -1620,7 +1673,8 @@ def phase2(seed: int, dev) -> dict:
           f"{secs['build_snapshot'] * 1e3:.4f} ms")
     print(f"[phase2] embed card-bf16 vs cpu-f32 max_abs_err={emb_err:.4g}; "
           f"peak device memory {peak_gb:.3f} GB; launches={launches}")
-    return launches
+    return launches, dict(snap=snap, user_emb=user_emb, item_emb=item_emb,
+                          rq=rq)
 
 
 # ---------------------------------------------------------------------------
@@ -3360,6 +3414,372 @@ def phase7(seed: int, dev, p6: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: serving scale-out (delta-run ingest, shards), the sharded swap,
+# chaos
+# ---------------------------------------------------------------------------
+
+def folds_of(store) -> int:
+    """The folds of a non-empty delta run, summed over the partitions."""
+    return sum(part.folds for part in store.partitions())
+
+
+def p8_store(user_clusters, n_clusters: int, shards: int, delta: int, dev,
+             tel):
+    kw = dict(queue_len=QUEUE_LEN, recency_s=RECENCY_S,
+              n_clusters=n_clusters, delta_cap=delta, telemetry=tel)
+    if shards > 1:
+        return ShardedQueueStore(user_clusters, n_shards=shards,
+                                 devices=[dev], **kw)
+    return ClusterQueueStore(user_clusters, device=dev, **kw)
+
+
+def qg_launches() -> int:
+    return common.launch_counts().get("queue_gather", 0)
+
+
+def p8_serve(serve, batches, now: float) -> tuple:
+    """``serve(users, now)`` on each batch: (rows, seconds per batch,
+    ``queue_gather`` launches per batch)."""
+    rows, secs, launches = [], [], []
+    for users in batches:
+        n0 = qg_launches()
+        t = time.perf_counter()
+        rows.append(serve(users, now))
+        secs.append(time.perf_counter() - t)
+        launches.append(qg_launches() - n0)
+    return rows, secs, launches
+
+
+def same_rows(a: list, b: list) -> bool:
+    return all(len(x) == len(y) and all(np.array_equal(u, v)
+                                        for u, v in zip(x, y))
+               for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def p8_mix(store, mix, users, now: float, i2i) -> tuple:
+    """8a's mixed traffic: each round ingests one chunk of ``mix`` (timed
+    to a sync), then serves one ``users`` batch (``serve_batch`` returns
+    host arrays, so it ends synced).  Returns (rows, ingest seconds,
+    serve seconds, folds made inside the serves)."""
+    rows, ingest_s, serve_s, serve_folds = [], [], [], 0
+    for r, ev in enumerate(mix):
+        t = time.perf_counter()
+        store.ingest(*ev)
+        torch.cuda.synchronize()
+        ingest_s.append(time.perf_counter() - t)
+        f0 = folds_of(store)
+        t = time.perf_counter()
+        rows.append(store.serve_batch(users[r % len(users)], now,
+                                      n_recent=N_RECENT, k=K_UNION, i2i=i2i))
+        serve_s.append(time.perf_counter() - t)
+        serve_folds += folds_of(store) - f0
+    return rows, ingest_s, serve_s, serve_folds
+
+
+def ms_summary(secs: list) -> str:
+    a = np.asarray(secs) * 1e3
+    return (f"median {np.median(a):.4f} ms, p99 "
+            f"{np.percentile(a, 99):.4f}, max {a.max():.4f}")
+
+
+def phase8_stores(dev, snap, batches, users, now: float) -> None:
+    """8a: Phase 2's stream into four stores on the card (direct and
+    delta, unsharded and P8_SHARDS shards); their serve rows and cursors
+    must be bitwise equal, 512 bulk rows equal to the plain
+    ``queue_gather`` on the CPU, and the ``.shard{i}`` ingest counters
+    must sum to the aggregate.  Then mixed traffic (``p8_mix``: the
+    stream's last batch again, SPAN_S later, in chunks, a serve after
+    each), whose rows and cursors must be equal too; its serve times give
+    the delta stores' per-serve fold cost against the direct stores'."""
+    ref = None
+    last_u, last_i, last_t = batches[-1]
+    mix = [(last_u[lo:lo + P8_MIX_EVENTS], last_i[lo:lo + P8_MIX_EVENTS],
+            last_t[lo:lo + P8_MIX_EVENTS] + SPAN_S)
+           for lo in range(0, P8_MIX_ROUNDS * P8_MIX_EVENTS, P8_MIX_EVENTS)]
+    mix_users, mix_now = users[:-1], now + SPAN_S
+    median_serve = {}
+    for name, shards, delta in (("direct", 1, 0), ("delta", 1, P8_DELTA),
+                                ("shards", P8_SHARDS, 0),
+                                ("shards+delta", P8_SHARDS, P8_DELTA)):
+        tel = Telemetry()
+        store = p8_store(snap.user_clusters, snap.n_clusters, shards, delta,
+                         dev, tel)
+        t = time.perf_counter()
+        for batch in batches:
+            store.ingest(*batch)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t
+        rows, serve_s, launched = p8_serve(
+            lambda u, now: store.serve_batch(u, now, n_recent=N_RECENT,
+                                             k=K_UNION, i2i=snap.i2i),
+            users, now)
+        c = tel.snapshot()["counters"]
+        check(c["serving.ingest_events"] == N_EVENTS,
+              f"8a {name}: {c['serving.ingest_events']} events counted")
+        if shards > 1:
+            tagged = sum(c.get(f"serving.ingest_events.shard{i}", 0.0)
+                         for i in range(shards))
+            check(tagged == c["serving.ingest_events"],
+                  f"8a {name}: shard ingest counters sum to {tagged}")
+        check(launched == [shards] * len(users),
+              f"8a {name}: queue_gather launches per serve batch "
+              f"{launched}, want {shards}")
+        if ref is None:
+            ref = (rows, store.cursor.copy())
+            st = store._state
+            sample = np.random.default_rng(8).choice(BULK_BATCH, P7_SAMPLE,
+                                                     replace=False)
+            cl, known = store.clusters_of(users[-1][sample])
+            sp, up = queue_gather_ref(
+                st["items"].cpu(), st["times"].cpu(), st["total"].cpu(),
+                torch.as_tensor(np.where(known, cl, -1).astype(np.int32)),
+                torch.as_tensor(snap.i2i).to(torch.int32),
+                cutoff=store.rel_cutoff(now), n_recent=N_RECENT, k=K_UNION)
+            s, u = rows[-1]
+            check(np.array_equal(s[sample], sp.numpy())
+                  and np.array_equal(u[sample], up.numpy()),
+                  "8a: bulk rows differ from the plain version on the CPU")
+        else:
+            check(same_rows(rows, ref[0]),
+                  f"8a {name}: served rows differ from the direct store's")
+            check(np.array_equal(store.cursor, ref[1]),
+                  f"8a {name}: cursor differs from the direct store's")
+        st = store.stats()
+        folds = folds_of(store)
+        print(f"[phase8a] {name}: shards {shards} delta_cap {delta}: ingest "
+              f"{N_EVENTS} events {ingest_s:.4f} s, folds {folds}; serve "
+              f"p99 seconds {[round(x, 5) for x in serve_s[:-1]]}, bulk "
+              f"{serve_s[-1]:.5f} s; queue_gather launches per serve batch "
+              f"{launched[0]}; active clusters {st['n_clusters_active']}, "
+              f"delta pending {st['delta_pending']:.0f}")
+        m_rows, m_ingest, m_serve, m_folds = p8_mix(store, mix, mix_users,
+                                                    mix_now, snap.i2i)
+        if name == "direct":
+            ref = ref + (m_rows, store.cursor.copy())
+        else:
+            check(same_rows(m_rows, ref[2])
+                  and np.array_equal(store.cursor, ref[3]),
+                  f"8a {name}: mixed-traffic rows or cursor differ from the "
+                  f"direct store's")
+        median_serve[name] = float(np.median(m_serve))
+        print(f"[phase8a] {name} mix: {P8_MIX_ROUNDS} rounds of "
+              f"{P8_MIX_EVENTS} events then {P99_BATCH} requests: ingest "
+              f"{ms_summary(m_ingest)}; serve {ms_summary(m_serve)}; folds "
+              f"{folds_of(store) - folds}, {m_folds} of them inside serves")
+        del store
+        torch.cuda.empty_cache()
+    filled = float((ref[0][-1][0][:, 0] >= 0).mean())
+    print(f"[phase8a] the four stores' seeds and unions (8 x {P99_BATCH} and "
+          f"{BULK_BATCH} requests, then the mix) and cursors are bitwise "
+          f"equal; {P7_SAMPLE} bulk rows equal the plain queue_gather on the "
+          f"CPU; bulk rows with a seed {filled:.4f}")
+    print(f"[phase8a] mix: per-serve fold cost (median serve, delta minus "
+          f"direct) unsharded "
+          f"{(median_serve['delta'] - median_serve['direct']) * 1e3:.4f} ms, "
+          f"{P8_SHARDS} shards "
+          f"{(median_serve['shards+delta'] - median_serve['shards']) * 1e3:.4f}"
+          f" ms")
+
+
+def phase8_scaleout(dev) -> None:
+    """8b: ``benchmarks/serving_scaleout.py::_shard_gate`` on the card:
+    ``ShardedQueueStore`` at 1, 2 and 4 shards (delta_cap P8_DELTA), 4 x
+    100,000 warm events, then interleaved mixed cycles (12,000 events,
+    then a retrieve of 2,048 users at k 32), best of SO_ROUNDS.  Each
+    round's events go to all three stores, whose retrieved rows must be
+    equal (the reference draws each store's cycle apart)."""
+    rng = np.random.default_rng(1)
+    k, now = 32, 1e6
+    uc = rng.integers(0, SO_C, SO_USERS)
+    stores = {s: ShardedQueueStore(uc, n_shards=s, queue_len=QUEUE_LEN,
+                                   recency_s=1e15, n_clusters=SO_C,
+                                   delta_cap=P8_DELTA, devices=[dev])
+              for s in (1, 2, 4)}
+    for _ in range(4):
+        ev = (rng.integers(0, SO_USERS, SO_WARM),
+              rng.integers(0, SO_ITEMS, SO_WARM),
+              np.sort(rng.uniform(0, 10_000, SO_WARM)))
+        for st in stores.values():
+            st.ingest(*ev)
+    users = rng.integers(0, SO_USERS, 2048)
+    tb = [3e6]
+
+    def events():
+        ev = (rng.integers(0, SO_USERS, SO_E), rng.integers(0, SO_ITEMS, SO_E),
+              np.sort(rng.uniform(0, 1.0, SO_E)) + tb[0])
+        tb[0] += 1.0
+        return ev
+
+    def mixed_cycle(st, ev):
+        t0 = time.perf_counter()
+        st.ingest(*ev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rows = st.retrieve_batch(users, now, k)
+        return t1 - t0, time.perf_counter() - t1, rows
+
+    for r in range(4 + SO_ROUNDS):        # 4 warm rounds, folds included
+        ev = events()
+        got = {s: mixed_cycle(st, ev) for s, st in stores.items()}
+        check(all(np.array_equal(got[s][2], got[1][2]) for s in got),
+              f"8b round {r}: the stores' retrieved rows differ")
+        if r == 4:
+            samples = {s: [] for s in stores}
+        if r >= 4:
+            for s in stores:
+                samples[s].append(got[s][:2])
+    rows = {}
+    for s in stores:
+        rows[s] = dict(ingest_ms=min(a for a, _ in samples[s]) * 1e3,
+                       retrieve_ms=min(b for _, b in samples[s]) * 1e3,
+                       cycles_per_s=1.0 / min(a + b for a, b in samples[s]))
+    for s, r in rows.items():
+        print(f"[phase8b] shards {s}: ingest {r['ingest_ms']:.4f} ms, "
+              f"retrieve {r['retrieve_ms']:.4f} ms, cycles/s "
+              f"{r['cycles_per_s']:.4f}, scaling "
+              f"{r['cycles_per_s'] / rows[1]['cycles_per_s']:.4f} vs 1 shard")
+    print(f"[phase8b] C {SO_C}, Q {QUEUE_LEN}, delta_cap {P8_DELTA}, "
+          f"{SO_USERS} users, {SO_ITEMS} items, {SO_E} events a cycle, "
+          f"retrieve 2048 at k {k}; best of {SO_ROUNDS} interleaved rounds; "
+          f"rows equal in every round")
+
+
+def phase8_swap(seed: int, dev, p2: dict, batches, users, now: float
+                ) -> None:
+    """8c: a ``SwapServer(n_shards=P8_SHARDS, delta_cap=P8_DELTA)`` and an
+    unsharded direct one on Phase 2's snapshot take the same events, then
+    ``swap_to`` a version 2 built from perturbed embeddings; their swap
+    accounting, served rows and versions must be equal."""
+    cfg = CONFIG
+    snap1 = p2["snap"]
+    g = torch.Generator(device=dev).manual_seed(seed + 8)
+
+    def perturb(e):
+        return (e.float() + P8_NOISE * torch.randn(
+            e.shape, generator=g, device=dev)).to(e.dtype)
+
+    t = time.perf_counter()
+    snap2 = build_snapshot(2, perturb(p2["user_emb"]),
+                           perturb(p2["item_emb"]), p2["rq"], cfg,
+                           i2i_k=I2I_K)
+    build_s = time.perf_counter() - t
+    moved = float((snap2.user_clusters != snap1.user_clusters).mean())
+    check(moved > 0, "8c: no user changed cluster in version 2")
+    events = batches[::P8_SWAP_EVERY]
+    ring_ts = np.concatenate([ts for _, _, ts in events])
+    fresh = int((ring_ts >= now - RECENCY_S).sum())
+    out = {}
+    for name, shards, delta in (("shards+delta", P8_SHARDS, P8_DELTA),
+                                ("direct", 1, 0)):
+        server = SwapServer(snap1, queue_len=QUEUE_LEN, recency_s=RECENCY_S,
+                            ring_capacity=len(ring_ts), n_shards=shards,
+                            delta_cap=delta, telemetry=Telemetry(),
+                            device=dev)
+        t = time.perf_counter()
+        for ev in events:
+            server.ingest(*ev)
+        torch.cuda.synchronize()
+        ingest_s = time.perf_counter() - t
+        rep = server.swap_to(snap2, now)
+        rows, serve_s, launched = p8_serve(
+            lambda u, now: server.serve_batch(u, now, n_recent=N_RECENT,
+                                              k=K_UNION), users, now)
+        got = server.retrieve_batch(users[0], now, K_UNION)
+        check(rep["replayed_events"] == fresh
+              and rep["dropped_stale"] == len(ring_ts) - fresh
+              and rep["ring_dropped"] == 0,
+              f"8c {name}: swap accounting {rep}, {fresh} of "
+              f"{len(ring_ts)} ring events fresh")
+        check({v for _, _, v in rows} == {2} and got[1] == 2,
+              f"8c {name}: responses not all from version 2")
+        check(launched == [shards] * len(users),
+              f"8c {name}: queue_gather launches per serve {launched}")
+        out[name] = (rows, got, rep)
+        print(f"[phase8c] {name}: ingest {len(ring_ts)} events through the "
+              f"ring {ingest_s:.4f} s; swap build_ms {rep['build_ms']:.4f}, "
+              f"stall_ms {rep['stall_ms']:.4f}, replayed "
+              f"{rep['replayed_events']:.0f}, stale "
+              f"{rep['dropped_stale']:.0f}; serve p99 seconds "
+              f"{[round(x, 5) for x in serve_s[:-1]]}, bulk "
+              f"{serve_s[-1]:.5f} s")
+        del server
+        torch.cuda.empty_cache()
+    (ra, ga, pa), (rb, gb, pb) = out.values()
+    check(same_rows(ra, rb) and np.array_equal(ga[0], gb[0]),
+          "8c: the sharded delta server's rows differ from the direct one's")
+    print(f"[phase8c] version 2 (build_snapshot {build_s:.4f} s, noise "
+          f"{P8_NOISE}) moves {moved:.4f} of the users' clusters; the two "
+          f"servers' swap counts, served rows and versions are equal")
+
+
+def phase8_chaos(seed: int, dev) -> None:
+    """8d: ``run_chaos`` with ``default_specs()`` on the card; the four
+    invariants, every required site, a crash and a recovery must hold.
+    Its trace is rendered with ``repro_torch.obs.report``."""
+    with tempfile.TemporaryDirectory() as d:
+        trace = str(Path(d) / "chaos.jsonl")
+        t = time.perf_counter()
+        rep = run_chaos(seed, snapshot_dir=str(Path(d) / "snaps"),
+                        cycles=P8_CHAOS_CYCLES, device=dev, trace_path=trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        text = render([trace])
+    check(all(rep["invariants"].values()),
+          f"8d: invariants {rep['invariants']}")
+    missing = set(REQUIRED_SITES) - set(rep["sites_injected"])
+    check(not missing, f"8d: sites never injected {sorted(missing)}")
+    check(len(rep["injected"]) == len(default_specs()),
+          f"8d: {len(rep['injected'])} injections")
+    check(rep["crashes"] >= 1 and rep["recoveries"] >= 1,
+          f"8d: crashes {rep['crashes']}, recoveries {rep['recoveries']}")
+    print(f"[phase8d] run_chaos({seed}) on the card: {P8_CHAOS_CYCLES} "
+          f"cycles in {wall:.4f} s; invariants "
+          f"{json.dumps(rep['invariants'])}; injected "
+          f"{[(r['site'], r['occurrence'], r['action']) for r in rep['injected']]}"
+          f"; crashes {rep['crashes']}, recoveries {rep['recoveries']}; "
+          f"served versions {rep['served_versions']}, recall "
+          f"{json.dumps(rep['recall_by_served'])}")
+    print(f"[phase8d] counters {json.dumps(rep['counters'])}")
+    lines = text.splitlines()
+    top = lines[lines.index("== span tree ==") + 1:][:P8_TREE_LINES]
+    print("[phase8d] span tree (repro_torch.obs.report.render), top "
+          f"{len(top)} lines:")
+    for line in top:
+        print(f"[phase8d]   {line}")
+
+
+def phase8(seed: int, dev, p2: dict) -> dict:
+    rng = np.random.default_rng(seed + 1)
+    t = time.perf_counter()
+    batches = list(event_batches(rng))           # Phase 2's stream
+    rng8 = np.random.default_rng(seed + 8)
+    users = [rng8.integers(0, N_USERS, P99_BATCH) for _ in range(P99_REPS)]
+    bulk = rng8.integers(0, N_USERS, BULK_BATCH)
+    bulk[:: 1009] = N_USERS + 5                  # post-snapshot ids
+    users.append(bulk)
+    now = T0 + SPAN_S
+    print(f"[phase8] Phase 2's stream ({N_EVENTS} events) made again in "
+          f"{time.perf_counter() - t:.2f} s")
+    secs = {}
+    torch.cuda.synchronize()
+    common.reset_launches()                      # Phase 8's path starts
+    for name, fn in (
+            ("8a", lambda: phase8_stores(dev, p2["snap"], batches, users,
+                                         now)),
+            ("8b", lambda: phase8_scaleout(dev)),
+            ("8c", lambda: phase8_swap(seed, dev, p2, batches, users, now)),
+            ("8d", lambda: phase8_chaos(seed, dev))):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+    launches = common.launch_counts()            # Phase 8's path ends
+    print(f"[phase8] seconds {json.dumps({k_: round(v_, 4) for k_, v_ in secs.items()})}; "
+          f"launches={launches}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3447,8 +3867,13 @@ def main() -> int:
             *phase1_embedding_bag(g, dev, peaks)]
     rows += phase1_flash_attention(g, dev, peaks)
     t = time.perf_counter()
-    launches = phase2(args.seed, dev)
+    launches, p2 = phase2(args.seed, dev)
     print(f"[phase2] wall {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    launches8 = phase8(args.seed, dev, p2)
+    print(f"[phase8] wall {time.perf_counter() - t:.2f} s")
+    del p2
+    torch.cuda.empty_cache()
     launches3 = phase3(args.seed, dev)
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -3467,11 +3892,11 @@ def main() -> int:
     t = time.perf_counter()
     launches5 = phase5(args.seed, dev)
     print(f"[phase5] wall {time.perf_counter() - t:.2f} s")
-    for r in rows:     # each path's launches, Phases 6-7's added to its own
+    for r in rows:     # each path's launches, Phases 6-8's added to its own
         r["launches"] = (next(ls[r["name"]] for ls in (
             {n: launches[n] for n in SLICE1}, launches4, launches5,
             launches3) if r["name"] in ls) + launches6.get(r["name"], 0)
-            + launches7.get(r["name"], 0))
+            + launches7.get(r["name"], 0) + launches8.get(r["name"], 0))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)          # again here, where the end of a long output keeps it

@@ -2,10 +2,16 @@
 lifecycle, the port's own copy of ``repro/faults`` (same schedule, same
 decisions for the same seed).
 
-See :mod:`repro_torch.faults.plan` for the schedule semantics.  The JAX
-package's full-lifecycle chaos harness (``repro/faults/chaos.py``) is
-not ported yet.
+See :mod:`repro_torch.faults.plan` for the schedule semantics and
+:mod:`repro_torch.faults.chaos` for the full-lifecycle chaos harness
+used by the ``pytest -m chaos`` tier (``tests/test_torch_chaos.py``).
 """
+from repro_torch.faults.chaos import (
+    REQUIRED_SITES,
+    UNIQUE_ITEM_BASE,
+    default_specs,
+    run_chaos,
+)
 from repro_torch.faults.plan import (
     ACTIONS,
     FaultInjector,
@@ -26,8 +32,12 @@ __all__ = [
     "FaultSpec",
     "InjectedCrash",
     "InjectedFault",
+    "REQUIRED_SITES",
+    "UNIQUE_ITEM_BASE",
     "clear_plan",
     "corrupt_file",
+    "default_specs",
     "get_faults",
     "install_plan",
+    "run_chaos",
 ]

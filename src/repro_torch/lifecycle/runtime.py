@@ -121,12 +121,16 @@ class LifecycleConfig:
                           serving-store geometry: cluster ring-buffer
                           depth, recency horizon, and how many raw
                           events are retained for swap-time re-keying;
-    ``n_shards``          serving scale-out; only 1 (unsharded) is
-                          ported, more raises (``ROADMAP.md`` queue 1
-                          item 5);
-    ``serving_delta_cap`` the store's delta-buffer depth; only 0 (direct
-                          scatter per ingest) is ported, more raises
-                          (item 5);
+    ``n_shards``          serving scale-out: partition the cluster space
+                          into this many contiguous ranges, each backed
+                          by its own store on the runtime's device
+                          behind the swap server's router (1 =
+                          unsharded);
+    ``serving_delta_cap`` per-shard delta-buffer depth (0 = direct
+                          scatter per ingest; >0 = LSM-style append +
+                          fold; its ingest cost shrinks as 1/n_shards
+                          only with one shard per device, since shards
+                          sharing a device fold as often as one store);
     ``snapshot_keep``     on-disk snapshot retention (when a
                           ``SnapshotStore`` directory is attached);
     ``stage_retries``     fault tolerance: how many times a failed
@@ -190,10 +194,6 @@ class LifecycleRuntime:
                  seed: int = 0, telemetry=None, faults=None,
                  sleep: Optional[Callable[[float], None]] = None,
                  device=None):
-        if lcfg.n_shards > 1 or lcfg.serving_delta_cap:
-            raise NotImplementedError(
-                "n_shards > 1 and serving_delta_cap > 0 are not ported "
-                "yet: ROADMAP.md queue 1 item 5")
         self.device = resolve_device(device)
         self.tel = telemetry if telemetry is not None else get_telemetry()
         self.faults = faults if faults is not None else get_faults()

@@ -1,10 +1,9 @@
 """Atomic hot-swap of published index versions into live serving, as
 ``repro/lifecycle/swap.py``.  Each bundle's store is a
-``ClusterQueueStore`` resident on the server's device (CUDA unless the
-caller passes ``device="cpu"``); its ``serve_batch`` runs the
-``queue_gather`` kernel there.  The JAX package's sharded store
-(``n_shards > 1``) and delta-run ingest (``delta_cap > 0``) are
-``ROADMAP.md`` queue 1 item 5, and asking for them raises.
+``ClusterQueueStore`` (or, with ``n_shards > 1``, a
+``ShardedQueueStore`` whose shards all live there) resident on the
+server's device (CUDA unless the caller passes ``device="cpu"``); its
+``serve_batch`` runs the ``queue_gather`` kernel there, once a shard.
 
 ``SnapshotHandle`` is the double-buffer: two slots, each holding an
 immutable ``ServingBundle`` (snapshot + its ``ClusterQueueStore`` + I2I
@@ -57,7 +56,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.serving import ClusterQueueStore
+from repro_torch.core.serving import (ClusterQueueStore,
+                                      ShardedQueueStore)
 from repro_torch.faults import InjectedCrash, get_faults
 from repro_torch.kernels.common import resolve_device
 from repro_torch.lifecycle.snapshot import IndexSnapshot
@@ -183,10 +183,11 @@ class EventRing:
 @dataclasses.dataclass(frozen=True)
 class ServingBundle:
     """Everything one snapshot version needs to serve — flipped as a
-    single immutable unit."""
+    single immutable unit.  ``store`` is a ``ClusterQueueStore`` or,
+    when the server is sharded, a ``ShardedQueueStore`` (same API)."""
     version: int
     snapshot: IndexSnapshot
-    store: ClusterQueueStore
+    store: "ClusterQueueStore | ShardedQueueStore"
     i2i: np.ndarray
 
 
@@ -234,13 +235,9 @@ class SwapServer:
                  n_shards: int = 1, delta_cap: int = 0,
                  clock: Optional[Callable[[], float]] = None,
                  telemetry=None, faults=None, device=None):
-        if n_shards > 1:
-            raise NotImplementedError(
-                "n_shards > 1 (ShardedQueueStore) is not ported yet: "
-                "ROADMAP.md queue 1 item 5")
         self.queue_len = int(queue_len)
         self.recency_s = float(recency_s)
-        self.n_shards = 1
+        self.n_shards = max(int(n_shards), 1)
         self.delta_cap = int(delta_cap)
         self.device = resolve_device(device)
         self.tel = telemetry if telemetry is not None else get_telemetry()
@@ -258,12 +255,23 @@ class SwapServer:
         self._pre_flip_hook: Optional[Callable[[], None]] = None
 
     def _bundle(self, snapshot: IndexSnapshot) -> ServingBundle:
-        store = ClusterQueueStore(snapshot.user_clusters,
-                                  queue_len=self.queue_len,
-                                  recency_s=self.recency_s,
-                                  n_clusters=snapshot.n_clusters,
-                                  delta_cap=self.delta_cap,
-                                  telemetry=self.tel, device=self.device)
+        if self.n_shards > 1:
+            store = ShardedQueueStore(snapshot.user_clusters,
+                                      n_shards=self.n_shards,
+                                      queue_len=self.queue_len,
+                                      recency_s=self.recency_s,
+                                      n_clusters=snapshot.n_clusters,
+                                      delta_cap=self.delta_cap,
+                                      telemetry=self.tel,
+                                      devices=[self.device])
+        else:
+            store = ClusterQueueStore(snapshot.user_clusters,
+                                      queue_len=self.queue_len,
+                                      recency_s=self.recency_s,
+                                      n_clusters=snapshot.n_clusters,
+                                      delta_cap=self.delta_cap,
+                                      telemetry=self.tel,
+                                      device=self.device)
         return ServingBundle(version=snapshot.version, snapshot=snapshot,
                              store=store, i2i=snapshot.i2i)
 

@@ -23,8 +23,7 @@ Module-level conveniences delegate to the process-wide singleton:
     obs.counter("serving.seqlock_retries")
     obs.flush()
 
-The JAX package's trace renderer (``repro/obs/report.py``) reads the
-same JSONL; the port has no renderer of its own yet.
+Render with ``python -m repro_torch.obs.report run.jsonl``.
 """
 from __future__ import annotations
 

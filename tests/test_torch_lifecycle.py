@@ -178,16 +178,6 @@ def test_store_telemetry_matches_jax_store():
     assert out[1][3]["serving.unknown_user_requests"] == 2 * 7.0
 
 
-def test_delta_cap_and_shards_name_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        ClusterQueueStore(np.zeros(3, np.int64), delta_cap=64, device="cpu")
-    snap = _random_snapshot(np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        SwapServer(snap, n_shards=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        SwapServer(snap, delta_cap=8, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # swap engine: event ring, handle, atomicity
 # ---------------------------------------------------------------------------
