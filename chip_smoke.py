@@ -3,19 +3,25 @@
 
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --selection-sweep STEPS   # Phase 3's RQ check
+    python3 chip_smoke.py --contrastive-only   # Phase 1's fused_contrastive
 
 Phase 0 prints the card (``nvidia-smi`` name and power limit) and
 builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, one
 process per source, all at once.  Phase 1 holds each kernel against its
 plain PyTorch version on the card, at the shapes the main path gives it,
-and times both with CUDA events (for ``ppr_walk``, ``queue_gather`` and
-the decode merge also the device's own time, with the card kept busy
-before the first event); ``ppr_walk`` also at its edge shapes (dangling
-starts, restart 1.0, one walker of one step, the largest trace, D2 100
-and 8) and ``queue_gather`` at its own (empty rings, no seed in the
-recency window, a window that needs whole rings, one repeated item, the
-largest R and k, K 15 and 1, unknown clusters, ids above 2^24, a
-repeat), each bitwise.
+and times both with CUDA events (for ``ppr_walk``, ``queue_gather``,
+``fused_contrastive`` and the decode merge also the device's own time,
+with the card kept busy before the first event); ``ppr_walk`` also at
+its edge shapes (dangling starts, restart 1.0, one walker of one step,
+the largest trace, D2 100 and 8) and ``queue_gather`` at its own (empty
+rings, no seed in the recency window, a window that needs whole rings,
+one repeated item, the largest R and k, K 15 and 1, unknown clusters,
+ids above 2^24, a repeat), each bitwise.  The ``fused_contrastive``
+backward must repeat bitwise and hold against its plain version at its
+edge shapes in both types (one row, one negative, scalar-load widths,
+Phase 8d's d 24, the old kernel's largest row block and widest row,
+rows off 16-byte alignment, the register path's widest row); Phase 0
+holds its shared memory against the wrapper's count.
 
 Phase 2 runs the publish-and-serve path at the full width of the
 ``rankgraph2`` configuration (bf16 compute, d 256, 4 heads, hidden
@@ -396,6 +402,19 @@ def time_ms(fn, reps: int, lead: bool = False) -> float:
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host time of one call of ``fn``: ``reps`` calls back to back on
+    the host clock, the card not waited for (their launches queue)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return t / reps * 1e3
 
 
 def check(cond: bool, what: str) -> None:
@@ -841,46 +860,132 @@ def contrastive_bound(B: int, N: int, d: int, esize: int, backward: bool,
     return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
 
+def cf_inputs(g: torch.Generator, B: int, N: int, d: int, dtype, dev,
+              offset: int = 0) -> tuple:
+    """Unit-norm src, dst (B, d) and negs (B, N, d) of ``dtype``, and
+    cotangents gm, gi at a batch mean's scale, N(0, 1) / B.  With
+    ``offset`` each of the three lies ``offset`` elements into its
+    storage, so its rows are not 16-byte aligned."""
+    def unit(*shape):
+        x = torch.randn(shape, generator=g, device=dev)
+        x = (x / x.norm(dim=-1, keepdim=True)).to(dtype)
+        if not offset:
+            return x
+        flat = torch.empty(x.numel() + offset, dtype=dtype, device=dev)
+        view = flat[offset:].view(shape)
+        view.copy_(x)
+        return view
+    gm = torch.randn(B, generator=g, device=dev) / B
+    gi = torch.randn(B, generator=g, device=dev) / B
+    return unit(B, d), unit(B, d), unit(B, N, d), gm, gi
+
+
+def cf_bwd_held(what: str, src, dst, negs, gm, gi, m: float, tau: float
+                ) -> float:
+    """Hold the backward kernel against ``bwd_ref`` on the forward's
+    s_pos and lse (``close``: f32 within 1e-4 relative, bf16 within one
+    bf16 rounding, 2^-7): gradients in the input type.  Returns the
+    largest absolute error."""
+    sp, lse = fwd_ref(src, dst, negs, margin=m, tau=tau)[2:]
+    bk = FC.fused_contrastive_bwd(src, dst, negs, gm, gi, sp, lse,
+                                  margin=m, tau=tau)
+    bp = bwd_ref(src, dst, negs, gm, gi, sp, lse, margin=m, tau=tau)
+    torch.cuda.synchronize()
+    rel = 1e-4 if src.dtype == torch.float32 else 2.0 ** -7
+    err = 0.0
+    for a, b in zip(bk, bp):
+        check(a.dtype == src.dtype and a.shape == b.shape,
+              f"fused_contrastive backward ({what}): gradient type or "
+              f"shape is not the input's")
+        err = max(err, float((a.float() - b).abs().max()))
+        check(close(a, b, rel), f"fused_contrastive backward ({what}, "
+              f"{src.dtype}) off the plain one")
+    return err
+
+
+def cf_edges(g: torch.Generator, dev, dtype, m: float, tau: float) -> None:
+    """The backward at its edge shapes, each against ``bwd_ref``: one
+    row; one negative; rows of no whole 16-byte units (scalar loads: N 7
+    at d 100 in bf16, 102 in f32; N 3 at d 33); Phase 8d's N 16, d 24;
+    the old kernel's largest f32 row block (N 224, d 256); rows one
+    element off 16-byte alignment; the register path's widest row (d
+    1024 in bf16, 512 in f32); and the largest d the old kernel took, at
+    N 1 (23,242 in bf16, 19,369 in f32: the wide kernel).  Each line
+    names the kernel's plan (``FC.bwd_plan``)."""
+    es = torch.finfo(dtype).bits // 8
+    old_d_max = (232448 - 4 * 5) // (8 + es)
+    d_odd = 100 if es == 2 else 102       # no whole 16-byte units a row
+    d_reg = 32 * 4 * 16 // es             # 4 units of 16 bytes a lane
+    cases = (("one row", 1, CONFIG.n_negatives, CONFIG.d_embed, 0),
+             ("one negative", 4096, 1, CONFIG.d_embed, 0),
+             (f"d {d_odd}, scalar loads", 4096, 7, d_odd, 0),
+             ("d 33, scalar loads", 4096, 3, 33, 0),
+             ("Phase 8d's", 4096, 16, 24, 0),
+             ("the old kernel's largest f32 block", 2048, 224, 256, 0),
+             ("rows off 16-byte alignment", 1024, CONFIG.n_negatives,
+              CONFIG.d_embed, 1),
+             ("the register path's widest row", 512, 16, d_reg, 0),
+             ("the old kernel's largest d", 64, 1, old_d_max, 0))
+    done = []
+    for what, B, N, d, off in cases:
+        plan = FC.bwd_plan(N, d, dtype, aligned=not off)
+        err = cf_bwd_held(what, *cf_inputs(g, B, N, d, dtype, dev, off),
+                          m, tau)
+        done.append(f"{what} (B {B}, N {N}, d {d}; {plan.path}, vpl "
+                    f"{plan.vpl}, {plan.warps} warps): max_abs_err "
+                    f"{err:.3g}")
+    torch.cuda.empty_cache()
+    name = str(dtype).replace("torch.", "")
+    print(f"[phase1] fused_contrastive backward {name} edge "
+          f"shapes held against the plain version: " + "; ".join(done))
+
+
 def phase1_fused_contrastive(g: torch.Generator, dev, peaks) -> list:
     """Forward and backward kernels against the plain versions in f32
-    and bf16 at the train step's shapes.  Tolerances (``close``): f32 and
-    bf16 forward outputs and f32 gradients within 1e-4 relative (the same
-    f32 arithmetic summed in another order); bf16 gradients within one
-    bf16 rounding, 2^-7 relative, of the plain f32 result."""
+    and bf16 at the train step's shapes, timed as the wrapper's call
+    (``kernel_ms``) and on the device alone (``device_ms``), with the
+    share of the bound each reaches.  Tolerances (``close``): f32 and
+    bf16 forward outputs and f32 gradients within 1e-4 relative (the
+    same f32 arithmetic summed in another order); bf16 gradients within
+    one bf16 rounding, 2^-7 relative, of the plain f32 result.  The
+    backward must also repeat bitwise, and hold at its edge shapes
+    (``cf_edges``)."""
     B, N, d = CF_ROWS, CONFIG.n_negatives, CONFIG.d_embed
     m, tau = CONFIG.margin, CONFIG.tau
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
-        def unit(*shape):
-            x = torch.randn(shape, generator=g, device=dev)
-            return (x / x.norm(dim=-1, keepdim=True)).to(dtype)
-        src, dst, negs = unit(B, d), unit(B, d), unit(B, N, d)
-        gm = torch.randn(B, generator=g, device=dev) / B
-        gi = torch.randn(B, generator=g, device=dev) / B
+        src, dst, negs, gm, gi = cf_inputs(g, B, N, d, dtype, dev)
         fk = FC.fused_contrastive_fwd(src, dst, negs, margin=m, tau=tau)
         fp = fwd_ref(src, dst, negs, margin=m, tau=tau)
-        bk = FC.fused_contrastive_bwd(src, dst, negs, gm, gi, fp[2], fp[3],
-                                      margin=m, tau=tau)
-        bp = bwd_ref(src, dst, negs, gm, gi, fp[2], fp[3], margin=m,
-                     tau=tau)
         torch.cuda.synchronize()
         f_err = max(float((a - b).abs().max()) for a, b in zip(fk, fp))
         for a, b in zip(fk, fp):
             check(close(a, b, 1e-4),
                   f"fused_contrastive forward ({dtype}) off the plain one")
-        b_err = 0.0
-        rel = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-        for a, b in zip(bk, bp):
-            check(a.dtype == dtype, "gradient type is not the input type")
-            b_err = max(b_err, float((a.float() - b).abs().max()))
-            check(close(a, b, rel),
-                  f"fused_contrastive backward ({dtype}) off the plain one")
-        f_ms = time_ms(lambda: FC.fused_contrastive_fwd(
-            src, dst, negs, margin=m, tau=tau), 20)
+        b_err = cf_bwd_held("main shape", src, dst, negs, gm, gi, m, tau)
+
+        def fwd():
+            return FC.fused_contrastive_fwd(src, dst, negs, margin=m,
+                                            tau=tau)
+
+        def bwd():
+            return FC.fused_contrastive_bwd(src, dst, negs, gm, gi, fp[2],
+                                            fp[3], margin=m, tau=tau)
+
+        first, again = bwd(), bwd()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, again)),
+              f"fused_contrastive backward ({dtype}) does not repeat "
+              f"bitwise")
+        del first, again
+        f_ms, f_dev = time_ms(fwd, 20), time_ms(fwd, 20, lead=True)
         f_plain = time_ms(lambda: fwd_ref(src, dst, negs, margin=m,
                                           tau=tau), 5)
-        b_ms = time_ms(lambda: FC.fused_contrastive_bwd(
-            src, dst, negs, gm, gi, fp[2], fp[3], margin=m, tau=tau), 20)
+        b_ms, b_dev = time_ms(bwd, 20), time_ms(bwd, 20, lead=True)
+        b_host = host_ms(bwd, 20)
+        out = torch.empty_like(negs)    # the card's rate for these bytes
+        copy_ms = time_ms(lambda: out.copy_(negs), 20, lead=True)
+        del out
         b_plain = time_ms(lambda: bwd_ref(src, dst, negs, gm, gi, fp[2],
                                           fp[3], margin=m, tau=tau), 5)
         es = src.element_size()
@@ -888,27 +993,35 @@ def phase1_fused_contrastive(g: torch.Generator, dev, peaks) -> list:
         bb, bby = contrastive_bound(B, N, d, es, True, peaks)
         name = str(dtype).replace("torch.", "")
         print(f"[phase1] fused_contrastive {name} B={B} N={N} d={d}: fwd "
-              f"max_abs_err={f_err:.3g} kernel_ms={f_ms:.4f} plain_ms="
-              f"{f_plain:.4f} bound_ms={fb:.4f} ({fby}); bwd max_abs_err="
-              f"{b_err:.3g} kernel_ms={b_ms:.4f} plain_ms={b_plain:.4f} "
-              f"bound_ms={bb:.4f} ({bby})")
-        rows[dtype] = (f_err, f_ms, f_plain, fb, fby, b_err, b_ms, b_plain,
-                       bb, bby)
-        del src, dst, negs, fk, fp, bk, bp
+              f"max_abs_err={f_err:.3g} kernel_ms={f_ms:.4f} "
+              f"device_ms={f_dev:.4f} plain_ms={f_plain:.4f} "
+              f"bound_ms={fb:.4f} ({fby}; share {fb / f_ms:.3f}, device "
+              f"{fb / f_dev:.3f}); bwd max_abs_err={b_err:.3g} "
+              f"kernel_ms={b_ms:.4f} device_ms={b_dev:.4f} "
+              f"plain_ms={b_plain:.4f} bound_ms={bb:.4f} ({bby}; share "
+              f"{bb / b_ms:.3f}, device {bb / b_dev:.3f}) host_ms="
+              f"{b_host:.4f} plan={tuple(FC.bwd_plan(N, d, dtype))}; bwd "
+              f"repeats bitwise; a copy_ of negs (the backward's bulk "
+              f"bytes: negs read, d_negs written) device_ms="
+              f"{copy_ms:.4f}")
+        rows[dtype] = (f_err, f_ms, f_dev, f_plain, fb, fby, b_err, b_ms,
+                       b_dev, b_plain, bb, bby)
+        del src, dst, negs, fk, fp
         torch.cuda.empty_cache()
+        cf_edges(g, dev, dtype, m, tau)
     # the main path trains in bf16: its numbers go into the kernels line
-    f_err, f_ms, f_plain, fb, fby, b_err, b_ms, b_plain, bb, bby = \
-        rows[torch.bfloat16]
+    (f_err, f_ms, f_dev, f_plain, fb, fby, b_err, b_ms, b_dev, b_plain, bb,
+     bby) = rows[torch.bfloat16]
     src_file = "src/repro_torch/csrc/fused_contrastive.cu"
     jax_file = "src/repro/kernels/fused_contrastive/fused_contrastive.py"
     return [dict(name="fused_contrastive_fwd", route="cuda", source=src_file,
                  replaces=f"{jax_file}:93", max_abs_err=f_err, ms=f_ms,
-                 plain_ms=f_plain, bound_ms=fb, bound_by=fby,
-                 library_ms=None),
+                 device_ms=f_dev, plain_ms=f_plain, bound_ms=fb,
+                 bound_by=fby, library_ms=None),
             dict(name="fused_contrastive_bwd", route="cuda", source=src_file,
                  replaces=f"{jax_file}:118", max_abs_err=b_err, ms=b_ms,
-                 plain_ms=b_plain, bound_ms=bb, bound_by=bby,
-                 library_ms=None)]
+                 device_ms=b_dev, plain_ms=b_plain, bound_ms=bb,
+                 bound_by=bby, library_ms=None)]
 
 
 def random_bags(g: torch.Generator, n: int, L: int, rows: int, dev, *,
@@ -3780,6 +3893,44 @@ def phase8(seed: int, dev, p2: dict) -> dict:
     return launches
 
 
+def print_build(logs: dict) -> None:
+    """Registers, spills and stack of every kernel ``nvcc`` built."""
+    for kname, log in logs.items():
+        fn = ""
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                fn = line.split("for", 1)[1].strip()
+            elif "registers" in line or "spill" in line:
+                print(f"[phase0] {kname} {fn}: {line.strip()}")
+
+
+def phase0_contrastive() -> None:
+    """The backward's dynamic shared memory from the library against the
+    wrapper's own count (``FC.bwd_smem_bytes``), at the main shape in
+    both types and at the plan's edges."""
+    lib = ctypes.CDLL(str(common.library_path("fused_contrastive")))
+    lib.fused_contrastive_bwd_smem.restype = ctypes.c_size_t
+    lib.fused_contrastive_bwd_smem.argtypes = [ctypes.c_int] * 3
+    N, d = CONFIG.n_negatives, CONFIG.d_embed
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = ((N, d, bf16), (N, d, f32), (16, 24, bf16), (7, 100, f32),
+              (224, 256, f32), (1, 1, bf16), (N, 1024, bf16),
+              (N, 1032, bf16), (N, 512, f32), (1, FC.D_MAX, f32))
+    out = []
+    for N_, d_, dt in shapes:
+        got = lib.fused_contrastive_bwd_smem(N_, d_, FC._DTYPE_CODE[dt])
+        plan = FC.bwd_plan(N_, d_, dt)
+        check(got == FC.bwd_smem_bytes(N_, d_, dt),
+              f"fused_contrastive_bwd shared memory at N {N_} d {d_} "
+              f"{dt}: the wrapper's {FC.bwd_smem_bytes(N_, d_, dt)} is "
+              f"not the library's {got}")
+        out.append(f"N {N_} d {d_} {str(dt).replace('torch.', '')}: "
+                   f"{got} ({plan.path}, "
+                   f"{plan.warps} warps)")
+    print("[phase0] fused_contrastive_bwd dynamic shared memory bytes a "
+          "block: " + ", ".join(out) + " (the first: the main path's)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3789,6 +3940,9 @@ def main() -> int:
                          "train steps, printing the card-vs-CPU loss gap "
                          "at each state with the CPU on the card's RQ "
                          "selections and on its own")
+    ap.add_argument("--contrastive-only", action="store_true",
+                    help="only build fused_contrastive and run its Phase 1 "
+                         "checks and timings")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3806,19 +3960,18 @@ def main() -> int:
         common.build(["rq_assign", "ppr_walk", "fused_contrastive"])
         selection_sweep(args.seed, dev, args.selection_sweep)
         return 0
+    if args.contrastive_only:
+        print_build(common.build(["fused_contrastive"]))
+        phase1_fused_contrastive(torch.Generator(device=dev).manual_seed(
+            args.seed), dev, peaks)
+        return 0
     t = time.perf_counter()
     logs = common.build(["rq_assign", "queue_gather", "ppr_walk",
                          "fused_contrastive", "embedding_bag",
                          "flash_attention"])
     print(f"[phase0] built {sorted(logs)} in "
           f"{time.perf_counter() - t:.2f} s")
-    for kname, log in logs.items():
-        fn = ""
-        for line in log.splitlines():
-            if "Function properties for" in line:
-                fn = line.split("for", 1)[1].strip()
-            elif "registers" in line or "spill" in line:
-                print(f"[phase0] {kname} {fn}: {line.strip()}")
+    print_build(logs)
     rq_lib = ctypes.CDLL(str(common.library_path("rq_assign")))
     rq_lib.rq_assign_smem.restype = ctypes.c_size_t
     for d in (CONFIG.d_embed, RQA.D_MAX):
@@ -3852,6 +4005,7 @@ def main() -> int:
           + ", ".join(f"R {R_} k {k_}: {QG.smem_bytes(R_, k_)}"
                       for R_, k_ in qg_shapes)
           + " (the main path's, the largest)")
+    phase0_contrastive()
     fa_lib = ctypes.CDLL(str(common.library_path("flash_attention")))
     for kname, dec in (("tile (fa_wgmma at D 64-256, fa_mma at D 32)",
                         0), ("decode (fa_decode)", 1)):
@@ -3900,7 +4054,10 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)          # again here, where the end of a long output keeps it
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    extra = ("device_ms",)       # where Phase 1 took it
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
+        for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
