@@ -4,13 +4,15 @@
     python3 chip_smoke.py [--seed 0]
     python3 chip_smoke.py --selection-sweep STEPS   # Phase 3's RQ check
     python3 chip_smoke.py --contrastive-only   # Phase 1's fused_contrastive
+    python3 chip_smoke.py --attention-only     # Phase 1's flash_attention
+    python3 chip_smoke.py --decode-only REPS   # Phase 5's decode steps
 
 Phase 0 prints the card (``nvidia-smi`` name and power limit) and
 builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, one
 process per source, all at once.  Phase 1 holds each kernel against its
 plain PyTorch version on the card, at the shapes the main path gives it,
 and times both with CUDA events (for ``ppr_walk``, ``queue_gather``,
-``fused_contrastive`` and the decode merge also the device's own time,
+``fused_contrastive`` and ``flash_attention`` also the device's own time,
 with the card kept busy before the first event); ``ppr_walk`` also at
 its edge shapes (dangling starts, restart 1.0, one walker of one step,
 the largest trace, D2 100 and 8) and ``queue_gather`` at its own (empty
@@ -21,7 +23,19 @@ backward must repeat bitwise and hold against its plain version at its
 edge shapes in both types (one row, one negative, scalar-load widths,
 Phase 8d's d 24, the old kernel's largest row block and widest row,
 rows off 16-byte alignment, the register path's widest row); Phase 0
-holds its shared memory against the wrapper's count.
+holds its shared memory against the wrapper's count.  The
+flash-attention kernels fold their own kv splits in one launch: at 2, 5
+and 11 forced splits on all three kernels, and at the split main-path
+shapes (decode_32k, long_500k), the output is also held against
+``merge_ref`` of the partials the same launch returns, and at the
+main-path shapes a second launch must give the same bits.
+``--attention-only`` runs only that, then prints the whole op's times
+and a hash of its output at decode_32k and long_500k and hashes of the
+forced-split outputs.  ``--decode-only REPS`` prints the same whole-op
+lines, then runs only Phase 5's decode_32k and long_500k steps, each
+timed REPS times, with a hash of their logits; it calls only the
+model's and ``flash_attention``'s entry points, so that two trees can
+be compared in one call on one card.
 
 Phase 2 runs the publish-and-serve path at the full width of the
 ``rankgraph2`` configuration (bf16 compute, d 256, 4 heads, hidden
@@ -78,8 +92,8 @@ params: the stage needs the whole 80 GB card); then ``gemma-2b`` at full
 width (18 layers, MQA, head dim 256) prefills 8,192 tokens and decodes
 16.  The bf16 attention runs on the tensor-core kernels: prefill on
 ``flash_attention`` (wgmma, head dims 128 and gemma's 256),
-decode on ``flash_attention_decode`` with a split kv range (partials,
-then ``flash_attention_merge``); the f32 check runs
+decode on ``flash_attention_decode`` with a split kv range, folded in
+the same launch (one launch a layer); the f32 check runs
 ``flash_attention_f32``.  It checks shapes and finite values, the launch
 counts by kernel, llama at 2 layers card vs CPU in f32 (prefill logits,
 caches, one decode step within 1e-3), and the prefill/decode consistency
@@ -184,6 +198,7 @@ import argparse
 import copy
 import ctypes
 import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -1350,27 +1365,36 @@ def fa_launches(fn):
                  if k.startswith("flash_attention") and n != before.get(k, 0)}
 
 
-def check_fa_launches(got: dict, kernel: str, splits: int, what: str):
-    want = {kernel: 1, **({"flash_attention_merge": 1} if splits > 1
-                          else {})}
+def check_fa_launches(got: dict, kernel: str, what: str):
+    """One launch of ``plan``'s kernel, split or not (the kernels fold
+    their own splits)."""
+    want = {kernel: 1}
     check(got == want, f"{what}: launches {got}, want {want}")
 
 
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
 def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
-    """The forward kernels (whole op: one launch, or partials and merge
-    when ``plan`` splits the kv range) against ``chunked_attention_ref``
-    at the main path's four launch shapes in bf16, and on small cases in
-    f32 against ``attention_ref``.  bf16 runs the tensor-core kernels
-    (``flash_attention`` above 16 rows per KV head, else
-    ``flash_attention_decode``), f32 the FP32-pipe ``flash_attention_f32``;
-    every call's launches are checked by name.  Tolerances: bf16 outputs
-    within one bf16 step, 2^-7 relative (``close``: plus 1e-4 of the
-    largest for the entries near zero), since both sides compute the same
-    f32 scores, the kernels' P.V carries P to about 16 bits (split in two
-    bf16 parts), and both round once; f32 within 3e-4 as
-    tests/test_kernels.py holds the Pallas kernel (f32 sums in another
-    order); the merge kernel within 1e-5 of ``merge_ref`` on the same
-    partials (the same f32 sums in another order)."""
+    """The forward kernels (whole op: one launch, which folds its own kv
+    splits when ``plan`` splits the kv range) against
+    ``chunked_attention_ref`` at the main path's four launch shapes in
+    bf16, and on small cases in f32 against ``attention_ref``.  bf16 runs
+    the tensor-core kernels (``flash_attention`` above 16 rows per KV
+    head, else ``flash_attention_decode``), f32 the FP32-pipe
+    ``flash_attention_f32``; every call's launches are checked by name.
+    Tolerances: bf16 outputs within one bf16 step, 2^-7 relative
+    (``close``: plus 1e-4 of the largest for the entries near zero), since
+    both sides compute the same f32 scores, the kernels' P.V carries P to
+    about 16 bits (split in two bf16 parts), and both round once; f32
+    within 3e-4 as tests/test_kernels.py holds the Pallas kernel (f32
+    sums in another order).  A split launch's output is also held against
+    ``merge_ref`` of the partials it returned: within one bf16 step for
+    bf16 outputs (the fold's f32 sums in another order, then one
+    rounding), 1e-5 for f32 ones (no rounding); and two launches must give
+    the same bits, though their blocks arrive in another order."""
     bf16 = torch.bfloat16
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -1389,8 +1413,8 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
         case = (B, Hq, Hkv, S, T, D, causal)
         check(close(got, want, 3e-4), f"flash_attention small case "
               f"{case} off attention_ref")
-        check_fa_launches(n, *planned(got.transpose(1, 2), k.transpose(1, 2),
-                                      T), f"f32 small case {case}")
+        check_fa_launches(n, planned(got.transpose(1, 2), k.transpose(1, 2),
+                                     T)[0], f"f32 small case {case}")
         # the same in bf16 against the model contract's plain version
         qb, kb, vb = (x.transpose(1, 2).to(bf16) for x in (q, k, v))
         kw = dict(causal=causal, scale=D ** -0.5,
@@ -1399,7 +1423,7 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
         wb = chunked_attention_ref(qb, kb, vb, **kw)
         check(close(gb, wb, BF16_STEP), f"flash_attention small bf16 case "
               f"{case} off the plain version")
-        check_fa_launches(n, *planned(qb, kb, T), f"bf16 small case {case}")
+        check_fa_launches(n, planned(qb, kb, T)[0], f"bf16 small case {case}")
     # a ragged kv_len tensor, an offset and forced splits: f32, then bf16
     # on both tensor-core kernels (15 rows per KV head: the decode kernel
     # takes them, and so does the 128-row one)
@@ -1418,25 +1442,33 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
             got, n = fa_launches(lambda: FA.flash_attention(q, k, v, **kw))
             check(close(got, want, tol), f"flash_attention ragged kv_len "
                   f"({dtype}, S {S}, causal={causal}) off the plain version")
-            check_fa_launches(n, *planned(q, k, 700), f"ragged kv_len "
+            check_fa_launches(n, planned(q, k, 700)[0], f"ragged kv_len "
                               f"({dtype}, S {S})")
             check(kernels[0] in n, f"ragged kv_len ({dtype}, S {S}): "
                   f"launches {n}, want {kernels[0]}")
+            fold_tol = 1e-5 if dtype == torch.float32 else BF16_STEP
             for kernel in kernels:
                 for splits in (2, 5, 11):
-                    part = FA.flash_attention_partials(
-                        q, k, v, splits=splits, kernel=kernel,
-                        rpt=4 if dtype == torch.float32 else None, **kw)
-                    got = FA.flash_attention_merge(*part, n_heads=6,
-                                                   dtype=dtype)
-                    check(close(got, want, tol), f"{kernel} with {splits} "
-                          f"forced splits (S {S}, causal={causal}) off the "
-                          f"plain version")
+                    (got, part), n = fa_launches(
+                        lambda: FA.flash_attention_split(
+                            q, k, v, splits=splits, kernel=kernel,
+                            rpt=4 if dtype == torch.float32 else None, **kw))
+                    what = (f"{kernel} with {splits} forced splits ({dtype}, "
+                            f"S {S}, causal={causal})")
+                    check_fa_launches(n, kernel, what)
+                    check(close(got, want, tol), f"{what} off the plain "
+                          f"version")
+                    check(close(got, merge_ref(*part, n_heads=6,
+                                               dtype=torch.float32),
+                                fold_tol),
+                          f"{what} off merge_ref of its own partials")
     print(f"[phase1] flash_attention: {2 * len(FA_SMALL)} small cases (f32 "
           f"vs attention_ref, bf16 vs chunked_attention_ref) and ragged "
           f"kv_len / offset / forced-split cases held (f32 on "
           f"flash_attention_f32, bf16 on flash_attention and "
-          f"flash_attention_decode), launches as planned")
+          f"flash_attention_decode; splits 2, 5 and 11 folded in one "
+          f"launch, also against merge_ref of their partials), one launch "
+          f"each as planned")
 
     # (b) the main path's launch shapes, bf16
     rows = {}
@@ -1450,7 +1482,7 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
                   kv_len=None if causal else T)
         kernel, splits = planned(q, k, T)
         got, n = fa_launches(lambda: FA.flash_attention(q, k, v, **kw))
-        check_fa_launches(n, kernel, splits, f"flash_attention at {name}")
+        check_fa_launches(n, kernel, f"flash_attention at {name}")
         want = chunked_attention_ref(q, k, v, block_q=1024 if causal else 1,
                                      **kw)
         torch.cuda.synchronize()
@@ -1459,6 +1491,8 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
               f"flash_attention at {name} off the plain version ({err})")
         reps = 3 if causal else 20
         ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), reps)
+        dev_ms = time_ms(lambda: FA.flash_attention(q, k, v, **kw), reps,
+                         lead=True)
         plain_ms = time_ms(lambda: chunked_attention_ref(
             q, k, v, block_q=1024 if causal else 1, **kw), 2)
         lib_ms, lib_out = sdpa_library(q, k, v, causal, D ** -0.5)
@@ -1475,37 +1509,29 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
                 f"({nbytes * per_s / peaks[1]:.1%} of the memory rate)")
         extra = ""
         if splits > 1:
-            part = FA.flash_attention_partials(q, k, v, splits=splits, **kw)
-            m_got = FA.flash_attention_merge(*part, n_heads=Hq, dtype=bf16)
+            # the same split launch again, with its partials: the same
+            # bits, and the output merge_ref makes of those partials
+            (got2, part), n = fa_launches(lambda: FA.flash_attention_split(
+                q, k, v, splits=splits, kernel=kernel, **kw))
+            check_fa_launches(n, kernel, f"flash_attention_split at {name}")
+            check(same_bits(got2, got), f"flash_attention at {name}: two "
+                  f"launches differ")
             m_want = merge_ref(*part, n_heads=Hq, dtype=torch.float32)
-            m_err = float((m_got.float() - m_want).abs().max())
-            check(close(m_got, m_want, BF16_STEP),
-                  f"flash_attention_merge at {name} off merge_ref")
-            # the merge alone: in f32 against merge_ref, no bf16 rounding
-            m32 = FA.flash_attention_merge(*part, n_heads=Hq,
-                                           dtype=torch.float32)
-            check(close(m32, m_want, 1e-5),
-                  f"flash_attention_merge (f32) at {name} off merge_ref")
-            p_ms = time_ms(lambda: FA.flash_attention_partials(
-                q, k, v, splits=splits, **kw), reps)
-            def merge():
-                return FA.flash_attention_merge(*part, n_heads=Hq,
-                                                dtype=bf16)
-
-            m_ms, m_dev = time_ms(merge, reps), time_ms(merge, reps, lead=True)
-            m_plain = time_ms(lambda: merge_ref(*part, n_heads=Hq,
-                                                dtype=bf16), reps)
-            m_bytes = 4.0 * sum(p.numel() for p in part) + 2.0 * q.numel()
-            rows[f"merge_{name}"] = (float((m32 - m_want).abs().max()), m_ms,
-                                     m_plain, m_bytes / peaks[1] * 1e3)
-            extra = (f" splits={splits}: partials_ms={p_ms:.4f} merge_ms="
-                     f"{m_ms:.4f} merge_device_ms={m_dev:.4f} (merge "
-                     f"max_abs_err {m_err:.3g}, plain "
-                     f"{m_plain:.4f} ms)")
-        rows[name] = (err, ms, plain_ms, bound_ms, by, lib_ms)
+            m_err = float((got2.float() - m_want).abs().max())
+            check(close(got2, m_want, BF16_STEP), f"flash_attention at "
+                  f"{name} off merge_ref of its own partials ({m_err})")
+            f_bytes = 2 * 4.0 * sum(p.numel() for p in part)
+            extra = (f" (fold: max_abs_err vs merge_ref of its partials "
+                     f"{m_err:.3g}, two launches bitwise equal, fold "
+                     f"bound_ms={f_bytes / peaks[1] * 1e3:.5f}: "
+                     f"{f_bytes / 1e6:.4f} MB of partials written and read "
+                     f"once)")
+            del got2, part
+        rows[name] = (err, ms, plain_ms, bound_ms, by, lib_ms, dev_ms)
         print(f"[phase1] {kernel} {name}: q {tuple(q.shape)} k/v "
-              f"{tuple(k.shape)} bf16 causal={causal}{extra} "
-              f"max_abs_err={err:.3g} kernel_ms={ms:.4f} ({rate}) "
+              f"{tuple(k.shape)} bf16 causal={causal} splits={splits} "
+              f"max_abs_err={err:.3g} kernel_ms={ms:.4f} device_ms="
+              f"{dev_ms:.4f} ({rate}){extra} "
               f"plain_ms={plain_ms:.4f} sdpa_ms={lib_ms} (max_abs_err vs "
               f"plain {lib_err}) bound_ms={bound_ms:.4f} ({by}; "
               f"{ops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB)")
@@ -1544,17 +1570,74 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
     out = []
     for kname, shape in (("flash_attention", "prefill_32k"),
                          ("flash_attention_decode", "decode_32k")):
-        err, ms, plain_ms, bound_ms, by, lib_ms = rows[shape]
+        err, ms, plain_ms, bound_ms, by, lib_ms, dev_ms = rows[shape]
         out.append(dict(name=kname, route="cuda", source=src_file,
                         replaces=jax_file, max_abs_err=err, ms=ms,
                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                        library_ms=lib_ms))
-    m_err, m_ms, m_plain, m_bound = rows["merge_decode_32k"]
-    out.append(dict(name="flash_attention_merge", route="cuda",
-                    source=src_file, replaces=jax_file, max_abs_err=m_err,
-                    ms=m_ms, plain_ms=m_plain, bound_ms=m_bound,
-                    bound_by="bytes", library_ms=None))
+                        library_ms=lib_ms, device_ms=dev_ms))
     return out
+
+
+def sha16(t: torch.Tensor) -> str:
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
+def attention_whole_op(g: torch.Generator, dev) -> None:
+    """The whole op at decode_32k and long_500k: ``kernel_ms`` with the
+    wrapper's host time, ``device_ms`` with the card kept busy first,
+    ``host_ms``, and a hash of the output.  Inputs come from ``g``, so
+    two processes given the same seed see the same ones."""
+    bf16 = torch.bfloat16
+    for name, B, S, Hq, Hkv, T, D, causal in FA_SHAPES:
+        if name not in ("decode_32k", "long_500k"):
+            continue
+        q = torch.randn((B, S, Hq, D), generator=g, device=dev).to(bf16)
+        k = torch.empty((B, T, Hkv, D), dtype=bf16, device=dev).normal_(
+            generator=g)
+        v = torch.empty((B, T, Hkv, D), dtype=bf16, device=dev).normal_(
+            generator=g)
+        kw = dict(causal=causal, scale=D ** -0.5, kv_len=T)
+        fn = lambda: FA.flash_attention(q, k, v, **kw)  # noqa: E731
+        out = fn()
+        ms, dev_ms, h_ms = (time_ms(fn, 200), time_ms(fn, 200, lead=True),
+                            host_ms(fn, 200))
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        kernel, splits = FA.plan(B, S, Hq, Hkv, T, n_sm, D=D)
+        print(f"[ab] {name}: {kernel} splits={splits} kernel_ms={ms:.4f} "
+              f"device_ms={dev_ms:.4f} host_ms={h_ms:.4f} "
+              f"sha256={sha16(out)}")
+        del q, k, v, out
+        torch.cuda.empty_cache()
+
+
+def forced_split_hashes(g: torch.Generator, dev) -> None:
+    """Hashes of Phase 1's forced-split outputs (splits 2, 5 and 11 on
+    each kernel, inputs from ``g``)."""
+    bf16 = torch.bfloat16
+    kvl = torch.tensor([1, 333, 700], dtype=torch.int32, device=dev)
+    hashes = []
+    for dtype, S, kernels in ((torch.float32, 5, ("flash_attention_f32",)),
+                              (bf16, 5, ("flash_attention_decode",
+                                         "flash_attention")),
+                              (bf16, 50, ("flash_attention",))):
+        q = torch.randn((3, S, 6, 64), generator=g, device=dev).to(dtype)
+        k = torch.randn((3, 700, 2, 64), generator=g, device=dev).to(dtype)
+        v = torch.randn((3, 700, 2, 64), generator=g, device=dev).to(dtype)
+        for causal in (False, True):
+            kw = dict(causal=causal, q_offset=600, kv_len=kvl, scale=0.125)
+            for kernel in kernels:
+                for splits in (2, 5, 11):
+                    out = FA.flash_attention_split(
+                        q, k, v, splits=splits, kernel=kernel,
+                        rpt=4 if dtype == torch.float32 else None, **kw)[0]
+                    hashes.append(sha16(out))
+                    print(f"[ab] forced {dtype} S {S} causal={causal} "
+                          f"{kernel} splits={splits} sha256={hashes[-1]}")
+    whole = hashlib.sha256("".join(hashes).encode()).hexdigest()[:16]
+    print(f"[ab] forced splits: {len(hashes)} outputs, sha256 of their "
+          f"hashes {whole}")
 
 
 # ---------------------------------------------------------------------------
@@ -2571,6 +2654,148 @@ def near(a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
     return float((a - b).abs().max()) / (tol * float(b.abs().max()))
 
 
+class Stages:
+    """Phase 5's stage clock: each stage's seconds on the host clock
+    after a sync, its peak device memory, and for a serve stage its
+    flash-attention launches (counted from 0 at its start)."""
+
+    def __init__(self):
+        self.secs, self.peaks, self.launches = {}, {}, {}
+
+    def begin(self, name=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if name:
+            common.reset_launches()          # a serve stage starts here
+        return time.perf_counter()
+
+    def stage(self, name, t0, serve=True):
+        torch.cuda.synchronize()
+        self.secs[name] = time.perf_counter() - t0
+        self.peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        if serve:
+            self.launches[name] = {
+                k: v for k, v in common.launch_counts().items()
+                if k.startswith("flash_attention") and v}
+
+
+def fa_step_launches(c, B: int, kv: int, n_sm: int) -> dict:
+    """Flash-attention launches of one decode step by kernel: one per
+    layer, split or not (the kernel folds its own splits)."""
+    kernel, _ = FA.plan(B, 1, c.n_heads, c.n_kv_heads, kv, n_sm,
+                        D=c.resolved_head_dim)
+    return {kernel: c.n_layers}
+
+
+def decode_stages(params, cfg, g: torch.Generator, dev, clk: Stages,
+                  notes: dict, reps=(P5_DECODE_REPS, P5_LONG_REPS)) -> None:
+    """Phase 5's decode_32k (B 8) and long_500k (B 1) stages: one decode
+    step on random caches from ``g``, then ``reps`` more steps each, each
+    synced and timed on the host clock, and the attention of one step in
+    CUDA events.  Fills ``notes``: the step seconds, the attention ms,
+    whether decode_32k's repeats are bitwise equal, and a hash of each
+    stage's logits."""
+    hd, L = cfg.resolved_head_dim, cfg.n_layers
+
+    # --- decode_32k at B 8: one step at cache_len 32,767 ------------------
+    T = LM_SH["decode_32k"]["seq_len"]
+    t = clk.begin()
+    caches = random_caches(cfg, P5_DECODE_B, T, g, dev)
+    clk.stage("decode_32k_fill", t, serve=False)
+    tok = lm_tokens(cfg, g, P5_DECODE_B, 1, dev)
+    t = clk.begin("decode_32k")
+    logits, caches = lm_decode_step(params, cfg, caches, tok)
+    clk.stage("decode_32k", t)
+    check(logits.shape == (P5_DECODE_B, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "decode_32k logits")
+    notes["decode_32k_sha256"] = sha16(logits)
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(reps[0]):
+        t1 = time.perf_counter()
+        again, caches = lm_decode_step(params, cfg, caches, tok)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+    notes["decode_32k_repeat_bitwise"] = bool(torch.equal(again, logits))
+    check(near(again, logits, 1e-3) <= 1, "decode_32k is not repeatable")
+    notes["decode_32k_step_s"] = secs
+    notes["decode_32k_attention_ms"] = attention_share_ms(
+        cfg, caches, T - 1, g)
+    del caches, logits, again
+    torch.cuda.empty_cache()
+
+    # --- long_500k at B 1: one step at cache_len 524,287 ------------------
+    T = LM_SH["long_500k"]["seq_len"]
+    need = 2 * L * T * cfg.n_kv_heads * hd * 2 / 1e9
+    t = clk.begin()
+    try:
+        caches = random_caches(cfg, 1, T, g, dev)
+        clk.stage("long_500k_fill", t, serve=False)
+        tok = lm_tokens(cfg, g, 1, 1, dev)
+        t = clk.begin("long_500k")
+        logits, caches = lm_decode_step(params, cfg, caches, tok)
+        clk.stage("long_500k", t)
+    except torch.cuda.OutOfMemoryError as e:
+        n_bytes = sum(x.numel() * x.element_size()
+                      for x in R.flatten_params(params).values())
+        raise AssertionError(
+            f"long_500k does not fit: caches {need:.2f} GB beside "
+            f"{n_bytes / 1e9:.2f} GB of params, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated of "
+            f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.2f}"
+            f" GB: {e}") from e
+    check(logits.shape == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "long_500k logits")
+    notes["long_500k_sha256"] = sha16(logits)
+    secs = []
+    for _ in range(reps[1]):
+        t1 = time.perf_counter()
+        logits, caches = lm_decode_step(params, cfg, caches, tok)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t1)
+    notes["long_500k_step_s"] = secs
+    notes["long_500k_attention_ms"] = attention_share_ms(cfg, caches, T - 1,
+                                                         g)
+    del caches, logits
+    torch.cuda.empty_cache()
+
+
+def print_decode(notes: dict, tag: str) -> None:
+    for name in ("decode_32k", "long_500k"):
+        s_ = statistics.median(notes[f"{name}_step_s"])
+        a_ms = notes[f"{name}_attention_ms"]
+        print(f"[{tag}] {name}: step seconds "
+              f"{[round(v, 5) for v in notes[f'{name}_step_s']]}; attention "
+              f"{a_ms:.4f} ms of the median {s_ * 1e3:.4f} ms, the rest "
+              f"{s_ * 1e3 - a_ms:.4f} ms; logits sha256 "
+              f"{notes[f'{name}_sha256']}")
+    print(f"[{tag}] decode_32k repeated steps bitwise equal: "
+          f"{notes['decode_32k_repeat_bitwise']}")
+
+
+def decode_only(seed: int, dev, reps: int) -> None:
+    """The whole attention op at decode_32k and long_500k, then Phase 5's
+    decode stages alone (llama3.2-3b at full width, params from ``seed``
+    as in Phase 5), each step timed ``reps`` times; checks one attention
+    launch a layer."""
+    attention_whole_op(torch.Generator(device=dev).manual_seed(seed), dev)
+    cfg, clk, notes = LLAMA, Stages(), {}
+    params = LM.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        seed), device=dev)
+    decode_stages(params, cfg, torch.Generator(dev).manual_seed(seed + 50),
+                  dev, clk, notes, reps=(reps, reps))
+    del params
+    torch.cuda.empty_cache()
+    print(f"[decode] seconds={json.dumps({k: round(v, 4) for k, v in clk.secs.items()})}")
+    print_decode(notes, "decode")
+    print(f"[decode] launches per stage={json.dumps(clk.launches)}")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, B in (("decode_32k", P5_DECODE_B), ("long_500k", 1)):
+        want = fa_step_launches(cfg, B, LM_SH[name]["seq_len"], n_sm)
+        check(clk.launches[name] == want, f"{name}: flash-attention launches "
+              f"{clk.launches[name]}, want {want}")
+
+
 def phase5(seed: int, dev) -> dict:
     """llama3.2-3b at full width: prefill_32k (B 1), 16 greedy decode
     steps from its cache, decode_32k (B 8), long_500k (B 1); gemma-2b
@@ -2578,24 +2803,11 @@ def phase5(seed: int, dev) -> dict:
     in f32 and the prefill/decode consistency on the card in bf16.
     Returns the flash-attention launches of the serve stages."""
     cfg = LLAMA
-    secs, peaks, launches, notes = {}, {}, {}, {}
+    clk, notes = Stages(), {}
+    secs, peaks, launches = clk.secs, clk.peaks, clk.launches
+    begin, stage = clk.begin, clk.stage
     g = torch.Generator(dev).manual_seed(seed + 50)
     hd, L = cfg.resolved_head_dim, cfg.n_layers
-
-    def begin(name=None):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        if name:
-            common.reset_launches()          # a serve stage starts here
-        return time.perf_counter()
-
-    def stage(name, t0, serve=True):
-        torch.cuda.synchronize()
-        secs[name] = time.perf_counter() - t0
-        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
-        if serve:
-            launches[name] = {k: v for k, v in common.launch_counts().items()
-                              if k.startswith("flash_attention") and v}
 
     # --- 1. init: 14.43 GB of f32 params -----------------------------------
     t = begin()
@@ -2646,62 +2858,9 @@ def phase5(seed: int, dev) -> dict:
     del gen, last, logits
     torch.cuda.empty_cache()
 
-    # --- 4. decode_32k at B 8: one step at cache_len 32,767 ---------------
-    T = LM_SH["decode_32k"]["seq_len"]
-    t = begin()
-    caches = random_caches(cfg, P5_DECODE_B, T, g, dev)
-    stage("decode_32k_fill", t, serve=False)
-    tok = lm_tokens(cfg, g, P5_DECODE_B, 1, dev)
-    t = begin("decode_32k")
-    logits, caches = lm_decode_step(params, cfg, caches, tok)
-    stage("decode_32k", t)
-    check(logits.shape == (P5_DECODE_B, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "decode_32k logits")
-    torch.cuda.synchronize()
-    reps = []
-    for _ in range(P5_DECODE_REPS):
-        t1 = time.perf_counter()
-        again, caches = lm_decode_step(params, cfg, caches, tok)
-        torch.cuda.synchronize()
-        reps.append(time.perf_counter() - t1)
-    notes["decode_32k_repeat_bitwise"] = bool(torch.equal(again, logits))
-    check(near(again, logits, 1e-3) <= 1, "decode_32k is not repeatable")
-    notes["decode_32k_step_s"] = reps
-    notes["decode_32k_attention_ms"] = attention_share_ms(
-        cfg, caches, T - 1, g)
-    del caches, logits, again
-    torch.cuda.empty_cache()
-
-    # --- 5. long_500k at B 1: one step at cache_len 524,287 ---------------
-    T = LM_SH["long_500k"]["seq_len"]
-    need = 2 * L * T * cfg.n_kv_heads * hd * 2 / 1e9
-    t = begin()
-    try:
-        caches = random_caches(cfg, 1, T, g, dev)
-        stage("long_500k_fill", t, serve=False)
-        tok = lm_tokens(cfg, g, 1, 1, dev)
-        t = begin("long_500k")
-        logits, caches = lm_decode_step(params, cfg, caches, tok)
-        stage("long_500k", t)
-    except torch.cuda.OutOfMemoryError as e:
-        raise AssertionError(
-            f"long_500k does not fit: caches {need:.2f} GB beside "
-            f"{n_bytes / 1e9:.2f} GB of params, "
-            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated of "
-            f"{torch.cuda.get_device_properties(dev).total_memory / 1e9:.2f}"
-            f" GB: {e}") from e
-    check(logits.shape == (1, cfg.vocab_size)
-          and bool(torch.isfinite(logits).all()), "long_500k logits")
-    reps = []
-    for _ in range(P5_LONG_REPS):
-        t1 = time.perf_counter()
-        logits, caches = lm_decode_step(params, cfg, caches, tok)
-        torch.cuda.synchronize()
-        reps.append(time.perf_counter() - t1)
-    notes["long_500k_step_s"] = reps
-    notes["long_500k_attention_ms"] = attention_share_ms(cfg, caches, T - 1,
-                                                         g)
-    del caches, logits, params
+    # --- 4-5. decode_32k at B 8, long_500k at B 1 -------------------------
+    decode_stages(params, cfg, g, dev, clk, notes)
+    del params
     torch.cuda.empty_cache()
 
     # --- 6. gemma-2b at full width: prefill at 8k, 16 decode steps --------
@@ -2785,13 +2944,7 @@ def phase5(seed: int, dev) -> dict:
         return d
 
     def per_step(c, B, kv):
-        """Launches of one decode step by kernel: one per layer, plus a
-        merge per layer when the kv range is split."""
-        kernel, splits = FA.plan(B, 1, c.n_heads, c.n_kv_heads, kv, n_sm,
-                                 D=c.resolved_head_dim)
-        return {kernel: c.n_layers,
-                **({"flash_attention_merge": c.n_layers} if splits > 1
-                   else {})}
+        return fa_step_launches(c, B, kv, n_sm)
 
     def steps(c, B, kv0):
         want = {}
@@ -2823,15 +2976,7 @@ def phase5(seed: int, dev) -> dict:
           f"token {[round(v, 5) for v in step_s]} (median after the first "
           f"{notes['generate_s_per_token']:.5f}); attention of one step "
           f"(CUDA events) {notes['generate_attention_ms']:.4f} ms")
-    for name in ("decode_32k", "long_500k"):
-        s_ = statistics.median(notes[f"{name}_step_s"])
-        a_ms = notes[f"{name}_attention_ms"]
-        print(f"[phase5] {name}: step seconds "
-              f"{[round(v, 5) for v in notes[f'{name}_step_s']]}; attention "
-              f"{a_ms:.4f} ms of the median {s_ * 1e3:.4f} ms, the rest "
-              f"{s_ * 1e3 - a_ms:.4f} ms")
-    print(f"[phase5] decode_32k repeated steps bitwise equal: "
-          f"{notes['decode_32k_repeat_bitwise']}")
+    print_decode(notes, "phase5")
     print(f"[phase5] card vs CPU (2 layers, f32, B {CHECK_LM_B}, S "
           f"{CHECK_LM_S}) and bf16 consistency, gap / tolerance: "
           f"{json.dumps({k: float(f'{v:.3g}') for k, v in gaps.items()})}")
@@ -3943,6 +4088,16 @@ def main() -> int:
     ap.add_argument("--contrastive-only", action="store_true",
                     help="only build fused_contrastive and run its Phase 1 "
                          "checks and timings")
+    ap.add_argument("--attention-only", action="store_true",
+                    help="only build flash_attention and run its Phase 1 "
+                         "checks and timings, then print the whole op's "
+                         "times and output hashes at decode_32k and "
+                         "long_500k and the forced-split outputs' hashes")
+    ap.add_argument("--decode-only", type=int, default=0, metavar="REPS",
+                    help="only build flash_attention, print the whole op's "
+                         "lines as --attention-only does, and run Phase 5's "
+                         "decode_32k and long_500k steps, each timed REPS "
+                         "times")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3964,6 +4119,18 @@ def main() -> int:
         print_build(common.build(["fused_contrastive"]))
         phase1_fused_contrastive(torch.Generator(device=dev).manual_seed(
             args.seed), dev, peaks)
+        return 0
+    if args.attention_only:
+        print_build(common.build(["flash_attention"]))
+        phase1_flash_attention(torch.Generator(device=dev).manual_seed(
+            args.seed), dev, peaks)
+        g = torch.Generator(device=dev).manual_seed(args.seed)
+        attention_whole_op(g, dev)
+        forced_split_hashes(g, dev)
+        return 0
+    if args.decode_only > 0:
+        print_build(common.build(["flash_attention"]))
+        decode_only(args.seed, dev, args.decode_only)
         return 0
     t = time.perf_counter()
     logs = common.build(["rq_assign", "queue_gather", "ppr_walk",

@@ -38,7 +38,7 @@
 // cache read once: 1.07 GB a layer at decode_32k B 8 (0.32 ms), 2.15 GB
 // at long_500k (0.64 ms).
 //
-// bf16 (the serving path): two launches, both on the tensor cores with
+// bf16 (the serving path): two kernels, both on the tensor cores with
 // bf16 operands and f32 accumulators.  K and V stay bf16 in shared
 // memory (never widened), copied by cp.async into a ring of stages, in a
 // 128-byte XOR swizzle, so ldmatrix (and ldmatrix.trans for V) or the
@@ -76,8 +76,9 @@
 //  put outputs near zero past the one-bf16-step check's floor of 1e-4 of
 //  the largest; the split costs 1.5x the bound's operations.  The online
 //  softmax is f32 with the reference's -1e30 mask (exp as exp2 of
-//  log2(e)-scaled scores; keys masked so far weigh 0); no atomics, so a
-//  run repeats bitwise.
+//  log2(e)-scaled scores; keys masked so far weigh 0); no atomic touches
+//  a value (the split fold counts arrivals only), so a run repeats
+//  bitwise.
 //
 // f32 (checks against the CPU, small cases): fa_fwd, FP32 pipes, no
 // tensor cores.  A block of 256 threads takes 64 rows (RPT = 4 per
@@ -92,11 +93,27 @@
 // becomes a loop inside the block.  When the blocks alone cannot fill the
 // card (decode: 8 blocks at long_500k, each over 524,288 keys), the
 // wrapper splits the kv tiles over `splits` blocks; each writes its
-// partial (m, l, acc) in f32 to a workspace the wrapper allocates, and a
-// second launch (flash_attention_merge) combines them:
-//   M = max_s m_s,  L = sum_s l_s e^(m_s - M),  o = sum_s acc_s e^(m_s - M) / max(L, 1e-30).
-// Every valid row sees key 0, so the first split's max is a real score
-// and a split whose keys are all masked for a row weighs e^(-1e30 - M) = 0.
+// partial (m, l, acc) in f32 to a workspace the wrapper allocates, and
+// the same launch folds them (fold_splits): every block of a (row tile,
+// b, KV head) group, an empty split's too (m -1e30, l 0, acc 0), fences
+// its writes and adds one to the group's int32 counter (acq_rel, gpu
+// scope); the block that sees splits - 1 is the last, reads all the
+// partials through L2 (ld.global.cg: L1 is not coherent across SMs) in
+// split order and writes
+//   M = max_s m_s,  L = sum_s l_s e^(m_s - M),  o = sum_s acc_s e^(m_s - M) / max(L, 1e-30)
+// in q's type, then resets the counter to 0 (the wrapper's buffer stays
+// zero between launches).  Which block arrives last changes from run to
+// run; what it computes does not, since it reads every split from memory
+// in a fixed order, and no atomic touches a value: a run still repeats
+// bitwise.  Every valid row sees key 0, so the first split's max is a
+// real score and a split whose keys are all masked for a row weighs
+// e^(-1e30 - M) = 0.  What bounds the fold on this card is latency, not
+// bytes: the last block's chain of L2 reads, about 6 KB a (b, KV head) at
+// decode_32k (4 splits x 3 rows x 128 x 4 bytes of acc), after its own
+// tiles.  Its loads go out 8 splits at a time, so the chain is 2 round
+// trips at decode_32k's 4 splits and 10 at long_500k's 33; the separate
+// merge launch it replaces cost one more launch and its wrapper's host
+// work on every decode call.
 //
 // Head dims 32, 64, 128, 256 (templates).  Shared memory is dynamic.
 #include <cuda_runtime.h>
@@ -146,7 +163,118 @@ struct Args {
   float scale;
   int splits;
   float* ws_m; float* ws_l; float* ws_acc;   // (splits, B, Hkv, rows[, D])
+  int* counters;                // (B * Hkv * row tiles,), zero at launch
+  int n_counters;
 };
+
+// A barrier over the NTH threads that take part: the whole block (BAR 0)
+// or named barrier BAR (fa_wgmma's consumers, its producer having
+// returned).  bar_or also returns whether pred held on any of them.
+template <int NTH, int BAR>
+__device__ __forceinline__ void bar_sync() {
+  if constexpr (BAR == 0) __syncthreads();
+  else asm volatile("bar.sync %0, %1;\n" :: "n"(BAR), "n"(NTH) : "memory");
+}
+template <int NTH, int BAR>
+__device__ __forceinline__ bool bar_or(bool pred) {
+  if constexpr (BAR == 0) {
+    return __syncthreads_or(pred);
+  } else {
+    uint32_t r;
+    asm volatile("{\n.reg .pred p, q;\nsetp.ne.u32 p, %1, 0;\n"
+                 "bar.red.or.pred q, %2, %3, p;\nselp.u32 %0, 1, 0, q;\n}\n"
+                 : "=r"(r) : "r"((uint32_t)pred), "n"(BAR), "n"(NTH)
+                 : "memory");
+    return r != 0;
+  }
+}
+
+// counter += 1 with acquire and release at gpu scope; the old value
+__device__ __forceinline__ int arrive(int* p) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.add.s32 %0, [%1], 1;\n"
+               : "=r"(old) : "l"(p) : "memory");
+  return old;
+}
+
+// The split-KV fold (the source note's "Split-KV").  Every block of a
+// split launch calls it right after writing its partials, with all NTH
+// threads that take part (t: 0..NTH-1); the block's rows are [r0, r0 +
+// BQ) of its (b, KV head).  The last block of the group writes the
+// output rows from all the splits' partials, column quads to threads,
+// exactly as a separate merge over them would: the same f32 operations in
+// the same (split) order.
+template <typename T, int D, int NTH, int BAR>
+__device__ __forceinline__ void fold_splits(const Args& a, int b, int kvh,
+                                            int rep, int rows, int r0,
+                                            int BQ, int t) {
+  __threadfence();                      // this thread's partials are out
+  bar_sync<NTH, BAR>();                 // ... and every writer's
+  int* cnt = a.counters + (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  const bool last =
+      bar_or<NTH, BAR>(t == 0 && arrive(cnt) == a.splits - 1);
+  if (!last) return;
+  __threadfence();
+  const int nr = min(BQ, rows - r0);
+  const long long stride = (long long)a.B * a.Hkv * rows;
+  const long long w0 = ((long long)b * a.Hkv + kvh) * rows + r0;
+  // Splits are read FU at a time, every load of a group issued before the
+  // first use, so a group costs one L2 round trip, not FU: the tail is a
+  // chain of 2 * ceil(splits / FU) round trips.  Slots past the last split
+  // load nothing and change nothing (fmaxf(M, -1e30) is M).
+  constexpr int FU = 8;
+  for (int i = t; i < nr * (D / 4); i += NTH) {
+    const int rr = i / (D / 4), c = 4 * (i % (D / 4));
+    const long long w = w0 + rr;
+    float M = NEG_INF;
+    for (int s0 = 0; s0 < a.splits; s0 += FU) {
+      float m[FU];
+#pragma unroll
+      for (int j = 0; j < FU; ++j)
+        m[j] = s0 + j < a.splits ? __ldcg(a.ws_m + w + (s0 + j) * stride)
+                                 : NEG_INF;
+#pragma unroll
+      for (int j = 0; j < FU; ++j) M = fmaxf(M, m[j]);
+    }
+    float L = 0.f, A[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s0 = 0; s0 < a.splits; s0 += FU) {
+      float m[FU], l[FU];
+      float4 x[FU];
+#pragma unroll
+      for (int j = 0; j < FU; ++j) {
+        if (s0 + j < a.splits) {
+          const long long ws = w + (s0 + j) * stride;
+          m[j] = __ldcg(a.ws_m + ws);
+          l[j] = __ldcg(a.ws_l + ws);
+          x[j] = __ldcg(reinterpret_cast<const float4*>(a.ws_acc + ws * D
+                                                        + c));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < FU; ++j) {
+        if (s0 + j < a.splits) {
+          const float e = expf(m[j] - M);
+          L += l[j] * e;
+          A[0] += x[j].x * e;
+          A[1] += x[j].y * e;
+          A[2] += x[j].z * e;
+          A[3] += x[j].w * e;
+        }
+      }
+    }
+    const int r = r0 + rr;
+    T* o = static_cast<T*>(a.o) + b * a.osb + (r / rep) * a.oss
+           + (kvh * rep + r % rep) * a.osh + c;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) put(o + e, A[e] / fmaxf(L, 1e-30f));
+  }
+  if (t == 0) atomicExch(cnt, 0);       // zero for the next launch
+}
+
+// A split launch's grid must fit the wrapper's counters.
+static bool counters_fit(int splits, const dim3& grid, int n_counters) {
+  return splits == 1 || (long long)grid.x * grid.y <= n_counters;
+}
 
 template <int D> struct Smem {
   static constexpr int QS = D + 4;        // padded row of Q and K tiles
@@ -333,42 +461,21 @@ __global__ void __launch_bounds__(NT, 1) fa_fwd(Args a) {
       for (int c = 0; c < CO; ++c) a.ws_acc[w * D + tx + 16 * c] = acc[i][c];
     }
   }
-}
-
-// One block of D threads per (b, KV head, row): thread d combines column d
-// of the splits' partials.
-template <typename T>
-__global__ void fa_merge(Args a, int D) {
-  const int rep = a.Hq / a.Hkv, rows = a.S * rep;
-  const int r = blockIdx.x % rows;
-  const int bk = blockIdx.x / rows;       // b * Hkv + kvh
-  const int b = bk / a.Hkv, kvh = bk % a.Hkv;
-  const int d = threadIdx.x;
-  const long long stride = (long long)a.B * a.Hkv * rows;
-  const long long w0 = (long long)bk * rows + r;
-  float M = NEG_INF;
-  for (int s = 0; s < a.splits; ++s) M = fmaxf(M, a.ws_m[w0 + s * stride]);
-  float L = 0.f, A = 0.f;
-  for (int s = 0; s < a.splits; ++s) {
-    const long long w = w0 + s * stride;
-    const float e = expf(a.ws_m[w] - M);
-    L += a.ws_l[w] * e;
-    A += a.ws_acc[w * D + d] * e;
-  }
-  const int s_ = r / rep, h = kvh * rep + r % rep;
-  T* o = static_cast<T*>(a.o) + b * a.osb + s_ * a.oss + h * a.osh;
-  put(o + d, A / fmaxf(L, 1e-30f));
+  if (a.splits > 1)
+    fold_splits<T, D, NT, 0>(a, b, kvh, rep, rows, r0, BQ, tid);
 }
 
 template <typename T, int D, int RPT>
 static cudaError_t launch_fwd(const Args& a, cudaStream_t st) {
   constexpr size_t bytes = smem_bytes<D, RPT>();
+  const int rows = a.S * (a.Hq / a.Hkv);
+  dim3 grid((rows + 16 * RPT - 1) / (16 * RPT), a.B * a.Hkv, a.splits);
+  if (!counters_fit(a.splits, grid, a.n_counters))
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       fa_fwd<T, D, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return e;
-  const int rows = a.S * (a.Hq / a.Hkv);
-  dim3 grid((rows + 16 * RPT - 1) / (16 * RPT), a.B * a.Hkv, a.splits);
   fa_fwd<T, D, RPT><<<grid, NT, bytes, st>>>(a);
   return cudaGetLastError();
 }
@@ -779,6 +886,8 @@ __global__ void __launch_bounds__(256, 1) fa_mma(Args a) {
     write_row<D>(a, b, kvh, split, rep, rows, r0 + wr + g + 8, rs.m[1],
                  rs.l[1], rs.acc[n][2], rs.acc[n][3], 8 * n + col);
   }
+  if (a.splits > 1)
+    fold_splits<bf16, D, NTH, 0>(a, b, kvh, rep, rows, r0, BQ, tid);
 }
 
 // Decode: at most 16 query rows per (b, KV head), a long kv range.  A
@@ -896,6 +1005,8 @@ __global__ void __launch_bounds__(128) fa_decode(Args a) {
     }
     write_row<D>(a, b, kvh, split, rep, rows, r, M, L, A[0], A[1], c);
   }
+  if (a.splits > 1)
+    fold_splits<bf16, D, NTH, 0>(a, b, kvh, rep, rows, 0, BQ, tid);
 }
 
 // --- wgmma: warpgroup products from shared memory, a producer warp ----
@@ -1317,6 +1428,10 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) fa_wgmma(Args a) {
     write_row<D>(a, b, kvh, split, rep, rows, r0 + rw + g + 8, rs.m[1],
                  rs.l[1], rs.acc[n][2], rs.acc[n][3], 8 * n + col);
   }
+  // the producer warpgroup has returned: the consumers meet on barrier 1
+  if (a.splits > 1)
+    fold_splits<bf16, D, 128 * NC, 1>(a, b, kvh, rep, rows, r0, BQ,
+                                      tid - 128);
 }
 
 constexpr int MMA_STAGES = 3;           // fa_mma's ring of 64-key tiles
@@ -1333,12 +1448,14 @@ constexpr size_t decode_smem() {
 template <int D>
 static cudaError_t launch_mma(const Args& a, cudaStream_t st) {
   constexpr size_t bytes = mma_smem<D>();
+  const int rows = a.S * (a.Hq / a.Hkv);
+  dim3 grid((rows + 127) / 128, a.B * a.Hkv, a.splits);
+  if (!counters_fit(a.splits, grid, a.n_counters))
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       fa_mma<D, MMA_STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return e;
-  const int rows = a.S * (a.Hq / a.Hkv);
-  dim3 grid((rows + 127) / 128, a.B * a.Hkv, a.splits);
   fa_mma<D, MMA_STAGES><<<grid, 256, bytes, st>>>(a);
   return cudaGetLastError();
 }
@@ -1360,12 +1477,14 @@ template <int D>
 static cudaError_t launch_wgmma(const Args& a, cudaStream_t st) {
   constexpr int NC = wgmma_nc<D>(), BN = wgmma_bn<D>();
   constexpr size_t bytes = wgmma_smem<D>();
+  const int rows = a.S * (a.Hq / a.Hkv);
+  dim3 grid((rows + 64 * NC - 1) / (64 * NC), a.B * a.Hkv, a.splits);
+  if (!counters_fit(a.splits, grid, a.n_counters))
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       fa_wgmma<D, NC, BN, WGMMA_STAGES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  const int rows = a.S * (a.Hq / a.Hkv);
-  dim3 grid((rows + 64 * NC - 1) / (64 * NC), a.B * a.Hkv, a.splits);
   fa_wgmma<D, NC, BN, WGMMA_STAGES><<<grid, 128 * (NC + 1), bytes, st>>>(a);
   return cudaGetLastError();
 }
@@ -1375,12 +1494,14 @@ static cudaError_t launch_decode(const Args& a, cudaStream_t st) {
   constexpr size_t bytes = decode_smem<D>();
   static_assert(DECODE_STAGES * 2 * BKT * D * 2 >= (4 * 16 * (D + 2)) * 4,
                 "the combine must fit in the ring");
-  if (a.S * (a.Hq / a.Hkv) > 16) return cudaErrorInvalidValue;
+  dim3 grid(1, a.B * a.Hkv, a.splits);
+  if (a.S * (a.Hq / a.Hkv) > 16
+      || !counters_fit(a.splits, grid, a.n_counters))
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       fa_decode<D, DECODE_STAGES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  dim3 grid(1, a.B * a.Hkv, a.splits);
   fa_decode<D, DECODE_STAGES><<<grid, 128, bytes, st>>>(a);
   return cudaGetLastError();
 }
@@ -1407,7 +1528,8 @@ static Args make_args(const void* q, const void* k, const void* v, void* o,
                       int B, int S, int Hq, int Hkv,
                       const long long* st, int causal, int q_offset,
                       const int* kv_len, int kv_max, float scale, int splits,
-                      float* ws_m, float* ws_l, float* ws_acc) {
+                      float* ws_m, float* ws_l, float* ws_acc, int* counters,
+                      int n_counters) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv;
@@ -1419,14 +1541,26 @@ static Args make_args(const void* q, const void* k, const void* v, void* o,
   a.kv_len = kv_len; a.kv_max = kv_max; a.scale = scale;
   a.splits = splits;
   a.ws_m = ws_m; a.ws_l = ws_l; a.ws_acc = ws_acc;
+  a.counters = counters; a.n_counters = n_counters;
   return a;
+}
+
+// What every entry refuses: no output, a bad head grouping, or a split
+// launch without its workspace and counters.
+static bool bad_args(void* o, int Hq, int Hkv, int splits, const float* ws_m,
+                     const float* ws_l, const float* ws_acc,
+                     const int* counters) {
+  return !o || splits < 1 || Hkv < 1 || Hq % Hkv
+         || (splits > 1 && (!ws_m || !ws_l || !ws_acc || !counters));
 }
 
 extern "C" {
 
 // Common arguments.  strides: 12 element strides (q b/s/h, k b/t/h, v
-// b/t/h, o b/s/h), in host memory.  With splits > 1 the outputs are the
-// f32 partials in ws_*; flash_attention_merge then writes o.
+// b/t/h, o b/s/h), in host memory.  Every launch writes o.  With splits > 1
+// it also leaves the f32 partials in ws_* and folds them (the source
+// note's "Split-KV"): counters holds n_counters int32 zeros, at least
+// B * Hkv * the grid's row tiles, and is zero again when the launch ends.
 
 // f32 inputs, the FP32-pipe kernel; rpt: 1 or 4.
 int flash_attention_f32_launch(int D, const void* q, const void* k,
@@ -1434,25 +1568,31 @@ int flash_attention_f32_launch(int D, const void* q, const void* k,
                                int Hkv, const long long* strides, int causal,
                                int q_offset, const int* kv_len, int kv_max,
                                float scale, int rpt, int splits, float* ws_m,
-                               float* ws_l, float* ws_acc, void* stream) {
-  if ((rpt != 1 && rpt != 4) || splits < 1 || Hkv < 1 || Hq % Hkv)
+                               float* ws_l, float* ws_acc, int* counters,
+                               int n_counters, void* stream) {
+  if ((rpt != 1 && rpt != 4)
+      || bad_args(o, Hq, Hkv, splits, ws_m, ws_l, ws_acc, counters))
     return cudaErrorInvalidValue;
   Args a = make_args(q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset,
-                     kv_len, kv_max, scale, splits, ws_m, ws_l, ws_acc);
+                     kv_len, kv_max, scale, splits, ws_m, ws_l, ws_acc,
+                     counters, n_counters);
   return launch_d<float>(a, D, rpt, static_cast<cudaStream_t>(stream));
 }
 
-// bf16 inputs: `decode` 0 for the tensor-core tile kernel (fa_mma), 1 for
-// the streaming decode kernel (fa_decode: S * Hq / Hkv <= 16).
+// bf16 inputs: `decode` 0 for the tensor-core tile kernel (fa_wgmma,
+// fa_mma at D 32), 1 for the streaming decode kernel (fa_decode: S * Hq /
+// Hkv <= 16).
 static int bf16_launch(int decode, int D, const void* q, const void* k,
                        const void* v, void* o, int B, int S, int Hq, int Hkv,
                        const long long* strides, int causal, int q_offset,
                        const int* kv_len, int kv_max, float scale, int splits,
-                       float* ws_m, float* ws_l, float* ws_acc,
-                       void* stream) {
-  if (splits < 1 || Hkv < 1 || Hq % Hkv) return cudaErrorInvalidValue;
+                       float* ws_m, float* ws_l, float* ws_acc, int* counters,
+                       int n_counters, void* stream) {
+  if (bad_args(o, Hq, Hkv, splits, ws_m, ws_l, ws_acc, counters))
+    return cudaErrorInvalidValue;
   Args a = make_args(q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset,
-                     kv_len, kv_max, scale, splits, ws_m, ws_l, ws_acc);
+                     kv_len, kv_max, scale, splits, ws_m, ws_l, ws_acc,
+                     counters, n_counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return decode ? tc::launch_bf16<true>(a, D, st)
                 : tc::launch_bf16<false>(a, D, st);
@@ -1463,10 +1603,11 @@ int flash_attention_mma_launch(int D, const void* q, const void* k,
                                int Hkv, const long long* strides, int causal,
                                int q_offset, const int* kv_len, int kv_max,
                                float scale, int splits, float* ws_m,
-                               float* ws_l, float* ws_acc, void* stream) {
+                               float* ws_l, float* ws_acc, int* counters,
+                               int n_counters, void* stream) {
   return bf16_launch(0, D, q, k, v, o, B, S, Hq, Hkv, strides, causal,
                      q_offset, kv_len, kv_max, scale, splits, ws_m, ws_l,
-                     ws_acc, stream);
+                     ws_acc, counters, n_counters, stream);
 }
 
 int flash_attention_decode_launch(int D, const void* q, const void* k,
@@ -1475,29 +1616,11 @@ int flash_attention_decode_launch(int D, const void* q, const void* k,
                                   int causal, int q_offset,
                                   const int* kv_len, int kv_max, float scale,
                                   int splits, float* ws_m, float* ws_l,
-                                  float* ws_acc, void* stream) {
+                                  float* ws_acc, int* counters,
+                                  int n_counters, void* stream) {
   return bf16_launch(1, D, q, k, v, o, B, S, Hq, Hkv, strides, causal,
                      q_offset, kv_len, kv_max, scale, splits, ws_m, ws_l,
-                     ws_acc, stream);
-}
-
-// dtype of the output: 0 f32, 1 bf16.
-int flash_attention_merge_launch(int dtype, int D, void* o, int B, int S,
-                                 int Hq, int Hkv, long long osb,
-                                 long long oss, long long osh, int splits,
-                                 const float* ws_m, const float* ws_l,
-                                 const float* ws_acc, void* stream) {
-  if (Hkv < 1 || Hq % Hkv || D < 1 || D > 1024) return cudaErrorInvalidValue;
-  long long st[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, osb, oss, osh};
-  Args a = make_args(nullptr, nullptr, nullptr, o, B, S, Hq, Hkv, st, 0, 0,
-                     nullptr, 0, 0.f, splits, const_cast<float*>(ws_m),
-                     const_cast<float*>(ws_l), const_cast<float*>(ws_acc));
-  cudaStream_t stm = static_cast<cudaStream_t>(stream);
-  const int blocks = B * Hkv * S * (Hq / Hkv);
-  if (dtype == 0) fa_merge<float><<<blocks, D, 0, stm>>>(a, D);
-  else if (dtype == 1) fa_merge<__nv_bfloat16><<<blocks, D, 0, stm>>>(a, D);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+                     ws_acc, counters, n_counters, stream);
 }
 
 // Dynamic shared memory of a bf16 kernel (decode 0: the tile kernel, 1:

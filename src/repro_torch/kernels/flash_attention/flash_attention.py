@@ -7,53 +7,59 @@
   * ``flash_attention_decode``: bf16, at most 16 rows per KV head (a
     decode step), streaming K and V once (``mma.sync``);
   * ``flash_attention_f32``: f32 inputs, the FP32-pipe kernel (the f32
-    card-vs-CPU checks);
-  * ``flash_attention_merge``: the merge of the splits' partials when the
-    kv range is split over blocks.
+    card-vs-CPU checks).
 
-The input type picks the kernel: a bf16 call never runs the f32 kernel,
-and a shape no kernel takes raises.  Replaces the Pallas TPU kernel
-``_kernel`` of ``repro/kernels/flash_attention/flash_attention.py``; the
-source note in the ``.cu`` file says what bounds it on Hopper and how
-the design answers that.  ``flash_attention`` takes the LM model's
-``(B, S, H, D)`` layout and its contract (``causal``, ``q_offset``,
-``kv_len``); ``ops.py`` also offers the Pallas wrapper's ``(B, H, S, D)``
-one.
+When ``plan`` splits the kv range over blocks, the same launch folds the
+splits' partials into the output (the last block of each group merges
+them), so every call is one launch; the fold's arrival counters are an
+int32 buffer cached per (device, stream), which the kernels leave zero
+after every launch, so no memset is launched (one ``torch.zeros`` when
+a launch needs more counters than the buffer holds).  The input type
+picks the kernel: a bf16 call never runs the f32 kernel, and a shape no
+kernel takes raises.  Replaces the Pallas TPU kernel ``_kernel`` of
+``repro/kernels/flash_attention/flash_attention.py``; the source note in
+the ``.cu`` file says what bounds it on Hopper and how the design
+answers that.  ``flash_attention`` takes the LM model's ``(B, S, H, D)``
+layout and its contract (``causal``, ``q_offset``, ``kv_len``);
+``ops.py`` also offers the Pallas wrapper's ``(B, H, S, D)`` one.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels.common import (CudaKernel, check_cuda,
-                                        stream_ptr)
+from repro_torch.kernels.common import CudaKernel, stream_ptr
 
 HEAD_DIMS = (32, 64, 128, 256)
 BK = 64                        # keys per tile
 MMA_ROWS = 128                 # query rows of a tensor-core block
 DECODE_ROWS = 16               # rows per KV head the decode kernel takes
+MIN_ROW_TILE = 16              # fewest query rows of any kernel's block
 SPLIT_TARGET = 4               # f32: blocks per SM a split-KV launch aims at
 MIN_SPLIT_TILES = 4            # kv tiles per split, at least
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # D, q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset, kv_len, kv_max,
-# scale, [rpt,] splits, ws_m, ws_l, ws_acc, stream
+# scale, [rpt,] splits, ws_m, ws_l, ws_acc, counters, n_counters, stream
 _ARGS = [_I, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_LL), _I, _I,
          _P, _I, _F]
+_SPLIT = [_I, _P, _P, _P, _P, _I, _P]
 MMA = CudaKernel("flash_attention", "flash_attention_mma_launch",
-                 _ARGS + [_I, _P, _P, _P, _P])
+                 _ARGS + _SPLIT)
 DECODE = CudaKernel("flash_attention_decode", "flash_attention_decode_launch",
-                    _ARGS + [_I, _P, _P, _P, _P], source="flash_attention")
+                    _ARGS + _SPLIT, source="flash_attention")
 F32 = CudaKernel("flash_attention_f32", "flash_attention_f32_launch",
-                 _ARGS + [_I, _I, _P, _P, _P, _P], source="flash_attention")
-MERGE = CudaKernel("flash_attention_merge", "flash_attention_merge_launch",
-                   [_I, _I, _P, _I, _I, _I, _I, _LL, _LL, _LL, _I, _P, _P,
-                    _P, _P], source="flash_attention")
+                 _ARGS + [_I] + _SPLIT, source="flash_attention")
 _FWD = {k.name: k for k in (MMA, DECODE, F32)}
+
+# the split fold's arrival counters, by (device, stream): int32 zeros,
+# and zero again after every launch (the kernel's last block of each
+# group resets its counter)
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -98,7 +104,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{name} must be a CUDA tensor on {q.device}, "
                              f"got {t.device}")
-        if t.dtype not in _DTYPE_CODE or t.dtype != q.dtype:
+        if t.dtype not in _DTYPES or t.dtype != q.dtype:
             raise ValueError(f"q, k and v must share one type, float32 or "
                              f"bfloat16; got {q.dtype}, {k.dtype}, "
                              f"{v.dtype}")
@@ -147,10 +153,25 @@ def _kv(kv_len, q: torch.Tensor, B: int, T: int) -> Tuple[Optional[int], int]:
     return kv_ptr, kv_max
 
 
-def _fwd(q, k, v, out, ws, *, causal, scale, q_offset, kv_len, kernel,
-         splits, rpt=None):
+def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 zeros for the split fold on ``stream``: the
+    cached buffer, or a fresh zeroed one where it is too small (the only
+    time a split call costs a memset)."""
+    key = (device, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
+def _fwd(q, k, v, kv, *, causal, scale, q_offset, kernel, splits,
+         rpt=None):
+    """One launch of ``kernel`` (``kv``: ``_kv``'s pointer and kv_max):
+    the output (B, S, Hq, D) in q's type, and with ``splits`` > 1 the
+    partials it folded, else None."""
     B, S, Hq, D = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
+    Hkv = k.shape[2]
     rows = S * (Hq // Hkv)
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
@@ -163,18 +184,33 @@ def _fwd(q, k, v, out, ws, *, causal, scale, q_offset, kv_len, kernel,
     if rpt is not None and kernel != F32.name:
         raise ValueError("rows per thread (rpt) is a flash_attention_f32 "
                          "option")
-    kv_ptr, kv_max = _kv(kv_len, q, B, T)
-    o = out if out is not None else q           # strides unused with splits
+    rpt = rpt or (1 if rows <= 16 else 4)
+    kv_ptr, kv_max = kv
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*(
-        t.stride(i) for t in (q, k, v, o) for i in range(3)))
-    ptrs = [None] * 3 if ws is None else [w.data_ptr() for w in ws]
-    extra = [splits]
-    if kernel == F32.name:
-        extra = [rpt or (1 if rows <= 16 else 4), splits]
+        t.stride(i) for t in (q, k, v, out) for i in range(3)))
+    stream = stream_ptr(q)
+    ws, split_args = None, [None, None, None, None, 0]
+    if splits > 1:
+        # one allocation: acc first (16-byte aligned for the fold's
+        # loads), then m and l
+        shape = (splits, B, Hkv, rows)
+        n_ml = splits * B * Hkv * rows
+        buf = torch.empty(n_ml * (D + 2), dtype=torch.float32,
+                          device=q.device)
+        acc, m, l = buf.split([n_ml * D, n_ml, n_ml])
+        ws = (m.view(shape), l.view(shape), acc.view(shape + (D,)))
+        # one counter per (row tile, b, KV head); sized for the smallest
+        # row tile, so it covers every kernel's grid
+        n = B * Hkv * _cdiv(rows, MIN_ROW_TILE)
+        cnt = _counters(q.device, stream, n)
+        split_args = [*(w.data_ptr() for w in ws), cnt.data_ptr(), n]
+    extra = [rpt, splits] if kernel == F32.name else [splits]
     _FWD[kernel].launch(D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        None if out is None else out.data_ptr(), B, S, Hq,
-                        Hkv, strides, int(causal), q_offset, kv_ptr, kv_max,
-                        scale, *extra, *ptrs, stream_ptr(q))
+                        out.data_ptr(), B, S, Hq, Hkv, strides, int(causal),
+                        q_offset, kv_ptr, kv_max, scale, *extra,
+                        *split_args, stream)
+    return out, ws
 
 
 def _plan(q: torch.Tensor, k: torch.Tensor, kv_max: int) -> Tuple[str, int]:
@@ -183,57 +219,29 @@ def _plan(q: torch.Tensor, k: torch.Tensor, kv_max: int) -> Tuple[str, int]:
     return plan(B, S, Hq, k.shape[2], kv_max, n_sm, D=D, dtype=q.dtype)
 
 
-def flash_attention_partials(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor, *, causal: bool, scale: float,
-                             q_offset: int = 0,
-                             kv_len: Union[None, int, torch.Tensor] = None,
-                             splits: int, kernel: Optional[str] = None,
-                             rpt: Optional[int] = None
-                             ) -> Tuple[torch.Tensor, ...]:
-    """The split-KV forward launch alone: the kv tiles of every (b, KV
-    head) split into ``splits`` ranges, each range's partial softmax
+def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool, scale: float, q_offset: int = 0,
+                          kv_len: Union[None, int, torch.Tensor] = None,
+                          splits: int, kernel: Optional[str] = None,
+                          rpt: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """``flash_attention`` with the kv tiles of every (b, KV head) split
+    into ``splits`` ranges, whatever ``plan`` would choose: one launch.
+    Returns the output and the partials it folded, each range's softmax
     state in f32: (m, l) (splits, B, Hkv, rows) and acc (splits, B, Hkv,
     rows, D), rows being the S * Hq / Hkv (position, head-in-group)
-    pairs, position-major.  ``kernel`` defaults to ``plan``'s choice;
-    ``rpt`` (1 or 4 rows per thread) is ``flash_attention_f32``'s.
-    ``splits`` must be at least 2: with one the kernels write the
-    finished output, which this call does not take."""
+    pairs, position-major (``ref.merge_ref`` of them is the output).
+    ``kernel`` defaults to ``plan``'s choice; ``rpt`` (1 or 4 rows per
+    thread) is ``flash_attention_f32``'s.  ``splits`` must be at least
+    2: with one the kernels write no partials."""
     if splits < 2:
-        raise ValueError(f"partials need at least 2 splits, got {splits}")
+        raise ValueError(f"a split launch needs at least 2 splits, got "
+                         f"{splits}")
     _check(q, k, v)
-    B, S, Hq, D = q.shape
-    rows = S * (Hq // k.shape[2])
-    kernel = kernel or _plan(q, k, _kv(kv_len, q, B, k.shape[1])[1])[0]
-    ws = [torch.empty((splits, B, k.shape[2], rows), dtype=torch.float32,
-                      device=q.device) for _ in range(2)]
-    ws.append(torch.empty((splits, B, k.shape[2], rows, D),
-                          dtype=torch.float32, device=q.device))
-    _fwd(q, k, v, None, ws, causal=causal, scale=scale, q_offset=q_offset,
-         kv_len=kv_len, kernel=kernel, splits=splits, rpt=rpt)
-    return tuple(ws)
-
-
-def flash_attention_merge(m: torch.Tensor, l: torch.Tensor,
-                          acc: torch.Tensor, *, n_heads: int,
-                          dtype: torch.dtype) -> torch.Tensor:
-    """Combines split-KV partials (``flash_attention_partials``' layout)
-    into the output (B, S, n_heads, D) in ``dtype``."""
-    splits, B, Hkv, rows, D = acc.shape
-    for name, t, shape in (("m", m, acc.shape[:4]), ("l", l, acc.shape[:4]),
-                           ("acc", acc, acc.shape)):
-        check_cuda(name, t, torch.float32, len(shape))
-        if t.shape != shape or t.device != acc.device:
-            raise ValueError(f"{name} must be {tuple(shape)} on "
-                             f"{acc.device}, got {tuple(t.shape)}")
-    if dtype not in _DTYPE_CODE or n_heads % Hkv or rows % (n_heads // Hkv):
-        raise ValueError(f"merge into {dtype}, {n_heads} heads over {Hkv} "
-                         f"KV heads and {rows} rows")
-    S = rows // (n_heads // Hkv)
-    out = torch.empty((B, S, n_heads, D), dtype=dtype, device=acc.device)
-    MERGE.launch(_DTYPE_CODE[dtype], D, out.data_ptr(), B, S, n_heads, Hkv,
-                 out.stride(0), out.stride(1), out.stride(2), splits,
-                 m.data_ptr(), l.data_ptr(), acc.data_ptr(), stream_ptr(acc))
-    return out
+    kv = _kv(kv_len, q, q.shape[0], k.shape[1])
+    return _fwd(q, k, v, kv, causal=causal, scale=scale, q_offset=q_offset,
+                kernel=kernel or _plan(q, k, kv[1])[0], splits=splits,
+                rpt=rpt)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -245,17 +253,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     position ``q_offset + i``; ``causal`` masks keys past it; ``kv_len``
     (an int, a CUDA int32 (B,) tensor, or None for T; at least 1 for every
     row) masks keys at or past it, which are never read.  Returns (B, S,
-    Hq, D) in q's type: one launch of ``plan``'s kernel, or two (partials,
-    merge) when it splits the kv range."""
+    Hq, D) in q's type: one launch of ``plan``'s kernel, which folds its
+    splits itself when it splits the kv range."""
     _check(q, k, v)
-    B, S, Hq, D = q.shape
-    kernel, splits = _plan(q, k, _kv(kv_len, q, B, k.shape[1])[1])
-    if splits > 1:
-        m, l, acc = flash_attention_partials(
-            q, k, v, causal=causal, scale=scale, q_offset=q_offset,
-            kv_len=kv_len, splits=splits, kernel=kernel)
-        return flash_attention_merge(m, l, acc, n_heads=Hq, dtype=q.dtype)
-    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
-    _fwd(q, k, v, out, None, causal=causal, scale=scale, q_offset=q_offset,
-         kv_len=kv_len, kernel=kernel, splits=1)
-    return out
+    kv = _kv(kv_len, q, q.shape[0], k.shape[1])
+    kernel, splits = _plan(q, k, kv[1])
+    return _fwd(q, k, v, kv, causal=causal, scale=scale, q_offset=q_offset,
+                kernel=kernel, splits=splits)[0]

@@ -12,8 +12,9 @@ kernel (``csrc/flash_attention.cu``) is held against.
     exceed ``(B, H, block_q, T)``), q, k and v in f32, masked scores at
     ``-1e30``, softmax in f32, the output in q's type.  This is what the
     LM model runs on the CPU;
-  * ``merge_ref``: the split-KV merge, the partial softmax states of
-    ``flash_attention_partials`` combined into the output.
+  * ``merge_ref``: the split-KV merge, the partial softmax states that
+    ``flash_attention_split`` returns combined into the output (what the
+    kernels' fold computes in their last block of each split group).
 """
 from __future__ import annotations
 

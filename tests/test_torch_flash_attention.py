@@ -10,9 +10,20 @@ numpy inputs:
     _chunked_attention`` for causal prefill, decode with ``kv_len < T``
     and a ``q_offset``, at block sizes 1, 8 and an odd one, within 1e-5
     (the same f32 arithmetic; sums in another order);
-  * ``merge_ref`` (the split-KV merge the CUDA merge kernel is held
+  * ``merge_ref`` (the split-KV merge that the kernels' fold is held
     against on the card) on partials made per split with plain torch
     equals one softmax over all keys, within 1e-5;
+  * a plain-torch model of the kernels' split fold (each block writes its
+    partials and counts its arrival; the one that arrives last merges
+    every split in split order): the same bits for every arrival order,
+    and within 1e-5 of ``chunked_attention_ref`` and the JAX
+    ``_chunked_attention``, with empty splits, rows all masked in a
+    split, and long_500k's 33 splits;
+  * a mirror of the kernels' ``key_range`` schedule at the forced-split
+    cases ``chip_smoke.py`` runs: which splits are empty, every key tile
+    taken once, every (row tile, b, KV head) counting ``splits``
+    arrivals, and the fold of the partials it gives against both
+    references;
   * the launch plan at the main path's shapes, and the device rule: CPU
     tensors take the plain versions (bitwise), the kernel wrappers refuse
     them, and the ops refuse a device that is neither cuda nor cpu.
@@ -133,33 +144,75 @@ def test_chunked_attention_ref_bf16_matches_jax():
                                atol=1e-6)
 
 
-def _partials(q, k, v, *, kv_len, splits, bk, scale):
-    """Split-KV partials as the forward kernel forms them, in plain torch:
-    the kv tiles of ``bk`` keys cut into ``splits`` ranges; per range the
-    max of the row's scores, the sum of exp(s - max) and exp(s - max) V.
-    Layout (splits, B, Hkv, rows[, D]), rows position-major."""
+def _key_range(*, kv_max, kv_end, causal, q_offset, last_row, rep, split,
+               splits, bn):
+    """``csrc/flash_attention.cu::key_range``: the block's key tiles
+    [t_lo, t_hi) of ``bn`` keys, its split's share of the tiles of all
+    ``kv_max`` keys, cut at ``kv_end`` (the row's kv_len) and, under
+    ``causal``, at the frontier of the block's last row."""
+    hi = kv_end
+    if causal:
+        hi = min(hi, q_offset + last_row // rep + 1)
+    n_all = -(-kv_max // bn)
+    per = -(-n_all // splits)
+    t_lo = split * per
+    return t_lo, min(-(-hi // bn), t_lo + per)
+
+
+def _partials(q, k, v, *, kv_len, splits, bn, scale, causal=False,
+              q_offset=0, block_rows=None):
+    """Split-KV partials as the forward kernels form them, in plain torch,
+    block by block: a (row tile, b, KV head, split) block takes
+    ``block_rows`` (position, head-in-group) rows (default: all of them)
+    and the key tiles of ``_key_range``; per row the max of its unmasked
+    scores, the sum of exp(s - max) and exp(s - max) V in float64, stored
+    in f32.  ``kv_len``: an int or one per batch row.  A row with
+    no unmasked key in its block (an empty split, or keys all past its
+    causal frontier) keeps m -1e30, l 0, acc 0, as the tensor-core
+    kernels leave it.  Returns ((m, l, acc), empty, arrivals): the
+    partials in ``merge_ref``'s layout, the (row tile, b, split) blocks
+    with no tile, and each (row tile, b, KV head)'s count of blocks."""
     B, S, H, D = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    rep = H // Hkv
-    n_t = -(-min(T, kv_len) // bk)
-    per = -(-n_t // splits)
+    rep, rows = H // Hkv, S * (H // Hkv)
+    kv_len = [kv_len] * B if isinstance(kv_len, int) else kv_len
+    block_rows = block_rows or rows
     qg = q.reshape(B, S, Hkv, rep, D).permute(0, 2, 1, 3, 4).reshape(
-        B, Hkv, S * rep, D).double()
-    m = torch.full((splits, B, Hkv, S * rep), -1e30, dtype=torch.float64)
+        B, Hkv, rows, D).double()
+    pos = q_offset + torch.arange(rows) // rep
+    m = torch.full((splits, B, Hkv, rows), -1e30, dtype=torch.float64)
     l = torch.zeros_like(m)
     acc = torch.zeros(m.shape + (D,), dtype=torch.float64)
-    for s in range(splits):
-        lo, hi = s * per * bk, min((s + 1) * per * bk, kv_len)
-        if lo >= hi:
-            continue
-        kk = k[:, lo:hi].permute(0, 2, 1, 3).double()
-        vv = v[:, lo:hi].permute(0, 2, 1, 3).double()
-        sc = torch.einsum("bgrd,bgtd->bgrt", qg, kk) * scale
-        m[s] = sc.amax(dim=-1)
-        p = torch.exp(sc - m[s][..., None])
-        l[s] = p.sum(dim=-1)
-        acc[s] = torch.einsum("bgrt,bgtd->bgrd", p, vv)
-    return m.float(), l.float(), acc.float()
+    empty, arrivals = set(), {}
+    for x in range(-(-rows // block_rows)):
+        r0, r1 = x * block_rows, min((x + 1) * block_rows, rows)
+        for b in range(B):
+            kv_end = min(T, int(kv_len[b]))
+            for s in range(splits):
+                t_lo, t_hi = _key_range(
+                    kv_max=T, kv_end=kv_end, causal=causal,
+                    q_offset=q_offset, last_row=r1 - 1, rep=rep, split=s,
+                    splits=splits, bn=bn)
+                for g in range(Hkv):        # every block arrives
+                    arrivals[x, b, g] = arrivals.get((x, b, g), 0) + 1
+                if t_lo >= t_hi:
+                    empty.add((x, b, s))
+                    continue
+                j = torch.arange(t_lo * bn, min(t_hi * bn, kv_end))
+                ok = torch.ones((r1 - r0, len(j)), dtype=torch.bool)
+                if causal:
+                    ok = j[None, :] <= pos[r0:r1, None]
+                kk = k[b, j].permute(1, 0, 2).double()      # (Hkv, keys, D)
+                vv = v[b, j].permute(1, 0, 2).double()
+                sc = torch.einsum("grd,gtd->grt", qg[b, :, r0:r1], kk) * scale
+                sc = torch.where(ok, sc, -torch.inf)
+                mx = sc.amax(dim=-1)
+                seen = ok.any(dim=-1)[None].expand_as(mx)
+                p = torch.exp(sc - torch.where(seen, mx, 0.0)[..., None])
+                m[s, b, :, r0:r1] = torch.where(seen, mx, -1e30)
+                l[s, b, :, r0:r1] = p.sum(dim=-1)
+                acc[s, b, :, r0:r1] = torch.einsum("grt,gtd->grd", p, vv)
+    return (m.float(), l.float(), acc.float()), empty, arrivals
 
 
 @pytest.mark.parametrize("splits", [1, 3, 8])
@@ -170,8 +223,8 @@ def test_merge_ref_of_split_partials_is_one_softmax(S, H, Hkv, kv_len,
     B, T, D = 2, 320, 16
     q, k, v = (torch.from_numpy(a) for a in
                _qkv(B, H, Hkv, S, T, D, splits + S + H, layout="bshd"))
-    m, l, acc = _partials(q, k, v, kv_len=kv_len, splits=splits, bk=K.BK,
-                          scale=D ** -0.5)
+    (m, l, acc), _, _ = _partials(q, k, v, kv_len=kv_len, splits=splits,
+                                  bn=K.BK, scale=D ** -0.5)
     got = merge_ref(m, l, acc, n_heads=H, dtype=torch.float32)
     want = chunked_attention_ref(q, k, v, causal=False, kv_len=kv_len,
                                  scale=D ** -0.5)
@@ -200,12 +253,10 @@ def test_cuda_is_refused_or_required():
         K.flash_attention(q, k, v, causal=True, scale=0.1)
     for splits in (1, 2):       # one split has no partials to return
         with pytest.raises(ValueError):
-            K.flash_attention_partials(q, k, v, causal=True, scale=0.1,
-                                       splits=splits)
-    m = torch.zeros((2, 1, 2, 8))
-    with pytest.raises(ValueError):
-        K.flash_attention_merge(m, m, torch.zeros((2, 1, 2, 8, 32)),
-                                n_heads=2, dtype=torch.float32)
+            K.flash_attention_split(q, k, v, causal=True, scale=0.1,
+                                    splits=splits)
+    with pytest.raises(ValueError, match="at least 2 splits"):
+        K.flash_attention_split(q, k, v, causal=True, scale=0.1, splits=1)
     meta = q.to("meta")
     with pytest.raises(ValueError):
         ops.chunked_attention(meta, meta, meta, causal=True, scale=0.1)
@@ -223,3 +274,163 @@ def test_chunked_attention_refuses_a_row_with_no_key(kv_len):
         ops.chunked_attention(q, k, v, causal=False, kv_len=kvl, scale=0.1)
     with pytest.raises(ValueError, match="needs a key"):
         K.check_kv_len(kvl)
+
+
+def _fold(parts, order, n_heads):
+    """The kernels' split fold in plain torch.  Blocks arrive in
+    ``order``: each writes its split's partials into a workspace that
+    starts as NaN and adds one to the group's counter; the block that sees
+    splits - 1 merges every split from the workspace in split order (M =
+    max_s m_s, then L += l_s e, A += acc_s e with e = exp(m_s - M), o = A
+    / max(L, 1e-30), in f32) and resets the counter; no other block
+    merges.  Returns (B, S, n_heads, D) and the counter after the
+    launch."""
+    m, l, acc = parts
+    splits, B, Hkv, rows, D = acc.shape
+    ws = [torch.full_like(t, float("nan")) for t in parts]
+    count, out = 0, None
+    for s in order:
+        for w, t in zip(ws, parts):
+            w[s] = t[s]
+        count, last = count + 1, count == splits - 1
+        if last:
+            assert out is None, "a second block merged"
+            M = torch.full(m.shape[1:], -1e30)
+            for t in range(splits):
+                M = torch.maximum(M, ws[0][t])
+            L = torch.zeros_like(M)
+            A = torch.zeros(M.shape + (D,))
+            for t in range(splits):
+                e = torch.exp(ws[0][t] - M)
+                L = L + ws[1][t] * e
+                A = A + ws[2][t] * e[..., None]
+            out = A / torch.clamp_min(L, 1e-30)[..., None]
+            count = 0
+    rep = n_heads // Hkv
+    out = out.reshape(B, Hkv, rows // rep, rep, D).permute(0, 2, 1, 3, 4)
+    return out.reshape(B, rows // rep, n_heads, D), count
+
+
+FOLD_CASES = [
+    # (B, S, H, Hkv, T, D, causal, q_offset, kv_len, splits, block_rows,
+    # bn, masked: (split, rows) all masked in a block with keys)
+    # long_500k's 33 splits (decode geometry): splits 18-32 have no tile
+    (1, 1, 6, 2, 2200, 16, False, 0, [2200], 33, 16, 64, None),
+    # a ragged kv_len leaves splits 1-4 of batch row 0 empty
+    (2, 1, 4, 2, 320, 16, False, 0, [30, 320], 5, 16, 64, None),
+    # causal prefill, 128-row blocks: rows 0-63 of the first block are all
+    # masked in its split 1; its splits 2 and 3 are empty
+    (1, 256, 2, 2, 256, 16, True, 0, [256], 4, 128, 64, (1, 64)),
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,T,D,causal,q_offset,kv_len,splits,"
+                         "block_rows,bn,masked", FOLD_CASES)
+def test_fold_model_is_order_free_and_matches_jax(B, S, H, Hkv, T, D, causal,
+                                                  q_offset, kv_len, splits,
+                                                  block_rows, bn, masked):
+    q, k, v = (torch.from_numpy(a) for a in
+               _qkv(B, H, Hkv, S, T, D, splits + T, layout="bshd"))
+    scale = D ** -0.5
+    parts, empty, _ = _partials(
+        q, k, v, kv_len=kv_len, causal=causal, q_offset=q_offset,
+        scale=scale, splits=splits, block_rows=block_rows, bn=bn)
+    assert empty                  # every case has an empty split
+    if masked is not None:
+        s, n = masked
+        assert (0, 0, s) not in empty
+        assert (parts[0][s, 0, :, :n] == -1e30).all()
+        assert (parts[1][s, 0, :, :n] == 0).all()
+        assert (parts[0][s, 0, :, n:block_rows] > -1e30).all()
+    rng = np.random.default_rng(splits)
+    orders = [list(range(splits)), list(range(splits))[::-1]] + [
+        list(rng.permutation(splits)) for _ in range(4)]
+    outs = []
+    for order in orders:
+        out, count = _fold(parts, order, H)
+        assert count == 0
+        outs.append(out)
+    for out in outs[1:]:
+        np.testing.assert_array_equal(out.numpy(), outs[0].numpy())
+    got = outs[0].numpy()
+    assert np.isfinite(got).all()
+    tkv = torch.tensor(kv_len)
+    want = chunked_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                 kv_len=tkv, scale=scale)
+    np.testing.assert_allclose(got, want.numpy(), **CHUNK_TOL)
+    want_j = np.asarray(jax_chunked(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+        jnp.asarray(v.numpy()), causal=causal, q_offset=q_offset,
+        kv_len=jnp.asarray(kv_len, jnp.int32), block_q=64, scale=scale,
+        ctx=NULL_CTX))
+    np.testing.assert_allclose(got, want_j, **CHUNK_TOL)
+    # a group whose every split is empty folds to 0 (where a softmax over
+    # keys all masked gives the mean of v): why the ops refuse kv_len 0
+    m, l, acc = parts
+    none = (torch.full_like(m, -1e30), torch.zeros_like(l),
+            torch.zeros_like(acc))
+    for order in orders[:3]:
+        out, _ = _fold(none, order, H)
+        assert (out == 0).all()
+
+
+# query rows of one block at D 64: fa_fwd at 4 rows a thread (16 * 4),
+# fa_decode's one 16-row tile, fa_wgmma's two consumer warpgroups
+ROW_TILE = {"flash_attention_f32": 64, "flash_attention_decode": 16,
+            "flash_attention": 128}
+
+
+@pytest.mark.parametrize("splits", [2, 5, 11])
+@pytest.mark.parametrize("kernel,S", [("flash_attention_f32", 5),
+                                      ("flash_attention_decode", 5),
+                                      ("flash_attention", 5),
+                                      ("flash_attention", 50)])
+def test_key_range_schedule_at_forced_splits(kernel, S, splits):
+    """chip_smoke.py's forced-split cases (q (3, S, 6, 64), k/v (3, 700,
+    2, 64), kv_len [1, 333, 700], q_offset 600, causal or not, scale
+    0.125) on each kernel's geometry: its row tile (``ROW_TILE``, the
+    f32 kernel at 4 rows a thread as there) and its key tile (128 keys for
+    ``fa_wgmma`` at D 64, else 64)."""
+    B, H, Hkv, T, D = 3, 6, 2, 700, 64
+    kv_len = [1, 333, 700]
+    q, k, v = (torch.from_numpy(a) for a in
+               _qkv(B, H, Hkv, S, T, D, S + splits, layout="bshd"))
+    rows = S * (H // Hkv)
+    block_rows = ROW_TILE[kernel]
+    bn = 128 if kernel == "flash_attention" else 64
+    n_tiles = -(-rows // block_rows)
+    for causal in (False, True):
+        parts, empty, arrivals = _partials(
+            q, k, v, kv_len=kv_len, causal=causal, q_offset=600, scale=0.125,
+            splits=splits, block_rows=block_rows, bn=bn)
+        # every (row tile, b, KV head) counts `splits` arrivals, empty
+        # splits included: the last one folds
+        assert arrivals == {(x, b, g): splits for x in range(n_tiles)
+                            for b in range(B) for g in range(Hkv)}
+        # batch row 0 has one key: its splits past the first are empty
+        for x in range(n_tiles):
+            assert {s for s in range(splits) if (x, 0, s) in empty} == \
+                set(range(1, splits))
+        # the non-empty splits take every tile up to the block's last key
+        # once, in split order
+        for x in range(n_tiles):
+            last_row = min((x + 1) * block_rows, rows) - 1
+            for b in range(B):
+                tiles = []
+                for s in range(splits):
+                    lo, hi = _key_range(
+                        kv_max=T, kv_end=min(T, kv_len[b]), causal=causal,
+                        q_offset=600, last_row=last_row, rep=H // Hkv,
+                        split=s, splits=splits, bn=bn)
+                    tiles += range(lo, hi)
+                hi_key = min(T, kv_len[b])
+                if causal:
+                    hi_key = min(hi_key, 600 + last_row // (H // Hkv) + 1)
+                assert tiles == list(range(-(-hi_key // bn)))
+        out, count = _fold(parts, list(np.random.default_rng(splits)
+                                        .permutation(splits)), H)
+        assert count == 0
+        want = chunked_attention_ref(q, k, v, causal=causal, q_offset=600,
+                                     kv_len=torch.tensor(kv_len),
+                                     scale=0.125)
+        np.testing.assert_allclose(out.numpy(), want.numpy(), **CHUNK_TOL)
