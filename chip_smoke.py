@@ -28,14 +28,30 @@ flash-attention kernels fold their own kv splits in one launch: at 2, 5
 and 11 forced splits on all three kernels, and at the split main-path
 shapes (decode_32k, long_500k), the output is also held against
 ``merge_ref`` of the partials the same launch returns, and at the
-main-path shapes a second launch must give the same bits.
-``--attention-only`` runs only that, then prints the whole op's times
-and a hash of its output at decode_32k and long_500k and hashes of the
-forced-split outputs.  ``--decode-only REPS`` prints the same whole-op
-lines, then runs only Phase 5's decode_32k and long_500k steps, each
-timed REPS times, with a hash of their logits; it calls only the
-model's and ``flash_attention``'s entry points, so that two trees can
-be compared in one call on one card.
+main-path shapes a second launch must give the same bits.  The
+attention backward (``flash_attention_bwd``: a dq pass, then a dkdv
+pass) runs at lm_loss's shapes, the reduced one (B 4, S 64, 4 heads, D
+32, f32), olmo-1b, llama3.2-3b and gemma-2b (B 1, S 4,096; bf16), an
+f32 case at D 128 and ragged tiles (S a multiple of no tile) at D 32, 64
+and 256, on the output and lse of the forward's training
+route: dQ, dK and dV against autograd of ``chunked_attention_ref`` on
+the card and against the closed form ``attention_bwd_ref`` (per entry
+against the sums of the terms' magnitudes, and norm-wise over each
+block of 64 positions of a head, also on dO weighted by position, with
+a planted lost tile that must read above that limit), a second
+launch bitwise, the lse against the plain one, the grad-off forward
+bitwise equal to the training route's output; it prints device ms
+beside a FLOP bound of 10 D per kept (query, key) pair and SDPA's
+forward and backward under autograd, and checks the F1 guard (every
+case the backward does not take raises under grad).
+``--attention-only`` runs only the forward's checks, then prints the
+whole op's times and a hash of its output at decode_32k and long_500k
+and hashes of the forced-split outputs, then the backward's checks.
+``--decode-only REPS`` prints the same whole-op lines, then runs only
+Phase 5's decode_32k and long_500k steps, each timed REPS times, with a
+hash of their logits; it calls only the model's and
+``flash_attention``'s entry points, so that two trees can be compared in
+one call on one card.
 
 Phase 2 runs the publish-and-serve path at the full width of the
 ``rankgraph2`` configuration (bf16 compute, d 256, 4 heads, hidden
@@ -127,9 +143,10 @@ Phase 7 runs the lifecycle loop at the same width on Phase 6's
 refreshed graph, tables and grown feature tables (no second build),
 through the entry points a user calls: ``LifecycleRuntime.run_cycle``
 (10-step bursts of 10,922 edges per type, cut from 50; the gate with
-every floor at 0, so both swaps happen, on 100 recall queries, cut from
+every floor at 0, so both swaps happen, on 25 recall queries, cut from
 400: on the index these bursts publish, one layer-0 list holds nearly
-every user, so each query ranks them all; snapshots in a temporary
+every user, so each query ranks them all, and the whole script must fit
+its limit on a slow host; snapshots in a temporary
 directory), ``SwapServer.ingest`` / ``serve_batch`` and
 ``recover_serving``.  The gate's world is a next-day log made with numpy
 from Phase 3's topic model (the same users' home topics, Poisson(2)
@@ -177,18 +194,41 @@ card and checks the four invariants, every required fault site, a
 crash and a recovery, and prints the span tree that
 ``repro_torch.obs.report`` renders from its trace.
 
+Phase 9 runs LM training at the full width of ``olmo-1b`` (16 layers, d
+2,048, 16 heads at head dim 128, ff 8,192, vocab 50,304, f32 params,
+bf16 compute, each layer rematerialised) with random weights from
+``--seed``: three AdamW steps (lr 1e-3, as ``run_lm``) of ``lm_loss`` on
+one batch of B 1 x S 4,096 tokens (train_4k's global batch of 256 x
+4,096 cut to one sequence).  It checks that the loss is finite and falls
+on the repeated batch, that every parameter gets a finite, non-zero
+gradient, and each step's launches by kernel (the forward with lse, the
+remat recompute, the two backward passes); it prints the step's split
+(forward, backward, optimizer), attention's own time in CUDA events and
+the peak memory beside the bytes it reckons.  Then two layers of
+olmo-1b, llama3.2-3b and gemma-2b at full width (B 1, S 256; 128 for
+gemma's 256,000 vocab): in f32 the loss and every gradient on the card
+against the CPU's plain attention within ``close(..., 1e-3)``, and in
+bf16 against the plain attention on the card (loss within 2^-7, each
+gradient within 2^-4 norm-wise: bf16 rounds at other places through
+both layers, so no per-entry bound holds).
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
 ``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
 Phase 4's serve and train stages, ``flash_attention*`` Phase 5's serve
 stages; Phase 6's launches of ``rq_assign``, ``ppr_walk`` and
-``fused_contrastive_*``, Phase 7's of those and ``queue_gather`` and
+``fused_contrastive_*``, Phase 7's of those and ``queue_gather``,
 Phase 8's of ``queue_gather``, ``rq_assign`` and
-``fused_contrastive_*`` are added to those.
+``fused_contrastive_*``, and Phase 9's main run's of ``flash_attention``
+and ``flash_attention_bwd_*`` are added to those.  Every kernel in the
+list must have launched on its path.
 
 The second-to-last line is a JSON object listing every ported kernel
 (launches on the main path, error against the plain version, times and
-the card's bound); the last line is
+the card's bound), and the whole attention backward beside its two
+passes (``flash_attention_bwd``: its launches are the dq pass's, one a
+backward; its bound the function's 10 D a kept pair; SDPA's backward as
+its library time); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script fails before printing any result.
 """
@@ -255,7 +295,8 @@ from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention as FA, ops as FA_OPS)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
-    attention_ref, chunked_attention_ref, merge_ref)
+    attention_bwd_ref, attention_ref, block_gap, chunked_attention_ref,
+    merge_ref)
 from repro_torch.kernels.fused_contrastive import (  # noqa: E402
     fused_contrastive as FC)
 from repro_torch.kernels.fused_contrastive.ref import (  # noqa: E402
@@ -285,7 +326,9 @@ from repro_torch.models.lm import model as LM  # noqa: E402
 from repro_torch.models.recsys import models as R  # noqa: E402
 from repro_torch.obs import MemorySink, Telemetry  # noqa: E402
 from repro_torch.obs.report import render  # noqa: E402
-from repro_torch.optim.optimizers import rankgraph2_optimizer  # noqa: E402
+from repro_torch.optim.optimizers import (adamw,  # noqa: E402
+                                          apply_updates,
+                                          rankgraph2_optimizer)
 
 N_USERS, N_ITEMS = 1_048_576, 262_144
 N_EVENTS, INGEST_BATCH, SPAN_S = 8_388_608, 65_536, 7200.0
@@ -331,7 +374,7 @@ P6_STEPS = 10                # the train burst on the refreshed graph
 P6_TRACES = 4096             # re-walked starts held against numpy
 EMBED_BATCH = 2048           # the lifecycle's embed batch (probe embeds)
 P7_STEPS = 10                # steps a lifecycle burst, cut from 50
-P7_QUERIES = 100             # the gate's recall queries, cut from 400
+P7_QUERIES = 25              # the gate's recall queries, cut from 400
 P7_EVENTS = 2                # Poisson mean of a user's next-day events
 P7_DELTA_S = 900.0           # the next day's first 15 minutes
 P7_RECENCY_S, P7_RING = 7200.0, 1 << 20
@@ -379,6 +422,13 @@ P5_GEMMA_SEQ = 8192          # gemma-2b's prefill length
 CHECK_LM_B, CHECK_LM_S = 2, 256   # Phase 5's f32 card-vs-CPU check
 CARD_CPU_LM_REL = 1e-3       # f32 logits and caches: card vs CPU
 BF16_LM_TOL = 5e-2           # bf16 prefill/decode consistency, of the largest
+OLMO = get_arch("olmo-1b").config   # bf16 compute, f32 params, remat
+P9_B, P9_S = 1, 4096         # one sequence of train_4k's 256 x 4,096
+P9_STEPS, P9_LR = 3, 1e-3    # AdamW as run_lm
+P9_CHECK_LAYERS = 2
+P9_CHECK_S = {"olmo-1b": 256, "llama3.2-3b": 256, "gemma-2b": 128}
+P9_BF16_LOSS = 2.0 ** -7     # bf16, kernels vs plain attention: the loss
+P9_BF16_NORM = 2.0 ** -4     # ... and each gradient, norm-wise
 
 
 def card_peaks(name: str):
@@ -1638,6 +1688,329 @@ def forced_split_hashes(g: torch.Generator, dev) -> None:
     whole = hashlib.sha256("".join(hashes).encode()).hexdigest()[:16]
     print(f"[ab] forced splits: {len(hashes)} outputs, sha256 of their "
           f"hashes {whole}")
+
+
+FA_BWD_SHAPES = (
+    # (name, B, S, Hq, Hkv, D, dtype): lm_loss's causal self-attention
+    ("reduced", 4, 64, 4, 4, 32, torch.float32),   # run_lm's reduced cut
+    ("olmo-1b", 1, 4096, 16, 16, 128, torch.bfloat16),
+    ("llama3.2-3b", 1, 4096, 24, 8, 128, torch.bfloat16),
+    ("gemma-2b", 1, 4096, 8, 1, 256, torch.bfloat16),
+    ("f32 olmo heads", 1, 256, 16, 16, 128, torch.float32),  # Phase 9's check
+    # ragged tiles (S a multiple of no tile) at the other head dims
+    ("ragged bf16 D 64", 2, 77, 6, 2, 64, torch.bfloat16),
+    ("ragged bf16 D 32", 3, 100, 4, 1, 32, torch.bfloat16),
+    ("ragged bf16 D 256", 1, 70, 8, 1, 256, torch.bfloat16),
+    ("ragged f32 D 256", 1, 70, 8, 1, 256, torch.float32),
+)
+BWD_BF16_TOL, BWD_F32_TOL = 2.0 ** -6, 1e-5   # of M: tests/..._bwd.py
+# block_gap's limits: above the sound kernels' reading (bf16 about 2^-8:
+# P, dS and the result each rounded once; f32 about sqrt(n) 2^-24), below
+# what a lost or repeated tile reads (planted_faults: 2^-5 or more at
+# every FA_BWD_SHAPES shape on the position-weighted dO)
+BWD_GAP_TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 2.0 ** -13}
+
+
+def within_terms(got, want, mag, tol: float) -> float:
+    """The largest |got - want| / M, M the sums of the magnitudes of each
+    result's terms (``attention_bwd_ref(absolute=True)``); 0 where M is
+    0 and the two agree."""
+    err = (got.float() - want.float()).abs()
+    return float(torch.where(err == 0, 0.0, err / mag).max())
+
+
+def planted_faults(q, k, v, o, do, lse_h, scale, grads) -> tuple:
+    """The backward's (dq, dk, dv) with one tile's terms taken out, as a
+    lost tile would leave them: key tile 0 (64 keys) from the last 64
+    rows of query head 0's dQ (a row's loop over ~S / 64 key tiles one
+    short, or a stage of its ring slipped), and the last 32-row tile of
+    KV group 0's flattened (position, head) rows from key tile 0's dK and
+    dV (the far end of the dkdv pass's row loop).  The terms are the
+    closed form's P and dS over those rows and keys, in f32; lse_h is
+    (B, Hq, S)."""
+    B, S, Hq, D = q.shape
+    rep = Hq // k.shape[2]
+    kt = torch.arange(min(64, S), device=q.device)
+
+    def terms(pos, heads):
+        kr, vr = (x[0, kt].float()[:, heads // rep].transpose(0, 1)
+                  for x in (k, v))                       # (n, keys, D)
+        qr, dor, orow = (x[0, pos, heads].float() for x in (q, do, o))
+        s = torch.einsum("nd,nkd->nk", qr, kr) * scale
+        p = torch.where(kt[None] <= pos[:, None],
+                        torch.exp(s - lse_h[0, heads, pos][:, None]), 0.0)
+        dp = torch.einsum("nd,nkd->nk", dor, vr)
+        ds = p * (dp - (dor * orow).sum(dim=-1, keepdim=True))
+        return p, ds, kr, qr, dor
+
+    dq, dk, dv = (x.float().clone() for x in grads)
+    pos = torch.arange(max(S - 64, 0), S, device=q.device)
+    _, ds, kr, _, _ = terms(pos, torch.zeros_like(pos))
+    dq[0, pos, 0] -= scale * torch.einsum("nk,nkd->nd", ds, kr)
+    r = torch.arange(max(S * rep - 32, 0), S * rep, device=q.device)
+    p, ds, _, qr, dor = terms(r // rep, r % rep)
+    dk[0, kt, 0] -= scale * torch.einsum("nk,nd->kd", ds, qr)
+    dv[0, kt, 0] -= torch.einsum("nk,nd->kd", p, dor)
+    return dq, dk, dv
+
+
+def attention_bwd_work(B, S, Hq, Hkv, D, esize, per_pair) -> tuple:
+    """(operations, bytes) of the causal backward: ``per_pair`` D per kept
+    (query, key) pair; q, k, v, o, dO and lse read once, dq, dk, dv
+    written once."""
+    ops = per_pair * D * S * (S + 1) / 2 * B * Hq
+    nbytes = esize * (4.0 * B * S * Hq * D + 4.0 * B * S * Hkv * D) \
+        + 4.0 * B * S * Hq
+    return ops, nbytes
+
+
+def sdpa_train_library(q, k, v, do, scale):
+    """SDPA (``enable_gqa``, causal) forward and backward under autograd
+    on the same inputs: (forward + backward ms, backward ms), or (None,
+    None) where no fused backend takes it (f32: the math backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                SDPBackend.CUDNN_ATTENTION]
+    if q.dtype == torch.float32:
+        backends.append(SDPBackend.MATH)
+
+    def fwd():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+    try:
+        with sdpa_kernel(backends):
+            both = time_ms(lambda: torch.autograd.grad(
+                fwd(), (qt, kt, vt), dot), 5)
+            out = fwd()
+            bwd = time_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), 5)
+    except RuntimeError as e:
+        print(f"[phase1] SDPA refuses this backward: "
+              f"{str(e).splitlines()[0]}")
+        return None, None
+    return both, bwd
+
+
+def fa_bwd_guard(dev) -> None:
+    """F1 on the card: under grad every case the backward does not take
+    raises, naming it; what lm_loss calls returns an output whose
+    ``grad_fn`` is ``FlashAttention``'s."""
+    bf16 = torch.bfloat16
+
+    def t(S, H, D=64, grad=True):
+        return torch.randn((1, S, H, D), device=dev, dtype=bf16,
+                           requires_grad=grad)
+    q, k = t(32, 4), t(32, 2)
+    cases = (("causal=False", lambda: FA.flash_attention(
+                q, k, k, causal=False, scale=0.125)),
+             ("q_offset 4", lambda: FA.flash_attention(
+                 q, k, k, causal=True, scale=0.125, q_offset=4)),
+             ("a kv_len", lambda: FA.flash_attention(
+                 q, k, k, causal=True, scale=0.125, kv_len=20)),
+             ("32 queries over 48 keys", lambda: FA.flash_attention(
+                 q, t(48, 2), t(48, 2), causal=True, scale=0.125)),
+             ("head dim 48", lambda: FA.flash_attention(
+                 t(32, 4, 48), t(32, 2, 48), t(32, 2, 48), causal=True,
+                 scale=0.125)),
+             ("no backward", lambda: FA.flash_attention_split(
+                 q, k, k, causal=True, scale=0.125, splits=2)))
+    for what, fn in cases:
+        try:
+            fn()
+        except (NotImplementedError, RuntimeError) as e:
+            check(what in str(e), f"F1 guard ({what}) raised {e!r}")
+        else:
+            raise AssertionError(f"F1 guard: {what} did not raise")
+    out = FA.flash_attention(q, k, k, causal=True, scale=0.125)
+    check(type(out.grad_fn).__name__ == "FlashAttentionBackward",
+          f"lm_loss's case: grad_fn {out.grad_fn}")
+    print(f"[phase1] F1 guard on the card: {len(cases)} refused cases "
+          f"raised naming the case; lm_loss's case returns an output "
+          f"with grad_fn {type(out.grad_fn).__name__}")
+
+
+def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
+    """The backward (``flash_attention_bwd``: the dq pass, then the dkdv
+    pass, twice at head dim 256) at lm_loss's shapes (``FA_BWD_SHAPES``),
+    on the forward's output and lse from the training route
+    (``flash_attention_lse``, which must repeat bitwise: remat runs it
+    again): dQ, dK and dV against autograd of
+    ``chunked_attention_ref`` on the card and against the closed form
+    ``attention_bwd_ref``, each within ``BWD_BF16_TOL`` (bf16) or
+    ``BWD_F32_TOL`` (f32) of M, the sums of the magnitudes of each
+    result's terms (tests/test_torch_flash_attention_bwd.py argues both),
+    and each within ``BWD_GAP_TOL`` by ``block_gap``, the norm-wise gap
+    of each block of 64 positions of a head, on this dO and on dO
+    weighted by position (every row's share of a key's sums about 1/S);
+    a tile's terms taken out of the weighted result (``planted_faults``)
+    must read above that limit; a second launch must give the same bits;
+    the forward's lse within
+    1e-5 of the plain one; the grad-off forward (``plan``'s launch, the
+    same kernel at one split) bitwise equal to the training route's
+    output.  Prints device ms against a FLOP bound of 10 D per kept
+    (query, key) pair (the five products) and the design's 14 D (both
+    passes recompute S and dP), and SDPA's forward and backward under
+    autograd.  Then the F1 guard on the card (``fa_bwd_guard``)."""
+    out = {}
+    for name, B, S, Hq, Hkv, D, dtype in FA_BWD_SHAPES:
+        f32 = dtype == torch.float32
+        scale = D ** -0.5
+        q = torch.randn((B, S, Hq, D), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, S, Hkv, D), generator=g, device=dev).to(dtype)
+        do = torch.randn((B, S, Hq, D), generator=g, device=dev).to(dtype)
+        (o, lse), n = fa_launches(lambda: FA.flash_attention_lse(
+            q, k, v, scale=scale))
+        kernel = FA.train_plan(dtype)[0]
+        check_fa_launches(n, kernel, f"training forward at {name}")
+        o2, lse2 = FA.flash_attention_lse(q, k, v, scale=scale)
+        check(same_bits(o2, o) and same_bits(lse2, lse), f"training forward "
+              f"at {name}: two launches differ (remat recomputes it)")
+        del o2, lse2
+        with torch.no_grad():
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            planned = FA.plan(B, S, Hq, Hkv, S, n_sm, D=D, dtype=dtype)
+            o_off = FA.flash_attention(q, k, v, causal=True, scale=scale)
+        if planned == FA.train_plan(dtype):
+            check(same_bits(o_off, o), f"{name}: the grad-off forward and the "
+                  f"training route's output differ")
+        o_ref, lse_ref = chunked_attention_ref(q, k, v, causal=True,
+                                               scale=scale, return_lse=True)
+        lse_h = FA.lse_by_head(lse, Hq)
+        lse_err = float((lse_h - lse_ref).abs().max())
+        check(close(lse_h, lse_ref, 1e-5), f"{name}: lse off the plain "
+              f"lse ({lse_err})")
+        (grads, n) = fa_launches(lambda: FA.flash_attention_bwd(
+            q, k, v, o, do, lse, scale=scale))
+        pre = "flash_attention_bwd_f32_" if f32 else "flash_attention_bwd_"
+        want_n = {pre + "dq": 1, pre + "dkdv": 1 if f32 or D <= 128 else 2}
+        check(n == want_n, f"backward at {name}: launches {n}, want {want_n}")
+        again = FA.flash_attention_bwd(q, k, v, o, do, lse, scale=scale)
+        check(all(same_bits(a, b) for a, b in zip(grads, again)),
+              f"backward at {name}: two launches differ")
+        del again
+        tol = BWD_F32_TOL if f32 else BWD_BF16_TOL
+        args = (q, k, v, o, do, lse_h)
+        plain = attention_bwd_ref(*args, scale=scale)
+        mag = attention_bwd_ref(*args, scale=scale, absolute=True)
+        qr, kr, vr = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        chunked_attention_ref(qr, kr, vr, causal=True,
+                              scale=scale).backward(do)
+        errs = {}
+        for gname, got, w_plain, w_auto, m in zip(
+                ("dq", "dk", "dv"), grads, plain, (qr.grad, kr.grad, vr.grad),
+                mag):
+            check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                  f"{name}: {gname} not finite {dtype}")
+            e1 = within_terms(got, w_plain, m, tol)
+            e2 = within_terms(got, w_auto, m, tol)
+            check(e1 <= tol and e2 <= tol, f"{name}: {gname} off the plain "
+                  f"versions by {e1:.3g} / {e2:.3g} of M (tolerance "
+                  f"{tol:.3g})")
+            errs[gname] = (e1, e2, float((got.float() - w_auto.float()
+                                          ).abs().max()))
+        gaps = {gname: (block_gap(got, w_plain), block_gap(got, w_auto))
+                for gname, got, w_plain, w_auto in zip(
+                    ("dq", "dk", "dv"), grads, plain,
+                    (qr.grad, kr.grad, vr.grad))}
+        del plain, mag, qr, kr, vr
+        # dO weighted by position: a row's share of a key's sums is then
+        # about 1/S at every position, so a lost row tile shows in dK, dV
+        w = torch.arange(1, S + 1, device=dev, dtype=torch.float32) / S
+        dow = (do.float() * w[None, :, None, None]).to(dtype)
+        grads_w = FA.flash_attention_bwd(q, k, v, o, dow, lse, scale=scale)
+        want_w = attention_bwd_ref(q, k, v, o, dow, lse_h, scale=scale)
+        faults = planted_faults(q, k, v, o, dow, lse_h, scale, grads_w)
+        gtol = BWD_GAP_TOL[dtype]
+        for gname, got, want, bad in zip(("dq", "dk", "dv"), grads_w,
+                                         want_w, faults):
+            gaps[gname] += (block_gap(got, want), block_gap(bad, want))
+            sound = max(gaps[gname][:3])
+            check(sound <= gtol, f"{name}: {gname} off the plain versions by "
+                  f"a block gap of {sound:.3g} (limit {gtol:.3g})")
+            check(gaps[gname][3] > gtol, f"{name}: a lost tile in {gname} "
+                  f"reads {gaps[gname][3]:.3g}, within the limit {gtol:.3g}")
+        del dow, grads_w, want_w, faults
+        bwd = lambda: FA.flash_attention_bwd(q, k, v, o, do, lse,  # noqa
+                                             scale=scale)
+        reps = 20 if S >= 1024 else 50
+        ms, dev_ms = time_ms(bwd, reps), time_ms(bwd, reps, lead=True)
+        dq = lambda: FA.bwd_dq(q, k, v, o, do, lse, scale=scale)  # noqa
+        di = dq()[1]
+        dkdv = lambda: FA.bwd_dkdv(q, k, v, do, lse, di,  # noqa: E731
+                                   scale=scale)
+        dq_ms, dkdv_ms = time_ms(dq, reps), time_ms(dkdv, reps)
+        dq_dev, dkdv_dev = (time_ms(dq, reps, lead=True),
+                            time_ms(dkdv, reps, lead=True))
+        plain_ms = time_ms(lambda: attention_bwd_ref(*args, scale=scale), 2)
+        both_ms, sdpa_bwd_ms = sdpa_train_library(q, k, v, do, scale)
+        peak = peaks[0] if f32 else peaks[2]
+        esize = q.element_size()
+        bounds = {}
+        for what, per_pair in (("10 D", 10), ("dq 6 D", 6), ("dkdv 8 D", 8)):
+            ops, nbytes = attention_bwd_work(B, S, Hq, Hkv, D, esize,
+                                             per_pair)
+            t_o, t_b = ops / peak, nbytes / peaks[1]
+            bounds[what] = (max(t_o, t_b) * 1e3,
+                            "operations" if t_o >= t_b else "bytes", ops)
+        design_ops = attention_bwd_work(B, S, Hq, Hkv, D, esize, 14)[0]
+        b_ms, b_by, b_ops = bounds["10 D"]
+        print(f"[phase1] flash_attention_bwd {name}: q {tuple(q.shape)} k/v "
+              f"{tuple(k.shape)} {str(dtype).replace('torch.', '')} causal; "
+              f"launches {n}; vs the closed form / autograd of "
+              f"chunked_attention_ref, of M: " + ", ".join(
+                  f"{k_} {a:.3g} / {b:.3g} (max_abs_err {c:.3g})"
+                  for k_, (a, b, c) in errs.items())
+              + f" (tolerance {tol:.3g}); block gap (64 positions of a "
+              f"head) vs the closed form / autograd / on dO by position, "
+              f"and a planted lost tile on dO by position: " + ", ".join(
+                  f"{k_} {a:.3g} / {b:.3g} / {c:.3g}, fault {f:.3g}"
+                  for k_, (a, b, c, f) in gaps.items())
+              + f" (limit {gtol:.3g}); two launches bitwise equal (the "
+              f"forward's too); lse max_abs_err {lse_err:.3g}; "
+              f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} (dq pass "
+              f"{dq_ms:.4f}, device {dq_dev:.4f}, bound "
+              f"{bounds['dq 6 D'][0]:.4f}; dkdv pass {dkdv_ms:.4f}, device "
+              f"{dkdv_dev:.4f}, bound {bounds['dkdv 8 D'][0]:.4f}); "
+              f"bound_ms={b_ms:.4f} ({b_by}; 10 D a kept pair, "
+              f"{b_ops / 1e12:.4f} TFLOP; {b_ops / dev_ms / 1e9:.1f} "
+              f"TFLOP/s, {b_ops / dev_ms / 1e9 / (peak / 1e12):.1%} of the "
+              f"peak); the design's 14 D {design_ops / 1e12:.4f} TFLOP "
+              f"({design_ops / peak * 1e3:.4f} ms at the peak); "
+              f"plain_ms={plain_ms:.4f}; SDPA forward+backward "
+              f"{both_ms} ms, backward {sdpa_bwd_ms} ms")
+        out[name] = dict(err=max(c for _, _, c in errs.values()), ms=ms,
+                         dev_ms=dev_ms, dq_ms=dq_ms, dkdv_ms=dkdv_ms,
+                         dq_dev=dq_dev, dkdv_dev=dkdv_dev,
+                         plain_ms=plain_ms, bounds=bounds, sdpa=both_ms,
+                         sdpa_bwd=sdpa_bwd_ms, gaps=gaps)
+        del q, k, v, do, o, lse, o_off, o_ref, lse_ref, grads
+        torch.cuda.empty_cache()
+    fa_bwd_guard(dev)
+    r = out["olmo-1b"]
+    src = "src/repro_torch/csrc/flash_attention_bwd.cu"
+    ref = "src/repro/models/lm/model.py:152"
+    # the whole backward (both passes: one dq launch each) beside the
+    # passes, with the function's 10 D bound and SDPA's backward
+    return [dict(name="flash_attention_bwd", route="cuda", source=src,
+                 replaces=ref, max_abs_err=r["err"], ms=r["ms"],
+                 plain_ms=r["plain_ms"], bound_ms=r["bounds"]["10 D"][0],
+                 bound_by=r["bounds"]["10 D"][1], library_ms=r["sdpa_bwd"],
+                 device_ms=r["dev_ms"], counter="flash_attention_bwd_dq"),
+            dict(name="flash_attention_bwd_dq", route="cuda", source=src,
+                 replaces=ref, max_abs_err=r["err"], ms=r["dq_ms"],
+                 plain_ms=r["plain_ms"], bound_ms=r["bounds"]["dq 6 D"][0],
+                 bound_by=r["bounds"]["dq 6 D"][1], library_ms=None,
+                 device_ms=r["dq_dev"]),
+            dict(name="flash_attention_bwd_dkdv", route="cuda", source=src,
+                 replaces=ref, max_abs_err=r["err"], ms=r["dkdv_ms"],
+                 plain_ms=r["plain_ms"],
+                 bound_ms=r["bounds"]["dkdv 8 D"][0],
+                 bound_by=r["bounds"]["dkdv 8 D"][1], library_ms=None,
+                 device_ms=r["dkdv_dev"])]
 
 
 # ---------------------------------------------------------------------------
@@ -2987,6 +3360,212 @@ def phase5(seed: int, dev) -> dict:
     return total
 
 # ---------------------------------------------------------------------------
+# Phase 9: LM training at full olmo-1b width
+# ---------------------------------------------------------------------------
+
+def lm_grads(params, cfg, toks) -> tuple:
+    """(loss, {name: gradient}) of ``lm_loss`` on ``toks``; the gradients
+    are taken off the parameters."""
+    flat = LM.named_params(params)
+    loss = LM.lm_loss(params, cfg, toks)
+    loss.backward()
+    grads = {k: p.grad for k, p in flat.items()}
+    for p in flat.values():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def trainable(params) -> dict:
+    for p in LM.named_params(params).values():
+        p.requires_grad_(True)
+    return params
+
+
+def norm_gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||, in f32."""
+    b = b.float()
+    return float((a.float() - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase9_checks(seed: int, dev) -> dict:
+    """Two layers of olmo-1b, llama3.2-3b and gemma-2b at full width,
+    random weights from ``seed``, B 1 x ``P9_CHECK_S`` tokens: in f32 the
+    loss and every gradient on the card (the kernels: ``flash_attention_f32``
+    with lse and the f32 backward passes) against the CPU (the plain
+    attention under autograd) by ``close(card, cpu, CARD_CPU_LM_REL)``;
+    in bf16 the loss within ``P9_BF16_LOSS`` relative and every gradient
+    within ``P9_BF16_NORM`` norm-wise of the same step with the plain
+    attention on the card (module docstring of Phase 9's rule).  Returns
+    the largest gap / tolerance of each check."""
+    gaps = {}
+    for arch, S in P9_CHECK_S.items():
+        base = get_arch(arch).config
+        cfg = dataclasses.replace(base, n_layers=P9_CHECK_LAYERS,
+                                  dtype="float32")
+        g = torch.Generator(dev).manual_seed(seed + 90)
+        params = trainable(LM.init_params(cfg, generator=g, device=dev))
+        toks = lm_tokens(cfg, g, 1, S, dev)
+        common.reset_launches()
+        loss, grads = lm_grads(params, cfg, toks)
+        torch.cuda.synchronize()
+        n = {k: v for k, v in common.launch_counts().items() if v}
+        want = {"flash_attention_f32": 2 * cfg.n_layers,
+                "flash_attention_bwd_f32_dq": cfg.n_layers,
+                "flash_attention_bwd_f32_dkdv": cfg.n_layers}
+        check(n == want, f"{arch} f32 step: launches {n}, want {want}")
+        cpu = trainable({k: ([{n_: t.detach().cpu() for n_, t in lp.items()}
+                              for lp in v] if k == "layers"
+                             else v.detach().cpu())
+                         for k, v in params.items()})
+        c_loss, c_grads = lm_grads(cpu, cfg, toks.cpu())
+        worst = abs(float(loss) - float(c_loss)) / (
+            CARD_CPU_LM_REL * abs(float(c_loss)) + 1e-4 * abs(float(c_loss)))
+        check(close(loss.cpu(), c_loss, CARD_CPU_LM_REL),
+              f"{arch} f32 loss card {float(loss)} cpu {float(c_loss)}")
+        for name, gr in grads.items():
+            check(bool(torch.isfinite(gr).all()) and float(gr.abs().max()) > 0,
+                  f"{arch} f32 gradient of {name} not finite or zero")
+            check(close(gr.cpu(), c_grads[name], CARD_CPU_LM_REL),
+                  f"{arch} f32 gradient of {name} off the CPU's "
+                  f"({float((gr.cpu() - c_grads[name]).abs().max()):.3g})")
+            b = c_grads[name]
+            rel = float(((gr.cpu() - b).abs() / (CARD_CPU_LM_REL * b.abs()
+                                                 + 1e-4 * b.abs().max()
+                                                 ).clamp_min(1e-30)).max())
+            worst = max(worst, rel)
+        gaps[f"{arch} f32 card vs cpu"] = worst
+        del params, cpu, grads, c_grads
+        torch.cuda.empty_cache()
+
+        # bf16: the kernels against the plain attention, both on the card
+        cfg = dataclasses.replace(base, n_layers=P9_CHECK_LAYERS)
+        g = torch.Generator(dev).manual_seed(seed + 91)
+        params = trainable(LM.init_params(cfg, generator=g, device=dev))
+        toks = lm_tokens(cfg, g, 1, S, dev)
+        loss, grads = lm_grads(params, cfg, toks)
+        kernel_attention = LM.chunked_attention
+        LM.chunked_attention = chunked_attention_ref
+        try:
+            p_loss, p_grads = lm_grads(params, cfg, toks)
+        finally:
+            LM.chunked_attention = kernel_attention
+        lg = abs(float(loss) - float(p_loss)) / abs(float(p_loss))
+        check(lg <= P9_BF16_LOSS, f"{arch} bf16 loss kernel {float(loss)} "
+              f"plain {float(p_loss)}")
+        worst = 0.0
+        for name, gr in grads.items():
+            ng = norm_gap(gr, p_grads[name])
+            check(bool(torch.isfinite(gr).all()) and ng <= P9_BF16_NORM,
+                  f"{arch} bf16 gradient of {name}: norm gap {ng:.3g}")
+            worst = max(worst, ng)
+        gaps[f"{arch} bf16 loss"] = lg / P9_BF16_LOSS
+        gaps[f"{arch} bf16 gradients"] = worst / P9_BF16_NORM
+        del params, grads, p_grads
+        torch.cuda.empty_cache()
+    return gaps
+
+
+def phase9(seed: int, dev) -> dict:
+    """LM training at full olmo-1b width (module docstring).  Returns the
+    main run's launches."""
+    cfg = OLMO
+    check(cfg.remat and cfg.dtype == "bfloat16"
+          and cfg.param_dtype == "float32", f"olmo-1b config {cfg}")
+    t = time.perf_counter()
+    g = torch.Generator(dev).manual_seed(seed + 9)
+    params = trainable(LM.init_params(cfg, generator=g, device=dev))
+    flat = LM.named_params(params)
+    toks = lm_tokens(cfg, g, P9_B, P9_S, dev)
+    opt = adamw(P9_LR)
+    st = opt.init(flat)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_par = sum(p.numel() for p in flat.values())
+    reckon = {"params": 4 * n_par / 1e9, "gradients": 4 * n_par / 1e9,
+              "adamw_moments": 8 * n_par / 1e9,
+              "f32_logits": 4 * P9_B * P9_S * cfg.vocab_size / 1e9}
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    losses, split, per_step = [], [], []
+    for step in range(P9_STEPS):
+        before = common.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = LM.lm_loss(params, cfg, toks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        grads = {k: p.grad for k, p in flat.items()}
+        if step == 0:
+            for name, gr in grads.items():
+                check(bool(torch.isfinite(gr).all())
+                      and float(gr.abs().max()) > 0,
+                      f"olmo step 0: gradient of {name} not finite or zero")
+        upd, st = opt.update(grads, st, flat)
+        apply_updates(flat, upd)
+        del upd, grads
+        for p in flat.values():
+            p.grad = None
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        losses.append(loss.item())
+        split.append((t1 - t0, t2 - t1, t3 - t2))
+        after = common.launch_counts()
+        per_step.append({k: n - before.get(k, 0) for k, n in after.items()
+                         if n != before.get(k, 0)})
+    launches = {k: v for k, v in common.launch_counts().items() if v}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkdv": L}
+    for i, n in enumerate(per_step):
+        check(n == want, f"olmo step {i}: launches {n}, want {want} (the "
+              f"forward with lse, the remat recompute, the backward passes)")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"olmo losses {losses} do not fall on the repeated batch")
+    # attention's own time at the step's shape, in CUDA events
+    hd, H = cfg.resolved_head_dim, cfg.n_heads
+    q, k, v, do = (torch.randn((P9_B, P9_S, H, hd), generator=g, device=dev
+                               ).to(torch.bfloat16) for _ in range(4))
+    o, lse = FA.flash_attention_lse(q, k, v, scale=hd ** -0.5)
+    f_ms = time_ms(lambda: FA.flash_attention_lse(q, k, v, scale=hd ** -0.5),
+                   10, lead=True)
+    b_ms = time_ms(lambda: FA.flash_attention_bwd(q, k, v, o, do, lse,
+                                                  scale=hd ** -0.5), 10,
+                   lead=True)
+    del q, k, v, do, o, lse, params, flat, st
+    torch.cuda.empty_cache()
+    attn = 2 * L * f_ms + L * b_ms
+    med = sorted(sum(x) for x in split)[len(split) // 2]
+    t = time.perf_counter()
+    gaps = phase9_checks(seed, dev)
+    check_s = time.perf_counter() - t
+    print(f"[phase9] olmo-1b at full width: {L} layers, d {cfg.d_model}, "
+          f"{H} heads at D {hd}, ff {cfg.d_ff}, vocab {cfg.vocab_size}, f32 "
+          f"params ({n_par} = {reckon['params']:.3f} GB), bf16 compute, "
+          f"remat; one batch of B {P9_B} x S {P9_S} from the seed (train_4k's "
+          f"global batch of 256 x 4,096 cut to one sequence), {P9_STEPS} "
+          f"AdamW steps at lr {P9_LR}; init {init_s:.2f} s")
+    print(f"[phase9] bytes reckoned: " + ", ".join(
+        f"{k} {v:.3f} GB" for k, v in reckon.items())
+        + f"; peak device memory {peak:.3f} GB")
+    print(f"[phase9] losses {[round(x, 6) for x in losses]} (falling on the "
+          f"repeated batch); step seconds (forward, backward, optimizer) "
+          f"{[tuple(round(x, 4) for x in sp) for sp in split]}, median step "
+          f"{med:.4f} s ({P9_B * P9_S / med:.0f} tokens/s)")
+    print(f"[phase9] launches per step {per_step[0]} (forward with lse "
+          f"{L}, remat recompute {L}, backward passes {L} + {L}); attention "
+          f"of a step (CUDA events, device time at the step's shape): "
+          f"forward {f_ms:.4f} ms x {2 * L} + backward {b_ms:.4f} ms x {L} "
+          f"= {attn:.2f} ms ({attn / 1e3 / med:.1%} of the median step)")
+    print(f"[phase9] 2-layer checks in {check_s:.2f} s, gap / tolerance: "
+          f"{json.dumps({k_: float(f'{v_:.3g}') for k_, v_ in gaps.items()})}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the hour-level refresh cycle and the dead-code reset
 # ---------------------------------------------------------------------------
 
@@ -4121,12 +4700,14 @@ def main() -> int:
             args.seed), dev, peaks)
         return 0
     if args.attention_only:
-        print_build(common.build(["flash_attention"]))
+        print_build(common.build(["flash_attention", "flash_attention_bwd"]))
         phase1_flash_attention(torch.Generator(device=dev).manual_seed(
             args.seed), dev, peaks)
         g = torch.Generator(device=dev).manual_seed(args.seed)
         attention_whole_op(g, dev)
         forced_split_hashes(g, dev)
+        phase1_flash_attention_bwd(torch.Generator(device=dev).manual_seed(
+            args.seed), dev, peaks)
         return 0
     if args.decode_only > 0:
         print_build(common.build(["flash_attention"]))
@@ -4135,7 +4716,7 @@ def main() -> int:
     t = time.perf_counter()
     logs = common.build(["rq_assign", "queue_gather", "ppr_walk",
                          "fused_contrastive", "embedding_bag",
-                         "flash_attention"])
+                         "flash_attention", "flash_attention_bwd"])
     print(f"[phase0] built {sorted(logs)} in "
           f"{time.perf_counter() - t:.2f} s")
     print_build(logs)
@@ -4180,6 +4761,13 @@ def main() -> int:
               f"bytes by head dim: " + ", ".join(
                   f"D {d}: {fa_lib.flash_attention_smem(dec, d)}"
                   for d in FA.HEAD_DIMS))
+    bwd_lib = ctypes.CDLL(str(common.library_path("flash_attention_bwd")))
+    for tname, bf in (("bf16", 1), ("f32", 0)):
+        print(f"[phase0] flash_attention_bwd {tname} dynamic shared memory "
+              f"bytes by head dim (dq pass, dkdv pass): " + ", ".join(
+                  f"D {d}: {bwd_lib.flash_attention_bwd_smem(bf, 1, d)}, "
+                  f"{bwd_lib.flash_attention_bwd_smem(bf, 2, d)}"
+                  for d in FA.HEAD_DIMS))
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     rows = [phase1_rq_assign(g, dev, peaks), phase1_queue_gather(g, dev, peaks),
@@ -4187,6 +4775,7 @@ def main() -> int:
             *phase1_fused_contrastive(g, dev, peaks),
             *phase1_embedding_bag(g, dev, peaks)]
     rows += phase1_flash_attention(g, dev, peaks)
+    rows += phase1_flash_attention_bwd(g, dev, peaks)
     t = time.perf_counter()
     launches, p2 = phase2(args.seed, dev)
     print(f"[phase2] wall {time.perf_counter() - t:.2f} s")
@@ -4213,11 +4802,19 @@ def main() -> int:
     t = time.perf_counter()
     launches5 = phase5(args.seed, dev)
     print(f"[phase5] wall {time.perf_counter() - t:.2f} s")
-    for r in rows:     # each path's launches, Phases 6-8's added to its own
-        r["launches"] = (next(ls[r["name"]] for ls in (
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    launches9 = phase9(args.seed, dev)
+    print(f"[phase9] wall {time.perf_counter() - t:.2f} s")
+    for r in rows:     # each path's launches, Phases 6-9's added to its own
+        counter = r.get("counter", r["name"])
+        r["launches"] = (next((ls[counter] for ls in (
             {n: launches[n] for n in SLICE1}, launches4, launches5,
-            launches3) if r["name"] in ls) + launches6.get(r["name"], 0)
-            + launches7.get(r["name"], 0) + launches8.get(r["name"], 0))
+            launches3) if counter in ls), 0)
+            + sum(ls.get(counter, 0)
+                  for ls in (launches6, launches7, launches8, launches9)))
+        check(r["launches"] > 0, f"{r['name']} was not launched on its "
+              f"main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)          # again here, where the end of a long output keeps it

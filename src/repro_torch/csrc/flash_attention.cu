@@ -115,6 +115,15 @@
 // merge launch it replaces cost one more launch and its wrapper's host
 // work on every decode call.
 //
+// Training route (lse non-null; flash_attention.py's flash_attention_lse,
+// under lm_loss).  The tile kernels (fa_wgmma, fa_mma, fa_fwd) at one
+// split also write each row's logsumexp in natural units, lse = m + log(l)
+// with m the row's max of the scaled scores and l its sum of e^(s - m)
+// (the exp2 form computes the same l), to an f32 (B, Hkv, rows) buffer:
+// csrc/flash_attention_bwd.cu forms P = e^(s - lse) from it.  A launch
+// with splits > 1, or of fa_decode, refuses an lse; serving passes null,
+// and its outputs are bitwise what they were.
+//
 // Head dims 32, 64, 128, 256 (templates).  Shared memory is dynamic.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -165,6 +174,7 @@ struct Args {
   float* ws_m; float* ws_l; float* ws_acc;   // (splits, B, Hkv, rows[, D])
   int* counters;                // (B * Hkv * row tiles,), zero at launch
   int n_counters;
+  float* lse;                   // (B, Hkv, rows) or null: splits 1 only
 };
 
 // A barrier over the NTH threads that take part: the whole block (BAR 0)
@@ -187,6 +197,15 @@ __device__ __forceinline__ bool bar_or(bool pred) {
                  : "memory");
     return r != 0;
   }
+}
+
+// The training route's logsumexp of row r, in natural units (the
+// scores' own, s = q.k * scale): lse = m + log(l), m the row's max and l
+// its sum of e^(s - m).  The backward forms P = e^(s - lse) from it.
+__device__ __forceinline__ void write_lse(const Args& a, int b, int kvh,
+                                          int rows, int r, float m,
+                                          float l) {
+  a.lse[((long long)b * a.Hkv + kvh) * rows + r] = m + logf(l);
 }
 
 // counter += 1 with acquire and release at gpu scope; the old value
@@ -451,6 +470,7 @@ __global__ void __launch_bounds__(NT, 1) fa_fwd(Args a) {
       const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < CO; ++c) put(o + tx + 16 * c, acc[i][c] * inv_l);
+      if (a.lse && tx == 0) write_lse(a, b, kvh, rows, r, m[i], l[i]);
     } else {
       const long long w = (((long long)split * a.B + b) * a.Hkv + kvh) * rows + r;
       if (tx == 0) {
@@ -798,6 +818,15 @@ __device__ __forceinline__ void write_row(const Args& a, int b, int kvh,
   }
 }
 
+// The logsumexp of one thread's two rows (r and r + 8), with the whole
+// rows' sums in l: the training route's, at splits 1 (write_lse).
+template <int D>
+__device__ __forceinline__ void rows_lse(const Args& a, int b, int kvh,
+                                         int rows, int r, const Rows<D>& rs) {
+  if (r < rows) write_lse(a, b, kvh, rows, r, rs.m[0], rs.l[0]);
+  if (r + 8 < rows) write_lse(a, b, kvh, rows, r + 8, rs.m[1], rs.l[1]);
+}
+
 // The tile kernel at head dim 32 (fa_wgmma takes the others).  A block of
 // 8 warps takes one (b, KV head) pair and 128 of its flattened query rows;
 // warp w owns rows 16 w .. 16 w + 15 and every key of each 64-key tile.
@@ -886,6 +915,7 @@ __global__ void __launch_bounds__(256, 1) fa_mma(Args a) {
     write_row<D>(a, b, kvh, split, rep, rows, r0 + wr + g + 8, rs.m[1],
                  rs.l[1], rs.acc[n][2], rs.acc[n][3], 8 * n + col);
   }
+  if (a.lse && col == 0) rows_lse(a, b, kvh, rows, r0 + wr + g, rs);
   if (a.splits > 1)
     fold_splits<bf16, D, NTH, 0>(a, b, kvh, rep, rows, r0, BQ, tid);
 }
@@ -1428,6 +1458,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) fa_wgmma(Args a) {
     write_row<D>(a, b, kvh, split, rep, rows, r0 + rw + g + 8, rs.m[1],
                  rs.l[1], rs.acc[n][2], rs.acc[n][3], 8 * n + col);
   }
+  if (a.lse && col == 0) rows_lse(a, b, kvh, rows, r0 + rw + g, rs);
   // the producer warpgroup has returned: the consumers meet on barrier 1
   if (a.splits > 1)
     fold_splits<bf16, D, 128 * NC, 1>(a, b, kvh, rep, rows, r0, BQ,
@@ -1529,7 +1560,7 @@ static Args make_args(const void* q, const void* k, const void* v, void* o,
                       const long long* st, int causal, int q_offset,
                       const int* kv_len, int kv_max, float scale, int splits,
                       float* ws_m, float* ws_l, float* ws_acc, int* counters,
-                      int n_counters) {
+                      int n_counters, float* lse) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv;
@@ -1542,16 +1573,18 @@ static Args make_args(const void* q, const void* k, const void* v, void* o,
   a.splits = splits;
   a.ws_m = ws_m; a.ws_l = ws_l; a.ws_acc = ws_acc;
   a.counters = counters; a.n_counters = n_counters;
+  a.lse = lse;
   return a;
 }
 
-// What every entry refuses: no output, a bad head grouping, or a split
-// launch without its workspace and counters.
+// What every entry refuses: no output, a bad head grouping, a split
+// launch without its workspace and counters, or an lse with splits (the
+// training route runs at one split, so the fold writes no lse).
 static bool bad_args(void* o, int Hq, int Hkv, int splits, const float* ws_m,
                      const float* ws_l, const float* ws_acc,
-                     const int* counters) {
+                     const int* counters, const float* lse) {
   return !o || splits < 1 || Hkv < 1 || Hq % Hkv
-         || (splits > 1 && (!ws_m || !ws_l || !ws_acc || !counters));
+         || (splits > 1 && (!ws_m || !ws_l || !ws_acc || !counters || lse));
 }
 
 extern "C" {
@@ -1561,6 +1594,9 @@ extern "C" {
 // it also leaves the f32 partials in ws_* and folds them (the source
 // note's "Split-KV"): counters holds n_counters int32 zeros, at least
 // B * Hkv * the grid's row tiles, and is zero again when the launch ends.
+// lse: null, or (B, Hkv, rows) f32 for each row's logsumexp (write_lse),
+// at splits 1 on the tile kernels (the training route; serving passes
+// null and its outputs do not change).
 
 // f32 inputs, the FP32-pipe kernel; rpt: 1 or 4.
 int flash_attention_f32_launch(int D, const void* q, const void* k,
@@ -1569,30 +1605,31 @@ int flash_attention_f32_launch(int D, const void* q, const void* k,
                                int q_offset, const int* kv_len, int kv_max,
                                float scale, int rpt, int splits, float* ws_m,
                                float* ws_l, float* ws_acc, int* counters,
-                               int n_counters, void* stream) {
+                               int n_counters, float* lse, void* stream) {
   if ((rpt != 1 && rpt != 4)
-      || bad_args(o, Hq, Hkv, splits, ws_m, ws_l, ws_acc, counters))
+      || bad_args(o, Hq, Hkv, splits, ws_m, ws_l, ws_acc, counters, lse))
     return cudaErrorInvalidValue;
   Args a = make_args(q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset,
                      kv_len, kv_max, scale, splits, ws_m, ws_l, ws_acc,
-                     counters, n_counters);
+                     counters, n_counters, lse);
   return launch_d<float>(a, D, rpt, static_cast<cudaStream_t>(stream));
 }
 
 // bf16 inputs: `decode` 0 for the tensor-core tile kernel (fa_wgmma,
 // fa_mma at D 32), 1 for the streaming decode kernel (fa_decode: S * Hq /
-// Hkv <= 16).
+// Hkv <= 16; it writes no lse).
 static int bf16_launch(int decode, int D, const void* q, const void* k,
                        const void* v, void* o, int B, int S, int Hq, int Hkv,
                        const long long* strides, int causal, int q_offset,
                        const int* kv_len, int kv_max, float scale, int splits,
                        float* ws_m, float* ws_l, float* ws_acc, int* counters,
-                       int n_counters, void* stream) {
-  if (bad_args(o, Hq, Hkv, splits, ws_m, ws_l, ws_acc, counters))
+                       int n_counters, float* lse, void* stream) {
+  if (bad_args(o, Hq, Hkv, splits, ws_m, ws_l, ws_acc, counters, lse)
+      || (decode && lse))
     return cudaErrorInvalidValue;
   Args a = make_args(q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset,
                      kv_len, kv_max, scale, splits, ws_m, ws_l, ws_acc,
-                     counters, n_counters);
+                     counters, n_counters, lse);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return decode ? tc::launch_bf16<true>(a, D, st)
                 : tc::launch_bf16<false>(a, D, st);
@@ -1604,10 +1641,10 @@ int flash_attention_mma_launch(int D, const void* q, const void* k,
                                int q_offset, const int* kv_len, int kv_max,
                                float scale, int splits, float* ws_m,
                                float* ws_l, float* ws_acc, int* counters,
-                               int n_counters, void* stream) {
+                               int n_counters, float* lse, void* stream) {
   return bf16_launch(0, D, q, k, v, o, B, S, Hq, Hkv, strides, causal,
                      q_offset, kv_len, kv_max, scale, splits, ws_m, ws_l,
-                     ws_acc, counters, n_counters, stream);
+                     ws_acc, counters, n_counters, lse, stream);
 }
 
 int flash_attention_decode_launch(int D, const void* q, const void* k,
@@ -1617,10 +1654,10 @@ int flash_attention_decode_launch(int D, const void* q, const void* k,
                                   const int* kv_len, int kv_max, float scale,
                                   int splits, float* ws_m, float* ws_l,
                                   float* ws_acc, int* counters,
-                                  int n_counters, void* stream) {
+                                  int n_counters, float* lse, void* stream) {
   return bf16_launch(1, D, q, k, v, o, B, S, Hq, Hkv, strides, causal,
                      q_offset, kv_len, kv_max, scale, splits, ws_m, ws_l,
-                     ws_acc, counters, n_counters, stream);
+                     ws_acc, counters, n_counters, lse, stream);
 }
 
 // Dynamic shared memory of a bf16 kernel (decode 0: the tile kernel, 1:

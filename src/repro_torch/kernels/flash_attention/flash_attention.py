@@ -9,6 +9,19 @@
   * ``flash_attention_f32``: f32 inputs, the FP32-pipe kernel (the f32
     card-vs-CPU checks).
 
+Under autograd (grad mode on and q, k or v requiring grad) ``flash_attention``
+goes through ``FlashAttention``: the forward takes the training route
+(``train_plan``: the tile kernel of the input type at one split, which
+also writes each row's logsumexp), and the backward is
+``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``), two passes each
+counted under its own name: ``flash_attention_bwd_dq`` (writes dQ and
+each row's ``Di``) then ``flash_attention_bwd_dkdv`` (dK and dV; twice at
+head dim 256, dV then dK), or ``flash_attention_bwd_f32_dq`` and
+``flash_attention_bwd_f32_dkdv`` for f32 inputs.  It takes what
+``lm_loss`` calls (causal, ``q_offset`` 0, no ``kv_len``, S equal to T,
+head dims ``HEAD_DIMS``); ``check_train_case`` refuses the rest, and
+``flash_attention_split`` refuses grad.  With grad off nothing changes.
+
 When ``plan`` splits the kv range over blocks, the same launch folds the
 splits' partials into the output (the last block of each group merges
 them), so every call is one launch; the fold's arrival counters are an
@@ -30,7 +43,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.kernels.common import CudaKernel, stream_ptr
+from repro_torch.kernels.common import CudaKernel, check_cuda, stream_ptr
 
 HEAD_DIMS = (32, 64, 128, 256)
 BK = 64                        # keys per tile
@@ -44,10 +57,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # D, q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset, kv_len, kv_max,
-# scale, [rpt,] splits, ws_m, ws_l, ws_acc, counters, n_counters, stream
+# scale, [rpt,] splits, ws_m, ws_l, ws_acc, counters, n_counters, lse, stream
 _ARGS = [_I, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_LL), _I, _I,
          _P, _I, _F]
-_SPLIT = [_I, _P, _P, _P, _P, _I, _P]
+_SPLIT = [_I, _P, _P, _P, _P, _I, _P, _P]
 MMA = CudaKernel("flash_attention", "flash_attention_mma_launch",
                  _ARGS + _SPLIT)
 DECODE = CudaKernel("flash_attention_decode", "flash_attention_decode_launch",
@@ -55,6 +68,21 @@ DECODE = CudaKernel("flash_attention_decode", "flash_attention_decode_launch",
 F32 = CudaKernel("flash_attention_f32", "flash_attention_f32_launch",
                  _ARGS + [_I] + _SPLIT, source="flash_attention")
 _FWD = {k.name: k for k in (MMA, DECODE, F32)}
+# the backward passes: D, q, k, v, [o,] dout, dq | dk, dv, lse, di, B, S, Hq,
+# Hkv, scale, [mode,] stream
+_BWD_DQ = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
+_BWD_DKDV = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]
+BWD_DQ = CudaKernel("flash_attention_bwd_dq", "flash_attention_bwd_dq_launch",
+                    _BWD_DQ, source="flash_attention_bwd")
+BWD_DKDV = CudaKernel("flash_attention_bwd_dkdv",
+                      "flash_attention_bwd_dkdv_launch", _BWD_DKDV,
+                      source="flash_attention_bwd")
+BWD_F32_DQ = CudaKernel("flash_attention_bwd_f32_dq",
+                        "flash_attention_bwd_f32_dq_launch", _BWD_DQ,
+                        source="flash_attention_bwd")
+BWD_F32_DKDV = CudaKernel("flash_attention_bwd_f32_dkdv",
+                          "flash_attention_bwd_f32_dkdv_launch", _BWD_DKDV,
+                          source="flash_attention_bwd")
 
 # the split fold's arrival counters, by (device, stream): int32 zeros,
 # and zero again after every launch (the kernel's last block of each
@@ -166,10 +194,11 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _fwd(q, k, v, kv, *, causal, scale, q_offset, kernel, splits,
-         rpt=None):
+         rpt=None, lse=None):
     """One launch of ``kernel`` (``kv``: ``_kv``'s pointer and kv_max):
     the output (B, S, Hq, D) in q's type, and with ``splits`` > 1 the
-    partials it folded, else None."""
+    partials it folded, else None.  ``lse``: None, or a (B, Hkv, rows) f32
+    tensor the tile kernels fill with each row's logsumexp (splits 1)."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     rows = S * (Hq // Hkv)
@@ -209,7 +238,8 @@ def _fwd(q, k, v, kv, *, causal, scale, q_offset, kernel, splits,
     _FWD[kernel].launch(D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), B, S, Hq, Hkv, strides, int(causal),
                         q_offset, kv_ptr, kv_max, scale, *extra,
-                        *split_args, stream)
+                        *split_args, None if lse is None else lse.data_ptr(),
+                        stream)
     return out, ws
 
 
@@ -237,6 +267,10 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if splits < 2:
         raise ValueError(f"a split launch needs at least 2 splits, got "
                          f"{splits}")
+    if _wants_grad(q, k, v):
+        raise RuntimeError("flash_attention_split has no backward: call it "
+                           "with grad off (torch.no_grad) or on tensors "
+                           "that do not require grad")
     _check(q, k, v)
     kv = _kv(kv_len, q, q.shape[0], k.shape[1])
     return _fwd(q, k, v, kv, causal=causal, scale=scale, q_offset=q_offset,
@@ -255,8 +289,170 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     row) masks keys at or past it, which are never read.  Returns (B, S,
     Hq, D) in q's type: one launch of ``plan``'s kernel, which folds its
     splits itself when it splits the kv range."""
+    if _wants_grad(q, k, v):
+        check_train_case(S=q.shape[1], T=k.shape[1], D=q.shape[3],
+                         causal=causal, q_offset=q_offset, kv_len=kv_len)
+        return FlashAttention.apply(q, k, v, scale)
     _check(q, k, v)
     kv = _kv(kv_len, q, q.shape[0], k.shape[1])
     kernel, splits = _plan(q, k, kv[1])
     return _fwd(q, k, v, kv, causal=causal, scale=scale, q_offset=q_offset,
                 kernel=kernel, splits=splits)[0]
+
+
+# ---------------------------------------------------------------------------
+# training: the forward with lse, the backward, the autograd.Function
+# ---------------------------------------------------------------------------
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def check_train_case(*, S: int, T: int, D: int, causal: bool, q_offset: int,
+                     kv_len) -> None:
+    """Raises, naming the case, for a call under autograd that the
+    backward kernels do not take: they take what ``lm_loss`` calls
+    (causal, ``q_offset`` 0, no ``kv_len``, S equal to T, a head dim of
+    ``HEAD_DIMS``)."""
+    why = []
+    if not causal:
+        why.append("causal=False")
+    if q_offset != 0:
+        why.append(f"q_offset {q_offset}")
+    if kv_len is not None:
+        why.append("a kv_len")
+    if S != T:
+        why.append(f"{S} queries over {T} keys")
+    if D not in HEAD_DIMS:
+        why.append(f"head dim {D}")
+    if why:
+        raise NotImplementedError(
+            "the flash-attention backward takes causal self-attention with "
+            "q_offset 0, no kv_len and S equal to T (what lm_loss calls), "
+            f"head dims {HEAD_DIMS}; under grad it got " + ", ".join(why)
+            + ": call it with grad off (torch.no_grad) for serving")
+
+
+def train_plan(dtype: torch.dtype) -> Tuple[str, int]:
+    """(kernel, kv splits) of the training route's forward: the tile
+    kernel of the input type at one split, whatever ``plan`` would choose
+    (the decode kernel and the split fold write no lse)."""
+    return (F32.name if dtype == torch.float32 else MMA.name), 1
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training route's forward, causal self-attention (S equal to
+    T): (output (B, S, Hq, D) in q's type, lse (B, Hkv, S * Hq / Hkv) f32),
+    lse in natural units (log of the sum of e^(q.k * scale) over the kept
+    keys, ``lse_by_head`` gives it as (B, Hq, S)).  One launch of
+    ``train_plan``'s kernel."""
+    _check(q, k, v)
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    check_train_case(S=S, T=k.shape[1], D=D, causal=True, q_offset=0,
+                     kv_len=None)
+    kernel, splits = train_plan(q.dtype)
+    lse = torch.empty((B, Hkv, S * (Hq // Hkv)), dtype=torch.float32,
+                      device=q.device)
+    out = _fwd(q, k, v, _kv(None, q, B, S), causal=True, scale=scale,
+               q_offset=0, kernel=kernel, splits=splits, lse=lse)[0]
+    return out, lse
+
+
+def lse_by_head(lse: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The kernels' (B, Hkv, S * rep) lse, rows position-major, as (B,
+    n_heads, S)."""
+    B, Hkv, rows = lse.shape
+    rep = n_heads // Hkv
+    return lse.view(B, Hkv, rows // rep, rep).permute(0, 1, 3, 2).reshape(
+        B, n_heads, rows // rep)
+
+
+def _bwd_check(q, k, v, do, lse, o=None, di=None) -> None:
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    rows = (B, Hkv, S * (Hq // Hkv))
+    f32 = torch.float32
+    for name, t, shape, dtype in (
+            ("q", q, (B, S, Hq, D), q.dtype), ("o", o, (B, S, Hq, D), q.dtype),
+            ("k", k, (B, S, Hkv, D), q.dtype),
+            ("v", v, (B, S, Hkv, D), q.dtype),
+            ("dout", do, (B, S, Hq, D), q.dtype),
+            ("lse", lse, rows, f32), ("di", di, rows, f32)):
+        if t is None:
+            continue
+        check_cuda(name, t, dtype, len(shape))
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if q.dtype not in _DTYPES or D not in HEAD_DIMS or Hq % Hkv:
+        raise ValueError(f"no backward kernel for {q.dtype} at head dim {D}, "
+                         f"{Hq} heads over {Hkv}")
+
+
+def bwd_dq(q, k, v, o, do, lse, *, scale: float
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of the backward: (dQ in q's type, Di (B, Hkv, rows) f32)."""
+    _bwd_check(q, k, v, do, lse, o=o)
+    B, S, Hq, D = q.shape
+    dq = torch.empty_like(q)
+    di = torch.empty_like(lse)
+    kern = BWD_F32_DQ if q.dtype == torch.float32 else BWD_DQ
+    kern.launch(D, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), lse.data_ptr(), di.data_ptr(),
+                B, S, Hq, k.shape[2], scale, stream_ptr(q))
+    return dq, di
+
+
+def bwd_dkdv(q, k, v, do, lse, di, *, scale: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2 of the backward, after ``bwd_dq`` (it reads Di): (dK, dV) in
+    q's type, summed over each KV group's query heads.  bf16 at head dim
+    256 launches twice (dV, then dK: two 16 x 256 accumulators would take
+    every register)."""
+    _bwd_check(q, k, v, do, lse, di=di)
+    B, S, Hq, D = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    f32 = q.dtype == torch.float32
+    kern = BWD_F32_DKDV if f32 else BWD_DKDV
+    modes = (0,) if f32 or D <= 128 else (1, 2)
+    for mode in modes:
+        kern.launch(D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                    di.data_ptr(), B, S, Hq, k.shape[2], scale, mode,
+                    stream_ptr(q))
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, scale: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dQ, dK, dV of causal self-attention in q's type, from the forward's
+    output ``o`` and ``lse`` (``flash_attention_lse``) and the output's
+    gradient ``do``; all of q, k, v, o, do contiguous.  Two passes:
+    ``bwd_dq`` then ``bwd_dkdv``; no atomics, so a run repeats bitwise."""
+    dq, di = bwd_dq(q, k, v, o, do, lse, scale=scale)
+    dk, dv = bwd_dkdv(q, k, v, do, lse, di, scale=scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal self-attention on the card with its gradient: the training
+    route's forward (``flash_attention_lse``) saves q, k, v, the output
+    and lse; the backward is ``flash_attention_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        out, lse = flash_attention_lse(q, k, v, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None

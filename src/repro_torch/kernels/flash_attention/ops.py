@@ -1,6 +1,8 @@
 """Public attention ops.  The path follows the tensors' device: CUDA
 tensors launch the flash-attention kernel (``flash_attention.py``) or
-raise; CPU tensors take the plain versions in ``ref.py``.
+raise, and under autograd its ``FlashAttention`` carries the backward
+kernel; CPU tensors take the plain versions in ``ref.py`` (autograd
+differentiates them).
 
   * ``chunked_attention``: the LM model's contract, q (B, S, H, D), k/v
     (B, T, Hkv, D), ``causal``, ``q_offset``, ``kv_len`` (on the CPU,

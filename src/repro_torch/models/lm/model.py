@@ -17,14 +17,22 @@ is RMSNorm for every config, as in the reference (``model.py:524``).
 
 Attention goes through ``kernels.flash_attention.ops.chunked_attention``:
 the CUDA flash-attention kernel on the card, ``_chunked_attention``'s
-plain loop on the CPU.  KV caches are dicts ``{"k", "v"}`` of
-``(L, B, T, Hkv, hd)`` tensors.  Two departures from the reference that
-keep its values and save memory: ``decode_step`` writes the new keys and
-values into the caches in place (the reference's
-``dynamic_update_slice`` builds new arrays), and ``prefill`` applies the
-final norm and the head to the last position only (the reference
-computes logits for every position and keeps the last: 8.4 GB of bf16
-logits at llama's 32k).  ``forward`` keeps every position.
+plain loop on the CPU.  ``lm_loss`` trains through it: under autograd the
+card's attention is ``FlashAttention`` (the forward saves each row's
+logsumexp, the backward is the hand-written kernel), and with
+``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+(``use_reentrant=False``), as the reference's ``jax.checkpoint``;
+``named_params`` gives the flat ``name -> tensor`` view that the
+optimizers of ``optim/optimizers.py`` update in place.
+
+KV caches are dicts ``{"k", "v"}`` of ``(L, B, T, Hkv, hd)`` tensors.
+Two departures from the reference that keep its values and save memory:
+``decode_step`` writes the new keys and values into the caches in place
+(the reference's ``dynamic_update_slice`` builds new arrays), and
+``prefill`` applies the final norm and the head to the last position
+only (the reference computes logits for every position and keeps the
+last: 8.4 GB of bf16 logits at llama's 32k).  ``forward`` keeps every
+position.
 
 MoE configs (``n_experts > 0``: grok, kimi) raise: their expert layers
 wait for the ROADMAP item "MoE LM layers".
@@ -35,6 +43,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.common import resolve_device
@@ -190,11 +199,13 @@ def _layer(p, cfg: LMConfig, x, positions, kv, cache_len, causal, block_q):
 
 def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
            positions: Optional[torch.Tensor], kv_caches: Optional[Caches],
-           cache_len: int, causal: bool, block_q: int, keep_cache: bool
-           ) -> Tuple[torch.Tensor, Optional[Caches]]:
+           cache_len: int, causal: bool, block_q: int, keep_cache: bool,
+           remat: bool = False) -> Tuple[torch.Tensor, Optional[Caches]]:
     """tokens (B, S) -> (residual stream after the last layer (B, S, d),
     caches): the given ``kv_caches`` (written in place), or with
-    ``keep_cache`` new (L, B, S, Hkv, hd) ones in the compute type."""
+    ``keep_cache`` new (L, B, S, Hkv, hd) ones in the compute type.  With
+    ``remat`` (no caches) each layer keeps only its input for the
+    backward and runs again there."""
     _dense_only(cfg)
     compute = DTYPES[cfg.dtype]
     B, S = tokens.shape
@@ -212,6 +223,11 @@ def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
     for i, lp in enumerate(params["layers"]):
         kv = None if kv_caches is None else (kv_caches["k"][i],
                                              kv_caches["v"][i])
+        if remat and kv is None and not keep_cache:
+            x = checkpoint(lambda x_, lp_: _layer(
+                lp_, cfg, x_, positions, None, cache_len, causal,
+                block_q)[0], x, lp, use_reentrant=False)
+            continue
         x, k, v = _layer(lp, cfg, x, positions, kv, cache_len, causal,
                          block_q)
         if kv_caches is None and keep_cache:
@@ -235,6 +251,31 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
                   cache_len=0, causal=True, block_q=block_q,
                   keep_cache=False)
     return _head(params, cfg, x)
+
+
+def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
+            block_q: int = 1024) -> torch.Tensor:
+    """Next-token cross-entropy of tokens (B, S), as the reference's
+    ``lm_loss`` (``repro/models/lm/model.py:534``): causal logits in the
+    compute type, positions ``[:-1]`` in f32, the mean of logsumexp minus
+    the gold logit; the dense configs' aux term is 0.  Each layer is
+    rematerialised under ``cfg.remat`` when grad mode is on."""
+    x, _ = _trunk(params, cfg, tokens, positions=None, kv_caches=None,
+                  cache_len=0, causal=True, block_q=block_q,
+                  keep_cache=False,
+                  remat=cfg.remat and torch.is_grad_enabled())
+    lg = _head(params, cfg, x)[:, :-1].to(torch.float32)
+    gold = torch.gather(lg, -1, tokens[:, 1:, None].long())[..., 0]
+    return torch.mean(torch.logsumexp(lg, dim=-1) - gold)
+
+
+def named_params(params: Params) -> Dict[str, torch.Tensor]:
+    """The parameters as a flat ``name -> tensor`` dict of the same
+    tensors (``layers.<i>.<name>`` for a layer's), for the optimizers."""
+    flat = {k: v for k, v in params.items() if k != "layers"}
+    for i, lp in enumerate(params["layers"]):
+        flat.update({f"layers.{i}.{k}": v for k, v in lp.items()})
+    return flat
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
