@@ -38,12 +38,15 @@ route: dQ, dK and dV against autograd of ``chunked_attention_ref`` on
 the card and against the closed form ``attention_bwd_ref`` (per entry
 against the sums of the terms' magnitudes, and norm-wise over each
 block of 64 positions of a head, also on dO weighted by position, with
-a planted lost tile that must read above that limit), a second
-launch bitwise, the lse against the plain one, the grad-off forward
-bitwise equal to the training route's output; it prints device ms
-beside a FLOP bound of 10 D per kept (query, key) pair and SDPA's
-forward and backward under autograd, and checks the F1 guard (every
-case the backward does not take raises under grad).
+a planted lost 64-row tile and a lost split partial that must read
+above that limit), a second launch bitwise, at olmo-1b's shape also
+the dkdv pass at 4 forced splits a key tile (held the same way, and
+bitwise repeated), the lse against the plain one, the grad-off forward
+bitwise equal to the training route's output; it prints the dkdv plan
+(``bwd_plan``) and device ms beside a FLOP bound of 10 D per kept
+(query, key) pair and SDPA's forward and backward under autograd, and
+checks the F1 guard (every case the backward does not take raises under
+grad).
 ``--attention-only`` runs only the forward's checks, then prints the
 whole op's times and a hash of its output at decode_32k and long_500k
 and hashes of the forced-split outputs, then the backward's checks.
@@ -1719,39 +1722,61 @@ def within_terms(got, want, mag, tol: float) -> float:
     return float(torch.where(err == 0, 0.0, err / mag).max())
 
 
-def planted_faults(q, k, v, o, do, lse_h, scale, grads) -> tuple:
-    """The backward's (dq, dk, dv) with one tile's terms taken out, as a
-    lost tile would leave them: key tile 0 (64 keys) from the last 64
-    rows of query head 0's dQ (a row's loop over ~S / 64 key tiles one
-    short, or a stage of its ring slipped), and the last 32-row tile of
-    KV group 0's flattened (position, head) rows from key tile 0's dK and
-    dV (the far end of the dkdv pass's row loop).  The terms are the
-    closed form's P and dS over those rows and keys, in f32; lse_h is
-    (B, Hq, S)."""
-    B, S, Hq, D = q.shape
-    rep = Hq // k.shape[2]
-    kt = torch.arange(min(64, S), device=q.device)
+BWD_FORCED_SPLITS = 4        # the forced-splits check's ranges a key tile
 
-    def terms(pos, heads):
-        kr, vr = (x[0, kt].float()[:, heads // rep].transpose(0, 1)
+
+def planted_faults(q, k, v, o, do, lse_h, scale, grads, plan) -> dict:
+    """The backward's (dq, dk, dv) with terms taken out, as a lost tile or
+    a lost split would leave them.  "tile": key tile 0 of the dq pass (64
+    keys) out of the last 64 rows of query head 0's dQ (a row's loop over
+    ~S / 64 key tiles one short, or a stage of its ring slipped), and the
+    last 64-row tile of KV group 0's flattened (position, head) rows out
+    of key tile 0's dK and dV (the far end of the dkdv pass's row loop).
+    "split": the rows of key tile 0's last split out of its dK and dV (a
+    partial the fold lost), the split from ``plan`` where it splits key
+    tile 0, else from ``BWD_FORCED_SPLITS``.  The terms are the closed
+    form's P and dS over those rows and keys, in f32; lse_h is (B, Hq,
+    S)."""
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    rep = Hq // Hkv
+    rows = S * rep
+
+    def terms(pos, heads, keys):
+        kr, vr = (x[0, keys].float()[:, heads // rep].transpose(0, 1)
                   for x in (k, v))                       # (n, keys, D)
         qr, dor, orow = (x[0, pos, heads].float() for x in (q, do, o))
         s = torch.einsum("nd,nkd->nk", qr, kr) * scale
-        p = torch.where(kt[None] <= pos[:, None],
+        p = torch.where(keys[None] <= pos[:, None],
                         torch.exp(s - lse_h[0, heads, pos][:, None]), 0.0)
         dp = torch.einsum("nd,nkd->nk", dor, vr)
         ds = p * (dp - (dor * orow).sum(dim=-1, keepdim=True))
         return p, ds, kr, qr, dor
 
+    def lose_rows(dk, dv, r, keys):
+        p, ds, _, qr, dor = terms(r // rep, r % rep, keys)
+        dk[0, keys, 0] -= scale * torch.einsum("nk,nd->kd", ds, qr)
+        dv[0, keys, 0] -= torch.einsum("nk,nd->kd", p, dor)
+
+    dev = q.device
     dq, dk, dv = (x.float().clone() for x in grads)
-    pos = torch.arange(max(S - 64, 0), S, device=q.device)
-    _, ds, kr, _, _ = terms(pos, torch.zeros_like(pos))
+    pos = torch.arange(max(S - 64, 0), S, device=dev)
+    _, ds, kr, _, _ = terms(pos, torch.zeros_like(pos),
+                            torch.arange(min(64, S), device=dev))
     dq[0, pos, 0] -= scale * torch.einsum("nk,nkd->nd", ds, kr)
-    r = torch.arange(max(S * rep - 32, 0), S * rep, device=q.device)
-    p, ds, _, qr, dor = terms(r // rep, r % rep)
-    dk[0, kt, 0] -= scale * torch.einsum("nk,nd->kd", ds, qr)
-    dv[0, kt, 0] -= torch.einsum("nk,nd->kd", p, dor)
-    return dq, dk, dv
+    keys = torch.arange(min(plan.key_tile, S), device=dev)
+    last = (-(-rows // plan.row_tile) - 1) * plan.row_tile
+    lose_rows(dk, dv, torch.arange(last, rows, device=dev), keys)
+    out = {"tile": (dq, dk, dv)}
+    if len(plan.ranges[0]) < 2:
+        plan = FA.bwd_plan(B, S, Hq, Hkv, D, 132, splits=BWD_FORCED_SPLITS)
+    lo, hi = plan.ranges[0][-1]
+    dk, dv = (x.float().clone() for x in grads[1:])
+    lose_rows(dk, dv, torch.arange(lo * plan.row_tile,
+                                   min(hi * plan.row_tile, rows), device=dev),
+              keys)
+    out["split"] = (grads[0].float(), dk, dv)
+    return out
 
 
 def attention_bwd_work(B, S, Hq, Hkv, D, esize, per_pair) -> tuple:
@@ -1832,6 +1857,34 @@ def fa_bwd_guard(dev) -> None:
           f"with grad_fn {type(out.grad_fn).__name__}")
 
 
+def fa_bwd_forced(q, k, v, o, do, lse, scale, grads, plain, mag, tol,
+                  gtol) -> str:
+    """The dkdv pass at ``BWD_FORCED_SPLITS`` ranges a key tile (the fold
+    in every group): dK and dV against the closed form per entry (within
+    ``tol`` of M) and by block gap (within ``gtol``), dQ bitwise the
+    planned run's, and a second launch bitwise equal.  Returns the
+    printed note."""
+    f1 = FA.flash_attention_bwd(q, k, v, o, do, lse, scale=scale,
+                                splits=BWD_FORCED_SPLITS)
+    f2 = FA.flash_attention_bwd(q, k, v, o, do, lse, scale=scale,
+                                splits=BWD_FORCED_SPLITS)
+    check(all(same_bits(a, b) for a, b in zip(f1, f2)), f"backward at "
+          f"{BWD_FORCED_SPLITS} forced splits: two launches differ")
+    check(same_bits(f1[0], grads[0]), "forced splits moved dQ")
+    errs = [within_terms(f, w, m, tol) for f, w, m in zip(f1[1:], plain[1:],
+                                                          mag[1:])]
+    gaps = [block_gap(f, w) for f, w in zip(f1[1:], plain[1:])]
+    check(max(errs) <= tol and max(gaps) <= gtol, f"backward at "
+          f"{BWD_FORCED_SPLITS} forced splits: dK, dV off the closed form by "
+          f"{errs} of M, block gaps {gaps}")
+    moved = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(f1[1:], grads[1:]))
+    return (f"; at {BWD_FORCED_SPLITS} forced splits dK, dV {errs[0]:.3g}, "
+            f"{errs[1]:.3g} of M, block gaps {gaps[0]:.3g}, {gaps[1]:.3g}, "
+            f"two launches bitwise equal, at most {moved:.3g} from the "
+            f"planned run's")
+
+
 def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
     """The backward (``flash_attention_bwd``: the dq pass, then the dkdv
     pass, twice at head dim 256) at lm_loss's shapes (``FA_BWD_SHAPES``),
@@ -1845,8 +1898,10 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
     and each within ``BWD_GAP_TOL`` by ``block_gap``, the norm-wise gap
     of each block of 64 positions of a head, on this dO and on dO
     weighted by position (every row's share of a key's sums about 1/S);
-    a tile's terms taken out of the weighted result (``planted_faults``)
-    must read above that limit; a second launch must give the same bits;
+    a tile's terms, or a split's partial, taken out of the weighted
+    result (``planted_faults``) must read above that limit; a second
+    launch must give the same bits; at olmo-1b's shape the dkdv pass at
+    ``BWD_FORCED_SPLITS`` ranges a key tile too (``fa_bwd_forced``);
     the forward's lse within
     1e-5 of the plain one; the grad-off forward (``plan``'s launch, the
     same kernel at one split) bitwise equal to the training route's
@@ -1883,6 +1938,8 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
         lse_err = float((lse_h - lse_ref).abs().max())
         check(close(lse_h, lse_ref, 1e-5), f"{name}: lse off the plain "
               f"lse ({lse_err})")
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = FA.bwd_plan(B, S, Hq, Hkv, D, n_sm)
         (grads, n) = fa_launches(lambda: FA.flash_attention_bwd(
             q, k, v, o, do, lse, scale=scale))
         pre = "flash_attention_bwd_f32_" if f32 else "flash_attention_bwd_"
@@ -1916,6 +1973,10 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
                 for gname, got, w_plain, w_auto in zip(
                     ("dq", "dk", "dv"), grads, plain,
                     (qr.grad, kr.grad, vr.grad))}
+        forced = ""
+        if name == "olmo-1b":
+            forced = fa_bwd_forced(q, k, v, o, do, lse, scale, grads, plain,
+                                   mag, tol, BWD_GAP_TOL[dtype])
         del plain, mag, qr, kr, vr
         # dO weighted by position: a row's share of a key's sums is then
         # about 1/S at every position, so a lost row tile shows in dK, dV
@@ -1923,16 +1984,22 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
         dow = (do.float() * w[None, :, None, None]).to(dtype)
         grads_w = FA.flash_attention_bwd(q, k, v, o, dow, lse, scale=scale)
         want_w = attention_bwd_ref(q, k, v, o, dow, lse_h, scale=scale)
-        faults = planted_faults(q, k, v, o, dow, lse_h, scale, grads_w)
+        faults = planted_faults(q, k, v, o, dow, lse_h, scale, grads_w,
+                                plan)
         gtol = BWD_GAP_TOL[dtype]
-        for gname, got, want, bad in zip(("dq", "dk", "dv"), grads_w,
-                                         want_w, faults):
-            gaps[gname] += (block_gap(got, want), block_gap(bad, want))
+        for gname, got, want, bad, lost in zip(
+                ("dq", "dk", "dv"), grads_w, want_w, faults["tile"],
+                faults["split"]):
+            gaps[gname] += (block_gap(got, want), block_gap(bad, want),
+                            block_gap(lost, want))
             sound = max(gaps[gname][:3])
             check(sound <= gtol, f"{name}: {gname} off the plain versions by "
                   f"a block gap of {sound:.3g} (limit {gtol:.3g})")
             check(gaps[gname][3] > gtol, f"{name}: a lost tile in {gname} "
                   f"reads {gaps[gname][3]:.3g}, within the limit {gtol:.3g}")
+            check(gname == "dq" or gaps[gname][4] > gtol, f"{name}: a lost "
+                  f"split partial in {gname} reads {gaps[gname][4]:.3g}, "
+                  f"within the limit {gtol:.3g}")
         del dow, grads_w, want_w, faults
         bwd = lambda: FA.flash_attention_bwd(q, k, v, o, do, lse,  # noqa
                                              scale=scale)
@@ -1966,10 +2033,16 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
                   for k_, (a, b, c) in errs.items())
               + f" (tolerance {tol:.3g}); block gap (64 positions of a "
               f"head) vs the closed form / autograd / on dO by position, "
-              f"and a planted lost tile on dO by position: " + ", ".join(
-                  f"{k_} {a:.3g} / {b:.3g} / {c:.3g}, fault {f:.3g}"
-                  for k_, (a, b, c, f) in gaps.items())
-              + f" (limit {gtol:.3g}); two launches bitwise equal (the "
+              f"and on dO by position a planted lost tile and a lost split "
+              f"partial (dK, dV): " + ", ".join(
+                  f"{k_} {a:.3g} / {b:.3g} / {c:.3g}, faults {f:.3g}"
+                  + ("" if k_ == "dq" else f", {f2:.3g}")
+                  for k_, (a, b, c, f, f2) in gaps.items())
+              + f" (limit {gtol:.3g}); "
+              + ("the f32 dkdv pass: 16-key blocks, no splits" if f32 else
+                 f"dkdv plan {plan.key_tile} keys a block, {plan.blocks} "
+                 f"blocks a (b, KV head), at most {plan.splits} splits")
+              + f"{forced}; two launches bitwise equal (the "
               f"forward's too); lse max_abs_err {lse_err:.3g}; "
               f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} (dq pass "
               f"{dq_ms:.4f}, device {dq_dev:.4f}, bound "

@@ -3,7 +3,8 @@
 Kernels are CUDA C++ sources under ``repro_torch/csrc/``, compiled at
 first use with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface (``build/kernels/`` at the repository root, named by
-a hash of source and flags, so an edited source is rebuilt), and called
+a hash of the source, the headers it includes and the flags, so an
+edited source or header is rebuilt), and called
 through ``ctypes``.  Every C entry point takes raw device pointers and
 the stream as ``c_void_p``, launches on that stream without
 synchronising, and returns ``cudaGetLastError()``; a non-zero code
@@ -18,11 +19,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -56,12 +58,32 @@ def _nvcc() -> str:
                        "kernels are built from source at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes
+    (``#include "..."``, followed through the headers), each once."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [path.parent / m.decode()
+                 for m in _INCLUDE.findall(path.read_bytes())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to: keyed by source and flags."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    """Where ``csrc/<name>.cu`` builds to: keyed by the source, the
+    headers it includes (``sources``) and the flags, so an edited header
+    rebuilds every library that includes it."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:

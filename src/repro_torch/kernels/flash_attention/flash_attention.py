@@ -17,7 +17,10 @@ also writes each row's logsumexp), and the backward is
 counted under its own name: ``flash_attention_bwd_dq`` (writes dQ and
 each row's ``Di``) then ``flash_attention_bwd_dkdv`` (dK and dV; twice at
 head dim 256, dV then dK), or ``flash_attention_bwd_f32_dq`` and
-``flash_attention_bwd_f32_dkdv`` for f32 inputs.  It takes what
+``flash_attention_bwd_f32_dkdv`` for f32 inputs.  The bf16 dkdv pass
+follows ``bwd_plan``: each 64-key tile's row tiles cut into ranges, more
+of them for the key tiles that more rows see, the split ones folded in
+split order by the same launch.  It takes what
 ``lm_loss`` calls (causal, ``q_offset`` 0, no ``kv_len``, S equal to T,
 head dims ``HEAD_DIMS``); ``check_train_case`` refuses the rest, and
 ``flash_attention_split`` refuses grad.  With grad off nothing changes.
@@ -39,7 +42,7 @@ layout and its contract (``causal``, ``q_offset``, ``kv_len``);
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -69,13 +72,15 @@ F32 = CudaKernel("flash_attention_f32", "flash_attention_f32_launch",
                  _ARGS + [_I] + _SPLIT, source="flash_attention")
 _FWD = {k.name: k for k in (MMA, DECODE, F32)}
 # the backward passes: D, q, k, v, [o,] dout, dq | dk, dv, lse, di, B, S, Hq,
-# Hkv, scale, [mode,] stream
+# Hkv, scale, [mode, [plan, n_blocks, n_kt, splits, ws_k, ws_v, counters,
+# n_counters,]] stream
 _BWD_DQ = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
 _BWD_DKDV = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P]
+_BWD_DKDV_PLAN = _BWD_DKDV[:-1] + [_P, _I, _I, _I, _P, _P, _P, _I, _P]
 BWD_DQ = CudaKernel("flash_attention_bwd_dq", "flash_attention_bwd_dq_launch",
                     _BWD_DQ, source="flash_attention_bwd")
 BWD_DKDV = CudaKernel("flash_attention_bwd_dkdv",
-                      "flash_attention_bwd_dkdv_launch", _BWD_DKDV,
+                      "flash_attention_bwd_dkdv_launch", _BWD_DKDV_PLAN,
                       source="flash_attention_bwd")
 BWD_F32_DQ = CudaKernel("flash_attention_bwd_f32_dq",
                         "flash_attention_bwd_f32_dq_launch", _BWD_DQ,
@@ -370,6 +375,98 @@ def lse_by_head(lse: torch.Tensor, n_heads: int) -> torch.Tensor:
         B, n_heads, rows // rep)
 
 
+BWD_ROWS = 64                  # flattened rows of a dkdv row tile
+BWD_KEYS = 64                  # keys of a bf16 dkdv block
+MIN_SPLIT_ROW_TILES = 4        # row tiles of a dkdv split, at least
+
+
+class BwdPlan(NamedTuple):
+    """The bf16 dkdv pass's launch plan (``bwd_plan``): ``key_tile`` keys
+    a block, row tiles of ``row_tile`` flattened rows, and for each key
+    tile its splits' row-tile ranges [first, end), in order, covering the
+    key tile's row tiles (from the first that sees it to the last) once."""
+    key_tile: int
+    row_tile: int
+    ranges: Tuple[Tuple[Tuple[int, int], ...], ...]
+
+    @property
+    def splits(self) -> int:
+        """The most splits of any key tile (1: no fold)."""
+        return max(len(r) for r in self.ranges)
+
+    @property
+    def blocks(self) -> int:
+        """Blocks of one (b, KV head)."""
+        return sum(len(r) for r in self.ranges)
+
+
+def bwd_plan(B: int, S: int, Hq: int, Hkv: int, D: int, n_sm: int, *,
+             splits: Optional[int] = None) -> BwdPlan:
+    """The dkdv pass's plan for causal self-attention at (B, S, Hq, Hkv,
+    D) on ``n_sm`` SMs.  Key tile t (64 keys) is seen by the flattened
+    rows from position 64 t on: row tiles ``64 t rep // 64`` to the last,
+    each costing the block the same products whatever its mask keeps (a
+    kept pair's work is its row tile's).  One block a key tile, the
+    longest first, leaves the card to the longest when one key tile's
+    row tiles exceed an SM's share of all of them (MQA: gemma-2b at S
+    4,096 has 64 key tiles of one KV head, 512 row tiles in the first);
+    then every key tile's row tiles are cut into near-equal ranges of at
+    most half that share (at least ``MIN_SPLIT_ROW_TILES``), so each split
+    holds about the same causal work and the key tiles that more rows
+    see get more splits.  ``splits`` forces that many ranges a key tile
+    (fewer where it has fewer row tiles)."""
+    if D not in HEAD_DIMS or Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"no backward plan at head dim {D}, {Hq} heads "
+                         f"over {Hkv}")
+    rep = Hq // Hkv
+    n_rt = _cdiv(S * rep, BWD_ROWS)
+    first = [t * BWD_KEYS * rep // BWD_ROWS
+             for t in range(_cdiv(S, BWD_KEYS))]
+    work = [n_rt - f for f in first]
+    if splits is not None:
+        if splits < 1:
+            raise ValueError(f"splits must be at least 1, got {splits}")
+        counts = [min(splits, w) for w in work]
+    else:
+        share = B * Hkv * sum(work) / n_sm
+        chunk = (max(work) if max(work) <= share
+                 else max(MIN_SPLIT_ROW_TILES, int(share // 2)))
+        counts = [_cdiv(w, chunk) for w in work]
+    return BwdPlan(BWD_KEYS, BWD_ROWS, tuple(
+        tuple((f + i * w // n, f + (i + 1) * w // n) for i in range(n))
+        for f, w, n in zip(first, work, counts)))
+
+
+# the plans' tables on the card, by (plan, device): (table, blocks, slots)
+_BWD_TABLES: Dict[Tuple[BwdPlan, torch.device],
+                  Tuple[torch.Tensor, int, int]] = {}
+
+
+def bwd_table(plan: BwdPlan) -> Tuple[list, int]:
+    """The kernel's view of a plan: 4 ints a block (key tile, first row
+    tile, end row tile, split), the longest ranges first, then 2 a key
+    tile (its first workspace slot, -1 where it does not split, and its
+    splits); and the workspace slots (one a split of a split key tile)."""
+    blocks = sorted(((t, lo, hi, i) for t, r in enumerate(plan.ranges)
+                     for i, (lo, hi) in enumerate(r)),
+                    key=lambda e: (e[1] - e[2], e[0], e[3]))
+    groups, slots = [], 0
+    for r in plan.ranges:
+        groups += [slots if len(r) > 1 else -1, len(r)]
+        slots += len(r) if len(r) > 1 else 0
+    return [x for e in blocks for x in e] + groups, slots
+
+
+def _bwd_table(plan: BwdPlan, device: torch.device
+               ) -> Tuple[torch.Tensor, int, int]:
+    key = (plan, device)
+    if key not in _BWD_TABLES:
+        table, slots = bwd_table(plan)
+        _BWD_TABLES[key] = (torch.tensor(table, dtype=torch.int32,
+                                         device=device), plan.blocks, slots)
+    return _BWD_TABLES[key]
+
+
 def _bwd_check(q, k, v, do, lse, o=None, di=None) -> None:
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
@@ -386,6 +483,8 @@ def _bwd_check(q, k, v, do, lse, o=None, di=None) -> None:
         check_cuda(name, t, dtype, len(shape))
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes")
     if q.dtype not in _DTYPES or D not in HEAD_DIMS or Hq % Hkv:
         raise ValueError(f"no backward kernel for {q.dtype} at head dim {D}, "
                          f"{Hq} heads over {Hkv}")
@@ -405,35 +504,62 @@ def bwd_dq(q, k, v, o, do, lse, *, scale: float
     return dq, di
 
 
-def bwd_dkdv(q, k, v, do, lse, di, *, scale: float
+def bwd_dkdv(q, k, v, do, lse, di, *, scale: float,
+             splits: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 2 of the backward, after ``bwd_dq`` (it reads Di): (dK, dV) in
-    q's type, summed over each KV group's query heads.  bf16 at head dim
-    256 launches twice (dV, then dK: two 16 x 256 accumulators would take
-    every register)."""
+    q's type, summed over each KV group's query heads.  bf16 follows
+    ``bwd_plan`` (``splits`` forces its ranges a key tile), with the
+    split key tiles' f32 partials in a workspace allocated here, and at
+    head dim 256 launches twice (dV, then dK: the two 64 x 256
+    accumulators would take every register)."""
     _bwd_check(q, k, v, do, lse, di=di)
     B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    f32 = q.dtype == torch.float32
-    kern = BWD_F32_DKDV if f32 else BWD_DKDV
-    modes = (0,) if f32 or D <= 128 else (1, 2)
+    stream = stream_ptr(q)
+    args = [D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), di.data_ptr(), B, S,
+            Hq, Hkv, scale]
+    if q.dtype == torch.float32:
+        if splits is not None:
+            raise ValueError("splits is an option of the bf16 dkdv pass")
+        BWD_F32_DKDV.launch(*args, 0, stream)
+        return dk, dv
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = bwd_plan(B, S, Hq, Hkv, D, n_sm, splits=splits)
+    table, n_blocks, slots = _bwd_table(plan, q.device)
+    n_kt = len(plan.ranges)
+    modes = (0,) if D <= 128 else (1, 2)
+    ws, cnt, n = [None, None], None, 0
+    if plan.splits > 1:
+        # the kernels' head dim (D 32 runs padded to 64); the two modes at
+        # D 256 run one after the other and share one buffer
+        per = slots * B * Hkv * plan.key_tile * max(D, 64)
+        buf = torch.empty(per * len(ws) // len(modes), dtype=torch.float32,
+                          device=q.device)
+        ws = [buf[:per], buf[-per:]]
+        n = n_kt * B * Hkv
+        cnt = _counters(q.device, stream, n)
     for mode in modes:
-        kern.launch(D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-                    di.data_ptr(), B, S, Hq, k.shape[2], scale, mode,
-                    stream_ptr(q))
+        BWD_DKDV.launch(*args, mode, table.data_ptr(), n_blocks, n_kt,
+                        plan.splits, *(w if w is None else w.data_ptr()
+                                       for w in ws),
+                        None if cnt is None else cnt.data_ptr(), n, stream)
     return dk, dv
 
 
-def flash_attention_bwd(q, k, v, o, do, lse, *, scale: float
+def flash_attention_bwd(q, k, v, o, do, lse, *, scale: float,
+                        splits: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dQ, dK, dV of causal self-attention in q's type, from the forward's
     output ``o`` and ``lse`` (``flash_attention_lse``) and the output's
     gradient ``do``; all of q, k, v, o, do contiguous.  Two passes:
-    ``bwd_dq`` then ``bwd_dkdv``; no atomics, so a run repeats bitwise."""
+    ``bwd_dq`` then ``bwd_dkdv`` (``splits``: see there); no atomics on
+    values, so a run repeats bitwise."""
     dq, di = bwd_dq(q, k, v, o, do, lse, scale=scale)
-    dk, dv = bwd_dkdv(q, k, v, do, lse, di, scale=scale)
+    dk, dv = bwd_dkdv(q, k, v, do, lse, di, scale=scale, splits=splits)
     return dq, dk, dv
 
 

@@ -9,13 +9,19 @@ run only on the card: ``chip_smoke.py`` Phase 1 holds them there).
     dims 32, 128 and 256, GQA and MQA, S not a multiple of any tile,
     ``block_q`` 32 and 1024.
   * A write-out in torch of the kernels' tiling and summation order (the
-    dq pass over 64-row tiles and key tiles of 64, or 32 at head dim 256,
-    with Di from the output in its own type; the dkdv pass over 64-key
-    tiles and 32-row tiles of the flattened (position, head-in-group)
-    rows, position-major, from the first row tile that sees the key tile;
-    P and dS rounded once to bf16 as mma operands; f32 sums tile by tile;
-    the f32 kernels' 16 x 16 tiles with no rounding) held against the
-    closed form.
+    dq pass over 64-row tiles and 64-key tiles, with Di from the output in
+    its own type; the dkdv pass over 64-key tiles and 64-row tiles of the
+    flattened (position, head-in-group) rows, position-major, from the
+    first row tile that sees the key tile, cut into ``bwd_plan``'s
+    ranges, each range's f32 partial added in split order from 0; P and
+    dS rounded once to bf16 as wgmma operands; f32 sums tile by tile; the
+    f32 kernels' 16 x 16 tiles with no rounding) held against the closed
+    form, at the planned splits and at forced ones.
+  * ``bwd_plan``: gemma-2b's MQA fills 132 SMs, and every plan's ranges
+    cover each key tile's row tiles once, in order, none empty; its
+    table (``bwd_table``) lists the longest ranges first.
+  * ``common.library_path`` follows the headers a source includes
+    (``csrc/hopper.cuh``, shared by the forward and the backward).
   * The F1 guard through ``check_train_case``, which decides it, the
     training route's plan, and the forward's lse units.
 
@@ -38,7 +44,7 @@ norm-wise gap over each block of 64 positions of a head
 (``ref.py::block_gap``) sees it.  Its limits: bf16 2^-6 (the sound
 write-out reads about 2^-8.7, P, dS and the result rounded once each
 with random signs; a lost tile of S / 64 reads about sqrt(64 / S), 2^-5
-at gemma's 1,024 row tiles of 32), f32 2^-13 (sound about sqrt(n)
+at gemma's 512 row tiles of 64), f32 2^-13 (sound about sqrt(n)
 2^-24).
 The Di source alone (the bf16 output against the f32 one) is held to
 its own bound, 2^-8 M, on the write-out's dQ (seen here: at most 1.2e-3
@@ -161,12 +167,15 @@ def _unrows(t, S, rep):
         B, S, Hkv * rep, D)
 
 
-def kernel_writeout(q, k, v, o, do, lse, *, scale, bf16, drop=None):
+def kernel_writeout(q, k, v, o, do, lse, *, scale, bf16, drop=None,
+                    plan=None):
     """dQ, dK, dV (f32 before the output's rounding) by the kernels'
     tiling and order (module docstring); q, k, v, o, do in their own
-    type, lse (B, Hq, S) f32.  ``drop`` plants a lost tile: "dq" skips
-    key tile 0 in the dq pass's last row tile, "dkdv" skips the dkdv
-    pass's last row tile in key tile 0."""
+    type, lse (B, Hq, S) f32.  ``plan``: the bf16 dkdv pass's
+    (``K.bwd_plan`` at 132 SMs when None).  ``drop`` plants a lost tile:
+    "dq" skips key tile 0 in the dq pass's last row tile, "dkdv" skips the
+    dkdv pass's last row tile in key tile 0, "split" loses key tile 0's
+    last split (its whole partial) from the fold."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     rep = Hq // Hkv
@@ -177,12 +186,15 @@ def kernel_writeout(q, k, v, o, do, lse, *, scale, bf16, drop=None):
     L = _rows(lse.permute(0, 2, 1)[..., None], rep)[..., 0]   # (B, Hkv, rows)
     pos = torch.arange(rows) // rep
     if bf16:
-        bm_q, bn_q = 64, (64 if D <= 128 else 32)
-        bn_k, bm_k = 64, 32
+        bm_q = bn_q = bn_k = bm_k = 64
+        plan = plan or K.bwd_plan(B, S, Hq, Hkv, D, 132)
+        ranges = plan.ranges
         p_of = lambda s, lse_: torch.exp2(  # noqa: E731
             s * (scale * LOG2E) - lse_ * LOG2E)
     else:
         bm_q = bn_q = bn_k = bm_k = 16
+        ranges = [[(j0 * rep // bm_k, -(-rows // bm_k))]
+                  for j0 in range(0, S, bn_k)]
         p_of = lambda s, lse_: torch.exp(s * scale - lse_)  # noqa: E731
     di = (dO * O).sum(-1)                                    # (B, Hkv, rows)
     dq = torch.zeros_like(Q)
@@ -198,18 +210,26 @@ def kernel_writeout(q, k, v, o, do, lse, *, scale, bf16, drop=None):
             dp = dO[:, :, r] @ Vt[:, :, j].transpose(-1, -2)
             dq[:, :, r] += rnd(p * (dp - di[:, :, r, None])) @ Kt[:, :, j]
     dk, dv = torch.zeros_like(Kt), torch.zeros_like(Vt)
-    for j0 in range(0, S, bn_k):
+    for t, j0 in enumerate(range(0, S, bn_k)):
         j = torch.arange(j0, min(j0 + bn_k, S))
-        for r0 in range(j0 * rep // bm_k * bm_k, rows, bm_k):
-            if drop == "dkdv" and j0 == 0 and r0 + bm_k >= rows:
+        assert ranges[t][0][0] == j0 * rep // bm_k
+        for i, (lo, hi) in enumerate(ranges[t]):
+            if drop == "split" and t == 0 and i == len(ranges[t]) - 1:
                 continue
-            r = torch.arange(r0, min(r0 + bm_k, rows))
-            keep = j[:, None] <= pos[r][None, :]
-            sT = Kt[:, :, j] @ Q[:, :, r].transpose(-1, -2)
-            pT = torch.where(keep, p_of(sT, L[:, :, None, r]), 0.0)
-            dv[:, :, j] += rnd(pT) @ dO[:, :, r]
-            dpT = Vt[:, :, j] @ dO[:, :, r].transpose(-1, -2)
-            dk[:, :, j] += rnd(pT * (dpT - di[:, :, None, r])) @ Q[:, :, r]
+            pk = torch.zeros_like(dk[:, :, j])
+            pv = torch.zeros_like(dv[:, :, j])
+            for r0 in range(lo * bm_k, hi * bm_k, bm_k):
+                if drop == "dkdv" and t == 0 and r0 + bm_k >= rows:
+                    continue
+                r = torch.arange(r0, min(r0 + bm_k, rows))
+                keep = j[:, None] <= pos[r][None, :]
+                sT = Kt[:, :, j] @ Q[:, :, r].transpose(-1, -2)
+                pT = torch.where(keep, p_of(sT, L[:, :, None, r]), 0.0)
+                pv += rnd(pT) @ dO[:, :, r]
+                dpT = Vt[:, :, j] @ dO[:, :, r].transpose(-1, -2)
+                pk += rnd(pT * (dpT - di[:, :, None, r])) @ Q[:, :, r]
+            dk[:, :, j] += pk          # the fold: split order, from 0
+            dv[:, :, j] += pv
     return (_unrows(dq, S, rep) * scale, dk.permute(0, 2, 1, 3) * scale,
             dv.permute(0, 2, 1, 3))
 
@@ -247,7 +267,7 @@ def test_block_gap_sees_a_lost_tile_of_a_long_row(dtype, drop):
     ``GAP_TOL``) holds the sound write-out and sees a lost tile that M
     dilutes: on dO weighted by position (every row's share of a key's
     sums about 1/S, as chip_smoke.py weights it), a key tile missing from
-    the dq pass's last row tile or the last row tile missing from key
+    the dq pass's last row tile or the last 64-row tile missing from key
     tile 0's dkdv sums reads above the limit."""
     B, S, Hq, Hkv, D = 1, 1024, 2, 1, 128
     q, k, v, do = (_torch(a, dtype) for a in
@@ -264,6 +284,153 @@ def test_block_gap_sees_a_lost_tile_of_a_long_row(dtype, drop):
     lost = {None: (), "dq": (0,), "dkdv": (1, 2)}[drop]
     for i, gap in enumerate(gaps):
         assert (gap > GAP_TOL[dtype]) == (i in lost), gaps
+
+
+def test_block_gap_sees_a_lost_split_partial():
+    """The dkdv fold: a split's whole partial lost from key tile 0 (its
+    last range of row tiles; ``bwd_plan`` cuts key tile 0 of this shape
+    into 8) reads above the limit in dK and dV, and nowhere else."""
+    B, S, Hq, Hkv, D = 1, 1024, 2, 1, 128
+    dtype = torch.bfloat16
+    plan = K.bwd_plan(B, S, Hq, Hkv, D, 132)
+    assert len(plan.ranges[0]) > 1
+    q, k, v, do = (_torch(a, dtype) for a in
+                   _inputs(B, S, Hq, Hkv, D, seed=11))
+    do = (do.float() * (torch.arange(1, S + 1) / S)[None, :, None, None]
+          ).to(dtype)
+    scale = D ** -0.5
+    o, lse = chunked_attention_ref(q, k, v, causal=True, scale=scale,
+                                   return_lse=True)
+    want = attention_bwd_ref(q, k, v, o, do, lse, scale=scale)
+    got = kernel_writeout(q, k, v, o, do, lse, scale=scale, bf16=True,
+                          drop="split", plan=plan)
+    gaps = [block_gap(g.to(dtype), w) for g, w in zip(got, want)]
+    assert gaps[0] <= GAP_TOL[dtype] < min(gaps[1:]), gaps
+
+
+# (B, S, Hq, Hkv, D): the main path's three shapes, the ragged ones of
+# chip_smoke.py, and small cuts of each grouping
+PLAN_SHAPES = [(1, 4096, 16, 16, 128), (1, 4096, 24, 8, 128),
+               (1, 4096, 8, 1, 256), (2, 77, 6, 2, 64), (3, 100, 4, 1, 32),
+               (1, 70, 8, 1, 256), (1, 128, 8, 1, 256), (4, 64, 4, 4, 32),
+               (1, 1, 2, 1, 64), (2, 1000, 12, 4, 128)]
+
+
+def test_bwd_plan_fills_the_card_at_gemma():
+    """gemma-2b's MQA (one KV head: 64 key tiles at S 4,096) gets at
+    least two blocks an SM of 132, none longer than half an SM's share of
+    the row tiles; olmo-1b and llama3.2-3b already have 1,024 and 512
+    blocks, none longer than an SM's share, and keep one split."""
+    n_sm = 132
+    for (B, S, Hq, Hkv, D), want_split in (
+            ((1, 4096, 8, 1, 256), True), ((1, 4096, 16, 16, 128), False),
+            ((1, 4096, 24, 8, 128), False)):
+        plan = K.bwd_plan(B, S, Hq, Hkv, D, n_sm)
+        lengths = [hi - lo for r in plan.ranges for lo, hi in r]
+        share = B * Hkv * sum(lengths) / n_sm
+        assert plan.blocks * B * Hkv >= (2 * n_sm if want_split else n_sm)
+        assert (plan.splits > 1) == want_split
+        assert max(lengths) <= (share / 2 if want_split else share)
+    gemma = K.bwd_plan(1, 4096, 8, 1, 256, n_sm)
+    assert [len(r) for r in gemma.ranges][:2] == [9, 8]
+    assert len(gemma.ranges[-1]) == 1
+
+
+@pytest.mark.parametrize("splits", [None, 1, 4, 100])
+@pytest.mark.parametrize("n_sm", [1, 132])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", PLAN_SHAPES)
+def test_bwd_plan_ranges_cover_each_key_tile_once(B, S, Hq, Hkv, D, n_sm,
+                                                 splits):
+    """Each key tile's ranges start at the first row tile that sees it,
+    follow each other with no gap, end at the last row tile, and none is
+    empty; the table lists every range once, the longest first, and
+    gives each split key tile its own run of workspace slots."""
+    plan = K.bwd_plan(B, S, Hq, Hkv, D, n_sm, splits=splits)
+    rep = Hq // Hkv
+    n_rt = -(-S * rep // plan.row_tile)
+    assert len(plan.ranges) == -(-S // plan.key_tile)
+    for t, r in enumerate(plan.ranges):
+        assert r[0][0] == t * plan.key_tile * rep // plan.row_tile
+        assert r[-1][1] == n_rt
+        assert all(lo < hi for lo, hi in r)
+        assert all(a[1] == b[0] for a, b in zip(r, r[1:]))
+        if splits is not None:
+            assert len(r) == min(splits, n_rt - r[0][0])
+        lengths = [hi - lo for lo, hi in r]
+        assert max(lengths) - min(lengths) <= 1
+    table, slots = K.bwd_table(plan)
+    n = plan.blocks
+    blocks, groups = table[:4 * n], table[4 * n:]
+    entries = [tuple(blocks[i:i + 4]) for i in range(0, 4 * n, 4)]
+    assert sorted((t, i) for t, _, _, i in entries) == sorted(
+        (t, i) for t, r in enumerate(plan.ranges) for i in range(len(r)))
+    assert all(plan.ranges[t][i] == (lo, hi) for t, lo, hi, i in entries)
+    lengths = [hi - lo for _, lo, hi, _ in entries]
+    assert lengths == sorted(lengths, reverse=True)
+    starts = [g for g, c in zip(groups[::2], groups[1::2]) if c > 1]
+    counts = [c for c in groups[1::2] if c > 1]
+    assert [c for c in groups[1::2]] == [len(r) for r in plan.ranges]
+    assert starts == [sum(counts[:i]) for i in range(len(counts))]
+    assert slots == sum(counts)
+    assert all(g == -1 for g, c in zip(groups[::2], groups[1::2]) if c == 1)
+
+
+@pytest.mark.parametrize("splits", [2, 3])
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", CASES)
+def test_writeout_with_splits_within_bound_and_of_one_split(B, S, Hq, Hkv,
+                                                            D, splits):
+    """The bf16 write-out over split ranges (2 or 3 forced a key tile)
+    stays within the bound, and within f32 rounding (``F32_TOL`` of M)
+    of the same write-out at one split: only the order of the f32 sums
+    moves."""
+    q, k, v, do = _inputs(B, S, Hq, Hkv, D, seed=5 * S + D)
+    scale = D ** -0.5
+    dtype = torch.bfloat16
+    tq, tk, tv, tdo = (_torch(a, dtype) for a in (q, k, v, do))
+    o32, lse = chunked_attention_ref(tq.float(), tk.float(), tv.float(),
+                                     causal=True, scale=scale,
+                                     return_lse=True)
+    want = attention_bwd_ref(tq, tk, tv, o32, tdo, lse, scale=scale)
+    mag = attention_bwd_ref(tq, tk, tv, o32, tdo, lse, scale=scale,
+                            absolute=True)
+    plan = K.bwd_plan(B, S, Hq, Hkv, D, 132, splits=splits)
+    assert plan.splits > 1
+    o = o32.to(dtype)
+    got = kernel_writeout(tq, tk, tv, o, tdo, lse, scale=scale, bf16=True,
+                          plan=plan)
+    one = kernel_writeout(tq, tk, tv, o, tdo, lse, scale=scale, bf16=True,
+                          plan=K.bwd_plan(B, S, Hq, Hkv, D, 132, splits=1))
+    for g, w, m in zip(got, want, mag):
+        within(g.to(dtype), w, m, BF16_TOL)
+    torch.testing.assert_close(got[0], one[0], rtol=0, atol=0)
+    for g, w, m in zip(got[1:], one[1:], mag[1:]):
+        within(g, w, m, F32_TOL)
+
+
+def test_library_path_follows_included_headers(tmp_path, monkeypatch):
+    """A kernel library is named by its source, every ``csrc/`` header it
+    includes (through other headers too) and the flags: editing
+    ``hopper.cuh`` renames (so rebuilds) both flash-attention libraries,
+    and a header no source includes renames none."""
+    from repro_torch.kernels import common
+    assert [p.name for p in common.sources("flash_attention_bwd")] == [
+        "flash_attention_bwd.cu", "hopper.cuh"]
+    assert [p.name for p in common.sources("flash_attention")] == [
+        "flash_attention.cu", "hopper.cuh"]
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "x.cuh"\n#include <stdint.h>\n')
+    (csrc / "b.cu").write_text("int b;\n")
+    (csrc / "x.cuh").write_text('#pragma once\n#include "y.cuh"\n')
+    (csrc / "y.cuh").write_text("int y;\n")
+    (csrc / "z.cuh").write_text("int z;\n")
+    monkeypatch.setattr(common, "CSRC", csrc)
+    before = {n: common.library_path(n) for n in ("a", "b")}
+    (csrc / "z.cuh").write_text("int z2;\n")
+    assert {n: common.library_path(n) for n in ("a", "b")} == before
+    (csrc / "y.cuh").write_text("int y2;\n")
+    after = {n: common.library_path(n) for n in ("a", "b")}
+    assert after["a"] != before["a"] and after["b"] == before["b"]
 
 
 def test_writeout_sums_a_group_in_head_order():
