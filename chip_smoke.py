@@ -6,6 +6,7 @@
     python3 chip_smoke.py --contrastive-only   # Phase 1's fused_contrastive
     python3 chip_smoke.py --attention-only     # Phase 1's flash_attention
     python3 chip_smoke.py --decode-only REPS   # Phase 5's decode steps
+    python3 chip_smoke.py --lm-train-only      # Phase 10 alone
 
 Phase 0 prints the card (``nvidia-smi`` name and power limit) and
 builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, one
@@ -215,6 +216,40 @@ bf16 against the plain attention on the card (loss within 2^-7, each
 gradient within 2^-4 norm-wise: bf16 rounds at other places through
 both layers, so no per-entry bound holds).
 
+Phase 10 runs the rest of LM training and the MoE layers, each part's
+bytes reckoned and printed before it runs.  10a: ``run_lm`` (the
+launcher's loop: AdamW at 1e-3, ``block_q`` 32, no clipping) on the
+card at ``_reduced`` olmo-1b, llama3.2-3b, gemma-2b and grok-1-314b (2
+layers, d 128, head dim 32, f32, B 4 x S 64: ``flash_attention_f32``
+with lse and the f32 backward pair), every step's loss within
+``CARD_CPU_LM_REL`` of the port's own ``run_lm`` on the CPU from the
+same parameters; the reduced kimi-k2 (top-8 of the 4 experts the cut
+leaves) raises the reference's ``top_k`` error.  10b: first
+``apply_leafwise`` bitwise against ``update`` + ``apply_updates`` (AdamW
+and Adafactor, two steps, llama3.2-3b at Phase 9's 2 layers); then three
+``lm_train_step``s (the train_4k cell's step: ``lm_loss``, clipping at
+1.0, ``make_optimizer(cfg.optimizer)`` applied leaf by leaf) of
+llama3.2-3b (28 layers) and gemma-2b (18) at full width and depth, B 1 x
+S 4,096 (the cut of Phase 9), with the step split (forward, backward,
+optimizer), peak memory beside the reckoning, the launches of each step
+checked, the gradients finite and non-zero at step 0 and the losses
+falling on the repeated batch.  10c: grok-1-314b at full width, 1 of
+its 64 layers (d 6,144, 48 heads over 8, 8 experts top-2 at ff 32,768,
+bf16 params), three ``lm_train_step``s with Adafactor at B 1 x S 4,096
+(capacity 1,281 slots an expert), printing each step's slots per
+expert, the share dropped and aux; the MoE block in bf16 against f32 on
+the same input (the share of tokens whose expert choices differ; the
+outputs of the others within ``P4_REL`` of the largest) and
+``_moe_scatter`` against ``_moe_dense`` at a capacity that drops
+nothing.  10d: kimi-k2-1t-a32b serving at full width, 1 of its 61
+layers (d 7,168, 64 heads over 8 at head dim 112, 384 experts top-8 at
+ff 2,048; 38.8 GB of bf16 params): a prefill of 4,096 tokens (the
+tile kernel at D 112) and 16 greedy decode steps (the decode kernel at D
+112, its splits folded), the decode logits within ``BF16_LM_TOL`` of
+``forward``'s at the same positions.  Kimi does not train on one card:
+its gradients would double the 38.8 GB of params and Adafactor's f32
+temporaries of its 5.6 G-entry ``w_gate`` come on top.
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
 ``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
@@ -222,8 +257,10 @@ Phase 4's serve and train stages, ``flash_attention*`` Phase 5's serve
 stages; Phase 6's launches of ``rq_assign``, ``ppr_walk`` and
 ``fused_contrastive_*``, Phase 7's of those and ``queue_gather``,
 Phase 8's of ``queue_gather``, ``rq_assign`` and
-``fused_contrastive_*``, and Phase 9's main run's of ``flash_attention``
-and ``flash_attention_bwd_*`` are added to those.  Every kernel in the
+``fused_contrastive_*``, Phase 9's main run's of ``flash_attention``
+and ``flash_attention_bwd_*``, and Phase 10's runs' (``run_lm``, the
+train steps, kimi's prefill and decode; not its checks) are added to
+those; the f32 kernels' come from Phase 10a alone.  Every kernel in the
 list must have launched on its path.
 
 The second-to-last line is a JSON object listing every ported kernel
@@ -315,8 +352,10 @@ from repro_torch.kernels.queue_gather.ref import (  # noqa: E402
     dup_of_earlier, queue_gather_ref, ring_window)
 from repro_torch.kernels.rq_assign import rq_assign as RQA  # noqa: E402
 from repro_torch.kernels.rq_assign.ref import rq_assign_ref  # noqa: E402
+from repro_torch.launch import train as TRAIN  # noqa: E402
 from repro_torch.launch.steps import (lm_decode_step,  # noqa: E402
-                                      lm_prefill_step, recsys_retrieval_step,
+                                      lm_prefill_step, lm_train_step,
+                                      recsys_retrieval_step,
                                       recsys_serve_step, recsys_train_step,
                                       top_k)
 from repro_torch.lifecycle import (LifecycleConfig,  # noqa: E402
@@ -329,6 +368,7 @@ from repro_torch.models.lm import model as LM  # noqa: E402
 from repro_torch.models.recsys import models as R  # noqa: E402
 from repro_torch.obs import MemorySink, Telemetry  # noqa: E402
 from repro_torch.obs.report import render  # noqa: E402
+from repro_torch.optim import optimizers as OPT  # noqa: E402
 from repro_torch.optim.optimizers import (adamw,  # noqa: E402
                                           apply_updates,
                                           rankgraph2_optimizer)
@@ -432,6 +472,14 @@ P9_CHECK_LAYERS = 2
 P9_CHECK_S = {"olmo-1b": 256, "llama3.2-3b": 256, "gemma-2b": 128}
 P9_BF16_LOSS = 2.0 ** -7     # bf16, kernels vs plain attention: the loss
 P9_BF16_NORM = 2.0 ** -4     # ... and each gradient, norm-wise
+GROK = get_arch("grok-1-314b").config   # MoE 8 experts top-2, bf16 params
+KIMI = get_arch("kimi-k2-1t-a32b").config   # 384 experts top-8, head dim 112
+P10_STEPS = 3                # run_lm's and lm_train_step's steps
+P10A_ARCHS = ("olmo-1b", "llama3.2-3b", "gemma-2b", "grok-1-314b")
+P10B_ARCHS = ("llama3.2-3b", "gemma-2b")
+P10_B, P10_S = 1, 4096       # train_4k cut to one sequence, as Phase 9
+P10_MOE_LAYERS = 1           # of grok's 64 and kimi's 61
+P10_KIMI_S = 4096            # kimi's prefill
 
 
 def card_peaks(name: str):
@@ -1364,6 +1412,9 @@ FA_SHAPES = (
     ("decode_32k", 8, 1, 24, 8, 32768, 128, False),
     ("long_500k", 1, 1, 24, 8, 524288, 128, False),
     ("gemma_prefill_8k", 1, 8192, 8, 1, 8192, 256, True),
+    # kimi-k2's head dim 112 (Phase 10d): prefill 4,096, a decode step
+    ("kimi_prefill_4k", 1, 4096, 64, 8, 4096, 112, True),
+    ("kimi_decode_4k", 1, 1, 64, 8, 4096, 112, False),
 )
 FA_SMALL = (
     # tests/test_kernels.py's sweep (B, Hq, Hkv, S, T, D, causal), in the
@@ -1372,6 +1423,8 @@ FA_SMALL = (
     (2, 4, 1, 1, 300, 64, True), (1, 2, 2, 128, 256, 64, False),
     (1, 8, 8, 96, 96, 128, True), (1, 8, 1, 70, 333, 256, True),
     (1, 8, 1, 1, 2000, 256, True),           # gemma-like decode, split
+    (1, 8, 2, 40, 40, 112, True),            # head dim 112: tile kernels
+    (1, 8, 2, 1, 300, 112, True),            # ... and decode
 )
 BF16_STEP = 2.0 ** -7        # one bf16 rounding, relative
 
@@ -1427,7 +1480,7 @@ def check_fa_launches(got: dict, kernel: str, what: str):
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
 def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
@@ -1522,6 +1575,41 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
           f"flash_attention_decode; splits 2, 5 and 11 folded in one "
           f"launch, also against merge_ref of their partials), one launch "
           f"each as planned")
+    # head dim 112 (kimi-k2): the bf16 kernels on their 128 tiles with the
+    # last 16 columns zero-filled, the f32 kernel as it is; ragged kv_len,
+    # an offset and forced splits, folded at 112 columns
+    for dtype, S, kernels in ((torch.float32, 5, ("flash_attention_f32",)),
+                              (bf16, 2, ("flash_attention_decode",
+                                         "flash_attention")),
+                              (bf16, 50, ("flash_attention",))):
+        q = torch.randn((3, S, 8, 112), generator=g, device=dev).to(dtype)
+        k = torch.randn((3, 700, 2, 112), generator=g, device=dev).to(dtype)
+        v = torch.randn((3, 700, 2, 112), generator=g, device=dev).to(dtype)
+        tol = 3e-4 if dtype == torch.float32 else BF16_STEP
+        kw = dict(causal=True, q_offset=600, kv_len=kvl, scale=112 ** -0.5)
+        want = chunked_attention_ref(q, k, v, **kw)
+        got, n = fa_launches(lambda: FA.flash_attention(q, k, v, **kw))
+        what = f"head dim 112 ({dtype}, S {S})"
+        check(got.shape == q.shape and close(got, want, tol),
+              f"flash_attention at {what} off the plain version")
+        check_fa_launches(n, planned(q, k, 700)[0], what)
+        for kernel in kernels:
+            for splits in (2, 5):
+                (got, part), n = fa_launches(lambda: FA.flash_attention_split(
+                    q, k, v, splits=splits, kernel=kernel,
+                    rpt=4 if dtype == torch.float32 else None, **kw))
+                check_fa_launches(n, kernel, f"{kernel} at {what}")
+                check(part[2].shape[-1] == 112 and close(got, want, tol)
+                      and close(got, merge_ref(*part, n_heads=8,
+                                               dtype=torch.float32),
+                                1e-5 if dtype == torch.float32
+                                else BF16_STEP),
+                      f"{kernel} at {what} with {splits} forced splits off "
+                      f"the plain version or merge_ref of its partials")
+    print("[phase1] flash_attention at head dim 112: f32 (flash_attention_f32)"
+          " and bf16 (flash_attention_decode, flash_attention on the D 128 "
+          "tiles) with ragged kv_len, an offset and 2 and 5 forced splits "
+          "held against the plain version and merge_ref of their partials")
 
     # (b) the main path's launch shapes, bf16
     rows = {}
@@ -2060,6 +2148,28 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
                          dq_dev=dq_dev, dkdv_dev=dkdv_dev,
                          plain_ms=plain_ms, bounds=bounds, sdpa=both_ms,
                          sdpa_bwd=sdpa_bwd_ms, gaps=gaps)
+        if name == "reduced":
+            # run_lm's forward (Phase 10a): the training route at this shape
+            fwd = lambda: FA.flash_attention_lse(q, k, v,  # noqa: E731
+                                                 scale=scale)
+            ops, nbytes = fa_work(B, S, Hq, Hkv, S, D, True, 4)
+            t_o, t_b = ops / peaks[0], nbytes / peaks[1]
+            lib_ms, _ = sdpa_library(q, k, v, True, scale, math=True)
+            out["reduced_fwd"] = dict(
+                err=float((o - o_ref).abs().max()), ms=time_ms(fwd, 50),
+                dev_ms=time_ms(fwd, 50, lead=True),
+                plain_ms=time_ms(lambda: chunked_attention_ref(
+                    q, k, v, causal=True, scale=scale, return_lse=True), 5),
+                bound=(max(t_o, t_b) * 1e3,
+                       "operations" if t_o >= t_b else "bytes"),
+                sdpa=lib_ms)
+            r_ = out["reduced_fwd"]
+            print(f"[phase1] flash_attention_f32 with lse at run_lm's shape "
+                  f"(Phase 10a): max_abs_err={r_['err']:.3g} kernel_ms="
+                  f"{r_['ms']:.4f} device_ms={r_['dev_ms']:.4f} plain_ms="
+                  f"{r_['plain_ms']:.4f} sdpa_ms={lib_ms} (math backend "
+                  f"allowed) bound_ms={r_['bound'][0]:.5f} "
+                  f"({r_['bound'][1]} at the FP32 rate)")
         del q, k, v, do, o, lse, o_off, o_ref, lse_ref, grads
         torch.cuda.empty_cache()
     fa_bwd_guard(dev)
@@ -2083,7 +2193,29 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
                  plain_ms=r["plain_ms"],
                  bound_ms=r["bounds"]["dkdv 8 D"][0],
                  bound_by=r["bounds"]["dkdv 8 D"][1], library_ms=None,
-                 device_ms=r["dkdv_dev"])]
+                 device_ms=r["dkdv_dev"])] + f32_rows(out)
+
+
+def f32_rows(out: dict) -> list:
+    """The f32 kernels that ``run_lm`` launches (Phase 10a), at its shape
+    (``FA_BWD_SHAPES``' "reduced"): the forward with lse and the backward
+    pair, each with its own bound (FP32 rate)."""
+    r, f = out["reduced"], out["reduced_fwd"]
+    src = "src/repro_torch/csrc/flash_attention_bwd.cu"
+    ref = "src/repro/models/lm/model.py:152"
+    return [dict(name="flash_attention_f32", route="cuda",
+                 source="src/repro_torch/csrc/flash_attention.cu",
+                 replaces="src/repro/kernels/flash_attention/"
+                          "flash_attention.py:91",
+                 max_abs_err=f["err"], ms=f["ms"], plain_ms=f["plain_ms"],
+                 bound_ms=f["bound"][0], bound_by=f["bound"][1],
+                 library_ms=f["sdpa"], device_ms=f["dev_ms"])] + [
+        dict(name=f"flash_attention_bwd_f32_{p}", route="cuda", source=src,
+             replaces=ref, max_abs_err=r["err"], ms=r[f"{p}_ms"],
+             plain_ms=r["plain_ms"], bound_ms=r["bounds"][b][0],
+             bound_by=r["bounds"][b][1], library_ms=None,
+             device_ms=r[f"{p}_dev"])
+        for p, b in (("dq", "dq 6 D"), ("dkdv", "dkdv 8 D"))]
 
 
 # ---------------------------------------------------------------------------
@@ -3639,6 +3771,491 @@ def phase9(seed: int, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the rest of LM training, and the MoE layers
+# ---------------------------------------------------------------------------
+
+def cpu_tree(params) -> dict:
+    """A CPU copy of an LM parameter tree."""
+    def cp(x):
+        return x.detach().to("cpu", copy=True)
+    return {k: ([{n: cp(x) for n, x in lp.items()} for lp in v]
+                if k == "layers" else cp(v)) for k, v in params.items()}
+
+
+def add_counts(total: dict, more: dict) -> dict:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def nonzero_launches() -> dict:
+    return {k: v for k, v in common.launch_counts().items() if v}
+
+
+def gb(n_bytes: float) -> str:
+    return f"{n_bytes / 1e9:.3f} GB"
+
+
+def train_steps(params, cfg, opt, st, toks, what: str, routes=None):
+    """``P10_STEPS`` calls of ``lm_train_step`` (the entry point, as a user
+    calls it) on the repeated batch ``toks``.  While they run, wrappers
+    time ``lm_loss`` (the forward) and ``clip_by_global_norm_`` plus
+    ``apply_leafwise`` (the optimizer) inside the step, each between two
+    syncs (the backward is the rest of the step's host time after a
+    sync), check at step 0 that every gradient is finite and not all zero
+    (before clipping), and with ``routes`` (a list) record each
+    ``_router`` call's per-expert slot counts and aux; the losses must
+    be finite and fall below the first on the repeated batch (AdamW's
+    first steps move every entry by about lr, so a later step may
+    overshoot: it is printed, not held).  Returns (losses,
+    gradient norms, (forward, backward, optimizer) seconds a step,
+    launches a step, the optimizer state)."""
+    sec, first = {}, [True]
+
+    def timed(key, fn, before=None):
+        def inner(*a, **k):
+            if before is not None:
+                before(*a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            sec[key] = sec.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return inner
+
+    def grads_held(grads, *_):
+        if first[0]:
+            first[0] = False
+            for name, gr in grads.items():
+                check(bool(torch.isfinite(gr).all())
+                      and float(gr.abs().max()) > 0,
+                      f"{what} step 0: gradient of {name} not finite or zero")
+
+    def recorded(fn):
+        def inner(p, c, xt):
+            gate, eid, aux = fn(p, c, xt)
+            routes.append((torch.bincount(eid.reshape(-1),
+                                          minlength=c.n_experts).cpu(),
+                           float(aux.detach())))
+            return gate, eid, aux
+        return inner
+
+    orig = (LM.lm_loss, OPT.clip_by_global_norm_, OPT.apply_leafwise,
+            LM._router)
+    LM.lm_loss = timed("forward", orig[0])
+    OPT.clip_by_global_norm_ = timed("optimizer", orig[1], grads_held)
+    OPT.apply_leafwise = timed("optimizer", orig[2])
+    if routes is not None:
+        LM._router = recorded(orig[3])
+    losses, norms, split, per_step = [], [], [], []
+    try:
+        for _ in range(P10_STEPS):
+            sec.clear()
+            before = common.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, gnorm, st = lm_train_step(params, cfg, opt, st, toks)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            losses.append(float(loss))
+            norms.append(float(gnorm))
+            split.append((sec["forward"], total - sec["forward"]
+                          - sec["optimizer"], sec["optimizer"]))
+            per_step.append({k: n - before[k] for k, n in
+                             common.launch_counts().items()
+                             if n != before[k]})
+    finally:
+        (LM.lm_loss, OPT.clip_by_global_norm_, OPT.apply_leafwise,
+         LM._router) = orig
+    check(all(np.isfinite(losses)) and min(losses[1:]) < losses[0],
+          f"{what}: losses {losses} do not fall below the first on the "
+          f"repeated batch")
+    return losses, norms, split, per_step, st
+
+
+def step_summary(losses, norms, split) -> str:
+    med = sorted(sum(s) for s in split)[len(split) // 2]
+    return (f"losses {[round(x, 6) for x in losses]} (the repeated "
+            f"batch), gradient norms before clipping "
+            f"{[round(x, 4) for x in norms]}; step seconds (forward, "
+            f"backward, optimizer) "
+            f"{[tuple(round(x, 4) for x in s) for s in split]}, median step "
+            f"{med:.4f} s ({P10_B * P10_S / med:.0f} tokens/s)")
+
+
+def phase10a(dev) -> dict:
+    """``run_lm`` on the card at ``_reduced`` olmo-1b, llama3.2-3b,
+    gemma-2b and grok-1-314b (f32, B 4 x S 64, head dim 32: the f32
+    attention kernels, with lse, and the f32 backward pair), each step's
+    loss within ``CARD_CPU_LM_REL`` of the port's own ``run_lm`` on the
+    CPU from the same parameters; the reduced kimi-k2 raises the
+    reference's ``top_k`` error.  Returns the card runs' launches."""
+    total = {}
+    for arch in P10A_ARCHS:
+        cfg = TRAIN._reduced(get_arch(arch).config)
+        L = cfg.n_layers
+        params = LM.init_params(cfg, generator=torch.Generator(
+            dev).manual_seed(0), device=dev)
+        host = cpu_tree(params)
+        n_par = sum(p.numel() for p in LM.named_params(params).values())
+        print(f"[phase10a] {arch} reduced: {gb(4 * n_par)} of f32 params, "
+              f"{gb(4 * 4 * 4 * 64 * cfg.vocab_size)} of f32 logits a step")
+        common.reset_launches()
+        card = TRAIN.run_lm(cfg, P10_STEPS, device=dev, params=params)
+        torch.cuda.synchronize()
+        n = nonzero_launches()
+        want = {"flash_attention_f32": 2 * L * P10_STEPS,
+                "flash_attention_bwd_f32_dq": L * P10_STEPS,
+                "flash_attention_bwd_f32_dkdv": L * P10_STEPS}
+        check(n == want, f"run_lm {arch}: launches {n}, want {want} (the "
+              f"forward with lse, the remat recompute, the backward pair)")
+        add_counts(total, n)
+        cpu = TRAIN.run_lm(cfg, P10_STEPS, device="cpu", params=host)
+        gap = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+        check(gap <= CARD_CPU_LM_REL, f"run_lm {arch}: card {card} cpu "
+              f"{cpu}, gap {gap:.3g}")
+        print(f"[phase10a] run_lm {arch}: card losses {card}, CPU "
+              f"{cpu}, largest gap {gap:.3g} relative (limit "
+              f"{CARD_CPU_LM_REL}); launches {n}")
+        del params, host
+    try:
+        TRAIN.run_lm(TRAIN._reduced(KIMI), 1, device=dev)
+    except ValueError as e:
+        check("top_k" in str(e) and f"k={KIMI.n_experts_per_tok}" in str(e),
+              f"reduced kimi raised {e!r}")
+        print(f"[phase10a] run_lm kimi-k2-1t-a32b reduced raises, as the "
+              f"reference's jax.lax.top_k does: {e}")
+    else:
+        raise AssertionError("reduced kimi (top-8 of 4 experts) ran")
+    torch.cuda.empty_cache()
+    return total
+
+
+def leafwise_held(seed: int, dev) -> str:
+    """The leaf-by-leaf update (``apply_leafwise``) bitwise against the
+    whole-dict one (``update`` then ``apply_updates``) on the card: two
+    steps of AdamW and of Adafactor at Phase 9's check size (llama3.2-3b
+    at full width, 2 layers, f32 params), random gradients."""
+    cfg = dataclasses.replace(LLAMA, n_layers=P9_CHECK_LAYERS)
+    out = []
+    for name in ("adamw", "adafactor"):
+        g = torch.Generator(dev).manual_seed(seed + 100)
+        whole = LM.named_params(LM.init_params(cfg, generator=g, device=dev))
+        leaf = {k: p.clone() for k, p in whole.items()}
+        opt = OPT.make_optimizer(name)
+        sw, sl = opt.init(whole), opt.init(leaf)
+        for _ in range(2):
+            grads = {k: torch.randn(p.shape, generator=g, device=dev)
+                     .mul_(1e-3) for k, p in whole.items()}
+            upd, sw = opt.update(grads, sw, whole)
+            apply_updates(whole, upd)
+            del upd
+            sl = OPT.apply_leafwise(opt, dict(grads), sl, leaf)
+            del grads
+        same = all(same_bits(whole[k], leaf[k]) for k in whole)
+        states = [(sw.mu, sl.mu), (sw.nu, sl.nu)] if name == "adamw" else \
+            [(sw.vr, sl.vr), (sw.vc, sl.vc)]
+        same = same and sw.count == sl.count == 2 and all(
+            same_bits(a[k], b[k]) for a, b in states for k in a)
+        check(same, f"apply_leafwise ({name}) differs from update + "
+              f"apply_updates on the card")
+        out.append(f"{name} ({len(whole)} leaves, "
+                   f"{gb(4 * sum(p.numel() for p in whole.values()))})")
+        del whole, leaf, sw, sl
+        torch.cuda.empty_cache()
+    return ", ".join(out)
+
+
+def phase10b(seed: int, dev) -> dict:
+    """llama3.2-3b (28 layers) and gemma-2b (18) at full width and depth:
+    ``P10_STEPS`` ``lm_train_step``s with ``make_optimizer(cfg.optimizer)``
+    (AdamW at 3e-4) and clipping at B 1 x S 4,096 (train_4k cut to one
+    sequence, as Phase 9); first the leaf-by-leaf update held bitwise
+    against the whole-dict one.  Returns the steps' launches."""
+    print(f"[phase10b] apply_leafwise bitwise equal to update + "
+          f"apply_updates, two steps each: {leafwise_held(seed, dev)}")
+    total = {}
+    for arch in P10B_ARCHS:
+        cfg = get_arch(arch).config
+        L, V = cfg.n_layers, cfg.vocab_size
+        g = torch.Generator(dev).manual_seed(seed + 101)
+        params = LM.init_params(cfg, generator=g, device=dev)
+        flat = LM.named_params(params)
+        n_par = sum(p.numel() for p in flat.values())
+        check(n_par == cfg.n_params(), f"{arch}: {n_par} params, want "
+              f"{cfg.n_params()}")
+        opt = OPT.make_optimizer(cfg.optimizer)
+        st = opt.init(flat)
+        toks = lm_tokens(cfg, g, P10_B, P10_S, dev)
+        big = max(p.numel() for p in flat.values())
+        reckon = {"f32 params": 4 * n_par, "gradients": 4 * n_par,
+                  "AdamW moments": 8 * n_par,
+                  "logits (bf16, f32, f32 gradient)": 10 * P10_S * V,
+                  "one leaf's update temporaries (4 f32 copies of the "
+                  "largest)": 16 * big}
+        print(f"[phase10b] {arch}: {L} layers, d {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} at D "
+              f"{cfg.resolved_head_dim}, ff {cfg.d_ff}, vocab {V}; bytes "
+              f"reckoned: " + ", ".join(f"{k} {gb(v)}"
+                                        for k, v in reckon.items())
+              + f"; sum {gb(sum(reckon.values()))}")
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, split, per_step, st = train_steps(
+            params, cfg, opt, st, toks, arch)
+        peak = torch.cuda.max_memory_allocated()
+        want = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkdv":
+                    L if cfg.resolved_head_dim <= 128 else 2 * L}
+        for i, n in enumerate(per_step):
+            check(n == want, f"{arch} step {i}: launches {n}, want {want}")
+            add_counts(total, n)
+        check(peak < 80e9, f"{arch}: peak {gb(peak)}")
+        print(f"[phase10b] {arch}: {step_summary(losses, norms, split)}; "
+              f"peak device memory {gb(peak)}; launches a step {per_step[0]} "
+              f"(forward with lse {L}, remat recompute {L}, the backward "
+              f"passes)")
+        del params, flat, st, opt
+        torch.cuda.empty_cache()
+    return total
+
+
+def moe_loads(routes, cap: int, k: int) -> list:
+    """(per-expert slots, share of slots dropped, aux) of each recorded
+    router call."""
+    out = []
+    for counts, aux in routes:
+        drop = int(torch.clamp_min(counts - cap, 0).sum())
+        out.append((counts.tolist(), drop / int(counts.sum()), aux))
+    return out
+
+
+def phase10c(seed: int, dev) -> dict:
+    """grok-1-314b at full width, 1 of its 64 layers, bf16 params:
+    ``P10_STEPS`` ``lm_train_step``s with Adafactor and clipping at B 1 x
+    S 4,096 (capacity 1,281 slots an expert); the MoE block in bf16
+    against the same block in f32 on the same bf16 inputs (expert choices
+    first; outputs on the tokens whose choices agree and whose slots both
+    keep, within ``P4_REL`` of the largest); ``_moe_scatter`` against
+    ``_moe_dense`` at a capacity that drops nothing.  Returns the steps'
+    launches."""
+    cfg = dataclasses.replace(GROK, n_layers=P10_MOE_LAYERS)
+    T, E, k, d = P10_B * P10_S, cfg.n_experts, cfg.n_experts_per_tok, \
+        cfg.d_model
+    cap = LM.moe_capacity(cfg, T)
+    check(cap == 1281, f"grok capacity {cap} at T {T}")
+    g = torch.Generator(dev).manual_seed(seed + 102)
+    params = LM.init_params(cfg, generator=g, device=dev)
+    flat = LM.named_params(params)
+    n_par = sum(p.numel() for p in flat.values())
+    check(n_par == cfg.n_params() and all(
+        p.dtype == torch.bfloat16 for p in flat.values()),
+        f"grok: {n_par} params, want {cfg.n_params()} in bf16")
+    opt = OPT.make_optimizer(cfg.optimizer)
+    st = opt.init(flat)
+    n_state = sum(t.numel() for part in (st.vr, st.vc) for t in part.values())
+    toks = lm_tokens(cfg, g, P10_B, P10_S, dev)
+    big = max(p.numel() for p in flat.values())
+    reckon = {"bf16 params": 2 * n_par, "bf16 gradients": 2 * n_par,
+              "clipped gradients (f32, the JAX package's promotion)":
+                  4 * n_par,
+              "Adafactor state (f32)": 4 * n_state,
+              "one leaf's Adafactor temporaries (w_gate, 2 f32 copies)":
+                  8 * big,
+              "logits (bf16, f32, f32 gradient)": 10 * T * cfg.vocab_size}
+    print(f"[phase10c] grok-1-314b: {P10_MOE_LAYERS} of 64 layers, d {d}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} at D "
+          f"{cfg.resolved_head_dim}, {E} experts top-{k} at ff "
+          f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}, bf16 params ({n_par}); "
+          f"capacity {cap} slots an expert of {T * k}; bytes reckoned: "
+          + ", ".join(f"{k_} {gb(v)}" for k_, v in reckon.items())
+          + f" (peak about params + clipped gradients + temporaries: "
+          f"{gb(2 * n_par + 4 * n_par + 8 * big)})")
+    torch.cuda.reset_peak_memory_stats()
+    routes = []
+    losses, norms, split, per_step, st = train_steps(
+        params, cfg, opt, st, toks, "grok", routes=routes)
+    peak = torch.cuda.max_memory_allocated()
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkdv": L}
+    total = {}
+    for i, n in enumerate(per_step):
+        check(n == want, f"grok step {i}: launches {n}, want {want}")
+        add_counts(total, n)
+    # the router runs twice a step (forward, remat recompute): the first
+    loads = moe_loads(routes[::2], cap, k)
+    print(f"[phase10c] grok: {step_summary(losses, norms, split)}; peak "
+          f"device memory {gb(peak)}; launches a step {per_step[0]}")
+    for i, (counts, drop, aux) in enumerate(loads):
+        print(f"[phase10c] grok step {i}: slots per expert {counts} "
+              f"(capacity {cap}), share of slots dropped {drop:.6f}, aux "
+              f"{aux:.6g}")
+    del st, opt, flat
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        lp = params["layers"][0]
+        x = torch.randn((P10_B, P10_S, d), generator=g, device=dev
+                        ).to(torch.bfloat16)
+        xt = x.reshape(T, d)
+        _, eb, _ = LM._router(lp, cfg, xt)
+        _, ef, _ = LM._router(lp, cfg, xt.float())
+        agree = (eb == ef).all(dim=-1)
+        kept = [(LM._pos_in_group(e.reshape(-1)) < cap).reshape(T, k)
+                .all(dim=-1) for e in (eb, ef)]
+        sel = agree & kept[0] & kept[1]
+        ob = LM._moe_block(lp, cfg, x)[0].reshape(T, d)
+        of = LM._moe_block(lp, cfg, x.float())[0].reshape(T, d)
+        e_bf = near(ob[sel], of[sel], P4_REL)
+        check(e_bf <= 1, f"grok MoE block bf16 vs f32: {e_bf:.3g} of the "
+              f"limit")
+        del of
+        wide = dataclasses.replace(cfg, capacity_factor=E / k)
+        check(LM.moe_capacity(wide, T) > T, "no-drop capacity")
+        o_sc = LM._moe_scatter(lp, wide, x)[0]
+        o_de = LM._moe_dense(lp, wide, x)[0]
+        e_sd = near(o_sc, o_de, P4_REL)
+        check(e_sd <= 1, f"grok _moe_scatter vs _moe_dense: {e_sd:.3g} of "
+              f"the limit")
+    print(f"[phase10c] grok MoE block, bf16 against f32 on the same bf16 "
+          f"input (B {P10_B} x S {P10_S}): expert choices differ for "
+          f"{1 - float(agree.float().mean()):.6f} of the tokens; outputs "
+          f"on the {int(sel.sum())} tokens that agree and keep every slot "
+          f"in both: {e_bf:.3g} of the limit ({P4_REL} of the largest); "
+          f"_moe_scatter at capacity {LM.moe_capacity(wide, T)} (drops "
+          f"nothing) against _moe_dense: {e_sd:.3g} of the same limit")
+    del params, lp, x, ob, o_sc, o_de
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase10d(seed: int, dev) -> dict:
+    """kimi-k2-1t-a32b serving at full width, 1 of its 61 layers (head
+    dim 112, 384 experts top-8 at ff 2,048; bf16 params): a prefill of
+    ``P10_KIMI_S`` tokens at B 1 and ``GEN_STEPS`` greedy decode steps
+    from its cache, the decode logits held against ``forward``'s at the
+    same positions within ``BF16_LM_TOL``.  The decode step's one token
+    never drops a slot (capacity 8 of its 8), while ``forward`` over the
+    whole sequence at the config's capacity drops the last slots of the
+    fullest experts first, the very positions compared; so the check's
+    ``forward`` runs its MoE blocks as ``_moe_dense`` (every expert over
+    every token: nothing dropped; 10c holds it equal to ``_moe_scatter``
+    where nothing drops).  Kimi does not train on one card (module
+    docstring).  Returns the serve stages' launches."""
+    cfg = dataclasses.replace(KIMI, n_layers=P10_MOE_LAYERS)
+    hd, S, E, k = cfg.resolved_head_dim, P10_KIMI_S, cfg.n_experts, \
+        cfg.n_experts_per_tok
+    check(hd == 112, f"kimi head dim {hd}")
+    n_par = cfg.n_params()
+    cap = LM.moe_capacity(cfg, S)
+    print(f"[phase10d] kimi-k2-1t-a32b: {P10_MOE_LAYERS} of 61 layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} at D "
+          f"{hd}, {E} experts top-{k} at ff {cfg.moe_d_ff}, vocab "
+          f"{cfg.vocab_size}; bytes reckoned: bf16 params {gb(2 * n_par)}, "
+          f"its MoE dispatch buffer at the prefill ({E} x {cap} x "
+          f"{cfg.d_model} bf16) {gb(2 * E * cap * cfg.d_model)}, the "
+          f"forward check's bf16 logits "
+          f"{gb(2 * (S + GEN_STEPS) * cfg.vocab_size)}; training would add "
+          f"{gb(2 * n_par)} of bf16 gradients (then {gb(4 * n_par)} "
+          f"clipped in f32) and an f32 leaf of "
+          f"{gb(4 * E * cfg.d_model * cfg.moe_d_ff)}: past one card")
+    g = torch.Generator(dev).manual_seed(seed + 103)
+    t = time.perf_counter()
+    params = LM.init_params(cfg, generator=g, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_bytes = sum(p.numel() * p.element_size()
+                  for p in LM.named_params(params).values())
+    check(n_bytes == 2 * n_par, f"kimi params {n_bytes} bytes")
+    prompt = lm_tokens(cfg, g, 1, S, dev)
+    routes = []
+    orig = LM._router
+
+    def recorded(p, c, xt):
+        gate, eid, aux = orig(p, c, xt)
+        routes.append(torch.bincount(eid.reshape(-1), minlength=E).cpu())
+        return gate, eid, aux
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launches()
+    LM._router = recorded
+    try:
+        t = time.perf_counter()
+        last, caches = lm_prefill_step(params, cfg, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+    finally:
+        LM._router = orig
+    n_pre = nonzero_launches()
+    check(n_pre == {"flash_attention": P10_MOE_LAYERS}, f"kimi prefill: "
+          f"launches {n_pre}")
+    pre = routes[0]
+    drop = float(torch.clamp_min(pre - cap, 0).sum()) / (S * k)
+    gen = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, GEN_STEPS))
+           for n, c in caches.items()}
+    del caches
+    tok = torch.argmax(last, dim=-1, keepdim=True)
+    toks, dec, step_s = [tok], [], []
+    common.reset_launches()
+    with torch.no_grad():
+        for i in range(GEN_STEPS):
+            t = time.perf_counter()
+            logits, gen = LM.decode_step(params, cfg, tok, gen, S + i)
+            tok = torch.argmax(logits, dim=-1, keepdim=True)
+            toks.append(tok)
+            dec.append(logits)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+    n_dec = nonzero_launches()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = {}
+    for i in range(GEN_STEPS):
+        add_counts(want, fa_step_launches(cfg, 1, S + i + 1, n_sm))
+    check(n_dec == want, f"kimi decode: launches {n_dec}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    check(all(bool(torch.isfinite(x).all()) for x in dec + [last]),
+          "kimi logits not finite")
+    # the check: forward over the prompt and the generated tokens, its
+    # MoE blocks dropping nothing
+    block = LM._moe_block
+    LM._moe_block = LM._moe_dense
+    try:
+        with torch.no_grad():
+            full = LM.forward(params, cfg, torch.cat([prompt] + toks[:-1],
+                                                     dim=1))
+    finally:
+        LM._moe_block = block
+    gaps = [near(x, full[:, S + i], BF16_LM_TOL) for i, x in enumerate(dec)]
+    check(max(gaps) <= 1, f"kimi decode vs forward: {max(gaps):.3g} of "
+          f"{BF16_LM_TOL} of the largest")
+    print(f"[phase10d] kimi: init {init_s:.2f} s; prefill {S} tokens "
+          f"{prefill_s:.4f} s (capacity {cap} slots an expert: share of "
+          f"slots dropped {drop:.6f}, the fullest expert {int(pre.max())}, the "
+          f"emptiest {int(pre.min())}); {GEN_STEPS} greedy decode steps, tokens "
+          f"{[int(x) for x in torch.cat(toks[1:], dim=1)[0].tolist()]}, "
+          f"seconds per token {[round(x, 5) for x in step_s]}; peak device "
+          f"memory {gb(peak)}; launches: prefill {n_pre}, decode {n_dec}; "
+          f"decode logits vs forward's at the same positions (forward's "
+          f"MoE as _moe_dense, nothing dropped): largest "
+          f"{max(gaps):.3g} of {BF16_LM_TOL} of the largest")
+    del params, gen, full, dec, last
+    torch.cuda.empty_cache()
+    return add_counts(n_pre, n_dec)
+
+
+def phase10(seed: int, dev) -> dict:
+    """The rest of LM training and the MoE layers (module docstring).
+    Returns the main runs' launches (10a-10d)."""
+    total = {}
+    for part in (lambda: phase10a(dev), lambda: phase10b(seed, dev),
+                 lambda: phase10c(seed, dev), lambda: phase10d(seed, dev)):
+        t = time.perf_counter()
+        add_counts(total, part())
+        print(f"[phase10] part wall {time.perf_counter() - t:.2f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the hour-level refresh cycle and the dead-code reset
 # ---------------------------------------------------------------------------
 
@@ -4745,6 +5362,10 @@ def main() -> int:
                          "checks and timings, then print the whole op's "
                          "times and output hashes at decode_32k and "
                          "long_500k and the forced-split outputs' hashes")
+    ap.add_argument("--lm-train-only", action="store_true",
+                    help="only build the flash-attention kernels and run "
+                         "Phase 10 (run_lm, dense and MoE training, kimi "
+                         "serving)")
     ap.add_argument("--decode-only", type=int, default=0, metavar="REPS",
                     help="only build flash_attention, print the whole op's "
                          "lines as --attention-only does, and run Phase 5's "
@@ -4785,6 +5406,12 @@ def main() -> int:
     if args.decode_only > 0:
         print_build(common.build(["flash_attention"]))
         decode_only(args.seed, dev, args.decode_only)
+        return 0
+    if args.lm_train_only:
+        print_build(common.build(["flash_attention", "flash_attention_bwd"]))
+        t = time.perf_counter()
+        phase10(args.seed, dev)
+        print(f"[phase10] wall {time.perf_counter() - t:.2f} s")
         return 0
     t = time.perf_counter()
     logs = common.build(["rq_assign", "queue_gather", "ppr_walk",
@@ -4828,7 +5455,8 @@ def main() -> int:
           + " (the main path's, the largest)")
     phase0_contrastive()
     fa_lib = ctypes.CDLL(str(common.library_path("flash_attention")))
-    for kname, dec in (("tile (fa_wgmma at D 64-256, fa_mma at D 32)",
+    for kname, dec in (("tile (fa_wgmma at D 64-256, 112 on the 128 tiles; "
+                        "fa_mma at D 32)",
                         0), ("decode (fa_decode)", 1)):
         print(f"[phase0] flash_attention {kname} dynamic shared memory "
               f"bytes by head dim: " + ", ".join(
@@ -4840,7 +5468,7 @@ def main() -> int:
               f"bytes by head dim (dq pass, dkdv pass): " + ", ".join(
                   f"D {d}: {bwd_lib.flash_attention_bwd_smem(bf, 1, d)}, "
                   f"{bwd_lib.flash_attention_bwd_smem(bf, 2, d)}"
-                  for d in FA.HEAD_DIMS))
+                  for d in FA.BWD_HEAD_DIMS))
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     rows = [phase1_rq_assign(g, dev, peaks), phase1_queue_gather(g, dev, peaks),
@@ -4879,13 +5507,18 @@ def main() -> int:
     t = time.perf_counter()
     launches9 = phase9(args.seed, dev)
     print(f"[phase9] wall {time.perf_counter() - t:.2f} s")
-    for r in rows:     # each path's launches, Phases 6-9's added to its own
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    launches10 = phase10(args.seed, dev)
+    print(f"[phase10] wall {time.perf_counter() - t:.2f} s")
+    for r in rows:     # each path's launches, Phases 6-10's added to its own
         counter = r.get("counter", r["name"])
         r["launches"] = (next((ls[counter] for ls in (
             {n: launches[n] for n in SLICE1}, launches4, launches5,
             launches3) if counter in ls), 0)
             + sum(ls.get(counter, 0)
-                  for ls in (launches6, launches7, launches8, launches9)))
+                  for ls in (launches6, launches7, launches8, launches9,
+                             launches10)))
         check(r["launches"] > 0, f"{r['name']} was not launched on its "
               f"main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

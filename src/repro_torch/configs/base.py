@@ -2,8 +2,9 @@
 (``repro/configs/base.py``): the LM family's ``LMConfig``, the recsys
 family's ``RecsysConfig`` and RankGraph-2's own, their shape tables, and
 the architecture registry (``--arch <id>`` -> ``ArchSpec``) for the
-archs the port has: the three dense LMs (``olmo-1b``, ``llama3.2-3b``,
-``gemma-2b``), the four recsys archs and ``rankgraph2``."""
+archs the port has: the five LMs (``olmo-1b``, ``llama3.2-3b``,
+``gemma-2b`` and the MoE ``grok-1-314b`` and ``kimi-k2-1t-a32b``), the
+four recsys archs and ``rankgraph2``."""
 from __future__ import annotations
 
 import dataclasses
@@ -220,5 +221,5 @@ def _ensure_loaded() -> None:
         return
     _LOADED = True
     from repro_torch.configs import (  # noqa: F401
-        bst, dlrm_rm2, gemma_2b, llama3_2_3b, olmo_1b, rankgraph2, sasrec,
-        wide_deep)
+        bst, dlrm_rm2, gemma_2b, grok_1_314b, kimi_k2_1t_a32b, llama3_2_3b,
+        olmo_1b, rankgraph2, sasrec, wide_deep)

@@ -11,7 +11,7 @@ the RQ histograms and the negative pool over, and
 optimizer's moments, RQ state, pool, step), so the port can start a
 train step or a lifecycle runtime from the exact JAX state.  ``recsys_params_from_jax`` carries
 a recsys model's tree over (MLP ``w`` transposed, everything else as
-it is).  ``lm_params_from_jax`` carries a dense LM's tree over, its
+it is).  ``lm_params_from_jax`` carries an LM's tree over (dense or MoE), its
 stacked layers split into one dict per layer.
 """
 from __future__ import annotations
@@ -161,7 +161,7 @@ def recsys_params_from_jax(tree: Dict[str, Any], kind: str, *,
 
 def lm_params_from_jax(tree: Dict[str, Any], *, device=None
                        ) -> Dict[str, Any]:
-    """A JAX dense-LM params tree (numpy leaves; ``layers`` stacked
+    """A JAX LM params tree, dense or MoE (numpy leaves; ``layers`` stacked
     (L, ...) from ``scan_layers=True``, or a list of per-layer dicts) ->
     the port's tree on ``device``: the same keys and layout (``x @ w``),
     ``layers`` a list of per-layer dicts."""

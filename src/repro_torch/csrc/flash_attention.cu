@@ -124,7 +124,17 @@
 // with splits > 1, or of fa_decode, refuses an lse; serving passes null,
 // and its outputs are bitwise what they were.
 //
-// Head dims 32, 64, 128, 256 (templates).  Shared memory is dynamic.
+// Head dims 32, 64, 112, 128, 256 (templates).  Shared memory is dynamic.
+// Head dim 112 (kimi-k2: 7168 / 64): its 224-byte rows are no whole
+// number of the 128-byte swizzle's 64-column atoms, so the bf16 kernels
+// run it on their D 128 tiles
+// (template D 128, DV 112 valid columns): cp.async copies 14 of a row's 16
+// chunks and zero-fills the last 2 (source size 0), so Q.K^T sums 112
+// products plus exact zeros and P.V leaves 16 zero columns, which are
+// never written; the fold reads and writes only the 112 (its workspace
+// keeps the tile's width).  Every other head dim runs DV = D, the code as
+// it was.  The f32 kernel takes 112 as it is (its rows need only 16-byte
+// multiples).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -196,7 +206,7 @@ __device__ __forceinline__ void write_lse(const Args& a, int b, int kvh,
 // output rows from all the splits' partials, column quads to threads,
 // exactly as a separate merge over them would: the same f32 operations in
 // the same (split) order.
-template <typename T, int D, int NTH, int BAR>
+template <typename T, int D, int NTH, int BAR, int DV = D>
 __device__ __forceinline__ void fold_splits(const Args& a, int b, int kvh,
                                             int rep, int rows, int r0,
                                             int BQ, int t) {
@@ -215,8 +225,8 @@ __device__ __forceinline__ void fold_splits(const Args& a, int b, int kvh,
   // chain of 2 * ceil(splits / FU) round trips.  Slots past the last split
   // load nothing and change nothing (fmaxf(M, -1e30) is M).
   constexpr int FU = 8;
-  for (int i = t; i < nr * (D / 4); i += NTH) {
-    const int rr = i / (D / 4), c = 4 * (i % (D / 4));
+  for (int i = t; i < nr * (DV / 4); i += NTH) {
+    const int rr = i / (DV / 4), c = 4 * (i % (DV / 4));
     const long long w = w0 + rr;
     float M = NEG_INF;
     for (int s0 = 0; s0 < a.splits; s0 += FU) {
@@ -483,6 +493,7 @@ static cudaError_t launch_d(const Args& a, int D, int rpt, cudaStream_t st) {
   switch (D) {
     case 32: return launch_rpt<T, 32>(a, rpt, st);
     case 64: return launch_rpt<T, 64>(a, rpt, st);
+    case 112: return launch_rpt<T, 112>(a, rpt, st);
     case 128: return launch_rpt<T, 128>(a, rpt, st);
     case 256: return launch_rpt<T, 256>(a, rpt, st);
     default: return cudaErrorInvalidValue;
@@ -544,8 +555,9 @@ __device__ __forceinline__ void split2(float p0, float p1, uint32_t& hi,
 }
 
 // Rows [0, R) of a K or V tile (keys j0 + r) into the swizzled tile at
-// dst; keys at or past j_end are zeroed, never read.
-template <int D, int R, int NTH>
+// dst; keys at or past j_end, and columns at or past DV, are zeroed, never
+// read.
+template <int D, int R, int NTH, int DV = D>
 __device__ __forceinline__ void load_kv(uint32_t dst, const bf16* g,
                                         long long stride, int j0, int j_end,
                                         int tid) {
@@ -555,14 +567,15 @@ __device__ __forceinline__ void load_kv(uint32_t dst, const bf16* g,
   for (int k = 0; k < R * CH / NTH; ++k) {
     const int i = tid + k * NTH;
     const int r = i / CH, c = i % CH, j = j0 + r;
-    const bool ok = j < j_end;
+    const bool ok = j < j_end && (DV == D || c * 8 < DV);
     cp16(dst + swz<D>(r, c), ok ? g + (long long)j * stride + c * 8 : g, ok);
   }
 }
 
 // Rows [r0, r0 + R) of the block's flattened (position, head-in-group)
-// query rows into the swizzled tile at dst; rows past `rows` are zeroed.
-template <int D, int R, int NTH>
+// query rows into the swizzled tile at dst; rows past `rows`, and columns
+// at or past DV, are zeroed.
+template <int D, int R, int NTH, int DV = D>
 __device__ __forceinline__ void load_q(uint32_t dst, const bf16* q,
                                        const Args& a, int kvh, int rep,
                                        int r0, int rows, int tid) {
@@ -572,7 +585,7 @@ __device__ __forceinline__ void load_q(uint32_t dst, const bf16* q,
     const int i = tid + k * NTH;
     if (i >= R * CH) break;
     const int rr = i / CH, c = i % CH, r = r0 + rr;
-    const bool ok = r < rows;
+    const bool ok = r < rows && (DV == D || c * 8 < DV);
     const bf16* src = q;
     if (ok) src = q + (r / rep) * a.qss + (kvh * rep + r % rep) * a.qsh + c * 8;
     cp16(dst + swz<D>(rr, c), src, ok);
@@ -750,13 +763,17 @@ __device__ __forceinline__ Range key_range(const Args& a, int b, int split,
 
 // Writes a finished row (o = acc / max(l, 1e-30) in bf16) or this split's
 // partial (m, l, acc in f32).  l must already be the whole row's sum.
-template <int D>
+// Columns at or past DV (a padded head dim's) are not written.
+template <int D, int DV = D>
 __device__ __forceinline__ void write_row(const Args& a, int b, int kvh,
                                           int split, int rep, int rows, int r,
                                           float m, float l, float x0, float x1,
                                           int col) {
   // x0, x1: the accumulator at columns col, col + 1
   if (r >= rows) return;
+  if constexpr (DV < D) {
+    if (col >= DV) return;
+  }
   if (a.splits == 1) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
     bf16* o = static_cast<bf16*>(a.o) + b * a.osb + (r / rep) * a.oss
@@ -882,7 +899,7 @@ __global__ void __launch_bounds__(256, 1) fa_mma(Args a) {
 // 64-key tile, so the block streams K and V (a ring of STAGES tiles, by
 // cp.async) and every byte is read once.  The 4 warps' softmax states are
 // combined through shared memory at the end.
-template <int D, int STAGES>
+template <int D, int STAGES, int DV = D>
 __global__ void __launch_bounds__(128) fa_decode(Args a) {
   constexpr int NW = 4, NTH = 32 * NW, BQ = 16;
   constexpr int TILE = BKT * D * 2;
@@ -900,15 +917,15 @@ __global__ void __launch_bounds__(128) fa_decode(Args a) {
   const bf16* vp = static_cast<const bf16*>(a.v) + b * a.vsb + kvh * a.vsh;
   const Range kr = key_range(a, b, split, rows - 1, rep);
 
-  load_q<D, BQ, NTH>(q_s, q, a, kvh, rep, 0, rows, tid);
+  load_q<D, BQ, NTH, DV>(q_s, q, a, kvh, rep, 0, rows, tid);
 #pragma unroll
   for (int sg = 0; sg < STAGES - 1; ++sg) {
     const int t = kr.t_lo + sg;
     if (t < kr.t_hi) {
-      load_kv<D, BKT, NTH>(ring + sg * 2 * TILE, kp, a.kst, t * BKT,
-                           kr.kv_end, tid);
-      load_kv<D, BKT, NTH>(ring + sg * 2 * TILE + TILE, vp, a.vst, t * BKT,
-                           kr.kv_end, tid);
+      load_kv<D, BKT, NTH, DV>(ring + sg * 2 * TILE, kp, a.kst, t * BKT,
+                               kr.kv_end, tid);
+      load_kv<D, BKT, NTH, DV>(ring + sg * 2 * TILE + TILE, vp, a.vst,
+                               t * BKT, kr.kv_end, tid);
     }
     cp_commit();
   }
@@ -928,10 +945,10 @@ __global__ void __launch_bounds__(128) fa_decode(Args a) {
     {
       const int tn = t + STAGES - 1, sn = (it + STAGES - 1) % STAGES;
       if (tn < kr.t_hi) {
-        load_kv<D, BKT, NTH>(ring + sn * 2 * TILE, kp, a.kst, tn * BKT,
-                             kr.kv_end, tid);
-        load_kv<D, BKT, NTH>(ring + sn * 2 * TILE + TILE, vp, a.vst,
-                             tn * BKT, kr.kv_end, tid);
+        load_kv<D, BKT, NTH, DV>(ring + sn * 2 * TILE, kp, a.kst, tn * BKT,
+                                 kr.kv_end, tid);
+        load_kv<D, BKT, NTH, DV>(ring + sn * 2 * TILE + TILE, vp, a.vst,
+                                 tn * BKT, kr.kv_end, tid);
       }
       cp_commit();
     }
@@ -973,8 +990,8 @@ __global__ void __launch_bounds__(128) fa_decode(Args a) {
         make_float2(rs.acc[n][2], rs.acc[n][3]);
   }
   __syncthreads();
-  for (int i = tid; i < BQ * D / 2; i += NTH) {
-    const int r = i / (D / 2), c = 2 * (i % (D / 2));
+  for (int i = tid; i < BQ * DV / 2; i += NTH) {
+    const int r = i / (DV / 2), c = 2 * (i % (DV / 2));
     if (r >= rows) break;
     float M = NEG_INF;
 #pragma unroll
@@ -989,10 +1006,10 @@ __global__ void __launch_bounds__(128) fa_decode(Args a) {
       A[0] += x.x * e;
       A[1] += x.y * e;
     }
-    write_row<D>(a, b, kvh, split, rep, rows, r, M, L, A[0], A[1], c);
+    write_row<D, DV>(a, b, kvh, split, rep, rows, r, M, L, A[0], A[1], c);
   }
   if (a.splits > 1)
-    fold_splits<bf16, D, NTH, 0>(a, b, kvh, rep, rows, 0, BQ, tid);
+    fold_splits<bf16, D, NTH, 0, DV>(a, b, kvh, rep, rows, 0, BQ, tid);
 }
 
 // --- wgmma: fa_wgmma (its helpers are in hopper.cuh) -------------------
@@ -1006,7 +1023,7 @@ __global__ void __launch_bounds__(128) fa_decode(Args a) {
 // runs S = Q.K^T (wgmma, Q and K from shared memory), the online softmax
 // on S in registers, and O += P_hi.V + P_lo.V (wgmma, P from registers,
 // V from shared memory, transposed).
-template <int D, int NC, int BN, int STAGES>
+template <int D, int NC, int BN, int STAGES, int DV = D>
 __global__ void __launch_bounds__(128 * (NC + 1), 1) fa_wgmma(Args a) {
   constexpr int BQ = 64 * NC;
   constexpr int TILE = BN * D * 2, QBYTES = BQ * D * 2;
@@ -1041,7 +1058,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) fa_wgmma(Args a) {
 #pragma unroll 1
     for (int i = tid; i < BQ * CH; i += 128) {
       const int rr = i / CH, c = i % CH, r = r0 + rr;
-      const bool ok = r < rows;
+      const bool ok = r < rows && (DV == D || c * 8 < DV);
       const bf16* src = q;
       if (ok)
         src = q + (r / rep) * a.qss + (kvh * rep + r % rep) * a.qsh + c * 8;
@@ -1056,7 +1073,7 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) fa_wgmma(Args a) {
 #pragma unroll 2
       for (int i = tid; i < BN * CH; i += 128) {
         const int r = i / CH, c = i % CH, j = t * BN + r;
-        const bool ok = j < kr.kv_end;
+        const bool ok = j < kr.kv_end && (DV == D || c * 8 < DV);
         cp16(k_s + sw128<BN>(r, c), ok ? kp + (long long)j * a.kst + c * 8
                                        : kp, ok);
         cp16(k_s + TILE + sw128<BN>(r, c),
@@ -1138,16 +1155,16 @@ __global__ void __launch_bounds__(128 * (NC + 1), 1) fa_wgmma(Args a) {
   const int col = 2 * (lane & 3);
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
-    write_row<D>(a, b, kvh, split, rep, rows, r0 + rw + g, rs.m[0], rs.l[0],
-                 rs.acc[n][0], rs.acc[n][1], 8 * n + col);
-    write_row<D>(a, b, kvh, split, rep, rows, r0 + rw + g + 8, rs.m[1],
-                 rs.l[1], rs.acc[n][2], rs.acc[n][3], 8 * n + col);
+    write_row<D, DV>(a, b, kvh, split, rep, rows, r0 + rw + g, rs.m[0],
+                     rs.l[0], rs.acc[n][0], rs.acc[n][1], 8 * n + col);
+    write_row<D, DV>(a, b, kvh, split, rep, rows, r0 + rw + g + 8, rs.m[1],
+                     rs.l[1], rs.acc[n][2], rs.acc[n][3], 8 * n + col);
   }
   if (a.lse && col == 0) rows_lse(a, b, kvh, rows, r0 + rw + g, rs);
   // the producer warpgroup has returned: the consumers meet on barrier 1
   if (a.splits > 1)
-    fold_splits<bf16, D, 128 * NC, 1>(a, b, kvh, rep, rows, r0, BQ,
-                                      tid - 128);
+    fold_splits<bf16, D, 128 * NC, 1, DV>(a, b, kvh, rep, rows, r0, BQ,
+                                          tid - 128);
 }
 
 constexpr int MMA_STAGES = 3;           // fa_mma's ring of 64-key tiles
@@ -1189,7 +1206,8 @@ constexpr size_t wgmma_smem() {
          + 8 * (2 * WGMMA_STAGES + 1) + 1024;
 }
 
-template <int D>
+// DV: the valid head dim when it is below the tiles' D (112 on D 128).
+template <int D, int DV = D>
 static cudaError_t launch_wgmma(const Args& a, cudaStream_t st) {
   constexpr int NC = wgmma_nc<D>(), BN = wgmma_bn<D>();
   constexpr size_t bytes = wgmma_smem<D>();
@@ -1198,14 +1216,15 @@ static cudaError_t launch_wgmma(const Args& a, cudaStream_t st) {
   if (!counters_fit(a.splits, grid, a.n_counters))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      fa_wgmma<D, NC, BN, WGMMA_STAGES>,
+      fa_wgmma<D, NC, BN, WGMMA_STAGES, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  fa_wgmma<D, NC, BN, WGMMA_STAGES><<<grid, 128 * (NC + 1), bytes, st>>>(a);
+  fa_wgmma<D, NC, BN, WGMMA_STAGES, DV>
+      <<<grid, 128 * (NC + 1), bytes, st>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV = D>
 static cudaError_t launch_decode(const Args& a, cudaStream_t st) {
   constexpr size_t bytes = decode_smem<D>();
   static_assert(DECODE_STAGES * 2 * BKT * D * 2 >= (4 * 16 * (D + 2)) * 4,
@@ -1215,21 +1234,25 @@ static cudaError_t launch_decode(const Args& a, cudaStream_t st) {
       || !counters_fit(a.splits, grid, a.n_counters))
     return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      fa_decode<D, DECODE_STAGES>,
+      fa_decode<D, DECODE_STAGES, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
-  fa_decode<D, DECODE_STAGES><<<grid, 128, bytes, st>>>(a);
+  fa_decode<D, DECODE_STAGES, DV><<<grid, 128, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
 // The tile kernel (DECODE false): wgmma at D 64-256, mma.sync at D 32
 // (rows of 64 bytes, below the 128-byte swizzle); or the decode kernel.
+// D 112 runs either on the D 128 tiles (the source note's "Head dim 112").
 template <bool DECODE>
 static cudaError_t launch_bf16(const Args& a, int D, cudaStream_t st) {
   switch (D) {
     case 32: return DECODE ? launch_decode<32>(a, st) : launch_mma<32>(a, st);
     case 64:
       return DECODE ? launch_decode<64>(a, st) : launch_wgmma<64>(a, st);
+    case 112:
+      return DECODE ? launch_decode<128, 112>(a, st)
+                    : launch_wgmma<128, 112>(a, st);
     case 128:
       return DECODE ? launch_decode<128>(a, st) : launch_wgmma<128>(a, st);
     case 256:
@@ -1352,6 +1375,7 @@ int flash_attention_smem(int decode, int D) {
     case 32: return (int)(decode ? tc::decode_smem<32>() : tc::mma_smem<32>());
     case 64:
       return (int)(decode ? tc::decode_smem<64>() : tc::wgmma_smem<64>());
+    case 112:                           // runs on the D 128 tiles
     case 128:
       return (int)(decode ? tc::decode_smem<128>() : tc::wgmma_smem<128>());
     case 256:

@@ -3,7 +3,10 @@
 
   * ``flash_attention``: bf16 on the tensor cores, a block of 128 query
     rows (prefill, and any call with more than 16 rows per KV head):
-    ``wgmma`` at head dims 64 to 256, ``mma.sync`` at 32;
+    ``wgmma`` at head dims 64 to 256, ``mma.sync`` at 32;  head dim 112
+    (kimi-k2) runs the 128 tiles with the last 16 columns of Q, K and V
+    zero-filled in shared memory and writes 112 columns (so does the
+    decode kernel);
   * ``flash_attention_decode``: bf16, at most 16 rows per KV head (a
     decode step), streaming K and V once (``mma.sync``);
   * ``flash_attention_f32``: f32 inputs, the FP32-pipe kernel (the f32
@@ -22,7 +25,7 @@ follows ``bwd_plan``: each 64-key tile's row tiles cut into ranges, more
 of them for the key tiles that more rows see, the split ones folded in
 split order by the same launch.  It takes what
 ``lm_loss`` calls (causal, ``q_offset`` 0, no ``kv_len``, S equal to T,
-head dims ``HEAD_DIMS``); ``check_train_case`` refuses the rest, and
+head dims ``BWD_HEAD_DIMS``); ``check_train_case`` refuses the rest, and
 ``flash_attention_split`` refuses grad.  With grad off nothing changes.
 
 When ``plan`` splits the kv range over blocks, the same launch folds the
@@ -48,7 +51,9 @@ import torch
 
 from repro_torch.kernels.common import CudaKernel, check_cuda, stream_ptr
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)     # the forward kernels'
+BWD_HEAD_DIMS = (32, 64, 128, 256)      # the backward's
+PADDED = {112: 128}            # the bf16 kernels' tile width at a head dim
 BK = 64                        # keys per tile
 MMA_ROWS = 128                 # query rows of a tensor-core block
 DECODE_ROWS = 16               # rows per KV head the decode kernel takes
@@ -228,12 +233,14 @@ def _fwd(q, k, v, kv, *, causal, scale, q_offset, kernel, splits,
     if splits > 1:
         # one allocation: acc first (16-byte aligned for the fold's
         # loads), then m and l
+        # (the bf16 kernels keep a padded head dim's acc at its tile width)
+        Dw = D if kernel == F32.name else PADDED.get(D, D)
         shape = (splits, B, Hkv, rows)
         n_ml = splits * B * Hkv * rows
-        buf = torch.empty(n_ml * (D + 2), dtype=torch.float32,
+        buf = torch.empty(n_ml * (Dw + 2), dtype=torch.float32,
                           device=q.device)
-        acc, m, l = buf.split([n_ml * D, n_ml, n_ml])
-        ws = (m.view(shape), l.view(shape), acc.view(shape + (D,)))
+        acc, m, l = buf.split([n_ml * Dw, n_ml, n_ml])
+        ws = (m.view(shape), l.view(shape), acc.view(shape + (Dw,)))
         # one counter per (row tile, b, KV head); sized for the smallest
         # row tile, so it covers every kernel's grid
         n = B * Hkv * _cdiv(rows, MIN_ROW_TILE)
@@ -245,6 +252,8 @@ def _fwd(q, k, v, kv, *, causal, scale, q_offset, kernel, splits,
                         q_offset, kv_ptr, kv_max, scale, *extra,
                         *split_args, None if lse is None else lse.data_ptr(),
                         stream)
+    if ws is not None and ws[2].shape[-1] != D:
+        ws = (ws[0], ws[1], ws[2][..., :D])
     return out, ws
 
 
@@ -318,7 +327,8 @@ def check_train_case(*, S: int, T: int, D: int, causal: bool, q_offset: int,
     """Raises, naming the case, for a call under autograd that the
     backward kernels do not take: they take what ``lm_loss`` calls
     (causal, ``q_offset`` 0, no ``kv_len``, S equal to T, a head dim of
-    ``HEAD_DIMS``)."""
+    ``BWD_HEAD_DIMS``; kimi-k2's 112, which only the forward takes, waits
+    for ROADMAP item 3 with kimi's training across cards)."""
     why = []
     if not causal:
         why.append("causal=False")
@@ -328,13 +338,16 @@ def check_train_case(*, S: int, T: int, D: int, causal: bool, q_offset: int,
         why.append("a kv_len")
     if S != T:
         why.append(f"{S} queries over {T} keys")
-    if D not in HEAD_DIMS:
-        why.append(f"head dim {D}")
+    if D not in BWD_HEAD_DIMS:
+        why.append(f"head dim {D}" + (" (forward only; its backward is "
+                                      "ROADMAP item 3)" if D in HEAD_DIMS
+                                      else ""))
     if why:
         raise NotImplementedError(
             "the flash-attention backward takes causal self-attention with "
             "q_offset 0, no kv_len and S equal to T (what lm_loss calls), "
-            f"head dims {HEAD_DIMS}; under grad it got " + ", ".join(why)
+            f"head dims {BWD_HEAD_DIMS}; under grad it got "
+            + ", ".join(why)
             + ": call it with grad off (torch.no_grad) for serving")
 
 
@@ -415,7 +428,7 @@ def bwd_plan(B: int, S: int, Hq: int, Hkv: int, D: int, n_sm: int, *,
     holds about the same causal work and the key tiles that more rows
     see get more splits.  ``splits`` forces that many ranges a key tile
     (fewer where it has fewer row tiles)."""
-    if D not in HEAD_DIMS or Hkv < 1 or Hq % Hkv:
+    if D not in BWD_HEAD_DIMS or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"no backward plan at head dim {D}, {Hq} heads "
                          f"over {Hkv}")
     rep = Hq // Hkv
@@ -485,7 +498,7 @@ def _bwd_check(q, k, v, do, lse, o=None, di=None) -> None:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on 16 bytes")
-    if q.dtype not in _DTYPES or D not in HEAD_DIMS or Hq % Hkv:
+    if q.dtype not in _DTYPES or D not in BWD_HEAD_DIMS or Hq % Hkv:
         raise ValueError(f"no backward kernel for {q.dtype} at head dim {D}, "
                          f"{Hq} heads over {Hkv}")
 

@@ -2,6 +2,15 @@
 ``repro/launch/steps.py::_lm_cell`` and ``_recsys_cell`` build (without
 their mesh, shardings and shape stand-ins).
 
+The LM train step (the train_4k cell's):
+
+  * ``lm_train_step``: ``lm_loss``, its gradients,
+    ``clip_by_global_norm_(1.0)`` (in place) and the update of
+    ``make_optimizer(cfg.optimizer)``, formed and applied one parameter
+    at a time (``apply_leafwise``), so that the step holds the
+    parameters, the gradients, the optimizer's state and one parameter's
+    temporaries (the JAX step gets the same from XLA's buffer reuse).
+
 The LM serve steps:
 
   * ``lm_prefill_step``: a prompt batch (B, S) -> last-position logits
@@ -137,6 +146,25 @@ def recsys_retrieval_step(params: R.Params, cfg: RecsysConfig,
                        u.dtype)
     scores = (u @ cvec.T)[0]
     return top_k(scores, k)
+
+
+def lm_train_step(params: LM.Params, cfg: LMConfig, opt: O.Optimizer,
+                  opt_state, tokens: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, object]:
+    """One step on tokens (B, S); updates ``params`` in place (the JAX step
+    returns new ones) and returns (loss, the gradients' global norm before
+    clipping, the new optimizer state).  ``opt`` is
+    ``make_optimizer(cfg.optimizer)``, its state ``opt.init(
+    named_params(params))``."""
+    flat = LM.named_params(params)
+    for p in flat.values():
+        p.requires_grad_(True)
+    loss = LM.lm_loss(params, cfg, tokens)
+    grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+    with torch.no_grad():
+        gnorm = O.clip_by_global_norm_(grads, 1.0)
+        opt_state = O.apply_leafwise(opt, grads, opt_state, flat)
+    return loss.detach(), gnorm, opt_state
 
 
 @torch.no_grad()

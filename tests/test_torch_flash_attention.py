@@ -241,6 +241,8 @@ def test_merge_ref_of_split_partials_is_one_softmax(S, H, Hkv, kv_len,
     ((1, 8192, 8, 1, 8192), 256, ("flash_attention", 1)),      # gemma 8k
     ((1, 1, 8, 1, 8208), 256, ("flash_attention_decode", 32)),  # gemma decode
     ((2, 1, 4, 2, 200), 128, ("flash_attention_decode", 1)),   # short: no split
+    ((1, 4096, 64, 8, 4096), 112, ("flash_attention", 1)),     # kimi prefill
+    ((1, 1, 64, 8, 4097), 112, ("flash_attention_decode", 16)),  # kimi decode
 ])
 def test_launch_plan(shape, D, want):
     assert K.plan(*shape, n_sm=132, D=D) == want

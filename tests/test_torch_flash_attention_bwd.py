@@ -513,6 +513,9 @@ REFUSED = [
     (dict(kv_len=30), "a kv_len"),
     (dict(T=48), "32 queries over 48 keys"),
     (dict(D=48), "head dim 48"),
+    # kimi-k2's 112: the forward takes it, the backward waits for ROADMAP 3
+    (dict(D=112), r"head dim 112 \(forward only; its backward is ROADMAP "
+                  r"item 3\)"),
 ]
 
 

@@ -15,7 +15,11 @@ the same weights (JAX ``init_params`` carried over by
     holds the JAX model, for its dense and gemma configs;
   * ``apply_rope``, the norms, the serve steps (``lm_prefill_step``,
     ``lm_decode_step`` against a cache filled to ``S - 1``), the configs
-    and the registry; MoE configs and CUDA without a card raise.
+    and the registry (the MoE archs too); an MoE config builds and runs on
+    the CPU, and CUDA without a card raises;
+  * the attention at kimi-k2's head dim 112 (the plain version, which the
+    CPU path takes) against JAX's ``_chunked_attention``, causal and with
+    a ragged ``kv_len``, within 1e-5 (f32 sums in another order).
 """
 import dataclasses as dc
 
@@ -28,6 +32,7 @@ import torch
 from repro.configs import base as jax_base
 from repro.configs.base import LMConfig as JaxLMConfig
 from repro.configs.base import get_arch as jax_get_arch
+from repro.distributed.sharding import NULL_CTX
 from repro.models.lm import model as JLM
 from repro.nn import core as jnn
 from repro_torch.configs import base as port_base
@@ -40,6 +45,7 @@ from repro_torch.nn import core as nn
 torch.set_num_threads(2)
 
 ARCHS = ["olmo-1b", "llama3.2-3b", "gemma-2b"]
+MOE_ARCHS = ["grok-1-314b", "kimi-k2-1t-a32b"]
 F32_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=5e-2, atol=5e-2)
 B, S = 2, 16
@@ -216,15 +222,14 @@ def test_lm_config_fields_shapes_and_registry():
     assert pf == jf
     assert ([(s.name, s.step, s.dims) for s in port_base.LM_SHAPES]
             == [(s.name, s.step, s.dims) for s in jax_base.LM_SHAPES])
-    for a in ARCHS:
+    for a in ARCHS + MOE_ARCHS:
         pj, pp = jax_get_arch(a), get_arch(a)
         assert (pp.family, pp.source) == (pj.family, pj.source) \
             and pp.family == "lm"
         assert dc.asdict(pp.config) == dc.asdict(pj.config)
         assert [s.name for s in pp.shapes] == [s.name for s in pj.shapes]
-    for a in ARCHS + ["grok-1-314b", "kimi-k2-1t-a32b"]:
-        jc = jax_get_arch(a).config
-        pc = LMConfig(**dc.asdict(jc))
+    for a in ARCHS + MOE_ARCHS:
+        jc, pc = jax_get_arch(a).config, get_arch(a).config
         assert (pc.n_params(), pc.n_active_params(),
                 pc.resolved_head_dim) == (jc.n_params(),
                                           jc.n_active_params(),
@@ -232,15 +237,48 @@ def test_lm_config_fields_shapes_and_registry():
 
 
 def test_moe_and_cuda_without_a_card_raise():
-    moe = LMConfig(**dc.asdict(jax_get_arch("grok-1-314b").config))
-    with pytest.raises(NotImplementedError, match="MoE LM layers"):
-        LM.init_params(dc.replace(moe, n_layers=1, d_model=8, vocab_size=8,
-                                  n_heads=2, n_kv_heads=2, head_dim=4,
-                                  d_ff=8, moe_d_ff=8, n_experts=2),
-                       device="cpu")
+    """An MoE config (grok's, narrowed) builds and runs on the CPU: init,
+    ``forward``, ``prefill``, ``decode_step`` and ``lm_loss`` with its aux
+    term; CUDA without a card raises."""
+    moe = dc.replace(get_arch("grok-1-314b").config, n_layers=1, d_model=8,
+                     vocab_size=8, n_heads=2, n_kv_heads=2, head_dim=4,
+                     d_ff=8, moe_d_ff=8, n_experts=2, param_dtype="float32",
+                     dtype="float32")
+    params = LM.init_params(moe, device="cpu")
+    assert params["layers"][0]["w_gate"].shape == (2, 8, 8)
+    toks = torch.from_numpy(_tokens(moe, seed=2)).long() % 8
+    logits = LM.forward(params, moe, toks)
+    last, caches = LM.prefill(params, moe, toks)
+    dec, _ = LM.decode_step(params, moe, toks[:, :1], _pad(caches, 1), S)
+    loss = LM.lm_loss(params, moe, toks)
+    assert logits.shape == (B, S, 8) and dec.shape == last.shape == (B, 8)
+    assert all(bool(torch.isfinite(t).all()) for t in (logits, dec, loss))
     cfg = FAMILY["dense"]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             LM.init_params(cfg)                  # the default device: cuda
         with pytest.raises(RuntimeError):
             LM.init_kv_cache(cfg, 1, 8)
+
+
+@pytest.mark.parametrize("case", ["causal", "kv_len"])
+def test_head_dim_112_attention_matches_jax(case):
+    """kimi-k2's head dim 112: 64 query heads over 8 cut to 8 over 2."""
+    rng = np.random.default_rng(112)
+    S, T = (24, 24) if case == "causal" else (1, 40)
+    q = rng.standard_normal((B, S, 8, 112)).astype(np.float32)
+    k = rng.standard_normal((B, T, 2, 112)).astype(np.float32)
+    v = rng.standard_normal((B, T, 2, 112)).astype(np.float32)
+    kv_len = None if case == "causal" else np.array([17, 40], np.int32)
+    kw = dict(causal=case == "causal", q_offset=0, block_q=8,
+              scale=112 ** -0.5)
+    want = JLM._chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        kv_len=None if kv_len is None else jnp.asarray(kv_len),
+        ctx=NULL_CTX, **kw)
+    got = LM.chunked_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        kv_len=None if kv_len is None else torch.from_numpy(kv_len), **kw)
+    assert got.shape == (B, S, 8, 112)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)

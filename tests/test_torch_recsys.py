@@ -139,15 +139,16 @@ def test_recsys_config_fields_shapes_and_registry():
     assert pf == jf
     assert ([(s.name, s.step, s.dims) for s in port_base.RECSYS_SHAPES]
             == [(s.name, s.step, s.dims) for s in jax_base.RECSYS_SHAPES])
-    assert list_archs() == sorted(ARCHS + ["rankgraph2", "gemma-2b",
-                                           "llama3.2-3b", "olmo-1b"])
+    assert list_archs() == sorted(ARCHS + [
+        "rankgraph2", "gemma-2b", "llama3.2-3b", "olmo-1b", "grok-1-314b",
+        "kimi-k2-1t-a32b"])
     for a in ARCHS + ["rankgraph2"]:
         pj, pp = jax_get_arch(a), get_arch(a)
         assert (pp.family, pp.source) == (pj.family, pj.source)
         assert dataclasses.asdict(pp.config) == dataclasses.asdict(pj.config)
         assert [s.name for s in pp.shapes] == [s.name for s in pj.shapes]
-    with pytest.raises(KeyError):
-        get_arch("grok-1-314b")
+    with pytest.raises(KeyError):          # the GNN family is not ported
+        get_arch("equiformer-v2")
 
 
 # ---------------------------------------------------------------------------
