@@ -7,6 +7,7 @@
     python3 chip_smoke.py --attention-only     # Phase 1's flash_attention
     python3 chip_smoke.py --decode-only REPS   # Phase 5's decode steps
     python3 chip_smoke.py --lm-train-only      # Phase 10 alone
+    python3 chip_smoke.py --distributed-only   # Phase 11 on Phase 3's corpus
 
 Phase 0 prints the card (``nvidia-smi`` name and power limit) and
 builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, one
@@ -250,6 +251,40 @@ tile kernel at D 112) and 16 greedy decode steps (the decode kernel at D
 its gradients would double the 38.8 GB of params and Adafactor's f32
 temporaries of its 5.6 G-entry ``w_gate`` come on top.
 
+Phase 11 runs the distributed paths last, in ranks that
+``torch.multiprocessing.spawn`` starts (each uses the kernels the parent
+built, joins the process group through a file, and must exit 0 within
+``P11_TIMEOUT_S``).  11a: one rank, for which ``init_distributed``
+picks NCCL, at mesh (1, 1): the rankgraph2 data-parallel step at 1,024
+edges a type bitwise the plain step (deterministic algorithms on; the
+plain step must first repeat bitwise), and ``_lookup_sharded`` at one
+shard bitwise the local gather (65,536 x 26 ids on 26 x 100,000 x 64
+f32, f32 and bf16).  Where the machine has four cards, 11b also runs on
+NCCL, one rank a card.  11b: four ranks sharing the card, for which it
+picks gloo; each first shows that gloo takes CUDA tensors in
+``all_reduce``, ``all_gather`` and ``broadcast``.  At mesh (4,)
+``("data",)``: three data-parallel rankgraph2 steps at full width on
+Phase 3's corpus (10,920 edges a type, cut from 10,922 so that 4
+divides it), against three steps of the global step with shard-local
+negatives of 2,730 rows run in the parent with the same batches and
+draws, each side on its own RQ selections: in f32 the losses by
+``f32_gap``, every row whose selection differs a near tie of the biased
+selection under the global step's inputs, widened only by what the
+histograms and codebooks that differ between the two sides can move
+(``selection_ties``), and pool rows within 1e-4; in bf16 the losses
+within Phase 3's bf16 tolerance and pool rows within 5e-2.  In both,
+every histogram row must be its step's selections' counts on each side
+(so the histograms differ only where the selections do), and the probe
+rows' ``assign_codes`` must agree but for near ties widened by the
+codebooks' drift (``near_ties``).  At mesh (1, 4) ``("data",
+"model")``: dlrm-rm2 with 26 x 1,000,000 x 64 f32 tables row-sharded,
+65,536 serve logits bitwise the parent's one-process lookup, one
+65,536-row step's table gradient rows within ``P11_TABLE_REL`` of the
+local ones (and none elsewhere), then one ``recsys_train_step``.  It
+prints the backend, the world size, each rank's step seconds and peak
+memory; gloo stages CUDA tensors through the host, so its times say
+nothing of NCCL.
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
 ``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
@@ -258,8 +293,9 @@ stages; Phase 6's launches of ``rq_assign``, ``ppr_walk`` and
 ``fused_contrastive_*``, Phase 7's of those and ``queue_gather``,
 Phase 8's of ``queue_gather``, ``rq_assign`` and
 ``fused_contrastive_*``, Phase 9's main run's of ``flash_attention``
-and ``flash_attention_bwd_*``, and Phase 10's runs' (``run_lm``, the
-train steps, kimi's prefill and decode; not its checks) are added to
+and ``flash_attention_bwd_*``, Phase 10's runs' (``run_lm``, the
+train steps, kimi's prefill and decode; not its checks) and Phase 11's
+ranks' (each rank counts its own and returns them) are added to
 those; the f32 kernels' come from Phase 10a alone.  Every kernel in the
 list must have launched on its path.
 
@@ -315,11 +351,12 @@ from repro_torch.core.rq_index import (RQState, assign_codes,  # noqa: E402
                                        per_code_counts)
 from repro_torch.core.serving import (ClusterQueueStore,  # noqa: E402
                                       ShardedQueueStore)
-from repro_torch.core.trainer import (FeatureStore, embed_all,  # noqa: E402
+from repro_torch.core.trainer import (FeatureStore,  # noqa: E402
+                                      apply_grads, embed_all,
                                       forward_losses, init_state,
                                       loss_directions, make_eval_step,
-                                      make_train_step, named_params,
-                                      reset_dead_codes)
+                                      make_grad_step, make_train_step,
+                                      named_params, reset_dead_codes)
 from repro_torch.data.edge_dataset import (EdgeDataset,  # noqa: E402
                                            NeighborTables,
                                            build_neighbor_tables,
@@ -353,8 +390,12 @@ from repro_torch.kernels.queue_gather.ref import (  # noqa: E402
 from repro_torch.kernels.rq_assign import rq_assign as RQA  # noqa: E402
 from repro_torch.kernels.rq_assign.ref import rq_assign_ref  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
+from repro_torch.distributed.sharding import (ShardingCtx,  # noqa: E402
+                                              make_rules)
+from repro_torch.launch.mesh import init_distributed, make_mesh  # noqa: E402
 from repro_torch.launch.steps import (lm_decode_step,  # noqa: E402
                                       lm_prefill_step, lm_train_step,
+                                      loss_and_grads,
                                       recsys_retrieval_step,
                                       recsys_serve_step, recsys_train_step,
                                       top_k)
@@ -480,6 +521,18 @@ P10B_ARCHS = ("llama3.2-3b", "gemma-2b")
 P10_B, P10_S = 1, 4096       # train_4k cut to one sequence, as Phase 9
 P10_MOE_LAYERS = 1           # of grok's 64 and kimi's 61
 P10_KIMI_S = 4096            # kimi's prefill
+P11_WORLD = 4                # gloo ranks sharing the card (11b)
+P11_ROWS = 10_920            # edges per type, cut from 10,922: 4 divides it
+P11_STEPS = 3
+P11_DLRM = dataclasses.replace(DLRM, default_vocab=TRAIN_VOCAB)  # Phase 4's cut
+P11_SERVE = 65_536           # serve requests against the row-sharded tables
+P11_LOOKUP_VOCAB = 100_000   # 11a's lookup at nm 1: 26 x 100,000 x 64 f32
+P11_TIMEOUT_S = 300.0        # each spawn's limit, seconds
+P11_POOL_BF16 = 5e-2         # bf16 pool rows, largest gap
+# f32 pool rows and parameters, by the distribution of their gaps (the
+# optimizer-sign hazard; the CPU test's rule for the parameters)
+P11_GAP_MEDIAN, P11_GAP_FAR, P11_GAP_FAR_SHARE = 1e-6, 1e-4, 0.01
+P11_TABLE_REL = 1e-5         # table gradient rows: sharded vs local
 
 
 def card_peaks(name: str):
@@ -559,11 +612,26 @@ def rq_inputs(g: torch.Generator, B: int, d: int, sizes, dev):
     return x, books
 
 
-def near_ties(x, ck, cp, books, what: str) -> int:
+def code_drift(books, books_k, codes, l: int, j: int) -> float:
+    """How far a row's distance to code ``j`` of layer ``l`` can move
+    between codebooks ``books`` and ``books_k`` (triangle inequality):
+    the drift of the row's codes ``codes`` of the layers before ``l``
+    (its residual's) plus code ``j``'s own."""
+    return float(sum((books[m][int(codes[m])].double()
+                      - books_k[m][int(codes[m])].double()).norm()
+                     for m in range(l))
+                 + (books[l][j].double() - books_k[l][j].double()).norm())
+
+
+def near_ties(x, ck, cp, books, what: str, books_k=None) -> int:
     """Every row where codes ``ck`` differ from the plain version's
     ``cp`` must be a near-tie at its first differing layer: the two
-    codes' squared distances to the residual (in f64) within
-    ``NEAR_TIE * (1 + d2)``.  Returns the number of such rows."""
+    codes' squared distances to the residual (in f64, on ``books``)
+    within ``NEAR_TIE * (1 + d2)``.  ``books_k``, the codebooks ``ck``
+    came from where they are not ``books``, widens that by what their
+    drift (``code_drift``: D for each of the two codes) can move the two
+    squared distances, ``2 D sqrt(d2) + D^2`` each.  Returns the number
+    of such rows."""
     near = 0
     for row in torch.nonzero(~(ck == cp).all(dim=1)).flatten().tolist():
         r = x[row].double()
@@ -572,13 +640,78 @@ def near_ties(x, ck, cp, books, what: str) -> int:
             if a != b:
                 da = float(((r - C[a].double()) ** 2).sum())
                 db = float(((r - C[b].double()) ** 2).sum())
-                check(abs(da - db) <= NEAR_TIE * (1 + abs(db)),
+                moved = 0.0
+                if books_k is not None:
+                    for j, d in ((a, da), (b, db)):
+                        D = code_drift(books, books_k, ck[row], l, j)
+                        moved += 2 * D * d ** 0.5 + D * D
+                check(abs(da - db) <= NEAR_TIE * (1 + abs(db)) + moved,
                       f"rq_assign {what} row {row} layer {l}: code {a} "
-                      f"(d2 {da}) vs plain {b} (d2 {db}) is not a near-tie")
+                      f"(d2 {da}) vs plain {b} (d2 {db}) is not a near-tie"
+                      f" (drift allowance {moved:.3g})")
                 near += 1
                 break
             r = r - C[a].double()
     return near
+
+
+def book_drift(books_a, books_b) -> list:
+    """The largest row distance between two sets of codebooks, a
+    layer."""
+    return [float((a.double() - b.double()).norm(dim=1).max())
+            for a, b in zip(books_a, books_b)]
+
+
+def selection_ties(h, ck, cp, books, books_k, tot_p, tot_k, rq,
+                   what: str):
+    """Every row where the data-parallel step's RQ selections ``ck``
+    differ from the global step's ``cp`` must be a near-tie of the
+    biased selection (Eq. 13: the argmax of ``s = zeta1 / (zeta2 +
+    dist) - log phat``) at its first differing layer l.  Under the
+    global step's inputs (rows ``h``, codebooks ``books``, histogram
+    totals ``tot_p``, a layer; f64) the global choice a may lead the
+    data-parallel choice b by at most ``NEAR_TIE * (1 + |s_a|)`` plus
+    what the inputs that differ between the two sides can move the two
+    scores: the gap of ``log phat`` between ``tot_p`` and the
+    data-parallel side's ``tot_k`` at a and at b, and the drift of the
+    codebooks ``books_k`` it started from (``code_drift``: D for each
+    code, through the score's slope ``zeta1 / (zeta2 + dist - D)^2``).
+    The rows themselves may differ only by rounding.  Returns the
+    number of such rows and the largest lead over its allowance."""
+    def log_phat(tot):      # rq_index._phat
+        tot = tot.double().cpu()
+        return torch.log((tot + 1e-6) / (tot.sum() + 1e-6 * tot.shape[0]))
+    lp_p = [log_phat(x) for x in tot_p]
+    lp_k = [log_phat(x) for x in tot_k]
+    rows = torch.nonzero(~(ck == cp).all(dim=1)).flatten()
+    books = [C.double().cpu() for C in books]
+    books_k = [C.double().cpu() for C in books_k]
+    hr = h[rows.to(h.device)].double().cpu()
+    worst = 0.0
+    for i, row in enumerate(rows.tolist()):
+        r = hr[i]
+        for l, C in enumerate(books):
+            a, b = int(cp[row, l]), int(ck[row, l])
+            if a != b:
+                d2 = (r * r).sum() - 2.0 * (C[[a, b]] @ r) + \
+                    (C[[a, b]] ** 2).sum(dim=1)
+                dist = torch.sqrt(torch.clamp_min(d2, 0.0) + 1e-12)
+                s = rq.zeta1 / (rq.zeta2 + dist) - lp_p[l][[a, b]]
+                D = torch.tensor([code_drift(books, books_k, cp[row], l, j)
+                                  for j in (a, b)], dtype=torch.float64)
+                slope = rq.zeta1 / (rq.zeta2 + torch.clamp_min(dist - D,
+                                                               0.0)) ** 2
+                allow = (NEAR_TIE * (1 + abs(float(s[0])))
+                         + float((lp_p[l][[a, b]] - lp_k[l][[a, b]]).abs()
+                                 .sum()) + float((D * slope).sum()))
+                lead = float(s[0] - s[1])
+                worst = max(worst, lead / allow)
+                check(lead <= allow, f"{what} row {row} layer {l}: the "
+                      f"global choice {a} leads the data-parallel {b} by "
+                      f"{lead:.4g} in the biased score, past {allow:.4g}")
+                break
+            r = r - C[a]
+    return int(rows.numel()), worst
 
 
 def rq_held(x, books, what: str):
@@ -2514,13 +2647,15 @@ def make_log_world(seed: int) -> SyntheticWorld:
         np.zeros(ni, np.float32), day0=log, day1=empty)
 
 
-def draws_for(cfg, pool, batch, rows: int, g: torch.Generator) -> dict:
+def draws_for(cfg, pool, batch, rows: int, g: torch.Generator,
+              shard_block: int = 0) -> dict:
     """Negative draws of every loss direction of ``batch`` from the CPU
-    generator ``g``, to inject into a step on any device."""
+    generator ``g``, to inject into a step on any device (in-batch rows
+    inside blocks of ``shard_block``)."""
     fills = {"user": pool.user_fill, "item": pool.item_fill}
     return {dn: negative_draws(rows, cfg.n_heads, cfg.n_negatives,
                                cfg.n_pool_neg, fills[DST_TYPE[dn]],
-                               generator=g)
+                               generator=g, shard_block=shard_block)
             for dn in loss_directions(batch)}
 
 
@@ -2919,7 +3054,10 @@ def phase3(seed: int, dev) -> dict:
           f"numpy walker; tables equal to the numpy top-k; rows with a "
           f"user neighbour {filled:.4f}; peak device memory {peak_gb:.3f} "
           f"GB; launches={launches}")
-    return launches
+    corpus = SimpleNamespace(tables=res.tables, graph=g,
+                             user_feat=world.user_feat,
+                             item_feat=world.item_feat)
+    return launches, corpus
 
 
 # ---------------------------------------------------------------------------
@@ -5307,6 +5445,616 @@ def phase8(seed: int, dev, p2: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the distributed paths on the card
+# ---------------------------------------------------------------------------
+
+def p11_to(tree, dev):
+    """A tree of dicts and lists of tensors moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: p11_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(p11_to(v, dev) for v in tree)
+    return tree.to(dev) if isinstance(tree, torch.Tensor) else tree
+
+
+def p11_state_hash(state) -> str:
+    """The first 16 hex digits of a sha256 over a train state's
+    parameters, pool and RQ state."""
+    h = hashlib.sha256()
+    for t in (*named_params(state.params).values(), state.pool.user,
+              state.pool.item, *state.rq_state.hists, *state.rq_state.usage):
+        h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def p11_gloo_cuda(rank: int, world: int, dev) -> None:
+    """That this torch's gloo takes CUDA tensors in ``all_reduce``,
+    ``all_gather`` and ``broadcast``, with the right values; raises
+    naming the collective that does not."""
+    import torch.distributed as dist
+
+    def run(name, fn):
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except Exception as e:          # name the collective, then fail
+            raise RuntimeError(f"gloo does not take CUDA tensors in {name}: "
+                               f"{type(e).__name__}: {e}") from e
+    x = torch.full((8,), float(rank + 1), device=dev)
+    run("all_reduce", lambda: dist.all_reduce(x))
+    check(bool((x == world * (world + 1) // 2).all()),
+          "gloo all_reduce on CUDA tensors: wrong sum")
+    parts = [torch.empty(8, device=dev) for _ in range(world)]
+    run("all_gather", lambda: dist.all_gather(
+        parts, torch.full((8,), float(rank), device=dev)))
+    check(all(bool((p == i).all()) for i, p in enumerate(parts)),
+          "gloo all_gather on CUDA tensors: wrong parts")
+    z = torch.full((8,), float(rank + 7), device=dev)
+    run("broadcast", lambda: dist.broadcast(z, src=0))
+    check(bool((z == 7).all()), "gloo broadcast on CUDA tensors: wrong value")
+
+
+def p11a_checks(tmp: str, dev) -> dict:
+    """11a on one NCCL rank, mesh (1, 1): the DP step bitwise the plain
+    step (deterministic algorithms on, and the plain step first shown to
+    repeat bitwise), and ``_lookup_sharded`` at nm 1 bitwise the local
+    gather."""
+    spec = torch.load(f"{tmp}/spec_rg.pt", weights_only=False)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    ctx = ShardingCtx(make_rules(mesh), mesh)
+    feats = FeatureStore(spec["user_feat"].to(dev), spec["item_feat"].to(dev))
+    batch = p11_to(spec["check_batch"], dev)
+    draws = p11_to(spec["check_draws"], dev)
+    runs = []
+    for c in (None, None, ctx):
+        state, opt = init_state(CONFIG, generator=torch.Generator()
+                                .manual_seed(spec["seed"]),
+                                pool_size=P3_POOL, device=dev)
+        step = make_train_step(CONFIG, opt, c, features=feats)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batch, draws=draws)
+        torch.cuda.synchronize()
+        runs.append(({k: float(v) for k, v in m.items()},
+                     p11_state_hash(state), time.perf_counter() - t))
+    check(runs[0][:2] == runs[1][:2], "11a: the plain step does not repeat "
+          "bitwise under deterministic algorithms")
+    check(runs[2][:2] == runs[0][:2], "11a: the DP step at mesh (1, 1) is "
+          "not bitwise the plain step")
+    g = torch.Generator(dev).manual_seed(spec["seed"] + 50)
+    tables = torch.randn((DLRM.n_sparse, P11_LOOKUP_VOCAB, DLRM.embed_dim),
+                         generator=g, device=dev)
+    ids = torch.randint(0, P11_LOOKUP_VOCAB, (P11_SERVE, DLRM.n_sparse),
+                        generator=g, device=dev, dtype=torch.int32)
+    out = {}
+    R._lookup_sharded(tables, ids[:8], ctx)       # NCCL's first call
+    for dt in (torch.float32, torch.bfloat16):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        a = R._lookup_sharded(tables, ids, ctx, dt)
+        torch.cuda.synchronize()
+        out[str(dt).replace("torch.", "")] = time.perf_counter() - t
+        check(torch.equal(a, R._lookup_local(tables, ids, dt)),
+              f"11a: _lookup_sharded at nm 1 ({dt}) is not the local gather")
+    return {"step_s": [r[2] for r in runs], "lookup_s": out,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def p11_rankgraph2(tmp: str, world: int, dev) -> dict:
+    """This rank's half of the rankgraph2 DP check: three steps at mesh
+    (world,) in f32, then in bf16, from the seed's initial state on the
+    parent's batches and draws, each on its own RQ selections (kept, with
+    the histograms and codebooks each step starts from); then
+    ``assign_codes`` (rq_assign) of the parent's probe rows with this
+    rank's codebooks."""
+    spec = torch.load(f"{tmp}/spec_rg.pt", weights_only=False)
+    mesh = make_mesh((world,), ("data",))
+    ctx = ShardingCtx(make_rules(mesh), mesh)
+    feats = FeatureStore(spec["user_feat"].to(dev), spec["item_feat"].to(dev))
+    lead = ctx.axis_index("data") == 0      # ships what every rank holds
+    out = {}
+    for tag, cfg in (("f32", dataclasses.replace(CONFIG, dtype="float32")),
+                     ("bf16", CONFIG)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state, opt = init_state(cfg, generator=torch.Generator().manual_seed(
+            spec["seed"]), pool_size=P3_POOL, device=dev)
+        grad_step = make_grad_step(cfg, ctx, features=feats)
+        metrics, secs, codes, starts, first = [], [], [], [], None
+        n_layers = len(cfg.rq.codebook_sizes)
+        for t in range(P11_STEPS):
+            batch = p11_to(spec["batches"][t], dev)
+            draws = p11_to(spec["draws"][t], dev)
+            if tag == "f32":
+                starts.append(([h.sum(dim=0).cpu()
+                                for h in state.rq_state.hists],
+                               [b.detach().float().cpu() for b in
+                                layer_books(state.params["rq"], n_layers)]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sg = grad_step(state, batch, draws=draws)
+            state, m = apply_grads(state, sg, opt)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            codes.append(sg.aux["codes"].cpu())
+            del sg
+            if t == 0 and lead:
+                first = p11_params(state)
+        probe = assign_codes(state.params["rq"], spec["probe"][tag].to(dev),
+                             cfg.rq)
+        out[tag] = dict(metrics=metrics, secs=secs,
+                        peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                        hash=p11_state_hash(state),
+                        hists=[h.cpu() for h in state.rq_state.hists],
+                        usage=[u.cpu() for u in state.rq_state.usage],
+                        pool=(state.pool.user.cpu(), state.pool.item.cpu()),
+                        fills=(state.pool.user_fill, state.pool.item_fill),
+                        codes=probe.cpu(), step_codes=codes,
+                        starts=starts if lead else None,
+                        books=[b.detach().float().cpu() for b in layer_books(
+                            state.params["rq"], n_layers)],
+                        params=p11_params(state) if lead else None,
+                        params_first=first if lead else None)
+        del state, grad_step
+    return out
+
+
+def p11_dlrm(tmp: str, world: int, dev) -> dict:
+    """This rank's half of the row-sharded dlrm check at mesh (1, world):
+    its rows of the tables drawn as the parent drew the whole ones, the
+    serve logits bitwise the parent's, the table gradient rows it owns
+    against the parent's local ones (and none elsewhere), then one
+    ``recsys_train_step``."""
+    spec = torch.load(f"{tmp}/spec_rs.pt", weights_only=False)
+    mesh = make_mesh((1, world), ("data", "model"))
+    ctx = ShardingCtx(make_rules(mesh), mesh)
+    cfg = P11_DLRM
+    V, D = cfg.default_vocab, cfg.embed_dim
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = R.dlrm_init(cfg, generator=torch.Generator(dev).manual_seed(
+        spec["seed"] + 40), device=dev, ctx=ctx)
+    rows = R.shard_rows(ctx, V)
+    check(rows is not None and params["tables"].shape[1] == V // world,
+          "11b: dlrm's tables are not row-sharded")
+    serve = p11_to(spec["serve"], dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = recsys_serve_step(params, cfg, serve, ctx)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    check(torch.equal(logits.cpu(), spec["logits"]),
+          "11b: row-sharded serve logits are not bitwise the parent's")
+    train = p11_to(spec["train"], dev)
+    loss, grads = loss_and_grads(params, cfg, train, ctx)
+    touched = spec["touched"]
+    f, r = touched // V, touched % V
+    own = (r >= rows.start) & (r < rows.stop)
+    local = (f[own] * (V // world) + (r[own] - rows.start)).to(dev)
+    gt = grads["tables"].reshape(-1, D)
+    got, want = gt[local], spec["rows"][own].to(dev)
+    gap = float(((got - want).abs() / (P11_TABLE_REL * want.abs()
+                                       + 1e-4 * want.abs().max())).max())
+    check(close(got, want, P11_TABLE_REL), f"11b: table gradient rows differ "
+          f"from the local lookup's (worst {gap:.3g} of 1)")
+    gt[local] = 0
+    check(not bool(gt.any()), "11b: gradient outside the batch's rows")
+    del grads, gt, got
+    opt = rankgraph2_optimizer()
+    st = opt.init(R.flatten_params(params))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss2, st = recsys_train_step(params, st, train, cfg, opt, ctx)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    check(bool(torch.isfinite(loss2)), "11b: non-finite dlrm loss")
+    return dict(serve_s=serve_s, train_s=train_s, loss=float(loss),
+                own_rows=int(own.sum()), rows=(rows.start, rows.stop),
+                table_gap=gap,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def p11_rank(rank: int, world: int, tmp: str, role: str) -> None:
+    """One rank of Phase 11, a ``torch.multiprocessing.spawn`` child using
+    the kernels the parent built: joins the process group through a file
+    in ``tmp`` (``init_distributed`` picks NCCL or gloo), runs its part
+    and writes it, with its own launch counts, to
+    ``tmp/<role>-rank<rank>.pt``."""
+    import os
+    import torch.distributed as dist
+    if role == "a":     # bitwise repeats need deterministic cuBLAS
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    backend, dev = init_distributed(rank, world, f"{tmp}/rdv-{role}")
+    out = {"backend": backend, "device": str(dev)}
+    if backend == "gloo":
+        p11_gloo_cuda(rank, world, dev)
+    common.reset_launches()              # this rank's main path
+    if role == "a":
+        out["a"] = p11a_checks(tmp, dev)
+    else:
+        out["rg"] = p11_rankgraph2(tmp, world, dev)
+        torch.cuda.empty_cache()
+        out["rs"] = p11_dlrm(tmp, world, dev)
+    out["launches"] = common.launch_counts()
+    torch.save(out, f"{tmp}/{role}-rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p11_spawn(role: str, world: int, tmp: str) -> list:
+    """Run ``world`` ranks of ``p11_rank``; any rank that raises or exits
+    non-zero fails the phase, as does passing ``P11_TIMEOUT_S``.
+    Returns each rank's output."""
+    import torch.multiprocessing as mp
+    ctx = mp.spawn(p11_rank, args=(world, tmp, role), nprocs=world,
+                   join=False)
+    deadline = time.monotonic() + P11_TIMEOUT_S
+    while not ctx.join(timeout=5.0):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+            raise AssertionError(f"phase 11{role}: {world} ranks passed "
+                                 f"the {P11_TIMEOUT_S:.0f} s limit")
+    return [torch.load(f"{tmp}/{role}-rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def p11_corpus(seed: int, dev) -> SimpleNamespace:
+    """Phase 3's corpus without its training: the log, ``build_graph``
+    and the device PPR tables, as ``run_pipeline`` makes them (for
+    ``--distributed-only``)."""
+    cfg = CONFIG
+    world = make_log_world(seed)
+    g = build_graph(world.day0, alpha_pop=cfg.alpha_pop, c_u=cfg.c_u,
+                    c_i=cfg.c_i, k_cap=cfg.k_cap, seed=seed)
+    tables = build_neighbor_tables(g, k_imp=cfg.k_imp, n_walks=cfg.ppr_walks,
+                                   walk_len=cfg.ppr_len,
+                                   restart=cfg.ppr_restart, seed=seed,
+                                   backend="device", device=dev)
+    return SimpleNamespace(tables=tables, graph=g, user_feat=world.user_feat,
+                           item_feat=world.item_feat)
+
+
+def p11_reference(seed: int, dev, corpus, tmp: str) -> dict:
+    """The parent's side: three batches of P11_ROWS edges a type on Phase
+    3's corpus and the whole batch's draws (blocks of P11_ROWS /
+    P11_WORLD), the one-process global step with those shard-local
+    negatives in f32 and bf16 (each step's RQ selections kept, and in
+    f32 the RQ's input rows, codebooks and histograms it starts from),
+    the probe rows and their codes; the dlrm tables whole, serve logits
+    and the local table gradient rows.  Writes the ranks' inputs to
+    ``tmp``."""
+    ds = EdgeDataset(corpus.tables, corpus.user_feat, corpus.item_feat,
+                     k_train=CONFIG.k_train, device=dev, g=corpus.graph)
+    feats = FeatureStore(ds.user_feat, ds.item_feat)
+    per_type = {et: P11_ROWS for et in ("uu", "ui", "ii")}
+    batches = [ds.sample_batch(t, seed, per_type) for t in range(P11_STEPS)]
+    blk = P11_ROWS // P11_WORLD
+    draws, ref = [], {}
+    for tag, cfg in (("f32", dataclasses.replace(CONFIG, dtype="float32")),
+                     ("bf16", CONFIG)):
+        state, opt = init_state(cfg, generator=torch.Generator().manual_seed(
+            seed), pool_size=P3_POOL, device=dev)
+        grad_step = make_grad_step(cfg, features=feats, shard_block=blk)
+        g = torch.Generator().manual_seed(seed + 11)
+        metrics, secs, codes, starts = [], [], [], []
+        for t in range(P11_STEPS):
+            if tag == "f32":     # the same fills, so the same draws, in bf16
+                draws.append(draws_for(cfg, state.pool, batches[t], P11_ROWS,
+                                       g, shard_block=blk))
+            start = ([h.sum(dim=0) for h in state.rq_state.hists],
+                     [b.detach().float().clone() for b in layer_books(
+                         state.params["rq"], len(cfg.rq.codebook_sizes))])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sg = grad_step(state, batches[t], draws=draws[t])
+            state, m = apply_grads(state, sg, opt)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            codes.append(sg.aux["codes"].cpu())
+            if tag == "f32":
+                starts.append((sg.aux["rq_input"].float(), *start))
+            del sg
+            if t == 0:
+                first = p11_params(state)
+        ref[tag] = dict(metrics=metrics, secs=secs, state=state, cfg=cfg,
+                        step_codes=codes, starts=starts, params_first=first)
+    probe = {tag: ref[tag]["state"].pool.user.detach().clone() for tag in ref}
+    for tag, r in ref.items():
+        r["codes"] = assign_codes(r["state"].params["rq"], probe[tag],
+                                  r["cfg"].rq).cpu()
+    check_rows = {et: CHECK_ROWS for et in ("uu", "ui", "ii")}
+    check_batch = ds.sample_batch(P11_STEPS, seed, check_rows)
+    fresh, _ = init_state(CONFIG, generator=torch.Generator().manual_seed(
+        seed), pool_size=P3_POOL, device=dev)
+    check_draws = draws_for(CONFIG, fresh.pool, check_batch, CHECK_ROWS,
+                            torch.Generator().manual_seed(seed + 12))
+    cpu = torch.device("cpu")
+    torch.save(dict(seed=seed,
+                    user_feat=torch.from_numpy(np.asarray(corpus.user_feat,
+                                                          np.float32)),
+                    item_feat=torch.from_numpy(np.asarray(corpus.item_feat,
+                                                          np.float32)),
+                    batches=p11_to(batches, cpu), draws=p11_to(draws, cpu),
+                    probe=p11_to(probe, cpu),
+                    check_batch=p11_to(check_batch, cpu),
+                    check_draws=p11_to(check_draws, cpu)),
+               f"{tmp}/spec_rg.pt")
+    del ds, feats, batches, fresh
+    # dlrm-rm2 at Phase 4's train cut, its tables whole on the card
+    cfg = P11_DLRM
+    V, D = cfg.default_vocab, cfg.embed_dim
+    whole = R.dlrm_init(cfg, generator=torch.Generator(dev).manual_seed(
+        seed + 40), device=dev)
+    gq = torch.Generator(dev).manual_seed(seed + 41)
+    serve = recsys_batch(cfg, gq, P11_SERVE, dev, labels=False)
+    logits = recsys_serve_step(whole, cfg, serve)
+    train = recsys_batch(cfg, gq, RS_TRAIN, dev)
+    loss, grads = loss_and_grads(whole, cfg, train)
+    flat = (torch.arange(cfg.n_sparse, device=dev)[None, :] * V
+            + train["sparse"].long()).reshape(-1)
+    touched = torch.unique(flat)
+    rows = grads["tables"].reshape(-1, D)[touched]
+    torch.save(dict(seed=seed, serve=p11_to(serve, cpu), logits=logits.cpu(),
+                    train=p11_to(train, cpu), touched=touched.cpu(),
+                    rows=rows.cpu()), f"{tmp}/spec_rs.pt")
+    ref["rs"] = dict(loss=float(loss), touched=int(touched.numel()))
+    del whole, grads, rows
+    torch.cuda.empty_cache()
+    return ref
+
+
+def p11_params(state) -> dict:
+    """A CPU copy of every parameter of a train state, by name."""
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in named_params(state.params).items()}
+
+
+def p11_gaps(mine, want) -> tuple:
+    """The median, the share beyond P11_GAP_FAR and the largest of the
+    elementwise gaps between two lists of tensors."""
+    d = torch.cat([(x.double().cpu() - y.double().cpu()).abs().reshape(-1)
+                   for x, y in zip(mine, want)])
+    return (float(d.median()), float((d > P11_GAP_FAR).double().mean()),
+            float(d.max()))
+
+
+def p11_rankgraph2_held(role: str, backend: str, world: int, tag: str,
+                        rg: list, want: dict, note: str, smi: str) -> None:
+    """11b's rankgraph2 check of one type: the ranks' outputs ``rg``
+    against the parent's global step ``want``.  Prints every number,
+    then fails on the first check that does not hold."""
+    failed = []
+
+    def hold(cond: bool, what: str) -> None:
+        if not cond:
+            failed.append(what)
+
+    def held(fn, *args):
+        try:
+            return fn(*args)
+        except AssertionError as e:     # printed below, then failed
+            failed.append(str(e))
+            return None
+
+    hold(len({r["hash"] for r in rg}) == 1,
+         f"11{role} {tag}: the ranks' states differ")
+    mine, st = rg[0], want["state"]
+    if tag == "f32":
+        gaps = [f32_gap(x, y) for x, y in zip(mine["metrics"],
+                                              want["metrics"])]
+    else:
+        gaps = [within(x, y, CARD_CPU_REL, CARD_CPU_ABS)
+                for x, y in zip(mine["metrics"], want["metrics"])]
+    hold(max(gaps) <= 1, f"11{role} {tag}: losses {mine['metrics']} vs "
+         f"{want['metrics']}")
+    rq = want["cfg"].rq
+    sizes = rq.codebook_sizes
+    # each step's selections, the ranks' in global row order; every
+    # histogram row counts its step's selections
+    flips, hist_gap = [], 0
+    for t in range(P11_STEPS):
+        ck = p11_global_rows([r["step_codes"][t] for r in rg])
+        cp = want["step_codes"][t]
+        if ck.shape != cp.shape:
+            hold(False, f"11{role} {tag} step {t}: {tuple(ck.shape)} "
+                 f"selections vs {tuple(cp.shape)}")
+            continue
+        for l, n in enumerate(sizes):
+            for side, codes, hist in (("data-parallel", ck,
+                                       mine["hists"][l]),
+                                      ("global", cp, st.rq_state.hists[l])):
+                hold(torch.equal(hist[t].cpu(), torch.bincount(
+                    codes[:, l], minlength=n).float()),
+                    f"11{role} {tag} step {t} layer {l}: the {side} "
+                    f"histogram row is not its selections' counts")
+            hist_gap += int((mine["hists"][l][t]
+                             != st.rq_state.hists[l][t].cpu()).sum())
+        if tag == "f32":
+            h, tot_p, books_p = want["starts"][t]
+            tot_k, books_k = rg[0]["starts"][t]
+            res = held(selection_ties, h, ck, cp, books_p, books_k, tot_p,
+                       tot_k, rq, f"11{role} f32 step {t}")
+            flips.append(res if res is None else (res[0], round(res[1], 4)))
+        else:
+            flips.append(int((~(ck == cp).all(dim=1)).sum()))
+    hist_diff = sum(int((x != y.cpu()).sum()) for x, y in zip(
+        mine["hists"], st.rq_state.hists))
+    hold(hist_diff == hist_gap, f"11{role} {tag}: histogram rows past "
+         f"the steps' differ")
+    usage_gap = max(float((x - y.cpu()).abs().max()) for x, y in
+                    zip(mine["usage"], st.rq_state.usage))
+    fills = (st.pool.user_fill, st.pool.item_fill)
+    hold(mine["fills"] == fills, f"11{role} {tag}: pool fills "
+         f"{mine['fills']} vs {fills}")
+    pool = p11_gaps([x[:n] for x, n in zip(mine["pool"], fills)],
+                    [x[:n] for x, n in zip((st.pool.user, st.pool.item),
+                                           fills)])
+    # each parameter's gaps after the first step and after the last (the
+    # worst median, share and largest over them); a flipped selection
+    # changes the gradients of the rows it reaches, and Adam passes a
+    # relative gradient change on to the update, so the parameters are
+    # held after the first step (before the histograms part)
+    params = named_params(st.params)
+
+    def worst(gaps: dict) -> tuple:
+        return tuple(max(g[i] for g in gaps.values()) for i in range(3))
+    each = {k: p11_gaps([v], [params[k].detach()])
+            for k, v in mine["params"].items()}
+    first = {k: p11_gaps([v], [want["params_first"][k]])
+             for k, v in mine["params_first"].items()}
+    par, par1 = worst(each), worst(first)
+    print(f"[phase11{role}] {tag} each parameter's gaps after the last "
+          f"step (median, share beyond {P11_GAP_FAR}, largest): " + json.dumps(
+              {k: [float(f"{x:.3g}") for x in g]
+               for k, g in sorted(each.items(), key=lambda kv: -kv[1][0])}))
+    if tag == "f32":    # ROADMAP's optimizer-sign hazard: by distribution
+        for what, g in (("the pool rows", pool),
+                        ("the worst parameter after the first step",
+                         par1)):
+            hold(g[0] <= P11_GAP_MEDIAN and g[1] <= P11_GAP_FAR_SHARE,
+                 f"11{role} f32: {what}'s gaps: median {g[0]:.3g}, share "
+                 f"beyond {P11_GAP_FAR} {g[1]:.3g}")
+    else:
+        hold(pool[2] <= P11_POOL_BF16, f"11{role} bf16: pool rows "
+             f"{pool[2]} apart")
+    # the probe rows' codes (Eq. 9) on each side's codebooks
+    ck = torch.from_numpy(layer_codes(mine["codes"], sizes))
+    cp = torch.from_numpy(layer_codes(want["codes"], sizes))
+    books = [b.detach().float().cpu() for b in layer_books(
+        st.params["rq"], len(sizes))]
+    drift = book_drift(books, mine["books"])
+    near = held(near_ties, st.pool.user.detach().float().cpu(), ck, cp,
+                books, f"11{role} {tag} probe", mine["books"])
+    sel = ("flipped rows and the largest lead over its allowance"
+           if tag == "f32" else "flipped rows")
+    print(f"[phase11{role}] backend {backend}, world size {world}, mesh "
+          f"({world},) data: rankgraph2 {tag} {P11_STEPS} steps of "
+          f"{P11_ROWS} edges a type on its own RQ selections against the "
+          f"global step: worst loss gap {max(gaps):.3f} of the tolerance; "
+          f"selections differing from the global step's, each step "
+          f"({sel}) {flips}; histogram bins differing {hist_diff}, each "
+          f"row its step's selections' counts; usage gap {usage_gap:.3g}; "
+          f"the filled pool rows' gaps (median, share beyond "
+          f"{P11_GAP_FAR}, largest) {[float(f'{x:.3g}') for x in pool]}; "
+          f"the parameters' (the worst of each over them) after the "
+          f"first step {[float(f'{x:.3g}') for x in par1]}, after the "
+          f"last {[float(f'{x:.3g}') for x in par]}; codebook drift "
+          f"{[float(f'{d:.3g}') for d in drift]}; probe codes differing "
+          f"{near} of {ck.shape[0]}, each a near tie within its codes' "
+          f"drift; each rank's step seconds "
+          f"{[[round(x, 4) for x in r['secs']] for r in rg]}; peak GB "
+          f"{[round(r['peak_gb'], 3) for r in rg]} ({note}; {smi})",
+          flush=True)
+    for what in failed:
+        check(False, what)
+
+
+def p11_global_rows(parts: list) -> torch.Tensor:
+    """The ranks' RQ rows (each laid out as its block's endpoints: every
+    edge type in sorted order, its src rows then its dst rows; P11_ROWS
+    edges a type) in the whole batch's order."""
+    b = P11_ROWS // len(parts)
+    n = parts[0].shape[0] // b
+    return torch.cat([p[i * b:(i + 1) * b] for i in range(n) for p in parts])
+
+
+def p11_summary(outs: list, key: str, field: str) -> str:
+    return "[" + ", ".join(f"{o[key][field]:.4f}" for o in outs) + "]"
+
+
+def phase11(seed: int, dev, corpus, smi: str) -> dict:
+    """Phase 11: 11a on one NCCL rank (and 11b on NCCL, one rank a card,
+    where the machine has four cards), 11b on four gloo ranks sharing
+    the card.  Returns the ranks' launch counts, summed."""
+    t_all = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="phase11-") as tmp:
+        t = time.perf_counter()
+        ref = p11_reference(seed, dev, corpus, tmp)
+        ref_s = time.perf_counter() - t
+        print(f"[phase11] the parent's side (batches of {P11_ROWS} edges a "
+              f"type, cut from 10,922 so that {P11_WORLD} divides it; the "
+              f"global step in f32 and bf16 with shard-local negatives of "
+              f"{P11_ROWS // P11_WORLD} rows; dlrm-rm2 at {TRAIN_VOCAB:,} "
+              f"rows a field, Phase 4's train cut) took {ref_s:.2f} s; "
+              f"global step seconds f32 "
+              f"{[round(x, 4) for x in ref['f32']['secs']]}, bf16 "
+              f"{[round(x, 4) for x in ref['bf16']['secs']]} ({smi})")
+        # 11a: one NCCL rank, mesh (1, 1)
+        t = time.perf_counter()
+        a = p11_spawn("a", 1, tmp)[0]
+        check(a["backend"] == "nccl", f"11a chose {a['backend']}, not nccl")
+        total = add_counts(total, a["launches"])
+        print(f"[phase11a] backend {a['backend']}, world size 1, mesh (1, 1)"
+              f": the rankgraph2 DP step bitwise the plain step at "
+              f"{CHECK_ROWS} edges a type (the plain step repeats bitwise "
+              f"under deterministic algorithms); step seconds (plain, "
+              f"plain, DP) {[round(x, 4) for x in a['a']['step_s']]}; "
+              f"_lookup_sharded at nm 1 bitwise the local gather, "
+              f"{P11_SERVE:,} x {DLRM.n_sparse} ids on {DLRM.n_sparse} x "
+              f"{P11_LOOKUP_VOCAB:,} x 64 f32, seconds "
+              f"{json.dumps({k: round(v, 4) for k, v in a['a']['lookup_s'].items()})}"
+              f"; peak {a['a']['peak_gb']:.3f} GB; wall "
+              f"{time.perf_counter() - t:.2f} s ({smi})")
+        roles = [("b", P11_WORLD)]
+        if torch.cuda.device_count() >= P11_WORLD:
+            roles.insert(0, ("b-nccl", P11_WORLD))
+        else:
+            print(f"[phase11a] {torch.cuda.device_count()} card(s): 11b on "
+                  f"NCCL, one rank a card, needs {P11_WORLD}; not run")
+        for role, world in roles:
+            t = time.perf_counter()
+            outs = p11_spawn(role, world, tmp)
+            wall = time.perf_counter() - t
+            backend = outs[0]["backend"]
+            check(all(o["backend"] == backend for o in outs),
+                  f"11{role}: ranks chose different backends")
+            check(backend == ("nccl" if role == "b-nccl" else "gloo"),
+                  f"11{role} chose {backend}")
+            for o in outs:
+                total = add_counts(total, o["launches"])
+            note = ("gloo stages CUDA tensors through the host: these times "
+                    "say nothing of NCCL" if backend == "gloo" else
+                    "one rank a card")
+            for tag in ("f32", "bf16"):
+                p11_rankgraph2_held(role, backend, world, tag,
+                                    [o["rg"][tag] for o in outs], ref[tag],
+                                    note, smi)
+            rs = [o["rs"] for o in outs]
+            check(all(r["loss"] == ref["rs"]["loss"] for r in rs),
+                  f"11{role}: dlrm losses {[r['loss'] for r in rs]} vs "
+                  f"{ref['rs']['loss']}")
+            check(sum(r["own_rows"] for r in rs) == ref["rs"]["touched"],
+                  f"11{role}: the shards' rows do not cover the batch's")
+            print(f"[phase11{role}] backend {backend}, world size {world}, "
+                  f"mesh (1, {world}) data x model: dlrm-rm2 {DLRM.n_sparse} x "
+                  f"{TRAIN_VOCAB:,} x 64 f32 row-sharded ({TRAIN_VOCAB // world:,}"
+                  f" rows a rank): {P11_SERVE:,} serve logits bitwise the "
+                  f"one-process local lookup's; one step's table gradient "
+                  f"rows ({ref['rs']['touched']:,} touched) within "
+                  f"{P11_TABLE_REL} of the local ones (worst "
+                  f"{max(r['table_gap'] for r in rs):.3g} of 1); each "
+                  f"rank's serve "
+                  f"seconds {p11_summary(outs, 'rs', 'serve_s')}, train "
+                  f"step seconds {p11_summary(outs, 'rs', 'train_s')}, peak "
+                  f"GB {p11_summary(outs, 'rs', 'peak_gb')}; wall "
+                  f"{wall:.2f} s ({note}; {smi})")
+    print(f"[phase11] wall {time.perf_counter() - t_all:.2f} s; the ranks' "
+          f"launches {json.dumps(nonzero(total))}")
+    return total
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
 def print_build(logs: dict) -> None:
     """Registers, spills and stack of every kernel ``nvcc`` built."""
     for kname, log in logs.items():
@@ -5366,6 +6114,11 @@ def main() -> int:
                     help="only build the flash-attention kernels and run "
                          "Phase 10 (run_lm, dense and MoE training, kimi "
                          "serving)")
+    ap.add_argument("--distributed-only", action="store_true",
+                    help="only build the kernels Phase 3's construction "
+                         "and training use, make Phase 3's corpus (no "
+                         "training) and run Phase 11 (the distributed "
+                         "paths)")
     ap.add_argument("--decode-only", type=int, default=0, metavar="REPS",
                     help="only build flash_attention, print the whole op's "
                          "lines as --attention-only does, and run Phase 5's "
@@ -5406,6 +6159,15 @@ def main() -> int:
     if args.decode_only > 0:
         print_build(common.build(["flash_attention"]))
         decode_only(args.seed, dev, args.decode_only)
+        return 0
+    if args.distributed_only:
+        print_build(common.build(["rq_assign", "ppr_walk",
+                                  "fused_contrastive"]))
+        t = time.perf_counter()
+        corpus = p11_corpus(args.seed, dev)
+        print(f"[phase11] Phase 3's corpus made in "
+              f"{time.perf_counter() - t:.2f} s")
+        phase11(args.seed, dev, corpus, smi)
         return 0
     if args.lm_train_only:
         print_build(common.build(["flash_attention", "flash_attention_bwd"]))
@@ -5485,7 +6247,7 @@ def main() -> int:
     print(f"[phase8] wall {time.perf_counter() - t:.2f} s")
     del p2
     torch.cuda.empty_cache()
-    launches3 = phase3(args.seed, dev)
+    launches3, corpus = phase3(args.seed, dev)
     torch.cuda.empty_cache()
     t = time.perf_counter()
     launches6, p6 = phase6(args.seed, dev)
@@ -5511,6 +6273,9 @@ def main() -> int:
     t = time.perf_counter()
     launches10 = phase10(args.seed, dev)
     print(f"[phase10] wall {time.perf_counter() - t:.2f} s")
+    torch.cuda.empty_cache()
+    launches11 = phase11(args.seed, dev, corpus, smi)
+    del corpus
     for r in rows:     # each path's launches, Phases 6-10's added to its own
         counter = r.get("counter", r["name"])
         r["launches"] = (next((ls[counter] for ls in (
@@ -5518,7 +6283,7 @@ def main() -> int:
             launches3) if counter in ls), 0)
             + sum(ls.get(counter, 0)
                   for ls in (launches6, launches7, launches8, launches9,
-                             launches10)))
+                             launches10, launches11)))
         check(r["launches"] > 0, f"{r['name']} was not launched on its "
               f"main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -11,6 +11,15 @@ knows them without reading the device.
 index ``sample_negatives`` uses is drawn up front by
 ``negative_draws`` (from a ``torch.Generator``) or passed in by the
 caller (the parity tests pass the JAX draws).
+
+``shard_block`` keeps a row's in-batch, fallback and augmentation rows
+inside its block of that many rows (the reference's shard-local
+negatives): with data-parallel training each rank holds one block of
+the batch, so its negatives never cross ranks.  The rule is the
+reference's: row ``i`` takes ``(i // blk) * blk + (i + off) % blk``
+with ``off`` drawn in ``[1, max(blk, 2))``, where ``blk`` is
+``shard_block`` if ``0 < shard_block <= B`` and it divides ``B``, else
+``B`` (one block: the whole batch).
 """
 from __future__ import annotations
 
@@ -70,17 +79,26 @@ def split_counts(n_neg: int, n_pool: int, n_heads: int):
     return n_neg - n_pool - n_aug, n_pool, n_aug
 
 
+def block_size(B: int, shard_block: int = 0) -> int:
+    """The in-batch block: ``shard_block`` where it is in ``(0, B]`` and
+    divides ``B``, else the whole batch."""
+    return shard_block if 0 < shard_block <= B and B % shard_block == 0 \
+        else B
+
+
 def negative_draws(B: int, n_heads: int, n_neg: int, n_pool: int,
                    pool_fill: int, *, generator: torch.Generator,
-                   device=None) -> Dict[str, torch.Tensor]:
+                   device=None, shard_block: int = 0
+                   ) -> Dict[str, torch.Tensor]:
     """Every random index ``sample_negatives`` needs, as int64 tensors:
 
     ``inb`` (B, n_inb) and ``fallback`` (B, n_pool) and ``aug_off``
-    (B, n_aug) row offsets in [1, max(B, 2)); ``pool`` (B, n_pool) pool
-    rows in [0, max(pool_fill, 1)); ``aug_head`` (B, n_aug) heads in
+    (B, n_aug) row offsets in [1, max(blk, 2)) (``blk``:
+    ``block_size(B, shard_block)``); ``pool`` (B, n_pool) pool rows in
+    [0, max(pool_fill, 1)); ``aug_head`` (B, n_aug) heads in
     [0, n_heads)."""
     n_inb, n_pool, n_aug = split_counts(n_neg, n_pool, n_heads)
-    hi = max(B, 2)
+    hi = max(block_size(B, shard_block), 2)
 
     def r(lo, high, n):
         return torch.randint(lo, high, (B, n), generator=generator,
@@ -94,24 +112,29 @@ def sample_negatives(dst_primary: torch.Tensor, dst_heads: torch.Tensor,
                      pool: torch.Tensor, pool_fill: int, n_neg: int,
                      n_pool: int, *,
                      draws: Optional[Dict[str, torch.Tensor]] = None,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None,
+                     shard_block: int = 0) -> torch.Tensor:
     """The (B, n_neg, d) negative bank for each positive edge, in
     ``dst_primary``'s type: (1) in-batch negatives, other rows' dst
     primaries; (2) rows of the rolling pool (in-batch rows while the pool
-    is empty); (3) single heads of other in-batch dst nodes.  One chip:
-    the in-batch block is the whole batch.  ``draws`` defaults to
-    ``negative_draws`` from ``generator``."""
+    is empty); (3) single heads of other in-batch dst nodes.  In-batch
+    rows stay inside a row's block of ``block_size(B, shard_block)``
+    rows.  ``draws`` defaults to ``negative_draws`` from ``generator``
+    (with the same ``shard_block``)."""
     B, d = dst_primary.shape
     H = dst_heads.shape[1]
     dev = dst_primary.device
+    blk = block_size(B, shard_block)
     if draws is None:
         draws = negative_draws(B, H, n_neg, n_pool, pool_fill,
-                               generator=generator, device=dev)
+                               generator=generator, device=dev,
+                               shard_block=shard_block)
     i = torch.arange(B, device=dev)[:, None]
 
-    def other_rows(off):            # row i -> (i + off) % B, never i
-        return (i + off.to(dev)) % B
+    def other_rows(off):   # row i -> its block's base + (i + off) % blk
+        if blk == B:
+            return (i + off.to(dev)) % B
+        return (i // blk) * blk + (i + off.to(dev)) % blk
 
     parts = [dst_primary[other_rows(draws["inb"])]]
     if pool_fill > 0:

@@ -22,8 +22,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 from repro_torch.configs.base import RQConfig
+from repro_torch.distributed.collectives import sum_across, sum_across_
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.rq_assign.ops import flat_codes, rq_assign
 
@@ -79,9 +81,19 @@ def _soft_assign(dist: torch.Tensor, zeta1: float, zeta2: float
     return torch.softmax(zeta1 / (zeta2 + dist), dim=-1)
 
 
+def _row_mean(x: torch.Tensor, group, n_total: int) -> torch.Tensor:
+    """Mean over dim 0 of the whole batch: this rank's rows' sum reduced
+    over ``group`` (gradient to this rank's rows only), or ``x.mean(0)``
+    on one process."""
+    if group is None:
+        return x.mean(dim=0)
+    return sum_across(x.sum(dim=0), group) / n_total
+
+
 def rq_forward(rq_params, state: RQState, h: torch.Tensor, cfg: RQConfig,
                *, train: bool = True,
-               codes: Optional[torch.Tensor] = None) -> Dict[str, object]:
+               codes: Optional[torch.Tensor] = None,
+               group=None) -> Dict[str, object]:
     """Quantize h (B, d).  Returns codes, recon, losses and the new state.
 
     Code *selection* is discrete; the reconstruction h' = sum_l C_l[k_l]
@@ -91,14 +103,22 @@ def rq_forward(rq_params, state: RQState, h: torch.Tensor, cfg: RQConfig,
     ``codes`` (B, L), if given, are taken as the selections (Eq. 9 or
     13) in place of the ones chosen here, so that two precisions can be
     held to the same discrete choices; everything else is computed as
-    usual."""
+    usual.
+
+    ``group``: a data-parallel process group whose ranks each pass an
+    equal block of the batch.  The batch statistics (the soft and hard
+    code frequencies, the routed counts, the mean reconstruction and
+    commitment losses, the EMA usage) are then the whole batch's,
+    reduced over the group, and every rank gets the same losses and new
+    state; the selections and ``recon_st`` stay this rank's rows."""
     h32 = h.to(torch.float32)
     resid = h32
     recon = torch.zeros_like(h32)
     given, codes, reg_terms, util_terms = codes, [], [], []
     new_counts, hard_counts = [], []
     biased = cfg.biased_selection and train
-    B = h32.shape[0]
+    B = h32.shape[0] if group is None else \
+        h32.shape[0] * tdist.get_world_size(group)
 
     for l, n_l in enumerate(cfg.codebook_sizes):
         C = rq_params["codebooks"][f"layer{l}"].to(torch.float32)  # (n, d)
@@ -121,24 +141,36 @@ def rq_forward(rq_params, state: RQState, h: torch.Tensor, cfg: RQConfig,
         resid = resid - sel
         # regularizer (Eq. 12): batch soft frequency . rolling histogram
         p_batch = p_soft.sum(dim=0)
+        if group is not None:
+            p_batch = sum_across(p_batch, group)
         p_batch = p_batch / torch.clamp_min(p_batch.sum(), 1e-12)
         reg_terms.append(torch.dot(phat, p_batch) * n_l)
         # utilization balance: the hard (Eq. 9) batch fractions carry no
         # gradient, the mean soft assignment does
         f_hard = torch.bincount(k_hard, minlength=n_l).to(torch.float32)
+        if group is not None:
+            sum_across_(f_hard, group)
         f_hard = f_hard / max(float(B), 1.0)
         if n_l > 1:
-            p_mean = p_soft.mean(dim=0)
+            p_mean = _row_mean(p_soft, group, B)
             p_mean = p_mean / torch.clamp_min(p_mean.sum(), 1e-12)
             gap = (n_l * torch.dot(f_hard, p_mean) - 1.0) / (n_l - 1.0)
             util_terms.append(torch.clamp_min(gap, 0.0))
         hard_counts.append(f_hard * B)
         # routed counts for the rolling histogram (Eq. 12/13 operate on
         # the selection actually taken, biased or not)
-        new_counts.append(torch.bincount(k, minlength=n_l).to(torch.float32))
+        counts = torch.bincount(k, minlength=n_l).to(torch.float32)
+        new_counts.append(counts if group is None
+                          else sum_across_(counts, group))
 
-    recon_loss = ((h32.detach() - recon) ** 2).sum(dim=1).mean()
-    commit = ((h32 - recon.detach()) ** 2).sum(dim=1).mean()
+    if group is None:
+        recon_loss = ((h32.detach() - recon) ** 2).sum(dim=1).mean()
+        commit = ((h32 - recon.detach()) ** 2).sum(dim=1).mean()
+    else:
+        recon_loss = _row_mean(((h32.detach() - recon) ** 2).sum(dim=1),
+                               group, B)
+        commit = _row_mean(((h32 - recon.detach()) ** 2).sum(dim=1),
+                           group, B)
     l_recon = recon_loss + cfg.commit_coef * commit
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     l_reg = torch.stack(reg_terms).mean() if cfg.regularize else zero

@@ -9,7 +9,11 @@ both ways) through the ``fused_contrastive`` op, co-learns the RQ index
 on all endpoint primaries (reconstruction, contrastive on the
 reconstruction reusing each direction's negatives, balance regularizer,
 utilization gap), combines everything with learned uncertainty weights,
-clips, and applies the partitioned AdaGrad/AdamW update.
+clips, and applies the partitioned AdaGrad/AdamW update.  The step is
+two halves, ``make_grad_step`` (forward, backward and the data-parallel
+reduction of the gradients) and ``apply_grads`` (clip, update, pool and
+RQ state); a caller that needs the gradients or the RQ selections runs
+them itself.
 
 Unlike the JAX package's pure step, the port updates the state in
 place: the parameters, optimizer moments, RQ histograms and pool are
@@ -17,6 +21,23 @@ rewritten where they lie, so no second copy of the state is held.  The
 eval step (``make_eval_step``) and the dead-code reset
 (``reset_dead_codes``, which writes re-seeded codebook rows into the
 live parameters) follow the same rule.
+
+Data-parallel training (``make_train_step(cfg, opt, ctx)`` with a mesh
+whose ``"batch"`` axes have ``dp > 1`` ranks) is manual SPMD, with the
+values of the JAX package's global step under a ``ShardingCtx`` of the
+same ``dp`` (GSPMD's batch sharding and shard-local negatives): every
+rank holds the whole batch, keeps rows ``r*B/dp`` to ``(r+1)*B/dp - 1``
+of each edge type (``rank_batch``: its own dedup pack, so the encoder's
+work divides across ranks) and draws its negatives inside that block.
+What the global step takes over the whole batch is reduced across the
+data group: the task losses' means, the RQ batch statistics, the pool
+insert (the blocks' embeddings gathered in global row order) and the
+gradients, before clipping.  The log-variances enter only through the
+reduced task losses, so every rank already holds their whole gradient:
+they are not summed again.  After the step every rank holds the same
+state.  Departure: where ``dp`` does not divide an edge type's ``B`` the
+reference falls back to whole-batch negatives, which GSPMD gathers
+across shards; the port raises, naming ``B`` and ``dp``.
 """
 from __future__ import annotations
 
@@ -31,6 +52,9 @@ from repro_torch.core import losses as L
 from repro_torch.core import model as M
 from repro_torch.core import negatives as N
 from repro_torch.core import rq_index as RQ
+from repro_torch.distributed.collectives import (gather_rows, reduce_grads_,
+                                                 sum_across)
+from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.kernels.common import resolve_device
 from repro_torch.optim import optimizers as opt_lib
 
@@ -137,18 +161,37 @@ def loss_directions(batch) -> Tuple[str, ...]:
     return tuple(out)
 
 
+def _mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The whole batch's mean of a per-row loss: ``x.mean()`` on one
+    process; over a data group of equal blocks, this rank's sum reduced
+    over the group (gradient to this rank's rows only) over the whole
+    batch's row count."""
+    if group is None:
+        return x.mean()
+    n = x.shape[0] * torch.distributed.get_world_size(group)
+    return sum_across(x.sum(), group) / n
+
+
 def forward_losses(params, cfg: RankGraph2Config, batch,
                    pool: N.NegPoolState, rq_state: RQ.RQState, *,
                    features: FeatureStore, train: bool = True,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                   rq_codes: Optional[torch.Tensor] = None):
-    """Returns (task_losses, aux); aux carries the RQ state and the
-    endpoint embeddings for the pool update.  ``draws`` maps each of
+                   rq_codes: Optional[torch.Tensor] = None,
+                   shard_block: int = 0, group=None):
+    """Returns (task_losses, aux); aux carries the RQ state, the
+    endpoint embeddings for the pool update, and the RQ's input rows
+    (``rq_input``) and selections (``codes``).  ``draws`` maps each of
     ``loss_directions(batch)`` to its ``negatives.negative_draws``;
     missing ones are drawn from ``generator``.  ``rq_codes``, if given,
     are the RQ selections of the endpoint rows (``aux["codes"]`` of
-    another call on the same batch; see ``rq_index.rq_forward``)."""
+    another call on the same batch; see ``rq_index.rq_forward``).
+    ``shard_block`` keeps in-batch negatives inside blocks of that many
+    rows (``negatives.sample_negatives``).  ``group``: the data group
+    when ``batch`` is this rank's block (``rank_batch``); the task
+    losses and RQ statistics are then the whole batch's, the pool's
+    embeddings in ``aux`` the whole batch's in global row order, and
+    ``rq_input`` and ``codes`` this rank's rows."""
     tasks: Dict[str, torch.Tensor] = {}
     per_type = _dedup_per_type(params, cfg, batch, features)
     draws = draws or {}
@@ -180,16 +223,17 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
         fill = pool.user_fill if dt_ == M.USER else pool.item_fill
         negs = N.sample_negatives(dp_, dh_, buf, fill, cfg.n_negatives,
                                   cfg.n_pool_neg, draws=draws.get(suffix),
-                                  generator=generator)
+                                  generator=generator,
+                                  shard_block=shard_block)
         dir_negs[suffix] = negs
         marg, info = _pair(sp_, dp_, negs)
-        tasks[f"margin_{suffix}"] = marg.mean()
-        tasks[f"infonce_{suffix}"] = info.mean()
+        tasks[f"margin_{suffix}"] = _mean(marg, group)
+        tasks[f"infonce_{suffix}"] = _mean(info, group)
 
     # --- RQ co-learning on all endpoint embeddings -----------------------
     all_prim = torch.cat(endpoint_prims, dim=0)
     rq_out = RQ.rq_forward(params["rq"], rq_state, all_prim, cfg.rq,
-                           train=train, codes=rq_codes)
+                           train=train, codes=rq_codes, group=group)
     tasks["rq_recon"] = rq_out["l_recon"]
     tasks["rq_reg"] = rq_out["l_reg"]
     if cfg.rq.util_coef > 0:
@@ -207,50 +251,212 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
     for et in per_type:
         marg, info = _pair(recon_parts[(et, "src")],
                            recon_parts[(et, "dst")], dir_negs[et])
-        lprime.append((0.5 * marg + 0.5 * info).mean())
+        lprime.append(_mean(0.5 * marg + 0.5 * info, group))
     tasks["rq_contrastive"] = torch.stack(lprime).mean()
+    if group is not None:   # the pool takes the whole batch's rows
+        user_embs = [gather_rows(e, group) for e in user_embs]
+        item_embs = [gather_rows(e, group) for e in item_embs]
 
     aux = dict(rq_state=rq_out["state"],
                user_emb=torch.cat(user_embs) if user_embs else None,
                item_emb=torch.cat(item_embs) if item_embs else None,
-               codes=rq_out["codes"])
+               codes=rq_out["codes"], rq_input=all_prim.detach())
     return tasks, aux
 
 
-def make_train_step(cfg: RankGraph2Config, optimizer: opt_lib.Optimizer,
-                    *, features: FeatureStore, grad_clip: float = 1.0):
-    """Builds ``train_step(state, batch, *, generator=None, draws=None)
-    -> (state, metrics)``; ``metrics`` are 0-d device tensors (reading
-    them is the caller's sync)."""
+_SIDE_NAMES = {M.USER: "user", M.ITEM: "item"}
 
-    def train_step(state: TrainState, batch, *,
-                   generator: Optional[torch.Generator] = None,
-                   draws=None):
+
+def rank_batch(batch, rank: int, dp: int):
+    """Rank ``rank``'s block of a ``dedup_ids`` batch split over ``dp``
+    ranks: rows ``rank*B/dp`` to ``(rank+1)*B/dp - 1`` of each edge
+    type, with a dedup pack of its own that holds only the nodes those
+    rows need (their endpoints first, in pack order, then the
+    neighbours the endpoints reference, in pack order), so the rank
+    encodes and aggregates only those.  Raises where ``dp`` does not
+    divide an edge type's ``B``."""
+    nodes, edges = batch["nodes"], batch["edges"]
+    ep = {"user": [], "item": []}
+    rows = {}
+    for et in sorted(edges):
+        B = edges[et]["src_map"].shape[0]
+        if B % dp:
+            raise ValueError(
+                f"edge type {et}: B {B} is not a multiple of dp {dp}; the "
+                f"reference falls back to whole-batch negatives there, "
+                f"which the port's data-parallel step does not take")
+        b = B // dp
+        rows[et] = slice(rank * b, (rank + 1) * b)
+        st, dt = _ET_TYPES[et]
+        ep[_SIDE_NAMES[st]].append(edges[et]["src_map"][rows[et]].long())
+        ep[_SIDE_NAMES[dt]].append(edges[et]["dst_map"][rows[et]].long())
+    dev = nodes["user"]["ids"].device
+    ends = {t: (torch.unique(torch.cat(v)) if v else
+                torch.zeros(0, dtype=torch.long, device=dev))
+            for t, v in ep.items()}
+    # pack rows each type needs: its endpoints and every neighbour the
+    # endpoints of either type reference (masked entries point at row 0)
+    nbr_key = {"user": "unbr_idx", "item": "inbr_idx"}
+    remap, keep = {}, {}
+    for t in ("user", "item"):
+        U = nodes[t]["ids"].shape[0]
+        need = torch.zeros(U, dtype=torch.bool, device=dev)
+        for s in ("user", "item"):
+            need[nodes[s][nbr_key[t]][ends[s]].long().reshape(-1)] = True
+        need[ends[t]] = False
+        keep[t] = torch.cat([ends[t], torch.nonzero(need).flatten()])
+        remap[t] = torch.full((U,), -1, dtype=torch.long, device=dev)
+        remap[t][keep[t]] = torch.arange(len(keep[t]), device=dev)
+    out_nodes = {}
+    for t in ("user", "item"):
+        side, e = nodes[t], ends[t]
+        out_nodes[t] = dict(
+            ids=side["ids"][keep[t]],
+            unbr_idx=remap["user"][side["unbr_idx"][e].long()].to(
+                torch.int32),
+            unbr_mask=side["unbr_mask"][e],
+            inbr_idx=remap["item"][side["inbr_idx"][e].long()].to(
+                torch.int32),
+            inbr_mask=side["inbr_mask"][e])
+    out_edges = {}
+    for et in sorted(edges):
+        st, dt = _ET_TYPES[et]
+        sub = {k: v[rows[et]] for k, v in edges[et].items()}
+        sub["src_map"] = remap[_SIDE_NAMES[st]][sub["src_map"].long()].to(
+            torch.int32)
+        sub["dst_map"] = remap[_SIDE_NAMES[dt]][sub["dst_map"].long()].to(
+            torch.int32)
+        out_edges[et] = sub
+    return {"nodes": out_nodes, "edges": out_edges}
+
+
+_DST_OF = {"uu": M.USER, "ui": M.ITEM, "iu": M.USER, "ii": M.ITEM}
+
+
+def _rank_draws(cfg: RankGraph2Config, batch, pool: N.NegPoolState, draws,
+                generator, rank: int, dp: int):
+    """This rank's rows of the whole batch's draws of each direction: the
+    given ones, or those the global step with shard-local negatives
+    would draw from ``generator`` (the same generator state on every
+    rank gives every rank the same draws)."""
+    out = {}
+    for suffix in loss_directions(batch):
+        et = "ui" if suffix == "iu" else suffix
+        B = batch["edges"][et]["src_map"].shape[0]
+        b = B // dp
+        d = (draws or {}).get(suffix)
+        if d is None:
+            fill = pool.user_fill if _DST_OF[suffix] == M.USER \
+                else pool.item_fill
+            d = N.negative_draws(B, cfg.n_heads, cfg.n_negatives,
+                                 cfg.n_pool_neg, fill, generator=generator,
+                                 device=pool.user.device, shard_block=b)
+        out[suffix] = {k: v[rank * b:(rank + 1) * b] for k, v in d.items()}
+    return out
+
+
+@dataclasses.dataclass
+class StepGrads:
+    """One train step's forward and backward: the task losses, their
+    uncertainty-weighted total, ``forward_losses``'s ``aux`` and every
+    parameter's gradient by name as the update takes it, before
+    clipping (summed over the data group in a data-parallel step)."""
+    tasks: Dict[str, torch.Tensor]
+    total: torch.Tensor
+    aux: Dict[str, object]
+    grads: Dict[str, torch.Tensor]
+
+
+def make_grad_step(cfg: RankGraph2Config, ctx: Optional[ShardingCtx] = None,
+                   *, features: FeatureStore, shard_block: int = 0):
+    """Builds ``grad_step(state, batch, *, generator=None, draws=None)
+    -> StepGrads``, the first half of ``make_train_step``'s step (which
+    ``apply_grads`` completes); ``state`` is not changed.
+
+    ``ctx`` with a mesh whose ``"batch"`` axes have ``dp > 1`` ranks
+    makes the data-parallel step (see the module docstring): each rank
+    passes the same whole ``batch`` and the whole batch's ``draws`` (or
+    a generator in the same state), laid out as ``negative_draws`` with
+    ``shard_block = B/dp``; ``aux`` then holds this rank's rows.  With
+    no mesh or ``dp == 1`` it is the one-process step; ``shard_block``
+    then keeps its in-batch negatives inside blocks of that many rows
+    (the global step a ``dp``-rank run equals)."""
+    dp = 1 if ctx is None else ctx.axis_size("batch")
+    group, rank = None, 0
+    if dp > 1:
+        if shard_block:
+            raise ValueError("the data-parallel step sets its own "
+                             "shard_block (B / dp)")
+        axes = ctx.mesh_axes("batch")
+        group, rank = ctx.group(axes), ctx.axis_index(axes)
+
+    def grad_step(state: TrainState, batch, *,
+                  generator: Optional[torch.Generator] = None,
+                  draws=None) -> StepGrads:
         params = named_params(state.params)
         for p in params.values():
             p.grad = None
+        if group is not None:
+            draws = _rank_draws(cfg, batch, state.pool, draws, generator,
+                                rank, dp)
+            batch = rank_batch(batch, rank, dp)
         tasks, aux = forward_losses(state.params, cfg, batch, state.pool,
                                     state.rq_state, features=features,
                                     train=True, generator=generator,
-                                    draws=draws)
+                                    draws=draws, shard_block=shard_block,
+                                    group=group)
         total = L.uncertainty_combine(tasks, state.params["uncertainty"])
         total.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                  for k, p in params.items()}
-        grads, gnorm = opt_lib.clip_by_global_norm(grads, grad_clip)
-        with torch.no_grad():
-            updates, state.opt_state = optimizer.update(
-                grads, state.opt_state, params)
-            opt_lib.apply_updates(params, updates)
         for p in params.values():
             p.grad = None
-        N.update_pool(state.pool, aux["user_emb"], aux["item_emb"])
-        state.rq_state = aux["rq_state"]
-        state.step += 1
-        metrics = {k: v.detach() for k, v in tasks.items()}
-        metrics["total"] = total.detach()
-        metrics["grad_norm"] = gnorm.detach()
-        return state, metrics
+        if group is not None:   # the log-variances' are whole already
+            reduce_grads_(grads, [k for k in grads
+                                  if not k.startswith("uncertainty.")],
+                          group)
+        return StepGrads(tasks, total, aux, grads)
+
+    return grad_step
+
+
+def apply_grads(state: TrainState, sg: StepGrads,
+                optimizer: opt_lib.Optimizer, *, grad_clip: float = 1.0):
+    """The second half of the step: clips ``sg.grads`` by their global
+    norm, updates the parameters in place, inserts the batch's
+    embeddings into the pool and takes the new RQ state.  Returns
+    ``(state, metrics)``; ``metrics`` are 0-d device tensors (reading
+    them is the caller's sync)."""
+    params = named_params(state.params)
+    grads, gnorm = opt_lib.clip_by_global_norm(sg.grads, grad_clip)
+    with torch.no_grad():
+        updates, state.opt_state = optimizer.update(
+            grads, state.opt_state, params)
+        opt_lib.apply_updates(params, updates)
+    N.update_pool(state.pool, sg.aux["user_emb"], sg.aux["item_emb"])
+    state.rq_state = sg.aux["rq_state"]
+    state.step += 1
+    metrics = {k: v.detach() for k, v in sg.tasks.items()}
+    metrics["total"] = sg.total.detach()
+    metrics["grad_norm"] = gnorm.detach()
+    return state, metrics
+
+
+def make_train_step(cfg: RankGraph2Config, optimizer: opt_lib.Optimizer,
+                    ctx: Optional[ShardingCtx] = None, *,
+                    features: FeatureStore, grad_clip: float = 1.0):
+    """Builds ``train_step(state, batch, *, generator=None, draws=None)
+    -> (state, metrics)``: ``make_grad_step(cfg, ctx, features=)``'s
+    gradients, then ``apply_grads``."""
+    grad_step = make_grad_step(cfg, ctx, features=features)
+
+    def train_step(state: TrainState, batch, *,
+                   generator: Optional[torch.Generator] = None,
+                   draws=None):
+        return apply_grads(state, grad_step(state, batch,
+                                            generator=generator,
+                                            draws=draws),
+                           optimizer, grad_clip=grad_clip)
 
     return train_step
 

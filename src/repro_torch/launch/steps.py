@@ -30,6 +30,14 @@ The recsys steps:
     candidate items, top k (100) with the lowest index first among equal
     scores, as ``jax.lax.top_k``.
 
+The recsys train and serve steps take ``ctx`` (a ``ShardingCtx``; dlrm
+only): under a mesh that shards the tables' rows every rank passes the
+whole batch and its own rows of the tables (``models.dlrm_init(ctx=)``),
+the lookup is ``models._lookup_sharded``, and the rest of the model runs
+replicated, so the loss, the dense gradients and the logits are the
+whole batch's on every rank and each rank's table gradient covers its
+own rows.
+
 Batches are dicts of tensors on the parameters' device: ``dense``,
 ``sparse`` ((B, F) ids, or (B, F, L) multi-hot bags for dlrm) and
 ``labels`` for dlrm / wide_deep; ``seq``, ``pos``, ``neg`` for sasrec;
@@ -37,11 +45,12 @@ Batches are dicts of tensors on the parameters' device: ``dense``,
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import LMConfig, RecsysConfig
+from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.models.lm import model as LM
 from repro_torch.models.recsys import models as R
 from repro_torch.optim import optimizers as O
@@ -49,11 +58,13 @@ from repro_torch.optim import optimizers as O
 Batch = Dict[str, torch.Tensor]
 
 
-def recsys_forward(params: R.Params, cfg: RecsysConfig,
-                   batch: Batch) -> torch.Tensor:
+def recsys_forward(params: R.Params, cfg: RecsysConfig, batch: Batch,
+                   ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     kind = cfg.kind
+    R.check_ctx(cfg, ctx)
     if kind == "dlrm":
-        return R.dlrm_forward(params, cfg, batch["dense"], batch["sparse"])
+        return R.dlrm_forward(params, cfg, batch["dense"], batch["sparse"],
+                              ctx)
     if kind == "wide_deep":
         return R.wide_deep_forward(params, cfg, None, batch["sparse"])
     if kind == "sasrec":
@@ -62,36 +73,45 @@ def recsys_forward(params: R.Params, cfg: RecsysConfig,
                          batch["other"])
 
 
-def recsys_loss(params: R.Params, cfg: RecsysConfig,
-                batch: Batch) -> torch.Tensor:
+def recsys_loss(params: R.Params, cfg: RecsysConfig, batch: Batch,
+                ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     if cfg.kind == "sasrec":
+        R.check_ctx(cfg, ctx)
         return R.sasrec_loss(params, cfg, batch["seq"], batch["pos"],
                              batch["neg"])
-    return R.bce_loss(recsys_forward(params, cfg, batch), batch["labels"])
+    return R.bce_loss(recsys_forward(params, cfg, batch, ctx),
+                      batch["labels"])
 
 
-def loss_and_grads(params: R.Params, cfg: RecsysConfig, batch: Batch
+def loss_and_grads(params: R.Params, cfg: RecsysConfig, batch: Batch,
+                   ctx: Optional[ShardingCtx] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss and the gradient of every parameter, by dotted name."""
     flat = R.flatten_params(params)
     for p in flat.values():
         p.requires_grad_(True)
-    loss = recsys_loss(params, cfg, batch)
+    loss = recsys_loss(params, cfg, batch, ctx)
     grads = torch.autograd.grad(loss, list(flat.values()))
     return loss.detach(), dict(zip(flat, grads))
 
 
 def recsys_train_step(params: R.Params, opt_state, batch: Batch,
-                      cfg: RecsysConfig, optimizer: O.Optimizer
+                      cfg: RecsysConfig, optimizer: O.Optimizer,
+                      ctx: Optional[ShardingCtx] = None
                       ) -> Tuple[torch.Tensor, object]:
     """One step; updates ``params`` in place (the JAX step returns new
     ones) and returns (loss, new optimizer state).  ``optimizer`` is
     ``rankgraph2_optimizer()``, its state ``optimizer.init(
-    flatten_params(params))``."""
-    loss, grads = loss_and_grads(params, cfg, batch)
+    flatten_params(params))``.  Under a ``ctx`` that shards the tables'
+    rows the global norm of the clip is the whole model's: the squared
+    norms of the shards are summed over the model group."""
+    loss, grads = loss_and_grads(params, cfg, batch, ctx)
     flat = R.flatten_params(params)
     with torch.no_grad():
-        grads, _ = O.clip_by_global_norm(grads, 1.0)
+        sharded = R.row_shards(ctx, cfg.default_vocab) > 1
+        grads, _ = O.clip_by_global_norm(
+            grads, 1.0, ("tables",) if sharded else (),
+            ctx.group("model") if sharded else None)
         upd, opt_state = optimizer.update(grads, opt_state, flat)
         del grads
         O.apply_updates(flat, upd)
@@ -99,11 +119,11 @@ def recsys_train_step(params: R.Params, opt_state, batch: Batch,
 
 
 @torch.no_grad()
-def recsys_serve_step(params: R.Params, cfg: RecsysConfig,
-                      batch: Batch) -> torch.Tensor:
+def recsys_serve_step(params: R.Params, cfg: RecsysConfig, batch: Batch,
+                      ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     """Logits (B,) in the compute type; for sasrec (B, D) user
     representations."""
-    return recsys_forward(params, cfg, batch)
+    return recsys_forward(params, cfg, batch, ctx)
 
 
 def top_k(scores: torch.Tensor, k: int

@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.configs.base import (LMConfig, RecsysConfig, get_arch,
                                       list_archs)
+from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.kernels.common import resolve_device
 from repro_torch.launch.steps import loss_and_grads
 from repro_torch.models.lm import model as LM
@@ -100,13 +101,15 @@ def _batches(cfg: RecsysConfig, rng: np.random.Generator, batch: int):
 
 
 def run_recsys(cfg: RecsysConfig, steps: int, batch: int = 256,
-               device=None) -> float:
+               device=None, ctx: Optional[ShardingCtx] = None) -> float:
     """``steps`` unclipped ``rankgraph2_optimizer`` steps; returns the
-    last loss."""
+    last loss.  Under ``ctx`` (dlrm) every rank runs the same batches on
+    its row shard of the tables (``models.dlrm_init(ctx=)``) and gets
+    the same loss."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
     params = R.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),
-                           device=dev)
+                           device=dev, ctx=ctx)
     flat = R.flatten_params(params)
     opt = opt_lib.rankgraph2_optimizer()
     st = opt.init(flat)
@@ -114,7 +117,7 @@ def run_recsys(cfg: RecsysConfig, steps: int, batch: int = 256,
     for t in range(steps):
         b = {k: torch.from_numpy(v).to(dev)
              for k, v in _batches(cfg, rng, batch).items()}
-        loss, g = loss_and_grads(params, cfg, b)
+        loss, g = loss_and_grads(params, cfg, b, ctx)
         with torch.no_grad():
             upd, st = opt.update(g, st, flat)
             opt_lib.apply_updates(flat, upd)

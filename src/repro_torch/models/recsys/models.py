@@ -16,18 +16,40 @@ copy of 66.56 GB of tables.  Multi-hot bags (``dlrm_forward`` with
 (B, F, L) ids) go through the EmbeddingBag op, whose kernels round each
 row to the compute type as they load it.
 
-On one card every lookup takes the local gather; the JAX package's
-``_lookup_sharded`` (row-sharded tables over a model axis) waits for
-the port of ``distributed/``.
+``dlrm_init``, ``dlrm_forward``, the recsys train and serve steps and
+``run_recsys`` take a ``ShardingCtx`` (``ctx=None``: one process).
+Under a mesh with a ``"model"`` axis of ``nm > 1`` ranks, a vocabulary
+``V`` that ``nm`` divides and ``rules["table_rows"] == "model"`` (the
+reference's dispatch, ``row_shards``), each rank of the model axis holds
+rows ``[mi*V/nm, (mi+1)*V/nm)`` of every field's table, and the lookup
+is ``_lookup_sharded``: each rank gathers the rows it owns (zeros for
+the rest), the batch is padded to the data axes and split over them as
+the reference does, the model group sums, and the data group gathers
+the blocks back, so every rank holds the whole batch's rows, bitwise
+the local gather (``x + 0 == x``).  Its backward (``_RowShardLookup``)
+gives each rank's shard the gradient of the rows it owns, from the
+whole batch.
+
+Departures: a rank's tensor holds only its rows, so the lookup is told
+the table's whole row count (``vocab``; by default the tensor's own,
+the table whole).  The reference's ``REPRO_BASELINE`` switch to the
+local gather is not read.  The model runs replicated on every rank
+around the lookup (the port has no GSPMD), so the gradient coming into
+the lookup is the same on every rank and the dense parameters'
+gradients are whole on every rank.  Only ``dlrm`` takes a sharding
+context; wide-deep, sasrec and bst raise under one that shards rows.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecsysConfig
+from repro_torch.distributed.sharding import ShardingCtx, mesh_sizes
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.nn import core as nn
@@ -64,13 +86,50 @@ def _init_ctx(generator: Optional[torch.Generator], device):
 # ---------------------------------------------------------------------------
 
 def _tables_init(generator: torch.Generator, shape, dtype: torch.dtype,
-                 device) -> torch.Tensor:
+                 device, rows: Optional[slice] = None) -> torch.Tensor:
     """An embedding table (or stack of them), N(0, 1) * 0.01, drawn in
-    place one field at a time (no temporary the size of the tables)."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    for part in (out if out.dim() == 3 else [out]):
-        part.normal_(0.0, 1.0, generator=generator).mul_(0.01)
+    place one field at a time (no temporary the size of the tables).
+    ``rows``: keep only these rows of each field's table (a stack's dim
+    1), each field drawn whole first, so the rows equal the whole
+    table's."""
+    if rows is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for part in (out if out.dim() == 3 else [out]):
+            part.normal_(0.0, 1.0, generator=generator).mul_(0.01)
+        return out
+    F_, V, D = shape
+    out = torch.empty((F_, rows.stop - rows.start, D), dtype=dtype,
+                      device=device)
+    for f in range(F_):
+        whole = torch.empty((V, D), dtype=dtype, device=device)
+        whole.normal_(0.0, 1.0, generator=generator).mul_(0.01)
+        out[f] = whole[rows]
+        del whole
     return out
+
+
+def row_shards(ctx: Optional[ShardingCtx], vocab: int) -> int:
+    """The number of row shards a table of ``vocab`` rows has under
+    ``ctx``: the ``"model"`` axis's size where the reference dispatches
+    to ``_lookup_sharded`` (a model axis of more than one rank that
+    divides ``vocab``, ``rules["table_rows"] == "model"``), else 1."""
+    if ctx is None or ctx.mesh is None:
+        return 1
+    nm = mesh_sizes(ctx.mesh).get("model", 1)
+    if nm > 1 and vocab % nm == 0 and \
+            (ctx.rules or {}).get("table_rows") == "model":
+        return nm
+    return 1
+
+
+def shard_rows(ctx: Optional[ShardingCtx], vocab: int) -> Optional[slice]:
+    """This rank's rows of a table of ``vocab`` rows under ``ctx``, or
+    ``None`` where the table stays whole."""
+    nm = row_shards(ctx, vocab)
+    if nm == 1:
+        return None
+    mi, v_loc = ctx.axis_index("model"), vocab // nm
+    return slice(mi * v_loc, (mi + 1) * v_loc)
 
 
 def _lookup_local(tables: torch.Tensor, ids: torch.Tensor,
@@ -83,19 +142,102 @@ def _lookup_local(tables: torch.Tensor, ids: torch.Tensor,
     return tables.reshape(-1, D)[flat].to(compute)
 
 
+class _RowShardLookup(torch.autograd.Function):
+    """Forward: the whole batch's rows from row-sharded tables (see
+    ``_lookup_sharded``).  Backward: this rank's shard gets the gradient
+    of the rows it owns, summed over the whole batch from the incoming
+    gradient (the same on every rank), as the local gather's gradient
+    restricted to the shard; no communication."""
+
+    @staticmethod
+    def forward(ctx_, tables, ids, sctx, compute):
+        F_, v_loc, D = tables.shape
+        sizes = mesh_sizes(sctx.mesh)
+        nm = sizes["model"]
+        V = v_loc * nm
+        mi = sctx.axis_index("model")
+        dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+        dp = math.prod(sizes[a] for a in dp_axes)
+        n = ids.shape[0]
+        pad = (-n) % max(dp, 1)
+        if pad:  # e.g. a single request's short id list vs 16 DP shards
+            ids = torch.cat([ids, ids.new_zeros((pad, ids.shape[1]))])
+        b = ids.shape[0] // dp
+        di = sctx.axis_index(dp_axes) if dp > 1 else 0
+        blk = ids[di * b:(di + 1) * b]
+        rel = torch.remainder(blk, V) - mi * v_loc            # (b, F)
+        ok = (rel >= 0) & (rel < v_loc)
+        safe = torch.clamp(rel, 0, v_loc - 1)
+        flat = torch.arange(F_, device=ids.device)[None, :] * v_loc + safe
+        rows = tables.reshape(F_ * v_loc, D)[flat]
+        rows = rows * ok[..., None].to(rows.dtype)
+        dist.all_reduce(rows, group=sctx.group("model"))
+        if dp > 1:
+            parts = [torch.empty_like(rows) for _ in range(dp)]
+            dist.all_gather(parts, rows, group=sctx.group(dp_axes))
+            rows = torch.cat(parts)
+        ctx_.save_for_backward(ids[:n])
+        ctx_.meta = (tables.shape, tables.dtype, mi, V)
+        return rows[:n].to(compute)
+
+    @staticmethod
+    def backward(ctx_, g):
+        (ids,) = ctx_.saved_tensors
+        (F_, v_loc, D), dtype, mi, V = ctx_.meta
+        rel = torch.remainder(ids, V) - mi * v_loc
+        ok = (rel >= 0) & (rel < v_loc)
+        flat = (torch.arange(F_, device=ids.device)[None, :] * v_loc
+                + rel)[ok]
+        d_tab = torch.zeros((F_ * v_loc, D), dtype=dtype, device=g.device)
+        d_tab.index_add_(0, flat, g.to(dtype)[ok])
+        return d_tab.reshape(F_, v_loc, D), None, None, None
+
+
+def _lookup_sharded(tables: torch.Tensor, ids: torch.Tensor,
+                    ctx: ShardingCtx,
+                    compute: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Distributed lookup over row-sharded tables: ``tables`` (F, V/nm,
+    D) holds this rank's rows ``[mi*V/nm, (mi+1)*V/nm)`` of every
+    field's table, ids (B, F) are the whole batch's (the same on every
+    rank).  The batch is padded to a multiple of the data ranks and each
+    data rank takes its block; each model rank gathers the rows it owns
+    (zeros for ids outside its range), the model group sums them, and
+    the data group gathers the blocks, so every rank returns the whole
+    (B, F, D) in ``compute`` (default: the table's type).  The reference
+    moves O(B*F*D) activation bytes where a gather from a row-sharded
+    table would replicate O(F*V*D) table bytes."""
+    return _RowShardLookup.apply(tables, ids, ctx, compute or tables.dtype)
+
+
 def _lookup_simple(tables: torch.Tensor, ids: torch.Tensor,
-                   compute: torch.dtype) -> torch.Tensor:
-    """Embedding lookup; on one card always the local gather."""
+                   compute: torch.dtype, ctx: Optional[ShardingCtx] = None,
+                   vocab: Optional[int] = None) -> torch.Tensor:
+    """Embedding lookup with the reference's dispatch: ``_lookup_sharded``
+    where ``row_shards(ctx, vocab) > 1`` (``tables`` then holds this
+    rank's rows), the local gather otherwise (``tables`` whole).
+    ``vocab``: the table's whole row count, by default
+    ``tables.shape[1]``."""
+    V = tables.shape[1] if vocab is None else vocab
+    nm = row_shards(ctx, V)
+    if tables.shape[1] * nm != V:
+        raise ValueError(f"a table of {V} rows over {nm} row shards: "
+                         f"expected {V // nm} rows here, got "
+                         f"{tables.shape[1]}")
+    if nm > 1:
+        return _lookup_sharded(tables, ids, ctx, compute)
     return _lookup_local(tables, ids, compute)
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor,
-              compute: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(V, D) table row gather, ids any shape, in ``compute`` (default:
-    the table's type).  Callers sanitize negative ids (padding)."""
+              compute: Optional[torch.dtype] = None,
+              ctx: Optional[ShardingCtx] = None,
+              vocab: Optional[int] = None) -> torch.Tensor:
+    """(V, D) table row gather with the distributed dispatch, ids any
+    shape, in ``compute`` (default: the table's type).  Callers sanitize
+    negative ids (padding)."""
     shape = ids.shape
     out = _lookup_simple(table[None], ids.reshape(-1, 1),
-                         compute or table.dtype)
+                         compute or table.dtype, ctx, vocab)
     return out.reshape(*shape, table.shape[-1])
 
 
@@ -119,11 +261,14 @@ def _bag_lookup(tables: torch.Tensor, ids: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def dlrm_init(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
-              = None, device=None) -> Params:
+              = None, device=None, ctx: Optional[ShardingCtx] = None
+              ) -> Params:
+    """Under a ``ctx`` that shards rows, ``tables`` holds this rank's
+    rows, equal to those rows of the one-process init."""
     g, dev = _init_ctx(generator, device)
     dtype = DTYPES[cfg.param_dtype]
     tbl = _tables_init(g, (cfg.n_sparse, cfg.default_vocab, cfg.embed_dim),
-                       dtype, dev)
+                       dtype, dev, shard_rows(ctx, cfg.default_vocab))
     bot = nn.mlp_init(g, [cfg.n_dense, *cfg.bot_mlp], dtype=dtype,
                       device=dev)
     n_vec = cfg.n_sparse + 1
@@ -133,12 +278,20 @@ def dlrm_init(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
 
 
 def dlrm_forward(params: Params, cfg: RecsysConfig, dense: torch.Tensor,
-                 sparse_ids: torch.Tensor) -> torch.Tensor:
+                 sparse_ids: torch.Tensor,
+                 ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
+    """Multi-hot bags stay local (``_bag_lookup``), as in the
+    reference."""
     compute = DTYPES[cfg.dtype]
     if sparse_ids.dim() == 3:          # multi-hot bags
+        if row_shards(ctx, cfg.default_vocab) > 1:
+            raise NotImplementedError("multi-hot bags over row-sharded "
+                                      "tables: the reference's bag lookup "
+                                      "is local")
         emb = _bag_lookup(params["tables"], sparse_ids, compute)
     else:
-        emb = _lookup_simple(params["tables"], sparse_ids, compute)
+        emb = _lookup_simple(params["tables"], sparse_ids, compute, ctx,
+                             cfg.default_vocab)
     bot = nn.mlp_apply(params["bot"], dense.to(compute), act=F.relu,
                        final_act=F.relu)                          # (B, D)
     vecs = torch.cat([bot[:, None, :], emb], dim=1)               # (B, F+1, D)
@@ -334,7 +487,19 @@ INITS = {"dlrm": dlrm_init, "wide_deep": wide_deep_init,
          "sasrec": sasrec_init, "bst": bst_init}
 
 
+def check_ctx(cfg: RecsysConfig, ctx: Optional[ShardingCtx]) -> None:
+    """Raise where ``ctx`` shards rows for a kind other than dlrm."""
+    if cfg.kind != "dlrm" and row_shards(ctx, cfg.default_vocab) > 1:
+        raise NotImplementedError(f"row-sharded tables for {cfg.kind}: "
+                                  f"only dlrm takes a sharding context")
+
+
 def init_params(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
-                = None, device=None) -> Params:
-    """The parameter tree of ``cfg.kind``."""
+                = None, device=None,
+                ctx: Optional[ShardingCtx] = None) -> Params:
+    """The parameter tree of ``cfg.kind``; dlrm's tables row-sharded
+    under ``ctx`` (see ``dlrm_init``)."""
+    check_ctx(cfg, ctx)
+    if cfg.kind == "dlrm":
+        return dlrm_init(cfg, generator=generator, device=device, ctx=ctx)
     return INITS[cfg.kind](cfg, generator=generator, device=device)

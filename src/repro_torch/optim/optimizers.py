@@ -20,9 +20,10 @@ or, with the same values and one parameter's temporaries at a time,
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 Tree = Dict[str, torch.Tensor]
 
@@ -39,16 +40,27 @@ def apply_updates(params: Tree, updates: Tree) -> None:
         p.add_(updates[name].to(p.dtype))
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(torch.stack([
-        torch.sum(torch.square(x.to(torch.float32))) for x in tree.values()
-    ]).sum())
+def global_norm(tree: Tree, sharded: Sequence[str] = (),
+                group=None) -> torch.Tensor:
+    """The f32 L2 norm of every leaf together.  The leaves named in
+    ``sharded`` are this rank's shards of tensors split over the process
+    group ``group``: their squared norms are summed over the group, so
+    every rank gets the whole tree's norm."""
+    sq = {k: torch.sum(torch.square(x.to(torch.float32)))
+          for k, x in tree.items()}
+    if sharded:
+        part = torch.stack([sq[k] for k in sharded])
+        dist.all_reduce(part, group=group)
+        sq.update(zip(sharded, part.unbind()))
+    return torch.sqrt(torch.stack(list(sq.values())).sum())
 
 
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        sharded: Sequence[str] = (), group=None
                         ) -> Tuple[Tree, torch.Tensor]:
-    """Scale every gradient by ``min(1, max_norm / (norm + 1e-9))``."""
-    norm = global_norm(grads)
+    """Scale every gradient by ``min(1, max_norm / (norm + 1e-9))``;
+    ``sharded`` and ``group`` as in ``global_norm``."""
+    norm = global_norm(grads, sharded, group)
     scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
     return {k: g * scale for k, g in grads.items()}, norm
 

@@ -54,7 +54,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "             'core.evaluation', 'lifecycle', 'lifecycle.publish',\n"
         "             'lifecycle.snapshot', 'lifecycle.swap',\n"
         "             'lifecycle.runtime', 'core.serving_host',\n"
-        "             'faults.chaos', 'obs.report'):\n"
+        "             'faults.chaos', 'obs.report', 'distributed',\n"
+        "             'distributed.sharding', 'distributed.runtime',\n"
+        "             'distributed.compression', 'distributed.collectives',\n"
+        "             'launch.mesh'):\n"
         "    assert 'repro_torch.' + want in names, want\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], env=_env(),
