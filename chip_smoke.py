@@ -8,6 +8,7 @@
     python3 chip_smoke.py --decode-only REPS   # Phase 5's decode steps
     python3 chip_smoke.py --lm-train-only      # Phase 10 alone
     python3 chip_smoke.py --distributed-only   # Phase 11 on Phase 3's corpus
+    python3 chip_smoke.py --lm-mesh-only       # Phase 12 alone
 
 Phase 0 prints the card (``nvidia-smi`` name and power limit) and
 builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, one
@@ -285,6 +286,38 @@ prints the backend, the world size, each rank's step seconds and peak
 memory; gloo stages CUDA tensors through the host, so its times say
 nothing of NCCL.
 
+Phase 12 runs the LM family under a mesh after Phase 11.  The parent
+first computes its sides and frees the card: kimi-k2-1t-a32b at full
+width, 1 of its 61 layers, all 384 experts (38.8 GB of bf16; the
+experts drawn each from its own generator, seeded by seed, layer and
+expert, so that a rank draws its 96 without a transfer), a prefill of
+4,096 tokens with every MoE block as ``_moe_shard_map_plain`` at nm 4
+(the ranks' dispatch in one process), then that MoE block alone under
+grad on a random input and cotangent; and olmo-1b at full width and
+depth, two one-process ``lm_train_step``s (AdamW) on B 4 x S 2,048.
+Then four gloo ranks sharing the card (and four NCCL ranks, one a card,
+where the machine has four cards) run 12a and 12b.  12a, mesh (1, 4):
+each rank holds 96 experts and the rest of the layer (about 13.4 GB),
+prefills through ``_moe_shard_map`` (T_my 1,024, capacity 32, a send
+buffer of 4 x 96 x 32 x 7,168 bf16) and the D 112 prefill kernel, then
+runs the MoE block alone under grad (``moe_grads``: d x and d router in
+full, each expert leaf's gradient by each expert's norm and 8 fixed
+rows, one leaf at a time).  Held: the ranks' logits bitwise equal; the
+last position's logits, the caches, the block's output, aux, d x, the
+expert norms and rows bitwise the parent's (the same products on the
+same slices), d router (the four slices' bf16 sums in another order)
+within ``BF16_LM_TOL``.  12b, mesh (4, 1): olmo-1b's FSDP shards
+(``shard_params`` of the same ``init_params``), two ``lm_train_step(ctx=)``s on the same
+four sequences (one a rank).  Held: the ranks' losses and norms equal,
+and within ``CARD_CPU_LM_REL`` (Phase 9's card-vs-CPU tolerance) of the
+parent's; each step's launches (forward with lse, remat recompute, the
+two backward passes, 16 each); after the first step every shard's gaps
+to the parent's parameters' block by their distribution (median within
+1e-6, at most 1% beyond 1e-4), and the shards tiling every parameter
+once.  It prints the bytes reckoned, each rank's seconds and peaks, the
+bytes a rank's gathers receive a step, with the note that gloo's times
+say nothing of NCCL.
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
 ``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
@@ -295,9 +328,10 @@ Phase 8's of ``queue_gather``, ``rq_assign`` and
 ``fused_contrastive_*``, Phase 9's main run's of ``flash_attention``
 and ``flash_attention_bwd_*``, Phase 10's runs' (``run_lm``, the
 train steps, kimi's prefill and decode; not its checks) and Phase 11's
-ranks' (each rank counts its own and returns them) are added to
-those; the f32 kernels' come from Phase 10a alone.  Every kernel in the
-list must have launched on its path.
+and Phase 12's ranks' (each rank counts its own and returns them: 12a's
+prefill, 12b's steps) are added to those; the f32 kernels' come from
+Phase 10a alone.  Every kernel in the list must have launched on its
+path.
 
 The second-to-last line is a JSON object listing every ported kernel
 (launches on the main path, error against the plain version, times and
@@ -316,6 +350,7 @@ import ctypes
 import dataclasses
 import hashlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -394,8 +429,8 @@ from repro_torch.distributed.sharding import (ShardingCtx,  # noqa: E402
                                               make_rules)
 from repro_torch.launch.mesh import init_distributed, make_mesh  # noqa: E402
 from repro_torch.launch.steps import (lm_decode_step,  # noqa: E402
-                                      lm_prefill_step, lm_train_step,
-                                      loss_and_grads,
+                                      lm_prefill_step, lm_rules,
+                                      lm_train_step, loss_and_grads,
                                       recsys_retrieval_step,
                                       recsys_serve_step, recsys_train_step,
                                       top_k)
@@ -533,6 +568,13 @@ P11_POOL_BF16 = 5e-2         # bf16 pool rows, largest gap
 # optimizer-sign hazard; the CPU test's rule for the parameters)
 P11_GAP_MEDIAN, P11_GAP_FAR, P11_GAP_FAR_SHARE = 1e-6, 1e-4, 0.01
 P11_TABLE_REL = 1e-5         # table gradient rows: sharded vs local
+P12_WORLD = 4                # ranks (12a's model axis, 12b's data axis)
+P12_KIMI_S = 4096            # 12a's prefill, B 1: T_my 1,024 a rank
+P12_OLMO_B, P12_OLMO_S = 4, 2048   # 12b: one sequence a rank
+P12_STEPS = 2                # 12b's AdamW steps
+P12_SAMPLE = 8               # fixed rows of each expert's gradient held
+P12_TIMEOUT_S = 300.0        # each spawn's limit, seconds
+P12_GAP_MEDIAN, P12_GAP_FAR, P12_GAP_FAR_SHARE = 1e-6, 1e-4, 0.01
 
 
 def card_peaks(name: str):
@@ -3971,8 +4013,8 @@ def train_steps(params, cfg, opt, st, toks, what: str, routes=None):
                       f"{what} step 0: gradient of {name} not finite or zero")
 
     def recorded(fn):
-        def inner(p, c, xt):
-            gate, eid, aux = fn(p, c, xt)
+        def inner(p, c, xt, *a):
+            gate, eid, aux = fn(p, c, xt, *a)
             routes.append((torch.bincount(eid.reshape(-1),
                                           minlength=c.n_experts).cpu(),
                            float(aux.detach())))
@@ -4310,8 +4352,8 @@ def phase10d(seed: int, dev) -> dict:
     routes = []
     orig = LM._router
 
-    def recorded(p, c, xt):
-        gate, eid, aux = orig(p, c, xt)
+    def recorded(p, c, xt, *a):
+        gate, eid, aux = orig(p, c, xt, *a)
         routes.append(torch.bincount(eid.reshape(-1), minlength=E).cpu())
         return gate, eid, aux
     torch.cuda.reset_peak_memory_stats()
@@ -5685,21 +5727,28 @@ def p11_rank(rank: int, world: int, tmp: str, role: str) -> None:
     dist.destroy_process_group()
 
 
-def p11_spawn(role: str, world: int, tmp: str) -> list:
-    """Run ``world`` ranks of ``p11_rank``; any rank that raises or exits
-    non-zero fails the phase, as does passing ``P11_TIMEOUT_S``.
-    Returns each rank's output."""
+def spawn_ranks(fn, args: tuple, world: int, limit: float, what: str
+                ) -> None:
+    """Run ``world`` ranks of ``fn(rank, *args)``; any rank that raises
+    or exits non-zero fails the phase, as does passing ``limit``
+    seconds."""
     import torch.multiprocessing as mp
-    ctx = mp.spawn(p11_rank, args=(world, tmp, role), nprocs=world,
-                   join=False)
-    deadline = time.monotonic() + P11_TIMEOUT_S
+    ctx = mp.spawn(fn, args=args, nprocs=world, join=False)
+    deadline = time.monotonic() + limit
     while not ctx.join(timeout=5.0):
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
-            raise AssertionError(f"phase 11{role}: {world} ranks passed "
-                                 f"the {P11_TIMEOUT_S:.0f} s limit")
+            raise AssertionError(f"{what}: {world} ranks passed the "
+                                 f"{limit:.0f} s limit")
+
+
+def p11_spawn(role: str, world: int, tmp: str) -> list:
+    """Run ``world`` ranks of ``p11_rank`` (``spawn_ranks``, within
+    ``P11_TIMEOUT_S``).  Returns each rank's output."""
+    spawn_ranks(p11_rank, (world, tmp, role), world, P11_TIMEOUT_S,
+                f"phase 11{role}")
     return [torch.load(f"{tmp}/{role}-rank{r}.pt", weights_only=False)
             for r in range(world)]
 
@@ -6051,6 +6100,477 @@ def phase11(seed: int, dev, corpus, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the LM family under a mesh
+# ---------------------------------------------------------------------------
+
+def kimi_params(cfg, seed: int, dev, experts: range) -> dict:
+    """kimi-k2 parameters at ``cfg`` in its bf16 param type, with only the
+    experts in ``experts`` of each layer: the rest drawn in one order from
+    a generator seeded ``seed + 151`` (as ``init_params`` scales them),
+    and expert ``e`` of layer ``i`` from its own generator seeded
+    ``p12_expert_seed(seed, i, e)``, so that a rank holding some experts
+    draws exactly the values the whole tree has there."""
+    dtype = LM.DTYPES[cfg.param_dtype]
+    d, hd, E, ff, V = cfg.d_model, cfg.resolved_head_dim, cfg.n_experts, \
+        cfg.moe_d_ff, cfg.vocab_size
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    g = torch.Generator(dev).manual_seed(seed + 151)
+
+    def w(fan_in: int, *shape):
+        return torch.empty(shape, dtype=dtype, device=dev).normal_(
+            0.0, fan_in ** -0.5, generator=g)
+    layers = []
+    for i in range(cfg.n_layers):
+        p = {"wq": w(d, d, H * hd), "wk": w(d, d, Hkv * hd),
+             "wv": w(d, d, Hkv * hd), "wo": w(H * hd, H * hd, d),
+             "ln1": torch.ones(d, dtype=dtype, device=dev),
+             "ln2": torch.ones(d, dtype=dtype, device=dev),
+             "router": w(d, d, E)}
+        shapes = {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
+        for n, shape in shapes.items():
+            p[n] = torch.empty((len(experts),) + shape, dtype=dtype,
+                               device=dev)
+        for j, e in enumerate(experts):
+            ge = torch.Generator(dev).manual_seed(p12_expert_seed(seed, i, e))
+            for n, shape in shapes.items():
+                p[n][j].normal_(0.0, shape[0] ** -0.5, generator=ge)
+        layers.append(p)
+    emb = torch.empty((V, d), dtype=dtype, device=dev).normal_(
+        0.0, 1.0, generator=g).mul_(0.02)
+    head = torch.empty((d, V), dtype=dtype, device=dev).normal_(
+        0.0, 1.0, generator=g).mul_(0.02)
+    return {"embed": emb, "layers": layers, "lm_head": head,
+            "final_norm": torch.ones(d, dtype=dtype, device=dev)}
+
+
+def p12_expert_seed(seed: int, layer: int, e: int) -> int:
+    return seed * 1_000_003 + (layer + 1) * 10_007 + e
+
+
+def moe_grads(fn, lp: dict, x: torch.Tensor, R: torch.Tensor,
+              dp: int = 1) -> dict:
+    """The MoE block ``fn(lp, x)`` under grad of ``sum(out * R) + aux /
+    dp``: the output, aux, the gradients of x and the router, and each
+    expert leaf's gradient by the norm of each expert's and by
+    ``P12_SAMPLE`` fixed rows of each (one leaf's gradient at a time)."""
+    x = x.clone().requires_grad_(True)
+    names = ("w_gate", "w_up", "w_down")
+    for n in ("router",) + names:
+        lp[n].requires_grad_(True)
+    try:
+        out, aux = fn(lp, x)
+        loss = torch.sum(out.float() * R) + aux / dp
+        dx, dr = torch.autograd.grad(loss, [x, lp["router"]],
+                                     retain_graph=True)
+        res = {"out": out.detach().cpu(), "aux": float(aux.detach()),
+               "dx": dx.cpu(), "router": dr.cpu()}
+        del dx, dr
+        for i, n in enumerate(names):
+            gr, = torch.autograd.grad(loss, [lp[n]],
+                                      retain_graph=i < len(names) - 1)
+            rows = torch.linspace(0, gr.shape[1] - 1, P12_SAMPLE,
+                                  device=gr.device).long()
+            res[n] = (torch.stack([gr[e].float().norm()
+                                   for e in range(gr.shape[0])]).cpu(),
+                      gr[:, rows].cpu())
+            del gr
+    finally:
+        for n in ("router",) + names:
+            lp[n].requires_grad_(False)
+    return res
+
+
+def p12a_reference(seed: int, dev, tmp: str) -> dict:
+    """12a's parent side: kimi-k2 at full width, one layer, all 384
+    experts (38.8 GB): the prefill of ``P12_KIMI_S`` tokens with every MoE
+    block as ``_moe_shard_map_plain`` at nm ``P12_WORLD`` (the ranks'
+    dispatch in one process), then the MoE block alone under grad
+    (``moe_grads``) without the embedding and head; writes the inputs
+    for the ranks and frees the card."""
+    cfg = dataclasses.replace(KIMI, n_layers=1)
+    S, E = P12_KIMI_S, cfg.n_experts
+    t = time.perf_counter()
+    params = kimi_params(cfg, seed, dev, range(E))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    g = torch.Generator(dev).manual_seed(seed + 153)
+    prompt = lm_tokens(cfg, g, 1, S, dev)
+    x = torch.randn((1, S, cfg.d_model), generator=g, device=dev).to(
+        torch.bfloat16)
+    R = torch.randn((1, S, cfg.d_model), generator=g, device=dev)
+    block = LM._moe_block
+    LM._moe_block = lambda p, c, x_, ctx=None, lay=None: \
+        LM._moe_shard_map_plain(p, c, x_, P12_WORLD)
+    try:
+        t = time.perf_counter()
+        last, caches = lm_prefill_step(params, cfg, prompt)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+    finally:
+        LM._moe_block = block
+    del params["embed"], params["lm_head"]
+    torch.cuda.empty_cache()
+    lp = params["layers"][0]
+    t = time.perf_counter()
+    grads = moe_grads(lambda p, x_: LM._moe_shard_map_plain(
+        p, cfg, x_, P12_WORLD), lp, x, R)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    torch.save(dict(prompt=prompt.cpu(), x=x.cpu(), R=R.cpu()),
+               f"{tmp}/p12a-inputs.pt")
+    out = dict(last=last.cpu(), caches={k: v.cpu() for k, v in
+                                        caches.items()},
+               grads=grads, init_s=init_s, prefill_s=prefill_s,
+               grad_s=grad_s, peak=peak)
+    del params, lp, last, caches, x, R
+    torch.cuda.empty_cache()
+    return out
+
+
+def p12b_reference(seed: int, dev, tmp: str) -> dict:
+    """12b's parent side: olmo-1b at full width and depth,
+    ``P12_STEPS`` one-process ``lm_train_step``s (AdamW) on B
+    ``P12_OLMO_B`` x S ``P12_OLMO_S`` from ``init_params`` seeded ``seed +
+    161``; writes the tokens and the parameters after the first step for
+    the ranks and frees the card."""
+    cfg = OLMO
+    params = LM.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        seed + 161), device=dev)
+    toks = lm_tokens(cfg, torch.Generator(dev).manual_seed(seed + 163),
+                     P12_OLMO_B, P12_OLMO_S, dev)
+    opt = OPT.make_optimizer(cfg.optimizer)
+    st = opt.init(LM.named_params(params))
+    losses, norms, secs = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for t in range(P12_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, gnorm, st = lm_train_step(params, cfg, opt, st, toks)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+        if t == 0:
+            torch.save({k: v.detach().cpu() for k, v in
+                        LM.named_params(params).items()},
+                       f"{tmp}/p12b-step1.pt")
+    peak = torch.cuda.max_memory_allocated()
+    torch.save(toks.cpu(), f"{tmp}/p12b-tokens.pt")
+    del params, st, toks
+    torch.cuda.empty_cache()
+    return dict(losses=losses, norms=norms, secs=secs, peak=peak)
+
+
+def p12a_rank(tmp: str, seed: int, world: int, dev) -> dict:
+    """12a on this rank, mesh (1, world): its ``E / world`` experts and the
+    rest of one kimi layer (``kimi_params``), the prefill through
+    ``_moe_shard_map`` (``lm_prefill_step(ctx=)``), then the MoE block
+    alone under grad (``moe_grads``) without the embedding and head."""
+    cfg = dataclasses.replace(KIMI, n_layers=1)
+    mesh = make_mesh((1, world), ("data", "model"))
+    shape = next(s for s in LM_SHAPES if s.step == "prefill")
+    ctx = ShardingCtx(lm_rules("kimi-k2-1t-a32b", shape, mesh), mesh)
+    E_loc = cfg.n_experts // world
+    mi = ctx.axis_index("model")
+    inp = torch.load(f"{tmp}/p12a-inputs.pt")
+    check(LM.moe_dispatch(cfg, P12_KIMI_S, ctx) == "shard_map",
+          "12a: the prefill does not take the shard_map dispatch")
+    torch.cuda.reset_peak_memory_stats()
+    params = kimi_params(cfg, seed, dev, range(mi * E_loc, (mi + 1) * E_loc))
+    n_bytes = sum(p.numel() * p.element_size()
+                  for p in LM.named_params(params).values())
+    common.reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last, caches = lm_prefill_step(params, cfg, inp["prompt"].to(dev), ctx)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    launches = common.launch_counts()
+    check(nonzero(launches) == {"flash_attention": cfg.n_layers},
+          f"12a prefill: launches {nonzero(launches)}")
+    del params["embed"], params["lm_head"]
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    lay = LM.param_layout(cfg, ctx)["layers"][0]
+    grads = moe_grads(lambda p, x_: LM._moe_shard_map(p, cfg, x_, ctx, lay),
+                      params["layers"][0], inp["x"].to(dev),
+                      inp["R"].to(dev))
+    torch.cuda.synchronize()
+    return dict(last=last.cpu(), caches={k: v.cpu() for k, v in
+                                         caches.items()},
+                grads=grads, experts=(mi * E_loc, (mi + 1) * E_loc),
+                prefill_s=prefill_s, grad_s=time.perf_counter() - t,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                params_gb=n_bytes / 1e9, launches=launches)
+
+
+def p12b_rank(tmp: str, seed: int, world: int, dev) -> dict:
+    """12b on this rank, mesh (world, 1): its FSDP shards of olmo-1b
+    (``shard_params`` of ``init_params`` seeded as the parent's),
+    ``P12_STEPS`` ``lm_train_step(ctx=)``s on the whole batch (this rank
+    takes its row), the bytes its gathers receive counted; after the
+    first step its shards' gaps to the parent's parameters' blocks."""
+    import repro_torch.distributed.collectives as C
+    cfg = OLMO
+    mesh = make_mesh((world, 1), ("data", "model"))
+    shape = next(s for s in LM_SHAPES if s.step == "train")
+    ctx = ShardingCtx(lm_rules("olmo-1b", shape, mesh), mesh)
+    full = LM.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        seed + 161), device=dev)
+    params = LM.shard_params(full, cfg, ctx)
+    del full
+    torch.cuda.empty_cache()
+    toks = torch.load(f"{tmp}/p12b-tokens.pt").to(dev)
+    opt = OPT.make_optimizer(cfg.optimizer, shards=LM.shard_groups(cfg, ctx))
+    st = opt.init(LM.named_params(params))
+    gathered = [0]
+    orig = C.gather_dim
+
+    def counted(x, dim, group, **kw):
+        out = orig(x, dim, group, **kw)
+        gathered[0] += out.numel() * out.element_size()
+        return out
+    C.gather_dim = counted
+    common.reset_launches()
+    losses, norms, secs, peaks, per_step, gaps = [], [], [], [], [], {}
+    try:
+        for t in range(P12_STEPS):
+            gathered[0] = 0
+            before = common.launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, gnorm, st = lm_train_step(params, cfg, opt, st, toks, ctx)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() / 1e9)
+            losses.append(float(loss))
+            norms.append(float(gnorm))
+            per_step.append({k: n - before[k] for k, n in
+                             common.launch_counts().items()
+                             if n != before[k]})
+            if t == 0:
+                ref = LM.named_params(LM.shard_params(p12_tree(torch.load(
+                    f"{tmp}/p12b-step1.pt", mmap=True), cfg), cfg, ctx))
+                for name, mine in LM.named_params(params).items():
+                    want = ref[name].to(dev)
+                    d = (mine.detach() - want).abs().flatten()
+                    gaps[name] = (float(d.median()),
+                                  float((d > P12_GAP_FAR).float().mean()),
+                                  float(d.max()), tuple(mine.shape))
+                del ref
+    finally:
+        C.gather_dim = orig
+    return dict(losses=losses, norms=norms, secs=secs, peaks=peaks,
+                gathered_gb=gathered[0] / 1e9, per_step=per_step, gaps=gaps,
+                launches=common.launch_counts())
+
+
+def p12_tree(flat: dict, cfg) -> dict:
+    """``named_params``' flat dict -> the parameter tree."""
+    tree = {k: v for k, v in flat.items() if not k.startswith("layers.")}
+    tree["layers"] = [{} for _ in range(cfg.n_layers)]
+    for k, v in flat.items():
+        if k.startswith("layers."):
+            _, i, n = k.split(".", 2)
+            tree["layers"][int(i)][n] = v
+    return tree
+
+
+def p12_rank(rank: int, world: int, tmp: str, role: str, seed: int) -> None:
+    """One rank of Phase 12, a ``torch.multiprocessing.spawn`` child using
+    the kernels the parent built: joins the process group through a file
+    in ``tmp`` (``init_distributed`` picks NCCL or gloo), runs 12a then
+    12b and writes them, with its own launch counts (12a's prefill and
+    12b's steps), to ``tmp/12<role>-rank<rank>.pt``."""
+    import torch.distributed as dist
+    backend, dev = init_distributed(rank, world, f"{tmp}/rdv12-{role}")
+    if backend == "gloo":
+        p11_gloo_cuda(rank, world, dev)
+    a = p12a_rank(tmp, seed, world, dev)
+    torch.cuda.empty_cache()
+    b = p12b_rank(tmp, seed, world, dev)
+    launches = add_counts(dict(a.pop("launches")), b.pop("launches"))
+    torch.save(dict(backend=backend, a=a, b=b, launches=launches),
+               f"{tmp}/12{role}-rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p12a_held(role: str, outs: list, ref: dict, note: str, smi: str
+              ) -> None:
+    """12a's checks on the ranks' outputs against the parent's."""
+    cfg = dataclasses.replace(KIMI, n_layers=1)
+    a0 = outs[0]["a"]
+    check(all(torch.equal(o["a"]["last"], a0["last"]) for o in outs),
+          f"12{role}a: the ranks' logits differ")
+    rg = ref["grads"]
+    for n in ("out", "dx", "router"):
+        check(all(torch.equal(o["a"]["grads"][n], a0["grads"][n])
+                  for o in outs), f"12{role}a: the ranks' {n} differ")
+    # the same products on the same slices as the parent's: bitwise
+    same = {"logits": same_bits(a0["last"], ref["last"]),
+            "aux": a0["grads"]["aux"] == rg["aux"]}
+    for k in ("k", "v"):
+        same[f"cache {k}"] = same_bits(a0["caches"][k], ref["caches"][k])
+    for n in ("out", "dx"):
+        same[n] = same_bits(a0["grads"][n], rg[n])
+    for n in ("w_gate", "w_up", "w_down"):
+        for o in outs:
+            lo, hi = o["a"]["experts"]
+            norms, rows = o["a"]["grads"][n]
+            same[f"{n} norms"] = same.get(f"{n} norms", True) and \
+                same_bits(norms, rg[n][0][lo:hi])
+            same[f"{n} rows"] = same.get(f"{n} rows", True) and \
+                same_bits(rows, rg[n][1][lo:hi])
+    check(all(same.values()), f"12{role}a: not bitwise the parent's: "
+          f"{[k for k, v in same.items() if not v]}")
+    # d router sums the four slices' bf16 products in another order
+    gap = near(a0["grads"]["router"], rg["router"], BF16_LM_TOL)
+    check(gap <= 1, f"12{role}a: d router {gap:.3g} of {BF16_LM_TOL}")
+    T_my = P12_KIMI_S // P12_WORLD
+    cap = LM.shard_map_capacity(cfg, T_my)
+    E_loc = cfg.n_experts // P12_WORLD
+    print(f"[phase12{role}a] kimi-k2-1t-a32b, 1 of 61 layers at full width, "
+          f"mesh (1, {P12_WORLD}): {E_loc} of {cfg.n_experts} experts a "
+          f"rank; prefill B 1 x S {P12_KIMI_S} through _moe_shard_map (T_my "
+          f"{T_my}, capacity {cap}, send buffer {P12_WORLD} x {E_loc} x "
+          f"{cap} x {cfg.d_model} bf16 "
+          f"{gb(2 * P12_WORLD * E_loc * cap * cfg.d_model)}) and the D "
+          f"{cfg.resolved_head_dim} prefill kernel; the ranks' logits "
+          f"bitwise equal; against the parent's one-process dispatch "
+          f"(_moe_shard_map_plain): bitwise equal "
+          + ", ".join(same)
+          + f" (expert gradients: each expert's norm and {P12_SAMPLE} "
+          f"fixed rows of each), d router {gap:.3g} of {BF16_LM_TOL} of "
+          f"the largest; a rank's params "
+          f"{p11_summary(outs, 'a', 'params_gb')} GB, prefill seconds "
+          f"{p11_summary(outs, 'a', 'prefill_s')}, MoE block under grad "
+          f"seconds {p11_summary(outs, 'a', 'grad_s')}, peak GB "
+          f"{p11_summary(outs, 'a', 'peak_gb')}; the parent's: init "
+          f"{ref['init_s']:.2f} s, prefill {ref['prefill_s']:.4f} s, MoE "
+          f"grad {ref['grad_s']:.2f} s, peak {gb(ref['peak'])} ({note}; "
+          f"{smi})")
+
+
+def p12b_held(role: str, outs: list, ref: dict, note: str, smi: str
+              ) -> None:
+    """12b's checks on the ranks' outputs against the parent's."""
+    cfg = OLMO
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkdv": L}
+    for r, o in enumerate(outs):
+        b = o["b"]
+        check(all(n == want for n in b["per_step"]),
+              f"12{role}b rank {r}: launches {b['per_step']}, want {want}")
+        check(b["losses"] == outs[0]["b"]["losses"]
+              and b["norms"] == outs[0]["b"]["norms"],
+              f"12{role}b: the ranks' losses or norms differ")
+    b0 = outs[0]["b"]
+    for what in ("losses", "norms"):
+        check(close(torch.tensor(b0[what]), torch.tensor(ref[what]),
+                    CARD_CPU_LM_REL),
+              f"12{role}b: {what} {b0[what]} vs the one-process "
+              f"{ref[what]}")
+    worst = {}
+    for name in b0["gaps"]:
+        med = max(o["b"]["gaps"][name][0] for o in outs)
+        far = max(o["b"]["gaps"][name][1] for o in outs)
+        mx = max(o["b"]["gaps"][name][2] for o in outs)
+        check(med <= P12_GAP_MEDIAN and far <= P12_GAP_FAR_SHARE,
+              f"12{role}b: {name} after step 1: median gap {med:.3g}, "
+              f"share beyond {P12_GAP_FAR} {far:.3g}, largest {mx:.3g}")
+        worst[name] = (med, far, mx)
+    # the shards tile each parameter once: the blocks' sizes add up
+    sizes = {k: math.prod(v[0])
+             for k, v in LM.named_params(LM._leaves(cfg)).items()}
+    for name, n in sizes.items():
+        got = sum(math.prod(o["b"]["gaps"][name][3]) for o in outs)
+        check(got == n, f"12{role}b: {name}'s shards hold {got} entries, "
+              f"the parameter {n}")
+    wm = max(worst, key=lambda k: worst[k][0])
+    wf = max(worst, key=lambda k: worst[k][1])
+    print(f"[phase12{role}b] olmo-1b at full width and depth ({L} layers), "
+          f"mesh ({P12_WORLD}, 1), FSDP over data: {P12_STEPS} AdamW steps "
+          f"of B {P12_OLMO_B} x S {P12_OLMO_S} (one sequence a rank); "
+          f"losses {b0['losses']} vs the one-process step's {ref['losses']},"
+          f" gradient norms {b0['norms']} vs {ref['norms']} (within "
+          f"{CARD_CPU_LM_REL}); after step 1 every parameter's shards "
+          f"against the one-process parameters: the largest median gap "
+          f"{worst[wm][0]:.3g} ({wm}), the largest share beyond "
+          f"{P12_GAP_FAR} {worst[wf][1]:.3g} ({wf}), the largest gap "
+          f"{max(v[2] for v in worst.values()):.3g}; the shards tile every "
+          f"parameter once; launches a step {want}; each rank's step "
+          f"seconds {[[round(s, 3) for s in o['b']['secs']] for o in outs]},"
+          f" peak GB {[[round(s, 3) for s in o['b']['peaks']] for o in outs]}"
+          f", bytes gathered a step {p11_summary(outs, 'b', 'gathered_gb')}"
+          f" GB (bf16 casts before the send, the embedding in f32; the "
+          f"gradients' reduce-scatter in f32); the one-process step's "
+          f"seconds {[round(s, 3) for s in ref['secs']]}, peak "
+          f"{gb(ref['peak'])} ({note}; {smi})")
+
+
+def phase12(seed: int, dev, smi: str) -> dict:
+    """Phase 12 (module docstring): the parent's sides, then four gloo
+    ranks sharing the card run 12a and 12b (and four NCCL ranks, one a
+    card, where the machine has four cards).  Returns the ranks' launch
+    counts, summed."""
+    t_all = time.perf_counter()
+    cfg = dataclasses.replace(KIMI, n_layers=1)
+    E, d, ff, V = cfg.n_experts, cfg.d_model, cfg.moe_d_ff, cfg.vocab_size
+    E_loc = E // P12_WORLD
+    hd = cfg.resolved_head_dim
+    attn = d * (cfg.n_heads * hd * 2 + cfg.n_kv_heads * hd * 2)
+    print(f"[phase12] bytes reckoned: kimi's parent side (bf16, all "
+          f"{E} experts) {gb(2 * cfg.n_params())}, freed before the spawn;"
+          f" a rank {gb(2 * 3 * E_loc * d * ff)} of experts, "
+          f"{gb(2 * 2 * V * d)} of embedding and head, {gb(2 * attn)} of "
+          f"attention: {gb(2 * (3 * E_loc * d * ff + 2 * V * d + attn))}, "
+          f"{gb(2 * P12_WORLD * (3 * E_loc * d * ff + 2 * V * d + attn))} "
+          f"for {P12_WORLD} ranks; olmo-1b's f32 params "
+          f"{gb(4 * OLMO.n_params())}, {gb(OLMO.n_params())} of them a "
+          f"rank ({smi})")
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="phase12-") as tmp:
+        t = time.perf_counter()
+        ref_a = p12a_reference(seed, dev, tmp)
+        ref_b = p12b_reference(seed, dev, tmp)
+        print(f"[phase12] the parent's sides took "
+              f"{time.perf_counter() - t:.2f} s")
+        roles = [("", P12_WORLD)]
+        if torch.cuda.device_count() >= P12_WORLD:
+            roles.insert(0, ("nccl", P12_WORLD))
+        else:
+            print(f"[phase12] {torch.cuda.device_count()} card(s): Phase 12 "
+                  f"on NCCL, one rank a card, needs {P12_WORLD}; not run")
+        for role, world in roles:
+            t = time.perf_counter()
+            spawn_ranks(p12_rank, (world, tmp, role, seed), world,
+                        P12_TIMEOUT_S, f"phase 12{role}")
+            outs = [torch.load(f"{tmp}/12{role}-rank{r}.pt",
+                               weights_only=False) for r in range(world)]
+            backend = outs[0]["backend"]
+            check(all(o["backend"] == backend for o in outs),
+                  f"12{role}: ranks chose different backends")
+            check(backend == ("nccl" if role == "nccl" else "gloo"),
+                  f"12{role} chose {backend}")
+            for o in outs:
+                total = add_counts(total, o["launches"])
+            note = ("gloo stages CUDA tensors through the host: these times "
+                    "say nothing of NCCL" if backend == "gloo" else
+                    "one rank a card")
+            p12a_held(role, outs, ref_a, note, smi)
+            p12b_held(role, outs, ref_b, note, smi)
+            print(f"[phase12{role}] backend {backend}, world size {world}, "
+                  f"wall {time.perf_counter() - t:.2f} s")
+    print(f"[phase12] wall {time.perf_counter() - t_all:.2f} s; the ranks' "
+          f"launches {json.dumps(nonzero(total))}")
+    return total
+
+
 def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
@@ -6119,6 +6639,11 @@ def main() -> int:
                          "and training use, make Phase 3's corpus (no "
                          "training) and run Phase 11 (the distributed "
                          "paths)")
+    ap.add_argument("--lm-mesh-only", action="store_true",
+                    help="only build the flash-attention kernels and run "
+                         "Phase 12 (the LM family under a mesh: kimi's "
+                         "expert-parallel prefill and MoE backward, "
+                         "olmo's FSDP train steps)")
     ap.add_argument("--decode-only", type=int, default=0, metavar="REPS",
                     help="only build flash_attention, print the whole op's "
                          "lines as --attention-only does, and run Phase 5's "
@@ -6168,6 +6693,10 @@ def main() -> int:
         print(f"[phase11] Phase 3's corpus made in "
               f"{time.perf_counter() - t:.2f} s")
         phase11(args.seed, dev, corpus, smi)
+        return 0
+    if args.lm_mesh_only:
+        print_build(common.build(["flash_attention", "flash_attention_bwd"]))
+        phase12(args.seed, dev, smi)
         return 0
     if args.lm_train_only:
         print_build(common.build(["flash_attention", "flash_attention_bwd"]))
@@ -6276,14 +6805,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches11 = phase11(args.seed, dev, corpus, smi)
     del corpus
-    for r in rows:     # each path's launches, Phases 6-10's added to its own
+    torch.cuda.empty_cache()
+    launches12 = phase12(args.seed, dev, smi)
+    for r in rows:     # each path's launches, Phases 6-12's added to its own
         counter = r.get("counter", r["name"])
         r["launches"] = (next((ls[counter] for ls in (
             {n: launches[n] for n in SLICE1}, launches4, launches5,
             launches3) if counter in ls), 0)
             + sum(ls.get(counter, 0)
                   for ls in (launches6, launches7, launches8, launches9,
-                             launches10, launches11)))
+                             launches10, launches11, launches12)))
         check(r["launches"] > 0, f"{r['name']} was not launched on its "
               f"main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -26,6 +26,7 @@ from repro_torch.core.model import DTYPES, Aggregator, Encoder
 from repro_torch.core.negatives import NegPoolState
 from repro_torch.core.rq_index import RQState, codebooks_module
 from repro_torch.core.trainer import TrainState, named_params
+from repro_torch.models.lm.model import shard_params
 from repro_torch.optim.optimizers import AdamState, is_sparse
 from repro_torch.kernels.common import resolve_device
 
@@ -159,18 +160,25 @@ def recsys_params_from_jax(tree: Dict[str, Any], kind: str, *,
     return _recsys_tree(tree, resolve_device(device))
 
 
-def lm_params_from_jax(tree: Dict[str, Any], *, device=None
-                       ) -> Dict[str, Any]:
+def lm_params_from_jax(tree: Dict[str, Any], *, device=None, ctx=None,
+                       cfg=None) -> Dict[str, Any]:
     """A JAX LM params tree, dense or MoE (numpy leaves; ``layers`` stacked
     (L, ...) from ``scan_layers=True``, or a list of per-layer dicts) ->
     the port's tree on ``device``: the same keys and layout (``x @ w``),
-    ``layers`` a list of per-layer dicts."""
+    ``layers`` a list of per-layer dicts.  Under ``ctx`` (a
+    ``ShardingCtx`` over a mesh, with the ``LMConfig`` ``cfg`` whose
+    specs lay the shards out) this rank's shards
+    (``models.lm.model.shard_params``)."""
     dev = resolve_device(device)
     layers = tree["layers"]
     if isinstance(layers, dict):
         n = len(next(iter(layers.values())))
         layers = [{k: v[i] for k, v in layers.items()} for i in range(n)]
-    out = {k: _tensor(v).to(dev) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [{k: _tensor(v).to(dev) for k, v in lp.items()}
+    out = {k: _tensor(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [{k: _tensor(v) for k, v in lp.items()}
                      for lp in layers]
-    return out
+    if ctx is not None and ctx.mesh is not None:
+        out = shard_params(out, cfg, ctx)
+    return {k: v.to(dev) if k != "layers" else
+            [{n: t.to(dev) for n, t in lp.items()} for lp in v]
+            for k, v in out.items()}

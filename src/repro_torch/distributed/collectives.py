@@ -13,10 +13,42 @@ be counted once a rank.
 ``gather_rows`` concatenates every rank's rows in rank order, outside
 autograd; ``reduce_grads_`` sums gradients over a group in place, one
 flat all-reduce a dtype.
+
+The autograd collectives of the LM family under a mesh
+(``models/lm/model.py``: the FSDP gathers and ``_moe_shard_map``) give
+the gradients of the reference's ``jax.shard_map`` transpose under
+``check_vma=False`` (``_shard_map_transpose``): an output's cotangent
+is divided by the size of the mesh axes its spec leaves out, and an
+input's cotangent is summed over the axes its spec leaves out.  In the
+port every rank of a group that holds a replicated value computes the
+same cotangent for it, so those rules read:
+
+  * ``all_to_all``: dim 0 tiled over the group, chunk ``i`` to rank
+    ``i``; its backward is the same exchange of the cotangents;
+  * ``gather_dim``: the ranks' shards concatenated along a dim (an FSDP
+    gather; optionally cast before it is sent); its backward
+    reduce-scatters the cotangent with a sum in f32, times
+    ``grad_scale`` (``1 / n`` for an output replicated over the group);
+  * ``slice_rows``: this rank's ``i``-th of ``n`` row blocks of a value
+    replicated over the group; its backward puts the cotangent into its
+    rows of zeros and all-reduces over the group;
+  * ``replicate``: the identity on a value replicated over the group; its
+    gradient is summed over the group;
+  * ``mean_across``: the mean over the group (``pmean``), an output
+    replicated over it: its backward is the all-reduced cotangent over
+    ``n ** 2``;
+  * ``all_sum``: the sum over the group whose backward is the sum of the
+    cotangents, for a statistic of every rank's rows in a step that
+    averages its gradients over those ranks.
+
+Under gloo a CUDA tensor is staged through the host for ``all_to_all``
+and ``reduce_scatter`` (``_host_staged``), which gloo does not take on
+the card in every torch build; gloo stages every collective through the
+host anyway.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import torch
 import torch.distributed as dist
@@ -72,3 +104,174 @@ def reduce_grads_(grads: Dict[str, torch.Tensor], names: Iterable[str],
             k = grads[n].numel()
             grads[n] = flat[off:off + k].view_as(grads[n])
             off += k
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def _host_staged(fn: Callable, out: torch.Tensor, inp: torch.Tensor,
+                 group) -> torch.Tensor:
+    """``fn(out, inp)``, through host copies where gloo would take the
+    card's tensors; returns ``out``."""
+    if inp.is_cuda and dist.get_backend(group) == "gloo":
+        o = out.cpu()
+        fn(o, inp.cpu())
+        out.copy_(o)
+    else:
+        fn(out, inp)
+    return out
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    return _host_staged(lambda o, i: dist.all_to_all_single(o, i,
+                                                            group=group),
+                        torch.empty_like(x), x, group)
+
+
+def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(group_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(g: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group of ``g``, this rank's block along ``dim``."""
+    n = group_size(group)
+    chunks = [c.contiguous() for c in torch.chunk(g.movedim(dim, 0), n)]
+    out = torch.empty_like(chunks[0])
+
+    def rs(o, i):
+        dist.reduce_scatter(o, list(torch.chunk(i, n)), group=group)
+    _host_staged(rs, out, torch.cat(chunks), group)
+    return out.movedim(0, dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, 0, 0, tiled=True)``: dim 0 cut into
+    one block a rank, block ``i`` sent to rank ``i``; block ``j`` of the
+    result came from rank ``j``."""
+    return _AllToAll.apply(x, group)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, dtype, grad_scale):
+        ctx.dim, ctx.group, ctx.grad_scale = dim, group, grad_scale
+        ctx.in_dtype = x.dtype
+        return _all_gather(x if dtype is None else x.to(dtype), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = _reduce_scatter(g.to(torch.float32), ctx.dim, ctx.group)
+        if ctx.grad_scale != 1.0:
+            out = out * ctx.grad_scale
+        return out.to(ctx.in_dtype), None, None, None, None
+
+
+def gather_dim(x: torch.Tensor, dim: int, group, *,
+               dtype: Optional[torch.dtype] = None,
+               grad_scale: float = 1.0) -> torch.Tensor:
+    """The group's shards of equal shape concatenated along ``dim`` in
+    rank order (``all_gather(..., tiled=True)``), cast to ``dtype`` before
+    they are sent.  The gradient of this rank's shard is the sum over the
+    group of the cotangents' block (a reduce-scatter in f32) times
+    ``grad_scale``, in ``x``'s type."""
+    return _GatherDim.apply(x, dim, group, dtype, grad_scale)
+
+
+class _SliceRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, i, n, group):
+        ctx.i, ctx.n, ctx.group, ctx.shape = i, n, group, x.shape
+        rows = x.shape[0] // n
+        return x[i * rows:(i + 1) * rows].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = ctx.shape[0] // ctx.n
+        full = g.new_zeros(ctx.shape)
+        full[ctx.i * rows:(ctx.i + 1) * rows] = g
+        dist.all_reduce(full, group=ctx.group)
+        return full, None, None, None
+
+
+def slice_rows(x: torch.Tensor, i: int, n: int, group) -> torch.Tensor:
+    """Row block ``i`` of ``n`` of ``x`` (which every rank of ``group``
+    holds); the gradient of ``x`` is every rank's block's, all-reduced."""
+    return _SliceRows.apply(x, i, n, group)
+
+
+class _Replicate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def replicate(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; its gradient is summed over ``group`` (a value
+    replicated over the group and used by each rank on its own part)."""
+    return _Replicate.apply(x, group)
+
+
+class _MeanAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.n = group_size(group)
+        y = x.detach().clone()
+        dist.all_reduce(y, group=group)
+        return y / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / (ctx.n * ctx.n), None
+
+
+def mean_across(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.pmean`` over ``group`` as an output replicated over it:
+    the forward's mean, and each rank's ``x`` gets the mean of the
+    cotangents over ``n``."""
+    return _MeanAcross.apply(x, group)
+
+
+class _AllSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.detach().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``; each rank's ``x`` gets the sum of
+    the ranks' cotangents (``jax.lax.psum``'s transpose)."""
+    return _AllSum.apply(x, group)

@@ -20,6 +20,13 @@ Departures:
     not in the port.
   * ``tree_shardings`` has no counterpart: it builds jax
     ``NamedSharding`` objects, and a torch tensor carries no sharding.
+    A rank holds its own shard of a parameter instead: ``param_spec``
+    lays it out by the parameter's logical spec under the rules, with
+    the tensor-parallel names (``TENSOR_PARALLEL``) whole, and a dim
+    that its axes' size does not divide whole
+    (``repro/launch/steps.py::_safe``); the LM family under a mesh
+    (FSDP over ``embed``, experts over ``expert``) gathers where it uses
+    a leaf.
   * A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (see
     ``launch.mesh``).  ``make_rules`` and ``axis_size`` read only its
     ``mesh_dim_names`` and ``shape``; ``make_rules`` also takes a plain
@@ -124,6 +131,29 @@ def logical_to_spec(logical: Optional[LogicalSpec],
     return tuple(out)
 
 
+# Logical names whose split is tensor parallelism, which the port does not
+# have: a parameter keeps these dims whole on every rank.
+TENSOR_PARALLEL = ("heads", "kv_heads", "mlp", "vocab", "expert_mlp")
+
+
+def param_spec(logical: LogicalSpec, rules: Mapping[str, Any],
+               shape: Sequence[int], sizes: Mapping[str, int]) -> Spec:
+    """The spec by which a rank holds its shard of a parameter of
+    ``shape``: ``logical_to_spec`` under ``rules`` with the
+    ``TENSOR_PARALLEL`` names whole, then each dim that the product of its
+    axes' ``sizes`` does not divide whole, as ``_safe`` keeps it."""
+    spec = logical_to_spec(tuple(None if n in TENSOR_PARALLEL else n
+                                 for n in logical), rules)
+    out = []
+    for dim, s in zip(shape, spec):
+        axes = (s,) if isinstance(s, str) else tuple(s or ())
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        out.append(s if axes and dim % n == 0 else None)
+    return tuple(out)
+
+
 def _is_logical_leaf(x: Any) -> bool:
     return x is None or (isinstance(x, tuple) and all(
         e is None or isinstance(e, str) for e in x))
@@ -181,6 +211,14 @@ class ShardingCtx:
         out = 1
         for a in self.mesh_axes(logical):
             out *= sizes.get(a, 1)
+        return out
+
+    def size(self, name: Union[str, Sequence[str]]) -> int:
+        """Product of the sizes of a mesh axis, or of a tuple of them."""
+        sizes = mesh_sizes(self.mesh)
+        out = 1
+        for a in self._names(name):
+            out *= sizes[a]
         return out
 
     def _names(self, name: Union[str, Sequence[str]]) -> Tuple[str, ...]:

@@ -11,6 +11,17 @@ The LM train step (the train_4k cell's):
     parameters, the gradients, the optimizer's state and one parameter's
     temporaries (the JAX step gets the same from XLA's buffer reuse).
 
+Under a mesh (``ctx``, rules from ``lm_rules``: the LM branch of
+``repro/launch/steps.py::_rules_for``, with FSDP's ``embed -> data`` for
+training and grok's ``RULES_OVERRIDE``) ``lm_train_step`` is the data
+parallel step over the shards ``models.lm.model.shard_params`` lays out:
+each data rank takes its rows of the batch (the model group's ranks the
+same rows), the loss is the mean of the data ranks' means, the gradients
+of the parameters split over the data ranks come from their gathers'
+reduce-scatter and the others are all-reduced, both over ``dp``, and the
+clip's norm and Adafactor's statistics are the whole parameters'
+(``optim.optimizers``, ``shards``).
+
 The LM serve steps:
 
   * ``lm_prefill_step``: a prompt batch (B, S) -> last-position logits
@@ -49,8 +60,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import LMConfig, RecsysConfig
-from repro_torch.distributed.sharding import ShardingCtx
+from repro_torch.configs.base import (LMConfig, RecsysConfig, ShapeSpec,
+                                     get_arch)
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import ShardingCtx, make_rules
 from repro_torch.models.lm import model as LM
 from repro_torch.models.recsys import models as R
 from repro_torch.optim import optimizers as O
@@ -110,8 +123,8 @@ def recsys_train_step(params: R.Params, opt_state, batch: Batch,
     with torch.no_grad():
         sharded = R.row_shards(ctx, cfg.default_vocab) > 1
         grads, _ = O.clip_by_global_norm(
-            grads, 1.0, ("tables",) if sharded else (),
-            ctx.group("model") if sharded else None)
+            grads, 1.0, {"tables": (None, ctx.group("model"), None)}
+            if sharded else None)
         upd, opt_state = optimizer.update(grads, opt_state, flat)
         del grads
         O.apply_updates(flat, upd)
@@ -168,33 +181,106 @@ def recsys_retrieval_step(params: R.Params, cfg: RecsysConfig,
     return top_k(scores, k)
 
 
+def lm_rules(arch_id: str, shape: ShapeSpec, mesh,
+             overrides: Optional[dict] = None) -> dict:
+    """The rules of an LM cell, as ``repro/launch/steps.py::_rules_for``
+    makes them for the LM family: grok's ``RULES_OVERRIDE``; for a train
+    shape FSDP (``embed -> data``) and sequence parallelism (``seq ->
+    model``, which the port's replicated activations ignore); for a
+    decode shape the KV cache over ``kv_seq``, heads whole and, at a
+    global batch of 1, the batch whole.  ``mesh``: a ``DeviceMesh`` or a
+    sequence of axis names."""
+    if get_arch(arch_id).family != "lm":
+        raise ValueError(f"{arch_id} is not an LM")
+    ov = dict(overrides or {})
+    if arch_id == "grok-1-314b":
+        from repro_torch.configs.grok_1_314b import RULES_OVERRIDE
+        ov.update(RULES_OVERRIDE)
+    if shape.step == "train":
+        ov.setdefault("embed", "data")
+        ov.setdefault("seq", "model")
+    if shape.step == "decode":
+        batch = shape.dims.get("global_batch", 2)
+        ov.setdefault("kv_seq", ("model",) if batch > 1
+                      else ("data", "model"))
+        ov.setdefault("heads", None)
+        ov.setdefault("kv_heads", None)
+        if batch == 1:
+            ov.setdefault("batch", None)
+    return make_rules(mesh, ov)
+
+
+def lm_loss_and_grads(params: LM.Params, cfg: LMConfig, tokens: torch.Tensor,
+                      ctx: Optional[ShardingCtx] = None, lay=None
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``lm_loss`` of tokens (B, S) and the gradient of every parameter by
+    ``named_params``' name.  Under ``ctx`` ``tokens`` is the whole batch:
+    this rank takes its data rank's rows (``rank_rows``), and returns the
+    whole batch's loss (the mean of the data ranks' means) and the
+    gradients of its shards of that loss; ``lay``: ``param_layout(cfg,
+    ctx)`` where the caller has it."""
+    flat = LM.named_params(params)
+    for p in flat.values():
+        p.requires_grad_(True)
+    if ctx is not None and ctx.mesh is not None and lay is None:
+        lay = LM.param_layout(cfg, ctx)
+    axes = LM.data_axes(ctx)
+    dp = ctx.size(axes) if axes else 1
+    loss = LM.lm_loss(params, cfg, LM.rank_rows(tokens, ctx), ctx=ctx,
+                      lay=lay)
+    grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+    loss = loss.detach()
+    if dp > 1:
+        with torch.no_grad():
+            group = ctx.group(axes)
+            split = {k for k, spec in LM.named_params(lay).items()
+                     if any(set(a if isinstance(a, tuple) else (a,))
+                            & set(axes) for a in spec if a is not None)}
+            # the FSDP leaves' gathers reduce-scattered theirs already
+            C.reduce_grads_(grads, [k for k in grads if k not in split],
+                            group)
+            for k in grads:
+                grads[k] = grads[k] / dp
+            loss = C.sum_across_(loss.clone(), group) / dp
+    return loss, grads
+
+
 def lm_train_step(params: LM.Params, cfg: LMConfig, opt: O.Optimizer,
-                  opt_state, tokens: torch.Tensor
+                  opt_state, tokens: torch.Tensor,
+                  ctx: Optional[ShardingCtx] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, object]:
     """One step on tokens (B, S); updates ``params`` in place (the JAX step
     returns new ones) and returns (loss, the gradients' global norm before
     clipping, the new optimizer state).  ``opt`` is
     ``make_optimizer(cfg.optimizer)``, its state ``opt.init(
-    named_params(params))``."""
+    named_params(params))``.  Under ``ctx`` ``params`` are this rank's
+    shards (``shard_params``), ``tokens`` the whole batch, and ``opt``
+    ``make_optimizer(cfg.optimizer, shards=shard_groups(cfg, ctx))``
+    (an Adafactor made for another layout raises); every rank returns
+    the whole batch's loss and the whole norm."""
     flat = LM.named_params(params)
-    for p in flat.values():
-        p.requires_grad_(True)
-    loss = LM.lm_loss(params, cfg, tokens)
-    grads = dict(zip(flat, torch.autograd.grad(loss, list(flat.values()))))
+    lay = shards = None
+    if ctx is not None and ctx.mesh is not None:
+        lay = LM.param_layout(cfg, ctx)
+        shards = LM.shard_groups(cfg, ctx, lay)
+    O.check_shards(opt, shards)
+    loss, grads = lm_loss_and_grads(params, cfg, tokens, ctx, lay)
     with torch.no_grad():
-        gnorm = O.clip_by_global_norm_(grads, 1.0)
+        gnorm = O.clip_by_global_norm_(grads, 1.0, shards)
         opt_state = O.apply_leafwise(opt, grads, opt_state, flat)
-    return loss.detach(), gnorm, opt_state
+    return loss, gnorm, opt_state
 
 
 @torch.no_grad()
-def lm_prefill_step(params: LM.Params, cfg: LMConfig, tokens: torch.Tensor
+def lm_prefill_step(params: LM.Params, cfg: LMConfig, tokens: torch.Tensor,
+                    ctx: Optional[ShardingCtx] = None
                     ) -> Tuple[torch.Tensor, LM.Caches]:
-    return LM.prefill(params, cfg, tokens)
+    return LM.prefill(params, cfg, tokens, ctx=ctx)
 
 
 @torch.no_grad()
 def lm_decode_step(params: LM.Params, cfg: LMConfig, caches: LM.Caches,
-                   tokens: torch.Tensor) -> Tuple[torch.Tensor, LM.Caches]:
+                   tokens: torch.Tensor, ctx: Optional[ShardingCtx] = None
+                   ) -> Tuple[torch.Tensor, LM.Caches]:
     return LM.decode_step(params, cfg, tokens, caches,
-                          caches["k"].shape[2] - 1)
+                          caches["k"].shape[2] - 1, ctx=ctx)

@@ -49,8 +49,33 @@ rest are dropped).  With no mesh the reference's ``_moe_block`` always
 takes that path, and so does this one; ``_moe_dense`` (every expert over
 every token, gate-masked) is its small-E alternative, kept as a function.
 ``lm_loss`` adds the layers' aux terms; ``forward``, ``prefill`` and
-``decode_step`` drop them.  Expert parallelism over a mesh
-(``_moe_shard_map``) is not ported.
+``decode_step`` drop them.
+
+Under a mesh (``ctx``, a ``ShardingCtx`` over a ``DeviceMesh``) every
+rank passes its own rows of the batch (``rank_rows``: the rows split
+over the data axes, which the rules' ``batch`` must split; the ranks of
+a model group hold the same rows) and its own shards of the parameters:
+``param_specs`` are the reference's logical specs (``_layer_init``,
+``init_params``), ``param_layout`` lays them out under the rules
+(``distributed.sharding.param_spec``: FSDP splits ``embed`` over
+``data``, expert parallelism splits ``expert`` over ``model``; the
+tensor-parallel names stay whole: the port has no tensor parallelism),
+and ``shard_params`` cuts a whole tree to a rank's
+shards. A sharded leaf is gathered where it is used (``_w``; under remat
+again in the backward), cast to the compute type before it is sent where
+the product casts it; its gradient comes back reduce-scattered.
+``_moe_block`` takes the reference's dispatch (``moe_dispatch``, its
+conditions at ``repro/models/lm/model.py:357-369``): ``_moe_shard_map``
+(each model rank routes its ``1 / nm`` of the tokens, packs an ``(nm,
+E_loc, cap, d)`` buffer, two ``all_to_all``s over the model group run
+its own ``E / nm`` experts, an ``all_gather`` puts the slices back, aux
+is ``pmean``ed), then ``_moe_dense`` when ``E <= 16`` and a data rank
+has 1,024 tokens or more, else ``_moe_scatter``; these two see the whole
+batch's router statistics, capacity and slot order through collectives
+over the data group, as the reference's global arrays.
+``_moe_shard_map_plain`` is the shard_map dispatch in one process (the
+``nm`` slices in turn on the whole experts), for tests and checks only.
+Without a ``ctx`` every path is the one-process path.
 """
 from __future__ import annotations
 
@@ -61,6 +86,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (ShardingCtx, mesh_sizes,
+                                              param_spec)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.flash_attention.ops import chunked_attention
 from repro_torch.nn import core as nn
@@ -149,6 +177,130 @@ def init_params(cfg: LMConfig, *, generator: Optional[torch.Generator] = None,
 
 
 # ---------------------------------------------------------------------------
+# parameter specs and shards under a mesh
+# ---------------------------------------------------------------------------
+
+def _layer_leaves(cfg: LMConfig) -> Dict[str, Tuple[tuple, tuple]]:
+    """name -> (shape, logical spec) of one layer's parameters, as the
+    reference's ``_layer_init`` makes and annotates them."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    out = {"wq": ((d, cfg.n_heads * hd), ("embed", "heads")),
+           "wk": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads")),
+           "wv": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads")),
+           "wo": ((cfg.n_heads * hd, d), ("heads", "embed"))}
+    if cfg.norm != "layernorm_np":
+        out["ln1"] = out["ln2"] = ((d,), ("embed",))
+    if cfg.n_experts:
+        E, ff = cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+        out["router"] = ((d, E), ("embed", None))
+        out["w_gate"] = out["w_up"] = ((E, d, ff),
+                                       ("expert", "embed", "expert_mlp"))
+        out["w_down"] = ((E, ff, d), ("expert", "expert_mlp", "embed"))
+    else:
+        out["w_gate"] = out["w_up"] = ((d, cfg.d_ff), ("embed", "mlp"))
+        out["w_down"] = ((cfg.d_ff, d), ("mlp", "embed"))
+    return out
+
+
+def _leaves(cfg: LMConfig) -> Dict[str, Any]:
+    """The tree of (shape, logical spec) pairs, as ``init_params``'s."""
+    d, V = cfg.d_model, cfg.vocab_size
+    tree = {"embed": ((V, d), ("vocab", "embed")),
+            "layers": [_layer_leaves(cfg) for _ in range(cfg.n_layers)],
+            "final_norm": ((d,), ("embed",))}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ((d, V), ("embed", "vocab"))
+    return tree
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def param_specs(cfg: LMConfig) -> Dict[str, Any]:
+    """The logical spec of every parameter, in ``init_params``'s tree (a
+    list of per-layer dicts): the reference's specs
+    (``repro/models/lm/model.py::_layer_init`` and ``init_params``)
+    without the ``stack`` axis of its scanned layers."""
+    return _tree_map(lambda leaf: leaf[1], _leaves(cfg))
+
+
+def param_layout(cfg: LMConfig, ctx: ShardingCtx) -> Dict[str, Any]:
+    """Each parameter's spec under ``ctx`` (``param_spec``: one mesh
+    axis, a tuple of them, or None for each dim)."""
+    sizes = mesh_sizes(ctx.mesh)
+    return _tree_map(lambda leaf: param_spec(leaf[1], ctx.rules, leaf[0],
+                                             sizes), _leaves(cfg))
+
+
+def _split_axes(spec) -> list:
+    """(dim, axes) for each split dim of a spec."""
+    return [(dim, (s,) if isinstance(s, str) else tuple(s))
+            for dim, s in enumerate(spec) if s is not None]
+
+
+def _shard(x: torch.Tensor, spec, ctx: ShardingCtx) -> torch.Tensor:
+    for dim, axes in _split_axes(spec):
+        n = ctx.size(axes)
+        x = torch.chunk(x, n, dim=dim)[ctx.axis_index(axes)]
+    return x.contiguous()
+
+
+def shard_params(params: Params, cfg: LMConfig, ctx: ShardingCtx
+                 ) -> Params:
+    """This rank's shards of a whole parameter tree, laid out by
+    ``param_layout`` (each split dim cut into equal blocks in the order
+    of the rank's coordinate along its axes)."""
+    lay = param_layout(cfg, ctx)
+    out = {k: _shard(v, lay[k], ctx) for k, v in params.items()
+           if k != "layers"}
+    out["layers"] = [{k: _shard(v, ll[k], ctx) for k, v in lp.items()}
+                     for lp, ll in zip(params["layers"], lay["layers"])]
+    return out
+
+
+def shard_groups(cfg: LMConfig, ctx: ShardingCtx,
+                 lay: Optional[Dict[str, Any]] = None
+                 ) -> Dict[str, Tuple[Any, ...]]:
+    """``named_params``' names -> for each dim, the process group it is
+    split over (None where a rank holds it whole), for the optimizers
+    and the clipping of ``optim/optimizers.py``.  Axes of size 1 split
+    nothing.  ``lay``: ``param_layout(cfg, ctx)`` where the caller has
+    it."""
+    flat = named_params(param_layout(cfg, ctx) if lay is None else lay)
+
+    def groups(spec):
+        out = [None] * len(spec)
+        for dim, axes in _split_axes(spec):
+            if ctx.size(axes) > 1:
+                out[dim] = ctx.group(axes)
+        return tuple(out)
+    return {k: groups(v) for k, v in flat.items()}
+
+
+def _w(p: Dict[str, Any], name: str, lay: Optional[Dict[str, Any]],
+       ctx: Optional[ShardingCtx], dtype: Optional[torch.dtype] = None,
+       axes: Optional[Tuple[str, ...]] = None) -> Optional[torch.Tensor]:
+    """Parameter ``name`` of ``p`` as the product uses it: cast to
+    ``dtype``, and under a mesh gathered over the axes its spec splits
+    (only those in ``axes`` where given; axes of size 1 split nothing),
+    cast before it is sent."""
+    x = p.get(name)
+    if x is None or lay is None:
+        return x if x is None or dtype is None else x.to(dtype)
+    for dim, ax in _split_axes(lay[name]):
+        if axes is not None and not set(ax) <= set(axes):
+            continue
+        if ctx.size(ax) > 1:
+            x = C.gather_dim(x, dim, ctx.group(ax), dtype=dtype)
+    return x if dtype is None else x.to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
 
@@ -164,23 +316,26 @@ def _act(cfg: LMConfig, g: torch.Tensor) -> torch.Tensor:
     return F.silu(g) if cfg.act == "silu" else F.gelu(g, approximate="tanh")
 
 
-def _dense_mlp(p, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
-    g = x @ p["w_gate"].to(x.dtype)
-    u = x @ p["w_up"].to(x.dtype)
-    return (_act(cfg, g) * u) @ p["w_down"].to(x.dtype)
+def _dense_mlp(p, cfg: LMConfig, x: torch.Tensor,
+               ctx: Optional[ShardingCtx] = None, lay=None) -> torch.Tensor:
+    g = x @ _w(p, "w_gate", lay, ctx, x.dtype)
+    u = x @ _w(p, "w_up", lay, ctx, x.dtype)
+    return (_act(cfg, g) * u) @ _w(p, "w_down", lay, ctx, x.dtype)
 
 
 # ---------------------------------------------------------------------------
 # mixture of experts
 # ---------------------------------------------------------------------------
 
-def _router(p, cfg: LMConfig, xt: torch.Tensor
+def _router(p, cfg: LMConfig, xt: torch.Tensor, group=None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """xt (T, d) -> (gate (T, k) f32, expert ids (T, k), aux () f32).  The
     top k of each token's probabilities in descending order, the lower
     index first among equal ones (``jax.lax.top_k``'s order: a stable
     descending sort cut at k; ``torch.topk`` promises none), renormalised;
-    aux is the Switch term ``E * sum_e f_e p_e * router_aux_coef``."""
+    aux is the Switch term ``E * sum_e f_e p_e * router_aux_coef``.  With
+    ``group`` (the data ranks, each with its own T rows of the batch) the
+    means ``f_e`` and ``p_e`` are the whole batch's."""
     E, k = cfg.n_experts, cfg.n_experts_per_tok
     T = xt.shape[0]
     if k > E:
@@ -192,9 +347,14 @@ def _router(p, cfg: LMConfig, xt: torch.Tensor
     gate, eid = srt.values[:, :k], srt.indices[:, :k]
     gate = gate / torch.clamp_min(torch.sum(gate, dim=-1, keepdim=True),
                                   1e-9)
-    me = torch.mean(probs, dim=0)
-    ce = torch.bincount(eid.reshape(-1), minlength=E).to(torch.float32) \
-        / (T * k)
+    counts = torch.bincount(eid.reshape(-1), minlength=E).to(torch.float32)
+    if group is None:
+        me = torch.mean(probs, dim=0)
+    else:
+        T = T * C.group_size(group)
+        me = C.all_sum(torch.sum(probs, dim=0), group) / T
+        C.sum_across_(counts, group)
+    ce = counts / (T * k)
     aux = E * torch.sum(me * ce) * cfg.router_aux_coef
     return gate, eid, aux
 
@@ -217,22 +377,73 @@ def moe_capacity(cfg: LMConfig, T: int) -> int:
     return max(int(k * T / E * cfg.capacity_factor) + 1, 8)
 
 
-def _moe_scatter(p, cfg: LMConfig, x: torch.Tensor
+def shard_map_capacity(cfg: LMConfig, T_my: int) -> int:
+    """Slots an expert takes of one model rank's ``T_my`` tokens in
+    ``_moe_shard_map`` (the reference's body: a multiple of 8, at least
+    8)."""
+    k, E = cfg.n_experts_per_tok, cfg.n_experts
+    return max(8, -(-int(k * T_my / E * cfg.capacity_factor) // 8) * 8)
+
+
+def data_axes(ctx: Optional[ShardingCtx]) -> Tuple[str, ...]:
+    """The mesh axes the batch's rows are split over (the reference's
+    ``pod`` and ``data``); none with no mesh."""
+    if ctx is None or ctx.mesh is None:
+        return ()
+    names = tuple(ctx.mesh.mesh_dim_names)
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _data_group(ctx: Optional[ShardingCtx]):
+    """The group of the data ranks, or None with one data rank."""
+    axes = data_axes(ctx)
+    return ctx.group(axes) if axes and ctx.size(axes) > 1 else None
+
+
+def rank_rows(tokens: torch.Tensor, ctx: Optional[ShardingCtx]
+              ) -> torch.Tensor:
+    """This rank's rows of a whole batch (B, ...): its data rank's ``B /
+    dp`` (the ranks of a model group take the same rows); the whole batch
+    with one data rank or no mesh."""
+    axes = data_axes(ctx)
+    dp = ctx.size(axes) if axes else 1
+    if dp == 1:
+        return tokens
+    if tokens.shape[0] % dp:
+        raise ValueError(f"a batch of {tokens.shape[0]} rows cannot be "
+                         f"split over {dp} data ranks")
+    rows = tokens.shape[0] // dp
+    di = ctx.axis_index(axes)
+    return tokens[di * rows:(di + 1) * rows]
+
+
+def _moe_scatter(p, cfg: LMConfig, x: torch.Tensor,
+                 ctx: Optional[ShardingCtx] = None, lay=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity dispatch, x (B, S, d) -> (out, aux): the T k slots (token
     t's j-th choice is slot t k + j) fill an (E, cap, d) buffer in slot
     order; a slot past its expert's capacity is dropped (it adds zeros at
     (E - 1, cap - 1), as the reference's scatter does); the experts' GLU
     runs as batched products over the buffer; each token sums its kept
-    slots' outputs weighted by their gates."""
+    slots' outputs weighted by their gates.  Under a mesh with several
+    data ranks the slot order, the capacity and the router's statistics
+    are the whole batch's (the rows of lower data ranks first)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.n_experts_per_tok
     T = B * S
     xt = x.reshape(T, d)
-    gate, eid, aux = _router(p, cfg, xt)
+    group = _data_group(ctx)
+    gate, eid, aux = _router({"router": _w(p, "router", lay, ctx)}, cfg, xt,
+                             group)
     flat_e = eid.reshape(-1)
     pos = _pos_in_group(flat_e).long()
-    cap = moe_capacity(cfg, T)
+    T_all = T
+    if group is not None:
+        counts = C.gather_rows(torch.bincount(flat_e, minlength=E)[None],
+                               group)
+        pos = pos + counts[:ctx.axis_index(data_axes(ctx))].sum(0)[flat_e]
+        T_all = T * C.group_size(group)
+    cap = moe_capacity(cfg, T_all)
     keep = pos < cap
     src = torch.repeat_interleave(xt, k, dim=0) * keep[:, None].to(x.dtype)
     buf = torch.zeros((E, cap, d), dtype=x.dtype, device=x.device)
@@ -240,9 +451,9 @@ def _moe_scatter(p, cfg: LMConfig, x: torch.Tensor
                          torch.where(keep, pos, cap - 1)), src,
                         accumulate=True)
     del src
-    g = torch.bmm(buf, p["w_gate"].to(x.dtype))
-    u = torch.bmm(buf, p["w_up"].to(x.dtype))
-    eout = torch.bmm(_act(cfg, g) * u, p["w_down"].to(x.dtype))
+    g = torch.bmm(buf, _w(p, "w_gate", lay, ctx, x.dtype))
+    u = torch.bmm(buf, _w(p, "w_up", lay, ctx, x.dtype))
+    eout = torch.bmm(_act(cfg, g) * u, _w(p, "w_down", lay, ctx, x.dtype))
     del g, u
     got = eout[torch.where(keep, flat_e, 0), torch.where(keep, pos, 0)]
     got = got * (keep[:, None].to(torch.float32)
@@ -250,38 +461,181 @@ def _moe_scatter(p, cfg: LMConfig, x: torch.Tensor
     return torch.sum(got.reshape(T, k, d), dim=1).reshape(B, S, d), aux
 
 
-def _moe_dense(p, cfg: LMConfig, x: torch.Tensor
+def _moe_dense(p, cfg: LMConfig, x: torch.Tensor,
+               ctx: Optional[ShardingCtx] = None, lay=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Every expert over every token, weighted by a (T, E) gate mask (zero
     off each token's top k): no capacity, nothing dropped; E / k times
-    the products of ``_moe_scatter``."""
+    the products of ``_moe_scatter``.  Under a mesh the router's
+    statistics are the whole batch's."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
-    gate, eid, aux = _router(p, cfg, xt)
+    gate, eid, aux = _router({"router": _w(p, "router", lay, ctx)}, cfg, xt,
+                             _data_group(ctx))
     w = torch.zeros((T, cfg.n_experts), dtype=x.dtype, device=x.device
                     ).scatter_add(1, eid, gate.to(x.dtype))
+    wg, wu, wd = (_w(p, n, lay, ctx) for n in ("w_gate", "w_up", "w_down"))
     out = torch.zeros_like(xt)
     for e in range(cfg.n_experts):
-        g = xt @ p["w_gate"][e].to(x.dtype)
-        u = xt @ p["w_up"][e].to(x.dtype)
-        out = out + ((_act(cfg, g) * u) @ p["w_down"][e].to(x.dtype)
-                     ) * w[:, e:e + 1]
+        g = xt @ wg[e].to(x.dtype)
+        u = xt @ wu[e].to(x.dtype)
+        out = out + ((_act(cfg, g) * u) @ wd[e].to(x.dtype)) * w[:, e:e + 1]
     return out.reshape(B, S, d), aux
 
 
-def _moe_block(p, cfg: LMConfig, x: torch.Tensor
+def _shard_map_slots(cfg: LMConfig, gate, eid, nm: int, T_my: int):
+    """One model rank's routing of its ``T_my`` tokens in the shard_map
+    dispatch: (owner rank, expert on it, position, kept, cap) a slot."""
+    E_loc = cfg.n_experts // nm
+    flat_e = eid.reshape(-1)
+    pos = _pos_in_group(flat_e).long()
+    cap = shard_map_capacity(cfg, T_my)
+    keep = pos < cap
+    return (torch.where(keep, flat_e // E_loc, 0),
+            torch.where(keep, flat_e % E_loc, 0),
+            torch.where(keep, pos, cap - 1), keep, cap)
+
+
+def _pack(x_my, slots, nm: int, E_loc: int, k: int) -> torch.Tensor:
+    """The (nm, E_loc, cap, d) send buffer: each kept slot's token at its
+    (owner, expert, position); a dropped slot adds zeros at (0, 0,
+    cap - 1), as the reference's scatter does."""
+    owner, e_loc, pos, keep, cap = slots
+    src = torch.repeat_interleave(x_my, k, dim=0) \
+        * keep[:, None].to(x_my.dtype)
+    send = torch.zeros((nm, E_loc, cap, x_my.shape[1]), dtype=x_my.dtype,
+                       device=x_my.device)
+    return send.index_put((owner, e_loc, pos), src, accumulate=True)
+
+
+def _experts(cfg: LMConfig, tok, wg, wu, wd) -> torch.Tensor:
+    """The experts' GLU as batched products: tok (E', n, d) -> (E', n, d)."""
+    h = _act(cfg, torch.bmm(tok, wg)) * torch.bmm(tok, wu)
+    return torch.bmm(h, wd)
+
+
+def _combine(ret, slots, gate, T_my: int, k: int) -> torch.Tensor:
+    """Each token's kept slots' outputs, weighted by their gates, summed."""
+    owner, e_loc, pos, keep, _ = slots
+    got = ret[owner, e_loc, pos]
+    got = got * (keep[:, None].to(torch.float32)
+                 * gate.reshape(-1)[:, None]).to(ret.dtype)
+    return torch.sum(got.reshape(T_my, k, -1), dim=1)
+
+
+def _moe_shard_map(p, cfg: LMConfig, x: torch.Tensor, ctx: ShardingCtx,
+                   lay: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert parallelism over the model axis, the reference's
+    ``_moe_shard_map`` body on this rank: x (B, S, d) is the data rank's
+    rows (the same on every rank of the model group), and ``p`` holds
+    this rank's ``E / nm`` experts.  The FSDP gathers of the router and
+    the experts over the other axes; this rank's ``T / nm`` token slice;
+    the local router and ``_pos_in_group``; the body's capacity
+    (``shard_map_capacity``); the (nm, E_loc, cap, d) pack;
+    ``all_to_all``, the experts' GLU as batched products, ``all_to_all``
+    back; the gate-weighted combine, the ``all_gather`` of the slices and
+    the ``pmean`` of aux over the model group.  ``lay``: the layer's
+    entry of ``param_layout(cfg, ctx)``."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    nm, mi, mg = ctx.size("model"), ctx.axis_index("model"), \
+        ctx.group("model")
+    E_loc, T_my = E // nm, B * S // nm
+    fsdp = tuple(a for a in ctx.mesh.mesh_dim_names if a != "model")
+    x_my = C.slice_rows(x.reshape(B * S, d), mi, nm, mg)
+    router = _w({"router": C.replicate(p["router"], mg)}, "router", lay, ctx,
+                axes=fsdp)
+    wg, wu, wd = (_w(p, n, lay, ctx, x.dtype, axes=fsdp)
+                  for n in ("w_gate", "w_up", "w_down"))
+    gate, eid, aux = _router({"router": router}, cfg, x_my)
+    slots = _shard_map_slots(cfg, gate, eid, nm, T_my)
+    recv = C.all_to_all(_pack(x_my, slots, nm, E_loc, k), mg)
+    cap = slots[4]
+    tok = recv.transpose(0, 1).reshape(E_loc, nm * cap, d)
+    eout = _experts(cfg, tok, wg, wu, wd)
+    back = eout.reshape(E_loc, nm, cap, d).transpose(0, 1)
+    ret = C.all_to_all(back, mg)
+    out_my = _combine(ret, slots, gate, T_my, k)
+    out = C.gather_dim(out_my, 0, mg, grad_scale=1.0 / nm)
+    return out.reshape(B, S, d), C.mean_across(aux, mg)
+
+
+def _moe_shard_map_plain(p, cfg: LMConfig, x: torch.Tensor, nm: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_moe_shard_map`` of one data rank's rows in one process, on the
+    whole expert tensors: the ``nm`` token slices routed and packed in
+    turn, each owner's experts run over the buffers the slices send it in
+    the order the ``all_to_all`` lays them out, the slices' outputs
+    concatenated and their aux terms averaged.  For tests and checks;
+    never on the main path."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    E_loc, T_my = E // nm, B * S // nm
+    xt = x.reshape(B * S, d)
+    routed, sends, auxes = [], [], []
+    for mi in range(nm):
+        x_my = xt[mi * T_my:(mi + 1) * T_my]
+        gate, eid, aux = _router(p, cfg, x_my)
+        slots = _shard_map_slots(cfg, gate, eid, nm, T_my)
+        routed.append((gate, slots))
+        sends.append(_pack(x_my, slots, nm, E_loc, k))
+        auxes.append(aux)
+    cap = routed[0][1][4]
+    # (source, owner, E_loc, cap, d) -> each owner's experts over
+    # (source, cap) rows, as the owner's received buffer
+    tok = torch.stack(sends).permute(1, 2, 0, 3, 4).reshape(
+        E, nm * cap, d)
+    del sends
+    eout = _experts(cfg, tok, *(p[n].to(x.dtype)
+                                for n in ("w_gate", "w_up", "w_down")))
+    eout = eout.reshape(nm, E_loc, nm, cap, d)
+    outs = [_combine(eout[:, :, mi], slots, gate, T_my, k)
+            for mi, (gate, slots) in enumerate(routed)]
+    aux = torch.sum(torch.stack(auxes)) / nm
+    return torch.cat(outs).reshape(B, S, d), aux
+
+
+def moe_dispatch(cfg: LMConfig, T: int, ctx: Optional[ShardingCtx]) -> str:
+    """The branch of ``_moe_block`` for a rank with T tokens (its data
+    rank's rows), under the reference's conditions on the whole batch's
+    T_all = dp T (``repro/models/lm/model.py:357-369``): "shard_map"
+    where a mesh has a model axis, the rules split ``expert`` over it, nm
+    divides E and T_all / dp, and T_all / dp >= nm; else "dense" where
+    E <= 16 and T_all / dp >= 1,024; else "scatter" (decode, no
+    mesh)."""
+    if ctx is None or ctx.mesh is None \
+            or "model" not in ctx.mesh.mesh_dim_names:
+        return "scatter"
+    E, nm = cfg.n_experts, ctx.size("model")
+    dp = ctx.size(data_axes(ctx)) if data_axes(ctx) else 1
+    T_all = T * dp
+    if ((ctx.rules or {}).get("expert") == "model" and E % nm == 0
+            and T_all % (dp * nm) == 0 and T_all // dp >= nm):
+        return "shard_map"
+    if E <= 16 and T_all // max(dp, 1) >= 1024:
+        return "dense"
+    return "scatter"
+
+
+def _moe_block(p, cfg: LMConfig, x: torch.Tensor,
+               ctx: Optional[ShardingCtx] = None, lay=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token-choice top-k MoE.  Without a mesh the reference's dispatch
-    always takes the capacity scatter; so does the port's (its
-    shard_map expert parallelism and its dense loop choose by mesh
-    axes)."""
-    return _moe_scatter(p, cfg, x)
+    """Token-choice top-k MoE by ``moe_dispatch``'s branch; without a
+    mesh the capacity scatter.  ``lay``: under a mesh the layer's entry
+    of ``param_layout(cfg, ctx)``."""
+    kind = moe_dispatch(cfg, x.shape[0] * x.shape[1], ctx)
+    if kind == "scatter":
+        return _moe_scatter(p, cfg, x, ctx, lay)
+    if kind == "dense":
+        return _moe_dense(p, cfg, x, ctx, lay)
+    return _moe_shard_map(p, cfg, x, ctx, lay)
 
 
 def _attn_block(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
-                cache_len: int, causal: bool, block_q: int
+                cache_len: int, causal: bool, block_q: int,
+                ctx: Optional[ShardingCtx] = None, lay=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (out, k, v).  ``kv``: None (prefill from scratch) or one
     layer's caches (B, T, Hkv, hd), into which the new keys and values
@@ -290,9 +644,9 @@ def _attn_block(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    q = (x @ p["wq"].to(x.dtype)).reshape(B, S, H, hd)
-    k = (x @ p["wk"].to(x.dtype)).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"].to(x.dtype)).reshape(B, S, Hkv, hd)
+    q = (x @ _w(p, "wq", lay, ctx, x.dtype)).reshape(B, S, H, hd)
+    k = (x @ _w(p, "wk", lay, ctx, x.dtype)).reshape(B, S, Hkv, hd)
+    v = (x @ _w(p, "wv", lay, ctx, x.dtype)).reshape(B, S, Hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if kv is not None:
@@ -310,21 +664,23 @@ def _attn_block(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
         out = chunked_attention(q, k, v, causal=causal, q_offset=0,
                                 kv_len=None, block_q=block_q,
                                 scale=hd ** -0.5)
-    return out.reshape(B, S, H * hd) @ p["wo"].to(x.dtype), k, v
+    return (out.reshape(B, S, H * hd) @ _w(p, "wo", lay, ctx, x.dtype),
+            k, v)
 
 
-def _layer(p, cfg: LMConfig, x, positions, kv, cache_len, causal, block_q):
+def _layer(p, cfg: LMConfig, x, positions, kv, cache_len, causal, block_q,
+           ctx: Optional[ShardingCtx] = None, lay=None):
     """Returns (x, k, v, aux): aux the MoE load-balancing term, None for a
     dense layer (the reference's 0.0, which adds nothing)."""
-    h = _norm(cfg, x, p.get("ln1"))
+    h = _norm(cfg, x, _w(p, "ln1", lay, ctx))
     attn, k, v = _attn_block(p, cfg, h, positions, kv, cache_len, causal,
-                             block_q)
+                             block_q, ctx, lay)
     x = x + attn
-    h = _norm(cfg, x, p.get("ln2"))
+    h = _norm(cfg, x, _w(p, "ln2", lay, ctx))
     if cfg.n_experts:
-        mlp, aux = _moe_block(p, cfg, h)
+        mlp, aux = _moe_block(p, cfg, h, ctx, lay)
         return x + mlp, k, v, aux
-    return x + _dense_mlp(p, cfg, h), k, v, None
+    return x + _dense_mlp(p, cfg, h, ctx, lay), k, v, None
 
 
 # ---------------------------------------------------------------------------
@@ -334,20 +690,22 @@ def _layer(p, cfg: LMConfig, x, positions, kv, cache_len, causal, block_q):
 def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
            positions: Optional[torch.Tensor], kv_caches: Optional[Caches],
            cache_len: int, causal: bool, block_q: int, keep_cache: bool,
-           remat: bool = False
+           remat: bool = False, ctx: Optional[ShardingCtx] = None,
+           lay=None
            ) -> Tuple[torch.Tensor, Optional[Caches], Optional[torch.Tensor]]:
     """tokens (B, S) -> (residual stream after the last layer (B, S, d),
     caches, aux): the given ``kv_caches`` (written in place), or with
     ``keep_cache`` new (L, B, S, Hkv, hd) ones in the compute type; aux
     the sum of the MoE layers' terms in layer order (None for a dense
     config).  With ``remat`` (no caches) each layer keeps only its input
-    for the backward and runs again there."""
+    for the backward and runs again there, its gathers too.  ``lay``:
+    ``param_layout(cfg, ctx)`` under a mesh."""
     compute = DTYPES[cfg.dtype]
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
         positions = torch.arange(S, device=dev)[None, :].expand(B, S)
-    x = params["embed"][tokens].to(compute)
+    x = _w(params, "embed", lay, ctx)[tokens].to(compute)
     if cfg.norm == "rmsnorm_p1":     # gemma scales embeddings by sqrt(d)
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute)
     caches = kv_caches
@@ -357,15 +715,16 @@ def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
                   for n in ("k", "v")}
     aux = None
     for i, lp in enumerate(params["layers"]):
+        ll = None if lay is None else lay["layers"][i]
         kv = None if kv_caches is None else (kv_caches["k"][i],
                                              kv_caches["v"][i])
         if remat and kv is None and not keep_cache:
-            x, a = checkpoint(lambda x_, lp_: _layer(
+            x, a = checkpoint(lambda x_, lp_, ll_=ll: _layer(
                 lp_, cfg, x_, positions, None, cache_len, causal,
-                block_q)[::3], x, lp, use_reentrant=False)
+                block_q, ctx, ll_)[::3], x, lp, use_reentrant=False)
         else:
             x, k, v, a = _layer(lp, cfg, x, positions, kv, cache_len,
-                                causal, block_q)
+                                causal, block_q, ctx, ll)
             if kv_caches is None and keep_cache:
                 caches["k"][i] = k
                 caches["v"][i] = v
@@ -374,37 +733,66 @@ def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
     return x, caches, aux
 
 
-def _head(params: Params, cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
-    x = nn.rmsnorm_apply(params["final_norm"], x)
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return x @ head.to(x.dtype)
+def _head(params: Params, cfg: LMConfig, x: torch.Tensor,
+          ctx: Optional[ShardingCtx] = None, lay=None) -> torch.Tensor:
+    x = nn.rmsnorm_apply(_w(params, "final_norm", lay, ctx), x)
+    if cfg.tie_embeddings:
+        return x @ _w(params, "embed", lay, ctx, x.dtype).T
+    return x @ _w(params, "lm_head", lay, ctx, x.dtype)
+
+
+def _layout(cfg: LMConfig, ctx: Optional[ShardingCtx], lay=None):
+    """``param_layout(cfg, ctx)`` (``lay`` where the caller has it), None
+    with no mesh.  Raises where the rules keep the batch whole over data
+    ranks (the reference's decode at a global batch of 1): every data
+    rank would hold the same rows, and the MoE dispatch would count them
+    once a data rank."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    batch = (ctx.rules or {}).get("batch")
+    batch = (batch,) if isinstance(batch, str) else tuple(batch or ())
+    whole = [a for a in data_axes(ctx) if ctx.size(a) > 1 and a not in batch]
+    if whole:
+        raise ValueError(f"the rules keep the batch whole over the data "
+                         f"axes {whole}: each data rank must hold rows of "
+                         f"its own (run with those axes of size 1)")
+    return param_layout(cfg, ctx) if lay is None else lay
 
 
 def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
-            block_q: int = 1024) -> torch.Tensor:
+            block_q: int = 1024, ctx: Optional[ShardingCtx] = None
+            ) -> torch.Tensor:
     """tokens (B, S) -> causal logits (B, S, V) in the compute type, for
     every position (``prefill`` and ``decode_step`` serve; the reference's
     cache options of ``forward`` live there).  An MoE config's aux term is
-    ``lm_loss``'s: the logits are all this returns."""
+    ``lm_loss``'s: the logits are all this returns.  Under ``ctx`` tokens
+    are this rank's rows and ``params`` its shards (module docstring)."""
+    lay = _layout(cfg, ctx)
     x, _, _ = _trunk(params, cfg, tokens, positions=None, kv_caches=None,
-                  cache_len=0, causal=True, block_q=block_q,
-                  keep_cache=False)
-    return _head(params, cfg, x)
+                     cache_len=0, causal=True, block_q=block_q,
+                     keep_cache=False, ctx=ctx, lay=lay)
+    return _head(params, cfg, x, ctx, lay)
 
 
 def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
-            block_q: int = 1024) -> torch.Tensor:
+            block_q: int = 1024, ctx: Optional[ShardingCtx] = None,
+            lay: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """Next-token cross-entropy of tokens (B, S), as the reference's
     ``lm_loss`` (``repro/models/lm/model.py:534``): causal logits in the
     compute type, positions ``[:-1]`` in f32, the mean of logsumexp minus
     the gold logit, plus the MoE layers' aux terms (a dense config's is 0
     and is not added).  Each layer is rematerialised under ``cfg.remat``
-    when grad mode is on."""
+    when grad mode is on.  Under ``ctx``: the mean over this rank's rows
+    plus its aux terms (``launch.steps.lm_train_step`` averages over the
+    data ranks); ``lay``: ``param_layout(cfg, ctx)`` where the caller has
+    it."""
+    lay = _layout(cfg, ctx, lay)
     x, _, aux = _trunk(params, cfg, tokens, positions=None, kv_caches=None,
                        cache_len=0, causal=True, block_q=block_q,
                        keep_cache=False,
-                       remat=cfg.remat and torch.is_grad_enabled())
-    lg = _head(params, cfg, x)[:, :-1].to(torch.float32)
+                       remat=cfg.remat and torch.is_grad_enabled(),
+                       ctx=ctx, lay=lay)
+    lg = _head(params, cfg, x, ctx, lay)[:, :-1].to(torch.float32)
     gold = torch.gather(lg, -1, tokens[:, 1:, None].long())[..., 0]
     loss = torch.mean(torch.logsumexp(lg, dim=-1) - gold)
     return loss if aux is None else loss + aux
@@ -432,7 +820,8 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
 
 
 def decode_step(params: Params, cfg: LMConfig, tokens: torch.Tensor,
-                kv_caches: Caches, cache_len: int
+                kv_caches: Caches, cache_len: int, *,
+                ctx: Optional[ShardingCtx] = None
                 ) -> Tuple[torch.Tensor, Caches]:
     """One decode step: tokens (B, 1) against caches filled to
     ``cache_len``.  Writes the step's keys and values into the caches in
@@ -440,19 +829,24 @@ def decode_step(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     B = tokens.shape[0]
     positions = torch.full((B, 1), cache_len, dtype=torch.int64,
                            device=tokens.device)
+    lay = _layout(cfg, ctx)
     x, caches, _ = _trunk(params, cfg, tokens, positions=positions,
                           kv_caches=kv_caches, cache_len=cache_len,
-                          causal=False, block_q=1, keep_cache=True)
-    return _head(params, cfg, x[:, -1]), caches
+                          causal=False, block_q=1, keep_cache=True,
+                          ctx=ctx, lay=lay)
+    return _head(params, cfg, x[:, -1], ctx, lay), caches
 
 
 def prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
-            block_q: int = 1024) -> Tuple[torch.Tensor, Caches]:
+            block_q: int = 1024, ctx: Optional[ShardingCtx] = None
+            ) -> Tuple[torch.Tensor, Caches]:
     """Prefill: returns (last-position logits (B, V), caches (L, B, S,
     Hkv, hd) in the compute type).  The head runs on the last position
     only."""
+    lay = _layout(cfg, ctx)
     x, caches, _ = _trunk(params, cfg, tokens, positions=None,
                           kv_caches=None, cache_len=0, causal=True,
-                          block_q=block_q, keep_cache=True)
-    return _head(params, cfg, x[:, -1]), caches
+                          block_q=block_q, keep_cache=True, ctx=ctx,
+                          lay=lay)
+    return _head(params, cfg, x[:, -1], ctx, lay), caches
 

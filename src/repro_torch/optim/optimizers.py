@@ -17,20 +17,35 @@ over flat dicts ``name -> tensor``:
 or, with the same values and one parameter's temporaries at a time,
 
     state = apply_leafwise(opt, grads, state, params)
+
+On shards (the LM family under a mesh): each rank holds a block of some
+parameters, and ``shards`` maps a name to the process group each dim is
+split over (None where whole; ``models.lm.model.shard_groups``).  A
+shard's update is then the matching block of the whole parameter's:
+AdamW, SGD and AdaGrad are elementwise; ``adafactor(shards=)`` reduces
+its factored means and its RMS clip over the groups; and
+the clip's norm (``global_norm(shards=)``) counts each parameter's
+squares once.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Mapping, NamedTuple, Optional,
+                    Tuple)
 
 import torch
 import torch.distributed as dist
 
 Tree = Dict[str, torch.Tensor]
+Shards = Mapping[str, Tuple[Any, ...]]     # name -> a group or None a dim
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Tree], object]
     update: Callable[..., Tuple[Tree, object]]   # (grads, state, params)
+    # the layout an optimizer that reduces within a parameter (Adafactor)
+    # was made for ({}: every parameter whole); None for an elementwise
+    # one, which suits any layout
+    shards: Optional[Shards] = None
 
 
 @torch.no_grad()
@@ -40,39 +55,78 @@ def apply_updates(params: Tree, updates: Tree) -> None:
         p.add_(updates[name].to(p.dtype))
 
 
-def global_norm(tree: Tree, sharded: Sequence[str] = (),
-                group=None) -> torch.Tensor:
-    """The f32 L2 norm of every leaf together.  The leaves named in
-    ``sharded`` are this rank's shards of tensors split over the process
-    group ``group``: their squared norms are summed over the group, so
-    every rank gets the whole tree's norm."""
+def check_shards(opt: Optimizer, shards: Optional[Shards]) -> None:
+    """Raise unless ``opt`` suits parameters laid out as ``shards`` (None:
+    every parameter whole): an elementwise optimizer suits any layout,
+    Adafactor only the one it was made for (its groups compared by their
+    ranks)."""
+    if opt.shards is None:
+        return
+
+    def split(sh):
+        return {k: tuple(None if g is None
+                         else tuple(dist.get_process_group_ranks(g))
+                         for g in v)
+                for k, v in (sh or {}).items()
+                if any(g is not None for g in v)}
+    if split(opt.shards) != split(shards):
+        raise ValueError("the optimizer was made for another layout of the "
+                         "parameters: make it with make_optimizer(name, "
+                         "shards=) from the step's layout")
+
+
+def _split_groups(groups) -> list:
+    """The distinct groups of a parameter's per-dim groups, in dim order."""
+    out = []
+    for g in groups or ():
+        if g is not None and all(g is not h for h in out):
+            out.append(g)
+    return out
+
+
+def global_norm(tree: Tree, shards: Optional[Shards] = None
+                ) -> torch.Tensor:
+    """The f32 L2 norm of every leaf together.  With ``shards`` (module
+    docstring) each leaf is this rank's block of a split parameter: the
+    squares of the leaves split over the same groups are summed over
+    them and those of a leaf split over none are counted once, so every
+    rank gets the whole tree's norm."""
     sq = {k: torch.sum(torch.square(x.to(torch.float32)))
           for k, x in tree.items()}
-    if sharded:
-        part = torch.stack([sq[k] for k in sharded])
-        dist.all_reduce(part, group=group)
-        sq.update(zip(sharded, part.unbind()))
-    return torch.sqrt(torch.stack(list(sq.values())).sum())
+    if not shards:
+        return torch.sqrt(torch.stack(list(sq.values())).sum())
+    by: Dict[tuple, tuple] = {}
+    for k, v in sq.items():
+        groups = _split_groups(shards.get(k))
+        by.setdefault(tuple(map(id, groups)), (groups, []))[1].append(v)
+    parts = []
+    for groups, vals in by.values():
+        part = torch.stack(vals).sum()
+        for g in groups:
+            dist.all_reduce(part, group=g)
+        parts.append(part)
+    return torch.sqrt(torch.stack(parts).sum())
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float,
-                        sharded: Sequence[str] = (), group=None
+                        shards: Optional[Shards] = None
                         ) -> Tuple[Tree, torch.Tensor]:
     """Scale every gradient by ``min(1, max_norm / (norm + 1e-9))``;
-    ``sharded`` and ``group`` as in ``global_norm``."""
-    norm = global_norm(grads, sharded, group)
+    ``shards`` as in ``global_norm``."""
+    norm = global_norm(grads, shards)
     scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
     return {k: g * scale for k, g in grads.items()}, norm
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Tree, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Tree, max_norm: float,
+                         shards: Optional[Shards] = None) -> torch.Tensor:
     """``clip_by_global_norm`` in place; returns the norm.  An f32
     gradient is scaled where it lies; any other is replaced, one at a
     time, by its f32 product, the type the JAX package's ``g * scale``
     promotes a bf16 gradient to (scaling a bf16 gradient where it lies
     would round the product to bf16)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, shards)
     scale = torch.clamp_max(max_norm / (norm + 1e-9), 1.0)
     for k, g in grads.items():
         if g.dtype == torch.float32:
@@ -156,9 +210,20 @@ def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
+def _mean(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The mean over ``dim`` of a tensor split along it over ``group`` in
+    equal blocks (None: held whole)."""
+    m = torch.mean(t, dim=dim)
+    if group is not None:
+        dist.all_reduce(m, group=group)
+        m = m / dist.get_world_size(group)
+    return m
+
+
 def adafactor(lr: float = 0.01, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0,
-              lr_schedule: bool = True) -> Optimizer:
+              lr_schedule: bool = True,
+              shards: Optional[Shards] = None) -> Optimizer:
     """Shazeer & Stern: second moments factored over the last two dims
     (row and column means of g^2 + eps) for parameters of 2 dims or more,
     full for the rest; decay ``beta = 1 - c^-decay``; the update divided
@@ -167,7 +232,12 @@ def adafactor(lr: float = 0.01, decay: float = 0.8, eps: float = 1e-30,
     scalars are formed in f32, as the JAX package forms them.  Each
     parameter is its own leaf, as the port's LM keeps one a layer: the
     JAX package's numbers for a model with ``scan_layers=False``; over
-    stacked (L, ...) leaves its factors and clipping span the layers."""
+    stacked (L, ...) leaves its factors and clipping span the layers.
+    With ``shards`` a parameter's block gets its block of the whole
+    parameter's update: the row and column means of ``g^2`` and the mean
+    of the row statistics are reduced over the group of the dim they
+    cross, and the RMS of the update over every group the parameter is
+    split over."""
 
     def init(params):
         f32 = torch.float32
@@ -181,16 +251,18 @@ def adafactor(lr: float = 0.01, decay: float = 0.8, eps: float = 1e-30,
               for k, p in params.items()}
         return FactorState(vr, vc, 0)
 
-    def leaf(g, vr, vc, beta, one_m_beta, step_lr):
-        """(update, new vr, new vc) of one parameter; the f32 temporaries
-        are freed as soon as the next one exists."""
+    def leaf(g, vr, vc, beta, one_m_beta, step_lr, groups=None):
+        """(update, new vr, new vc) of one parameter (its block split over
+        ``groups``, one a dim); the f32 temporaries are freed as soon as
+        the next one exists."""
+        groups = groups or (None,) * g.dim()
         g32 = g.to(torch.float32)
         g2 = torch.square(g32).add_(eps)
         if g.dim() >= 2:
-            nvr = beta * vr + one_m_beta * torch.mean(g2, dim=-1)
-            nvc = beta * vc + one_m_beta * torch.mean(g2, dim=-2)
+            nvr = beta * vr + one_m_beta * _mean(g2, -1, groups[-1])
+            nvc = beta * vc + one_m_beta * _mean(g2, -2, groups[-2])
             del g2
-            rfac = torch.rsqrt(nvr / torch.mean(nvr, dim=-1, keepdim=True)
+            rfac = torch.rsqrt(nvr / _mean(nvr, -1, groups[-2])[..., None]
                                + eps)
             cfac = torch.rsqrt(nvc + eps)
             step = (g32 * rfac[..., None]).mul_(cfac[..., None, :])
@@ -199,7 +271,11 @@ def adafactor(lr: float = 0.01, decay: float = 0.8, eps: float = 1e-30,
             nvc = vc
             step = g32 * torch.rsqrt(nvr + eps)
         del g32
-        rms = torch.sqrt(torch.mean(torch.square(step)) + 1e-12)
+        ms = torch.mean(torch.square(step))
+        for grp in _split_groups(groups):
+            dist.all_reduce(ms, group=grp)
+            ms = ms / dist.get_world_size(grp)
+        rms = torch.sqrt(ms + 1e-12)
         step.div_(torch.clamp_min(rms / clip_threshold, 1.0))
         return step.mul_(-step_lr), nvr, nvc
 
@@ -212,10 +288,11 @@ def adafactor(lr: float = 0.01, decay: float = 0.8, eps: float = 1e-30,
         upd, vr, vc = {}, {}, {}
         for k, g in grads.items():
             upd[k], vr[k], vc[k] = leaf(g, state.vr[k], state.vc[k], beta,
-                                        one_m_beta, step_lr)
+                                        one_m_beta, step_lr,
+                                        (shards or {}).get(k))
         return upd, FactorState(vr, vc, c)
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, dict(shards or {}))
 
 
 def partition(predicate: Callable[[str, torch.Tensor], bool],
@@ -254,16 +331,18 @@ def rankgraph2_optimizer(lr_sparse: float = 0.02, lr_dense: float = 0.004
     return partition(is_sparse, adagrad(lr_sparse), adamw(lr_dense))
 
 
-def make_optimizer(name: str, lr: Optional[float] = None) -> Optimizer:
+def make_optimizer(name: str, lr: Optional[float] = None,
+                   shards: Optional[Shards] = None) -> Optimizer:
     """The optimizer a config names, at ``lr`` or the JAX package's
     default rate for it (adamw 3e-4, adagrad 0.02, adafactor 0.01, sgd
-    0.1; rankgraph2 at its own two rates)."""
+    0.1; rankgraph2 at its own two rates).  ``shards`` (module
+    docstring) reaches Adafactor; the others are elementwise."""
     if name == "adamw":
         return adamw(lr or 3e-4)
     if name == "adagrad":
         return adagrad(lr or 0.02)
     if name == "adafactor":
-        return adafactor(lr or 0.01)
+        return adafactor(lr or 0.01, shards=shards)
     if name == "sgd":
         return sgd(lr or 0.1)
     if name == "rankgraph2":
