@@ -7,6 +7,7 @@
     python3 chip_smoke.py --attention-only     # Phase 1's flash_attention
     python3 chip_smoke.py --decode-only REPS   # Phase 5's decode steps
     python3 chip_smoke.py --lm-train-only      # Phase 10 alone
+    python3 chip_smoke.py --kimi-train-only    # Phase 13 alone
     python3 chip_smoke.py --distributed-only   # Phase 11 on Phase 3's corpus
     python3 chip_smoke.py --lm-mesh-only       # Phase 12 alone
 
@@ -121,8 +122,11 @@ counts by kernel, llama at 2 layers card vs CPU in f32 (prefill logits,
 caches, one decode step within 1e-3), and the prefill/decode consistency
 on the card in bf16.
 
-Phase 6 runs the hour-level refresh cycle at the same width on Phase
-3's log: ``build_graph(keep_state=True)`` and the device PPR tables on
+Phase 6 runs the hour-level refresh cycle at the same width on a log
+of Phase 3's topic model at half its users and items (131,072 and
+32,768; the refresh is host-bound and scales with the log, and the
+whole script must fit its 1,200 s): ``build_graph(keep_state=True)``
+and the device PPR tables on
 the events of the first 23 hours, then ``incremental_refresh`` (device
 backend: the ppr_walk kernel re-walks the affected nodes) with the
 trailing hour plus fresh events of 1,024 new users and on 2,048 new
@@ -155,7 +159,7 @@ every user, so each query ranks them all, and the whole script must fit
 its limit on a slow host; snapshots in a temporary
 directory), ``SwapServer.ingest`` / ``serve_batch`` and
 ``recover_serving``.  The gate's world is a next-day log made with numpy
-from Phase 3's topic model (the same users' home topics, Poisson(2)
+from Phase 6's topic model (the same users' home topics, Poisson(2)
 events each; no published source): its first 15 minutes are cycle 1's
 refresh delta and the live traffic, the rest the ground truth.  Cycle 0
 trains, publishes (``embed_all``, ``rq_assign``, the I2I KNN, the gate)
@@ -248,9 +252,38 @@ layers (d 7,168, 64 heads over 8 at head dim 112, 384 experts top-8 at
 ff 2,048; 38.8 GB of bf16 params): a prefill of 4,096 tokens (the
 tile kernel at D 112) and 16 greedy decode steps (the decode kernel at D
 112, its splits folded), the decode logits within ``BF16_LM_TOL`` of
-``forward``'s at the same positions.  Kimi does not train on one card:
-its gradients would double the 38.8 GB of params and Adafactor's f32
-temporaries of its 5.6 G-entry ``w_gate`` come on top.
+``forward``'s at the same positions.  Kimi at its 384 experts does not
+train on one card (its gradients would double the 38.8 GB of params and
+Adafactor's f32 temporaries of its 5.6 G-entry ``w_gate`` come on top):
+Phase 13 trains it at 64.
+
+Phase 13 runs kimi-k2-1t-a32b's training after Phase 10, through the
+attention backward at head dim 112 (the D 128 kernels with the last 16
+columns zero-filled).  13a: one layer at full width (d 7,168, 64 heads
+over 8 at D 112, expert ff 2,048, top-8, capacity factor 1.25, vocab
+163,840, bf16 params) with its 384 experts cut to 64 so that the step
+fits the card (5.28 G params; the reckoning, printed first: bf16 params
+and gradients 10.6 GB each, the clipped gradients in f32 21.1 GB,
+``w_gate``'s two f32 Adafactor temporaries 7.5 GB, the logits 6.7 GB:
+about 57 GB, 96 experts about 75 GB), and one sequence of train_4k's 256
+(B 1 x S 4,096): three ``lm_train_step``s with Adafactor and clipping,
+printing each step's loss and gradient norm, the step split, attention's
+share in CUDA events, the expert loads and dropped slots, peak memory
+and each step's launches (``flash_attention`` twice, each backward pass
+once a layer: the kernels, not the plain version); then the same steps
+from the same parameters with the plain attention
+(``chunked_attention_ref``) in place of the kernels, the first loss
+within ``P9_BF16_LOSS`` of the kernels' and the rest printed beside
+theirs.  13b: card against
+CPU at kimi's head shape on a cut width (2 layers, d 896: 8 heads over 1
+at D 112, kimi's 8:1 grouping; 16 experts top-8 at ff 256, vocab 8,192,
+S 1,024), f32: the loss and every gradient at the initial parameters by
+Phase 9's rule (``close`` at ``CARD_CPU_LM_REL``), then three Adafactor
+steps' losses and norms within ``CARD_CPU_LM_REL``; both sides on the
+card's expert choices (ROADMAP's "Card repeatability"), each of the
+CPU's own choices that differs a near tie of its probabilities; then
+the three steps in kimi's own types (bf16), each loss printed against
+the f32 CPU step's and the first within ``BF16_LM_TOL``.
 
 Phase 11 runs the distributed paths last, in ranks that
 ``torch.multiprocessing.spawn`` starts (each uses the kernels the parent
@@ -265,15 +298,24 @@ NCCL, one rank a card.  11b: four ranks sharing the card, for which it
 picks gloo; each first shows that gloo takes CUDA tensors in
 ``all_reduce``, ``all_gather`` and ``broadcast``.  At mesh (4,)
 ``("data",)``: three data-parallel rankgraph2 steps at full width on
-Phase 3's corpus (10,920 edges a type, cut from 10,922 so that 4
-divides it), against three steps of the global step with shard-local
-negatives of 2,730 rows run in the parent with the same batches and
-draws, each side on its own RQ selections: in f32 the losses by
+Phase 3's corpus, against three steps of the global step run in the
+parent with the same batches and draws, each side on its own RQ
+selections, in f32 and bf16 at train_batch's own 10,922 edges a type,
+which 4 does not divide: each rank keeps ``block_rows``, 2,731 rows and
+the last 2,729, and the negatives are the reference's whole-batch
+fallback, each rank gathering the whole batch's destination rows.  In
+f32 the losses by
 ``f32_gap``, every row whose selection differs a near tie of the biased
 selection under the global step's inputs, widened only by what the
 histograms and codebooks that differ between the two sides can move
-(``selection_ties``), and pool rows within 1e-4; in bf16 the losses
-within Phase 3's bf16 tolerance and pool rows within 5e-2.  In both,
+(``selection_ties``), and pool rows within 1e-4.  In bf16 the global
+step does not repeat its own losses within Phase 3's bf16 tolerance by
+step 2 (its sums run in another order each run), so both bf16 sides are
+held against the f32 global step on the same batches and draws: at
+every step and loss the data-parallel step may lie no farther from it
+than the bf16 global step does, plus that tolerance at the f32 value
+(``bf16_lead``); the gap between the two bf16 sides is printed; pool
+rows within 5e-2 of the bf16 global step's.  In both,
 every histogram row must be its step's selections' counts on each side
 (so the histograms differ only where the selections do), and the probe
 rows' ``assign_codes`` must agree but for near ties widened by the
@@ -327,9 +369,9 @@ stages; Phase 6's launches of ``rq_assign``, ``ppr_walk`` and
 Phase 8's of ``queue_gather``, ``rq_assign`` and
 ``fused_contrastive_*``, Phase 9's main run's of ``flash_attention``
 and ``flash_attention_bwd_*``, Phase 10's runs' (``run_lm``, the
-train steps, kimi's prefill and decode; not its checks) and Phase 11's
-and Phase 12's ranks' (each rank counts its own and returns them: 12a's
-prefill, 12b's steps) are added to those; the f32 kernels' come from
+train steps, kimi's prefill and decode; not its checks), Phase 13a's
+steps and Phase 11's and Phase 12's ranks' (each rank counts its own and
+returns them: 12a's prefill, 12b's steps) are added to those; the f32 kernels' come from
 Phase 10a alone.  Every kernel in the list must have launched on its
 path.
 
@@ -372,7 +414,8 @@ from repro_torch.configs.rankgraph2 import CONFIG  # noqa: E402
 from repro_torch.core import model as M  # noqa: E402
 from repro_torch.core.graph_builder import (EngagementLog,  # noqa: E402
                                             build_graph)
-from repro_torch.core.negatives import negative_draws  # noqa: E402
+from repro_torch.core.negatives import (negative_draws,  # noqa: E402
+                                        shard_block_for)
 from repro_torch.core.pipeline import run_pipeline  # noqa: E402
 from repro_torch.core.ppr import (_expand_affected,  # noqa: E402
                                   _topk_from_counts,
@@ -425,6 +468,7 @@ from repro_torch.kernels.queue_gather.ref import (  # noqa: E402
 from repro_torch.kernels.rq_assign import rq_assign as RQA  # noqa: E402
 from repro_torch.kernels.rq_assign.ref import rq_assign_ref  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
+from repro_torch.distributed.collectives import block_rows  # noqa: E402
 from repro_torch.distributed.sharding import (ShardingCtx,  # noqa: E402
                                               make_rules)
 from repro_torch.launch.mesh import init_distributed, make_mesh  # noqa: E402
@@ -486,6 +530,10 @@ CARD_CPU_REL, CARD_CPU_ABS = 5e-2, 1e-2   # bf16 vs f32 losses
 F32_REL, F32_RQ_REL, F32_ABS = 1e-3, 1e-2, 1e-3  # f32 card vs f32 CPU
 F32_STEPS = 4                # steps of the f32 card-vs-CPU trajectory
 DST_TYPE = {"uu": "user", "ui": "item", "iu": "user", "ii": "item"}
+# Phases 6 and 7: Phase 3's topic model at half its users and items (the
+# refresh and the lifecycle cycles are host-bound and scale with the log;
+# at Phase 3's size the two took 465 s of the script's 1,200 s)
+P6_USERS, P6_ITEMS = P3_USERS // 2, P3_ITEMS // 2
 P6_CUT_S = 82_800.0          # Phase 6's initial build: events up to 23 h
 P6_NEW_USERS, P6_NEW_ITEMS = 1024, 2048   # grown in the delta
 P6_ITEM_EVENTS = 4           # Poisson mean of a new item's events
@@ -556,8 +604,16 @@ P10B_ARCHS = ("llama3.2-3b", "gemma-2b")
 P10_B, P10_S = 1, 4096       # train_4k cut to one sequence, as Phase 9
 P10_MOE_LAYERS = 1           # of grok's 64 and kimi's 61
 P10_KIMI_S = 4096            # kimi's prefill
+P13_EXPERTS = 64             # 13a: kimi's 384 experts cut to fit one card
+P13_RECKON_EXPERTS = (64, 96, 384)   # the counts 13a's reckoning prints
+P13B_CUT = dict(n_layers=2, d_model=896, n_heads=8, n_kv_heads=1,
+                n_experts=16, moe_d_ff=256, d_ff=256, vocab_size=8192)
+P13B_S = 1024                # 13b's sequence
+ROUTE_TIE = 1e-5             # 13b: a flipped expert choice's probability gap
 P11_WORLD = 4                # gloo ranks sharing the card (11b)
-P11_ROWS = 10_920            # edges per type, cut from 10,922: 4 divides it
+# 11b's edges per type: train_batch's own 10,922 (4 does not divide it:
+# blocks of 2,731 rows, the last 2,729, whole-batch negatives)
+P11_ROWS = CF_ROWS
 P11_STEPS = 3
 P11_DLRM = dataclasses.replace(DLRM, default_vocab=TRAIN_VOCAB)  # Phase 4's cut
 P11_SERVE = 65_536           # serve requests against the row-sharded tables
@@ -1968,7 +2024,12 @@ FA_BWD_SHAPES = (
     ("ragged bf16 D 32", 3, 100, 4, 1, 32, torch.bfloat16),
     ("ragged bf16 D 256", 1, 70, 8, 1, 256, torch.bfloat16),
     ("ragged f32 D 256", 1, 70, 8, 1, 256, torch.float32),
+    # kimi-k2's head dim 112 (Phase 13) on the D 128 tiles, its 8:1 groups
+    ("kimi-k2-1t-a32b", 1, 4096, 64, 8, 112, torch.bfloat16),
+    ("ragged bf16 D 112", 2, 77, 8, 1, 112, torch.bfloat16),
+    ("ragged f32 D 112", 1, 70, 8, 1, 112, torch.float32),
 )
+BWD_FORCED = ("olmo-1b", "kimi-k2-1t-a32b")   # fa_bwd_forced's rows
 BWD_BF16_TOL, BWD_F32_TOL = 2.0 ** -6, 1e-5   # of M: tests/..._bwd.py
 # block_gap's limits: above the sound kernels' reading (bf16 about 2^-8:
 # P, dS and the result each rounded once; f32 about sqrt(n) 2^-24), below
@@ -2115,9 +2176,20 @@ def fa_bwd_guard(dev) -> None:
     out = FA.flash_attention(q, k, k, causal=True, scale=0.125)
     check(type(out.grad_fn).__name__ == "FlashAttentionBackward",
           f"lm_loss's case: grad_fn {out.grad_fn}")
+    # kimi-k2's head dim 112 under grad: the kernels, forward and backward
+    q, k = t(32, 8, 112), t(32, 1, 112)
+    (out, n) = fa_launches(lambda: FA.flash_attention(
+        q, k, k, causal=True, scale=112 ** -0.5))
+    check(type(out.grad_fn).__name__ == "FlashAttentionBackward"
+          and n == {"flash_attention": 1}, f"head dim 112 under grad: "
+          f"grad_fn {out.grad_fn}, launches {n}")
+    _, n = fa_launches(lambda: out.backward(torch.ones_like(out)))
+    check(n == {"flash_attention_bwd_dq": 1, "flash_attention_bwd_dkdv": 1},
+          f"head dim 112's backward: launches {n}")
     print(f"[phase1] F1 guard on the card: {len(cases)} refused cases "
           f"raised naming the case; lm_loss's case returns an output "
-          f"with grad_fn {type(out.grad_fn).__name__}")
+          f"with grad_fn {type(out.grad_fn).__name__}, as does head dim 112, "
+          f"whose backward launches the dq and dkdv passes")
 
 
 def fa_bwd_forced(q, k, v, o, do, lse, scale, grads, plain, mag, tol,
@@ -2164,7 +2236,8 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
     a tile's terms, or a split's partial, taken out of the weighted
     result (``planted_faults``) must read above that limit; a second
     launch must give the same bits; at olmo-1b's shape the dkdv pass at
-    ``BWD_FORCED_SPLITS`` ranges a key tile too (``fa_bwd_forced``);
+    ``BWD_FORCED_SPLITS`` ranges a key tile too (``fa_bwd_forced``; also
+    at kimi-k2's head dim 112);
     the forward's lse within
     1e-5 of the plain one; the grad-off forward (``plan``'s launch, the
     same kernel at one split) bitwise equal to the training route's
@@ -2237,7 +2310,7 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
                     ("dq", "dk", "dv"), grads, plain,
                     (qr.grad, kr.grad, vr.grad))}
         forced = ""
-        if name == "olmo-1b":
+        if name in BWD_FORCED:
             forced = fa_bwd_forced(q, k, v, o, do, lse, scale, grads, plain,
                                    mag, tol, BWD_GAP_TOL[dtype])
         del plain, mag, qr, kr, vr
@@ -2287,6 +2360,14 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
             bounds[what] = (max(t_o, t_b) * 1e3,
                             "operations" if t_o >= t_b else "bytes", ops)
         design_ops = attention_bwd_work(B, S, Hq, Hkv, D, esize, 14)[0]
+        Dt = D if f32 else FA.bwd_tile_width(D)
+        tiles = ""
+        if Dt != D:      # the kernels' products run on the padded tiles
+            t14, t10 = (attention_bwd_work(B, S, Hq, Hkv, Dt, esize, n)[0]
+                        for n in (14, 10))
+            tiles = (f"; on its {Dt}-wide tiles the design's 14 D "
+                     f"{t14 / 1e12:.4f} TFLOP ({t14 / peak * 1e3:.4f} ms at "
+                     f"the peak), the five products' 10 D {t10 / 1e12:.4f}")
         b_ms, b_by, b_ops = bounds["10 D"]
         print(f"[phase1] flash_attention_bwd {name}: q {tuple(q.shape)} k/v "
               f"{tuple(k.shape)} {str(dtype).replace('torch.', '')} causal; "
@@ -2315,7 +2396,7 @@ def phase1_flash_attention_bwd(g: torch.Generator, dev, peaks) -> list:
               f"{b_ops / 1e12:.4f} TFLOP; {b_ops / dev_ms / 1e9:.1f} "
               f"TFLOP/s, {b_ops / dev_ms / 1e9 / (peak / 1e12):.1%} of the "
               f"peak); the design's 14 D {design_ops / 1e12:.4f} TFLOP "
-              f"({design_ops / peak * 1e3:.4f} ms at the peak); "
+              f"({design_ops / peak * 1e3:.4f} ms at the peak){tiles}; "
               f"plain_ms={plain_ms:.4f}; SDPA forward+backward "
               f"{both_ms} ms, backward {sdpa_bwd_ms} ms")
         out[name] = dict(err=max(c for _, _, c in errs.values()), ms=ms,
@@ -2630,14 +2711,15 @@ def phase2(seed: int, dev) -> dict:
 # Phase 3: the construct-and-train slice at full width
 # ---------------------------------------------------------------------------
 
-def topic_model(rng: np.random.Generator):
-    """Phase 3's topic model, the first draws of ``default_rng(seed)``:
-    each topic's items (a block of ``P3_ITEMS // N_TOPICS`` in a
-    permutation, in popularity-rank order), the global popularity order,
-    and each user's home topic."""
-    topic_items = rng.permutation(P3_ITEMS)
-    global_items = rng.permutation(P3_ITEMS)
-    home = rng.integers(0, N_TOPICS, P3_USERS)
+def topic_model(rng: np.random.Generator, nu: int = P3_USERS,
+                ni: int = P3_ITEMS):
+    """Phase 3's topic model over ``nu`` users and ``ni`` items, the first
+    draws of ``default_rng(seed)``: each topic's items (a block of
+    ``ni // N_TOPICS`` in a permutation, in popularity-rank order), the
+    global popularity order, and each user's home topic."""
+    topic_items = rng.permutation(ni)
+    global_items = rng.permutation(ni)
+    home = rng.integers(0, N_TOPICS, nu)
     return topic_items, global_items, home
 
 
@@ -2647,14 +2729,14 @@ def topic_events(rng: np.random.Generator, model, per_user: np.ndarray):
     types 0-3 with probabilities 0.7 / 0.15 / 0.1 / 0.05.  Returns
     (users, items, event types)."""
     topic_items, global_items, home = model
-    ni = P3_ITEMS
+    ni = len(topic_items)
     per_topic = ni // N_TOPICS
 
     def zipf_cdf(n):
         p = 1.0 / np.arange(1, n + 1, dtype=np.float64) ** 1.1
         return np.cumsum(p / p.sum())
 
-    users = np.repeat(np.arange(P3_USERS, dtype=np.int64), per_user)
+    users = np.repeat(np.arange(len(per_user), dtype=np.int64), per_user)
     n_ev = len(users)
     r_loc = np.minimum(np.searchsorted(zipf_cdf(per_topic),
                                        rng.random(n_ev)), per_topic - 1)
@@ -2667,14 +2749,15 @@ def topic_events(rng: np.random.Generator, model, per_user: np.ndarray):
     return users, items, etype
 
 
-def make_log_world(seed: int) -> SyntheticWorld:
-    """A topic-clustered engagement log of one day, made with numpy: each
-    user has a home topic (N_TOPICS topics of equal item count) and
-    Poisson(EVENTS_PER_USER) events (``topic_events``); timestamps over
-    one day; standard-normal features."""
+def make_log_world(seed: int, nu: int = P3_USERS,
+                   ni: int = P3_ITEMS) -> SyntheticWorld:
+    """A topic-clustered engagement log of one day on ``nu`` users and
+    ``ni`` items, made with numpy: each user has a home topic (N_TOPICS
+    topics of equal item count) and Poisson(EVENTS_PER_USER) events
+    (``topic_events``); timestamps over one day; standard-normal
+    features."""
     rng = np.random.default_rng(seed)
-    nu, ni = P3_USERS, P3_ITEMS
-    model = topic_model(rng)
+    model = topic_model(rng, nu, ni)
     per_user = np.maximum(rng.poisson(EVENTS_PER_USER, nu), 1)
     users, items, etype = topic_events(rng, model, per_user)
     ts = rng.random(len(users)) * 86400.0
@@ -4321,8 +4404,9 @@ def phase10d(seed: int, dev) -> dict:
     fullest experts first, the very positions compared; so the check's
     ``forward`` runs its MoE blocks as ``_moe_dense`` (every expert over
     every token: nothing dropped; 10c holds it equal to ``_moe_scatter``
-    where nothing drops).  Kimi does not train on one card (module
-    docstring).  Returns the serve stages' launches."""
+    where nothing drops).  Kimi at its 384 experts does not train on one
+    card (module docstring); Phase 13 trains it at 64.  Returns the serve
+    stages' launches."""
     cfg = dataclasses.replace(KIMI, n_layers=P10_MOE_LAYERS)
     hd, S, E, k = cfg.resolved_head_dim, P10_KIMI_S, cfg.n_experts, \
         cfg.n_experts_per_tok
@@ -4432,6 +4516,328 @@ def phase10(seed: int, dev) -> dict:
         t = time.perf_counter()
         add_counts(total, part())
         print(f"[phase10] part wall {time.perf_counter() - t:.2f} s")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: kimi-k2's training, the attention backward at head dim 112
+# ---------------------------------------------------------------------------
+
+def kimi_reckon(cfg) -> dict:
+    """The bytes a one-layer kimi train step holds at its peak, leaf by
+    leaf: bf16 params and gradients, the clipped gradients in f32 (the
+    JAX package's promotion), ``w_gate``'s two f32 Adafactor temporaries
+    (``apply_leafwise``'s one leaf at a time) and the logits (bf16, f32,
+    f32 gradient) of B 1 x S 4,096."""
+    n = cfg.n_params()
+    big = cfg.n_experts * cfg.d_model * cfg.moe_d_ff
+    return {"bf16 params": 2 * n, "bf16 gradients": 2 * n,
+            "clipped gradients (f32)": 4 * n,
+            "w_gate's two f32 Adafactor temporaries": 8 * big,
+            "logits (bf16, f32, f32 gradient)":
+                10 * P10_B * P10_S * cfg.vocab_size}
+
+
+def phase13a(seed: int, dev) -> dict:
+    """kimi-k2-1t-a32b at full width, 1 of its 61 layers, its 384 experts
+    cut to ``P13_EXPERTS`` (the reckoning, printed first, says why):
+    ``P10_STEPS`` ``lm_train_step``s with Adafactor and clipping at B 1 x
+    S 4,096, the attention's backward on the D 128 tiles at head dim 112.
+    Returns the steps' launches."""
+    cfg = dataclasses.replace(KIMI, n_layers=P10_MOE_LAYERS,
+                              n_experts=P13_EXPERTS)
+    L, T, E, k = cfg.n_layers, P10_B * P10_S, cfg.n_experts, \
+        cfg.n_experts_per_tok
+    d, H, hd, V = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, \
+        cfg.vocab_size
+    check(hd == 112 and H == 64 and cfg.n_kv_heads == 8,
+          f"kimi heads {H} over {cfg.n_kv_heads} at D {hd}")
+    cap = LM.moe_capacity(cfg, T)
+    for n_e in P13_RECKON_EXPERTS:
+        c = dataclasses.replace(cfg, n_experts=n_e)
+        r = kimi_reckon(c)
+        print(f"[phase13a] reckoning at {n_e} experts: {c.n_params() / 1e9:.3f} "
+              f"G params ({2 * V * d / 1e9:.3f} G embedding and untied head, "
+              f"{(d * H * hd * 2 + 2 * d * cfg.n_kv_heads * hd) / 1e9:.3f} G "
+              f"attention, {3 * n_e * d * cfg.moe_d_ff / 1e9:.3f} G experts); "
+              + ", ".join(f"{k_} {gb(v)}" for k_, v in r.items())
+              + f"; sum {gb(sum(r.values()))} of the card's 80 GB")
+    g = torch.Generator(dev).manual_seed(seed + 130)
+    t = time.perf_counter()
+    params = LM.init_params(cfg, generator=g, device=dev)
+    flat = LM.named_params(params)
+    n_par = sum(p.numel() for p in flat.values())
+    check(n_par == cfg.n_params() and all(
+        p.dtype == torch.bfloat16 for p in flat.values()),
+        f"kimi: {n_par} params, want {cfg.n_params()} in bf16")
+    opt = OPT.make_optimizer(cfg.optimizer)
+    st = opt.init(flat)
+    toks = lm_tokens(cfg, g, P10_B, P10_S, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    routes = []
+    losses, norms, split, per_step, st = train_steps(
+        params, cfg, opt, st, toks, "kimi", routes=routes)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkdv": L}
+    total = {}
+    for i, n in enumerate(per_step):
+        check(n == want, f"kimi step {i}: launches {n}, want {want} (the "
+              f"forward with lse, the remat recompute, the backward passes "
+              f"at D 112)")
+        add_counts(total, n)
+    check(peak < 80e9, f"kimi: peak {gb(peak)}")
+    loads = moe_loads(routes[::2], cap, k)
+    del st, opt, flat, params
+    torch.cuda.empty_cache()
+    # attention's own time at the step's shape, in CUDA events
+    scale = hd ** -0.5
+    q, do = (torch.randn((P10_B, P10_S, H, hd), generator=g, device=dev
+                         ).to(torch.bfloat16) for _ in range(2))
+    kk, vv = (torch.randn((P10_B, P10_S, cfg.n_kv_heads, hd), generator=g,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    o, lse = FA.flash_attention_lse(q, kk, vv, scale=scale)
+    f_ms = time_ms(lambda: FA.flash_attention_lse(q, kk, vv, scale=scale),
+                   10, lead=True)
+    b_ms = time_ms(lambda: FA.flash_attention_bwd(q, kk, vv, o, do, lse,
+                                                  scale=scale), 10, lead=True)
+    del q, kk, vv, do, o, lse
+    torch.cuda.empty_cache()
+    plain, plain_loads = kimi_plain_steps(cfg, seed, dev, toks, cap, k)
+    del toks
+    check(abs(plain[0] - losses[0]) <= P9_BF16_LOSS * abs(plain[0]),
+          f"kimi step 0: loss {losses[0]} with the kernels, {plain[0]} with "
+          f"the plain attention")
+    attn = 2 * L * f_ms + L * b_ms
+    med = sorted(sum(x) for x in split)[len(split) // 2]
+    print(f"[phase13a] kimi-k2-1t-a32b: {L} of 61 layers, d {d}, {H} heads "
+          f"over {cfg.n_kv_heads} at D {hd}, {E} experts (of 384) top-{k} at "
+          f"ff {cfg.moe_d_ff}, capacity factor {cfg.capacity_factor} "
+          f"({cap} slots an expert of {T * k}), vocab {V}, bf16 params "
+          f"({n_par}), Adafactor, B {P10_B} x S {P10_S} (one sequence of "
+          f"train_4k's 256); init {init_s:.2f} s")
+    print(f"[phase13a] kimi: {step_summary(losses, norms, split)}; peak "
+          f"device memory {gb(peak)} (reckoned "
+          f"{gb(sum(kimi_reckon(cfg).values()))}); launches a step "
+          f"{per_step[0]}; attention of a step (CUDA events, device time at "
+          f"the step's shape): forward {f_ms:.4f} ms x {2 * L} + backward "
+          f"{b_ms:.4f} ms x {L} = {attn:.2f} ms ({attn / 1e3 / med:.1%} of "
+          f"the median step)")
+    for i, (counts, drop, aux) in enumerate(loads):
+        print(f"[phase13a] kimi step {i}: slots per expert {counts} "
+              f"(capacity {cap}), share of slots dropped {drop:.6f}, aux "
+              f"{aux:.6g}")
+    print(f"[phase13a] kimi, the same steps from the same parameters with "
+          f"the plain attention (chunked_attention_ref) in place of the "
+          f"kernels: losses {[round(x, 6) for x in plain]} (kernels "
+          f"{[round(x, 6) for x in losses]}; step 0 within {P9_BF16_LOSS} "
+          f"relative), share of slots dropped each step "
+          f"{[round(x[1], 6) for x in plain_loads]} (kernels "
+          f"{[round(x[1], 6) for x in loads]})")
+    return total
+
+
+def kimi_plain_steps(cfg, seed: int, dev, toks, cap: int, k: int) -> tuple:
+    """13a's steps from the same parameters (``init_params`` from the same
+    seed) on the same tokens, with the plain attention
+    (``chunked_attention_ref``) in place of the kernels and the MoE as
+    it is: whether the losses' course comes from the model and its
+    optimizer or from the attention kernels at head dim 112.  Returns the
+    losses and ``moe_loads`` of the forward's router calls."""
+    params = LM.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        seed + 130), device=dev)
+    opt = OPT.make_optimizer(cfg.optimizer)
+    st = opt.init(LM.named_params(params))
+    routes, orig = [], (LM.chunked_attention, LM._router)
+
+    def recorded(p, c, xt, *a):
+        gate, eid, aux = orig[1](p, c, xt, *a)
+        routes.append((torch.bincount(eid.reshape(-1),
+                                      minlength=c.n_experts).cpu(),
+                       float(aux.detach())))
+        return gate, eid, aux
+    LM.chunked_attention, LM._router = chunked_attention_ref, recorded
+    losses = []
+    try:
+        for _ in range(P10_STEPS):
+            loss, _, st = lm_train_step(params, cfg, opt, st, toks)
+            losses.append(float(loss))
+    finally:
+        LM.chunked_attention, LM._router = orig
+    check(all(np.isfinite(losses)), f"kimi, plain attention: losses {losses}")
+    del params, opt, st
+    torch.cuda.empty_cache()
+    return losses, moe_loads(routes[::2], cap, k)
+
+
+def forced_routes(card_routes: list, cpu_routes: list, flips: list):
+    """``LM._router`` taking, call by call, the card's recorded expert
+    ids in place of its own (the gates from its own probabilities at
+    those ids, renormalised as the router does); it records its own ids
+    and, for each call, the tokens whose own ids differ with the largest
+    gap of its probabilities between the two choices."""
+    orig = LM._router
+
+    def router(p, c, xt, *a):
+        gate, eid, aux = orig(p, c, xt, *a)
+        want = card_routes[len(cpu_routes)].to(eid.device)
+        cpu_routes.append(eid.cpu())
+        probs = torch.softmax((xt @ p["router"].to(xt.dtype)).to(
+            torch.float32), dim=-1)
+        diff = (want != eid).any(dim=-1)
+        gap = 0.0
+        if bool(diff.any()):
+            p_ = probs[diff]
+            gap = float((p_.gather(1, want[diff]) - p_.gather(1, eid[diff])
+                         ).abs().max().detach())
+        flips.append((int(diff.sum()), gap))
+        g_ = probs.gather(1, want)
+        g_ = g_ / torch.clamp_min(g_.sum(dim=-1, keepdim=True), 1e-9)
+        return g_, want, aux
+    return router
+
+
+def phase13b(seed: int, dev) -> str:
+    """Card against CPU at kimi's head shape on a cut width
+    (``P13B_CUT``, S ``P13B_S``), f32: the loss and every gradient at the
+    initial parameters by Phase 9's rule, then ``P10_STEPS`` Adafactor
+    steps' losses and norms, the CPU on the card's expert choices (each
+    of its own that differs a near tie, within ``ROUTE_TIE``); then the
+    same steps in bf16, each loss printed against the f32 CPU step's and
+    the first held within ``BF16_LM_TOL``.
+    Returns the printed note."""
+    base = dataclasses.replace(KIMI, **P13B_CUT)
+    cfg = dataclasses.replace(base, dtype="float32", param_dtype="float32")
+    check(cfg.resolved_head_dim == 112, f"13b head dim "
+          f"{cfg.resolved_head_dim}")
+    L = cfg.n_layers
+    g = torch.Generator(dev).manual_seed(seed + 131)
+    params = trainable(LM.init_params(cfg, generator=g, device=dev))
+    host = trainable(cpu_tree(params))
+    init = cpu_tree(params)
+    toks = lm_tokens(cfg, g, 1, P13B_S, dev)
+    card_routes, cpu_routes, flips = [], [], []
+    orig = LM._router
+
+    def recorded(p, c, xt, *a):
+        gate, eid, aux = orig(p, c, xt, *a)
+        card_routes.append(eid.cpu())
+        return gate, eid, aux
+
+    def run(prm, tk):
+        loss, grads = lm_grads(prm, cfg, tk)
+        opt = OPT.make_optimizer(cfg.optimizer)
+        st = opt.init(LM.named_params(prm))
+        steps = []
+        for _ in range(P10_STEPS):
+            loss_t, norm_t, st = lm_train_step(prm, cfg, opt, st, tk)
+            steps.append((float(loss_t), float(norm_t)))
+        return loss, grads, steps
+
+    common.reset_launches()
+    LM._router = recorded
+    try:
+        loss, grads, steps = run(params, toks)
+        torch.cuda.synchronize()
+    finally:
+        LM._router = orig
+    n = nonzero_launches()
+    want = {"flash_attention_f32": 2 * L * (1 + P10_STEPS),
+            "flash_attention_bwd_f32_dq": L * (1 + P10_STEPS),
+            "flash_attention_bwd_f32_dkdv": L * (1 + P10_STEPS)}
+    check(n == want, f"13b f32 card: launches {n}, want {want}")
+    LM._router = forced_routes(card_routes, cpu_routes, flips)
+    try:
+        c_loss, c_grads, c_steps = run(host, toks.cpu())
+    finally:
+        LM._router = orig
+    check(len(cpu_routes) == len(card_routes), f"13b router calls: card "
+          f"{len(card_routes)}, cpu {len(cpu_routes)}")
+    n_flip = sum(f for f, _ in flips)
+    tie = max(x for _, x in flips)
+    print(f"[phase13b] router calls (lm_grads, then each step: forward "
+          f"and remat recompute a layer), the CPU's own choices that differ "
+          f"from the card's and the largest probability gap: "
+          f"{[(f, float(f'{x:.3g}')) for f, x in flips]}; losses and norms "
+          f"card {steps}, cpu {c_steps}")
+    check(tie <= ROUTE_TIE, f"13b: the CPU's own expert choices differ from "
+          f"the card's by a probability gap of {tie:.3g} (near-tie limit "
+          f"{ROUTE_TIE})")
+    worst = abs(float(loss) - float(c_loss)) / (
+        CARD_CPU_LM_REL * abs(float(c_loss)) + 1e-4 * abs(float(c_loss)))
+    check(close(loss.cpu(), c_loss, CARD_CPU_LM_REL), f"13b f32 loss card "
+          f"{float(loss)} cpu {float(c_loss)}")
+    for name, gr in grads.items():
+        b = c_grads[name]
+        check(bool(torch.isfinite(gr).all()) and float(gr.abs().max()) > 0,
+              f"13b f32 gradient of {name} not finite or zero")
+        check(close(gr.cpu(), b, CARD_CPU_LM_REL), f"13b f32 gradient of "
+              f"{name} off the CPU's "
+              f"({float((gr.cpu() - b).abs().max()):.3g})")
+        worst = max(worst, float(((gr.cpu() - b).abs() / (
+            CARD_CPU_LM_REL * b.abs() + 1e-4 * b.abs().max()
+        ).clamp_min(1e-30)).max()))
+    step_gap = max(abs(a - b) / abs(b) for s_, c_ in zip(steps, c_steps)
+                   for a, b in zip(s_, c_))
+    check(step_gap <= CARD_CPU_LM_REL and all(np.isfinite(steps).ravel()),
+          f"13b steps card {steps} cpu {c_steps}")
+    del params, grads, c_grads, host
+    # the steps in kimi's own types (bf16 params and compute) from the same
+    # initial weights, against the f32 CPU ones (the first held)
+    bf = {k_: ([{n_: x.to(dev, torch.bfloat16) for n_, x in lp.items()}
+                for lp in v] if k_ == "layers" else v.to(dev, torch.bfloat16))
+          for k_, v in init.items()}
+    opt = OPT.make_optimizer(base.optimizer)
+    st = opt.init(LM.named_params(bf))
+    common.reset_launches()
+    b_steps = []
+    for _ in range(P10_STEPS):
+        b_loss, b_norm, st = lm_train_step(bf, base, opt, st, toks)
+        b_steps.append((float(b_loss), float(b_norm)))
+    torch.cuda.synchronize()
+    nb = nonzero_launches()
+    want = {"flash_attention": 2 * L * P10_STEPS,
+            "flash_attention_bwd_dq": L * P10_STEPS,
+            "flash_attention_bwd_dkdv": L * P10_STEPS}
+    check(nb == want, f"13b bf16 steps: launches {nb}, want {want}")
+    b_gaps = [abs(b[0] - c[0]) / abs(c[0]) for b, c in zip(b_steps, c_steps)]
+    check(b_gaps[0] <= BF16_LM_TOL and all(np.isfinite(b_steps).ravel()),
+          f"13b bf16 losses {b_steps} against the f32 CPU's {c_steps}")
+    del bf, st, opt
+    torch.cuda.empty_cache()
+    return (f"{L} layers, d {cfg.d_model}, {cfg.n_heads} heads over "
+            f"{cfg.n_kv_heads} at D {cfg.resolved_head_dim}, "
+            f"{cfg.n_experts} experts top-{cfg.n_experts_per_tok} at ff "
+            f"{cfg.moe_d_ff}, vocab {cfg.vocab_size}, B 1 x S {P13B_S}, f32: "
+            f"loss card {float(loss):.7f} cpu {float(c_loss):.7f}; loss and "
+            f"every gradient at the initial parameters within "
+            f"{worst:.3g} of Phase 9's tolerance ({CARD_CPU_LM_REL} relative "
+            f"+ 1e-4 of the largest); {P10_STEPS} Adafactor steps' (loss, "
+            f"norm) card {[tuple(round(x, 6) for x in s_) for s_ in steps]}, "
+            f"cpu {[tuple(round(x, 6) for x in s_) for s_ in c_steps]}, "
+            f"largest gap {step_gap:.3g} relative (limit {CARD_CPU_LM_REL}); "
+            f"{len(card_routes)} router calls, the CPU's own expert choices "
+            f"differing for {n_flip} tokens (largest probability gap "
+            f"{tie:.3g}, limit {ROUTE_TIE}), both sides on the card's; "
+            f"{P10_STEPS} bf16 steps (kimi's types, their own expert "
+            f"choices) (loss, norm) "
+            f"{[tuple(round(x, 6) for x in s_) for s_ in b_steps]}, each "
+            f"loss {[float(f'{x:.3g}') for x in b_gaps]} relative from the "
+            f"f32 CPU step's (limit {BF16_LM_TOL} at the first); launches "
+            f"f32 {n}, bf16 {nb}")
+
+
+def phase13(seed: int, dev) -> dict:
+    """kimi-k2's training (module docstring).  Returns 13a's launches."""
+    t = time.perf_counter()
+    total = phase13a(seed, dev)
+    print(f"[phase13] 13a wall {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    note = phase13b(seed, dev)
+    print(f"[phase13b] {note}")
+    print(f"[phase13] 13b wall {time.perf_counter() - t:.2f} s")
     return total
 
 
@@ -4566,14 +4972,15 @@ def probe_embeddings(state, cfg, ds, n_users: int, n_items: int, seed: int,
 def phase6(seed: int, dev) -> dict:
     cfg = CONFIG
     t = time.perf_counter()
-    world = make_log_world(seed)
+    world = make_log_world(seed, P6_USERS, P6_ITEMS)
     old, delta, merged, user_feat, item_feat, n_fresh = refresh_logs(
         world, seed)
     del world
     log_s = time.perf_counter() - t
     nu, ni, nu2, ni2 = old.n_users, old.n_items, delta.n_users, delta.n_items
     n2 = nu2 + ni2
-    print(f"[phase6] logs (no cut: Phase 3's log at full size): old "
+    print(f"[phase6] logs (Phase 3's topic model at half its users and "
+          f"items): old "
           f"{len(old.user_id)} events up to {P6_CUT_S:.0f} s on {nu} users "
           f"and {ni} items; delta {len(delta.user_id)} events (the trailing "
           f"hour's {len(delta.user_id) - n_fresh}, {n_fresh} fresh ones of "
@@ -4831,17 +5238,18 @@ def phase6(seed: int, dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def next_day(seed: int, n_users: int, n_items: int):
-    """The next day's log, made with numpy from Phase 3's topic model:
-    the same users' home topics (``topic_model`` of ``default_rng(seed)``)
-    and a separate stream, ``default_rng((seed, 7))``: Poisson(P7_EVENTS)
-    events per user of Phase 3's log (``topic_events``), timestamps over
+    """The next day's log, made with numpy from Phase 6's topic model:
+    the same users' home topics (``topic_model`` of ``default_rng(seed)``
+    at P6_USERS and P6_ITEMS) and a separate stream, ``default_rng((seed,
+    7))``: Poisson(P7_EVENTS) events per user of Phase 6's log
+    (``topic_events``), timestamps over
     the day after day 0, in time order, ids in the grown spaces.  Returns
     (the first P7_DELTA_S seconds: cycle 1's refresh delta and the live
     traffic; the rest: the gate's next-day ground truth)."""
-    model = topic_model(np.random.default_rng(seed))
+    model = topic_model(np.random.default_rng(seed), P6_USERS, P6_ITEMS)
     rng = np.random.default_rng((seed, 7))
     users, items, etype = topic_events(rng, model,
-                                       rng.poisson(P7_EVENTS, P3_USERS))
+                                       rng.poisson(P7_EVENTS, P6_USERS))
     ts = 86400.0 + rng.random(len(users)) * 86400.0
     o = np.argsort(ts, kind="stable")
     users, items, etype, ts = users[o], items[o], etype[o], ts[o]
@@ -5607,8 +6015,8 @@ def p11_rankgraph2(tmp: str, world: int, dev) -> dict:
         metrics, secs, codes, starts, first = [], [], [], [], None
         n_layers = len(cfg.rq.codebook_sizes)
         for t in range(P11_STEPS):
-            batch = p11_to(spec["batches"][t], dev)
-            draws = p11_to(spec["draws"][t], dev)
+            batch = p11_to(spec["batches"][tag][t], dev)
+            draws = p11_to(spec["draws"][tag][t], dev)
             if tag == "f32":
                 starts.append(([h.sum(dim=0).cpu()
                                 for h in state.rq_state.hists],
@@ -5770,38 +6178,41 @@ def p11_corpus(seed: int, dev) -> SimpleNamespace:
 
 
 def p11_reference(seed: int, dev, corpus, tmp: str) -> dict:
-    """The parent's side: three batches of P11_ROWS edges a type on Phase
-    3's corpus and the whole batch's draws (blocks of P11_ROWS /
-    P11_WORLD), the one-process global step with those shard-local
-    negatives in f32 and bf16 (each step's RQ selections kept, and in
-    f32 the RQ's input rows, codebooks and histograms it starts from),
-    the probe rows and their codes; the dlrm tables whole, serve logits
-    and the local table gradient rows.  Writes the ranks' inputs to
-    ``tmp``."""
+    """The parent's side: three batches of ``P11_ROWS`` edges a type on
+    Phase 3's corpus and the whole batch's draws (``shard_block_for``:
+    blocks of rows / P11_WORLD where that divides, else the whole batch,
+    the reference's fallback), the one-process global step with those
+    negatives in f32 and then in bf16 on the same batches and draws
+    (each step's RQ selections kept, and in f32 the RQ's input rows,
+    codebooks and histograms it starts from), the probe rows and their
+    codes; the dlrm tables whole, serve logits and the local table
+    gradient rows.  Writes the ranks' inputs to ``tmp``."""
     ds = EdgeDataset(corpus.tables, corpus.user_feat, corpus.item_feat,
                      k_train=CONFIG.k_train, device=dev, g=corpus.graph)
     feats = FeatureStore(ds.user_feat, ds.item_feat)
     per_type = {et: P11_ROWS for et in ("uu", "ui", "ii")}
-    batches = [ds.sample_batch(t, seed, per_type) for t in range(P11_STEPS)]
-    blk = P11_ROWS // P11_WORLD
-    draws, ref = [], {}
+    blk = shard_block_for(P11_ROWS, P11_WORLD)
+    batch_list = [ds.sample_batch(t, seed, per_type)
+                  for t in range(P11_STEPS)]
+    batches = {"f32": batch_list, "bf16": batch_list}
+    draw_list, ref = [], {}
+    g = torch.Generator().manual_seed(seed + 11)
     for tag, cfg in (("f32", dataclasses.replace(CONFIG, dtype="float32")),
                      ("bf16", CONFIG)):
         state, opt = init_state(cfg, generator=torch.Generator().manual_seed(
             seed), pool_size=P3_POOL, device=dev)
         grad_step = make_grad_step(cfg, features=feats, shard_block=blk)
-        g = torch.Generator().manual_seed(seed + 11)
         metrics, secs, codes, starts = [], [], [], []
         for t in range(P11_STEPS):
-            if tag == "f32":     # the same fills, so the same draws, in bf16
-                draws.append(draws_for(cfg, state.pool, batches[t], P11_ROWS,
-                                       g, shard_block=blk))
+            if tag == "f32":     # the pool fills alike in both types
+                draw_list.append(draws_for(cfg, state.pool, batch_list[t],
+                                           P11_ROWS, g, shard_block=blk))
             start = ([h.sum(dim=0) for h in state.rq_state.hists],
                      [b.detach().float().clone() for b in layer_books(
                          state.params["rq"], len(cfg.rq.codebook_sizes))])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            sg = grad_step(state, batches[t], draws=draws[t])
+            sg = grad_step(state, batch_list[t], draws=draw_list[t])
             state, m = apply_grads(state, sg, opt)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
@@ -5814,8 +6225,10 @@ def p11_reference(seed: int, dev, corpus, tmp: str) -> dict:
                 first = p11_params(state)
         ref[tag] = dict(metrics=metrics, secs=secs, state=state, cfg=cfg,
                         step_codes=codes, starts=starts, params_first=first)
-    probe = {tag: ref[tag]["state"].pool.user.detach().clone() for tag in ref}
-    for tag, r in ref.items():
+    probe = {tag: ref[tag]["state"].pool.user.detach().clone()
+             for tag in ("f32", "bf16")}
+    for tag in probe:
+        r = ref[tag]
         r["codes"] = assign_codes(r["state"].params["rq"], probe[tag],
                                   r["cfg"].rq).cpu()
     check_rows = {et: CHECK_ROWS for et in ("uu", "ui", "ii")}
@@ -5830,12 +6243,13 @@ def p11_reference(seed: int, dev, corpus, tmp: str) -> dict:
                                                           np.float32)),
                     item_feat=torch.from_numpy(np.asarray(corpus.item_feat,
                                                           np.float32)),
-                    batches=p11_to(batches, cpu), draws=p11_to(draws, cpu),
+                    batches=p11_to(batches, cpu),
+                    draws=p11_to({"f32": draw_list, "bf16": draw_list}, cpu),
                     probe=p11_to(probe, cpu),
                     check_batch=p11_to(check_batch, cpu),
                     check_draws=p11_to(check_draws, cpu)),
                f"{tmp}/spec_rg.pt")
-    del ds, feats, batches, fresh
+    del ds, feats, batches, batch_list, draw_list, fresh
     # dlrm-rm2 at Phase 4's train cut, its tables whole on the card
     cfg = P11_DLRM
     V, D = cfg.default_vocab, cfg.embed_dim
@@ -5874,11 +6288,23 @@ def p11_gaps(mine, want) -> tuple:
             float(d.max()))
 
 
+def bf16_lead(a: dict, b: dict, f32: dict) -> float:
+    """How much farther the metrics ``a`` of one step lie from the f32
+    step's ``f32`` than ``b`` does, by 11b's bf16 tolerance at the f32
+    value: the largest ``(|a - f32| - |b - f32|) / (CARD_CPU_REL |f32| +
+    CARD_CPU_ABS)`` over the metrics (1 is the tolerance)."""
+    return max((abs(a[k] - f32[k]) - abs(b[k] - f32[k]))
+               / (CARD_CPU_REL * abs(f32[k]) + CARD_CPU_ABS) for k in f32)
+
+
 def p11_rankgraph2_held(role: str, backend: str, world: int, tag: str,
-                        rg: list, want: dict, note: str, smi: str) -> None:
+                        rg: list, want: dict, note: str, smi: str,
+                        f32: list) -> None:
     """11b's rankgraph2 check of one type: the ranks' outputs ``rg``
-    against the parent's global step ``want``.  Prints every number,
-    then fails on the first check that does not hold."""
+    against the parent's global step ``want`` (and in bf16 both against
+    the f32 global step's metrics ``f32`` on the same batches and
+    draws).  Prints every number, then fails on the first check that
+    does not hold."""
     failed = []
 
     def hold(cond: bool, what: str) -> None:
@@ -5898,18 +6324,40 @@ def p11_rankgraph2_held(role: str, backend: str, world: int, tag: str,
     if tag == "f32":
         gaps = [f32_gap(x, y) for x, y in zip(mine["metrics"],
                                               want["metrics"])]
+        hold(max(gaps) <= 1, f"11{role} f32: losses {mine['metrics']} vs "
+             f"{want['metrics']}")
+        loss_note = f"worst loss gap {max(gaps):.3f} of the tolerance"
     else:
+        # the bf16 global step does not repeat its own losses within the
+        # bf16 tolerance by step 2 (its sums run in another order each
+        # run), so each bf16 side is held against the f32 global step:
+        # the data-parallel step no farther from it than the global bf16
+        # step, plus the tolerance
         gaps = [within(x, y, CARD_CPU_REL, CARD_CPU_ABS)
                 for x, y in zip(mine["metrics"], want["metrics"])]
-    hold(max(gaps) <= 1, f"11{role} {tag}: losses {mine['metrics']} vs "
-         f"{want['metrics']}")
+        to_f32 = [[float(f"{within(x, f, CARD_CPU_REL, CARD_CPU_ABS):.3g}")
+                   for x, f in zip(side, f32)]
+                  for side in (mine["metrics"], want["metrics"])]
+        lead = [bf16_lead(x, y, f) for x, y, f in zip(
+            mine["metrics"], want["metrics"], f32)]
+        hold(max(lead) <= 1, f"11{role} bf16: the data-parallel step's "
+             f"losses {mine['metrics']} lie farther from the f32 step's "
+             f"{f32} than the global bf16 step's {want['metrics']} by "
+             f"{[float(f'{x:.3g}') for x in lead]} of the tolerance")
+        loss_note = (f"loss gap of the global bf16 step each step "
+                     f"{[float(f'{x:.3g}') for x in gaps]} of the tolerance; "
+                     f"of the f32 global step on the same batches and draws,"
+                     f" the data-parallel step's {to_f32[0]} and the global "
+                     f"bf16 step's {to_f32[1]}; the data-parallel step's "
+                     f"lead over the global's "
+                     f"{[float(f'{x:.3g}') for x in lead]} (limit 1)")
     rq = want["cfg"].rq
     sizes = rq.codebook_sizes
     # each step's selections, the ranks' in global row order; every
     # histogram row counts its step's selections
     flips, hist_gap = [], 0
     for t in range(P11_STEPS):
-        ck = p11_global_rows([r["step_codes"][t] for r in rg])
+        ck = p11_global_rows([r["step_codes"][t] for r in rg], P11_ROWS)
         cp = want["step_codes"][t]
         if ck.shape != cp.shape:
             hold(False, f"11{role} {tag} step {t}: {tuple(ck.shape)} "
@@ -5986,7 +6434,7 @@ def p11_rankgraph2_held(role: str, backend: str, world: int, tag: str,
     print(f"[phase11{role}] backend {backend}, world size {world}, mesh "
           f"({world},) data: rankgraph2 {tag} {P11_STEPS} steps of "
           f"{P11_ROWS} edges a type on its own RQ selections against the "
-          f"global step: worst loss gap {max(gaps):.3f} of the tolerance; "
+          f"global step: {loss_note}; "
           f"selections differing from the global step's, each step "
           f"({sel}) {flips}; histogram bins differing {hist_diff}, each "
           f"row its step's selections' counts; usage gap {usage_gap:.3g}; "
@@ -6005,13 +6453,18 @@ def p11_rankgraph2_held(role: str, backend: str, world: int, tag: str,
         check(False, what)
 
 
-def p11_global_rows(parts: list) -> torch.Tensor:
+def p11_global_rows(parts: list, rows: int) -> torch.Tensor:
     """The ranks' RQ rows (each laid out as its block's endpoints: every
-    edge type in sorted order, its src rows then its dst rows; P11_ROWS
-    edges a type) in the whole batch's order."""
-    b = P11_ROWS // len(parts)
-    n = parts[0].shape[0] // b
-    return torch.cat([p[i * b:(i + 1) * b] for i in range(n) for p in parts])
+    edge type in sorted order, its src rows then its dst rows, a rank's
+    ``block_rows`` of ``rows`` edges a type) in the whole batch's
+    order."""
+    sizes = [len(range(rows)[block_rows(rows, len(parts), r)])
+             for r in range(len(parts))]
+    n = parts[0].shape[0] // sizes[0]
+    check(all(p.shape[0] == n * b for p, b in zip(parts, sizes)),
+          f"11b: the ranks' RQ rows {[p.shape[0] for p in parts]}")
+    return torch.cat([p[i * b:(i + 1) * b] for i in range(n)
+                      for p, b in zip(parts, sizes)])
 
 
 def p11_summary(outs: list, key: str, field: str) -> str:
@@ -6028,12 +6481,16 @@ def phase11(seed: int, dev, corpus, smi: str) -> dict:
         t = time.perf_counter()
         ref = p11_reference(seed, dev, corpus, tmp)
         ref_s = time.perf_counter() - t
-        print(f"[phase11] the parent's side (batches of {P11_ROWS} edges a "
-              f"type, cut from 10,922 so that {P11_WORLD} divides it; the "
-              f"global step in f32 and bf16 with shard-local negatives of "
-              f"{P11_ROWS // P11_WORLD} rows; dlrm-rm2 at {TRAIN_VOCAB:,} "
-              f"rows a field, Phase 4's train cut) took {ref_s:.2f} s; "
-              f"global step seconds f32 "
+        rows, blk = P11_ROWS, shard_block_for(P11_ROWS, P11_WORLD)
+        c = -(-rows // P11_WORLD)
+        side = (f"shard-local negatives of {blk} rows" if blk else
+                f"whole-batch negatives ({P11_WORLD} does not divide "
+                f"{rows}: ranks of {c} rows, the last "
+                f"{rows - (P11_WORLD - 1) * c})")
+        print(f"[phase11] the parent's side (the global step in f32 and "
+              f"bf16 at {rows} edges a type with {side}; dlrm-rm2 at "
+              f"{TRAIN_VOCAB:,} rows a field, Phase 4's train cut) took "
+              f"{ref_s:.2f} s; global step seconds f32 "
               f"{[round(x, 4) for x in ref['f32']['secs']]}, bf16 "
               f"{[round(x, 4) for x in ref['bf16']['secs']]} ({smi})")
         # 11a: one NCCL rank, mesh (1, 1)
@@ -6075,7 +6532,7 @@ def phase11(seed: int, dev, corpus, smi: str) -> dict:
             for tag in ("f32", "bf16"):
                 p11_rankgraph2_held(role, backend, world, tag,
                                     [o["rg"][tag] for o in outs], ref[tag],
-                                    note, smi)
+                                    note, smi, ref["f32"]["metrics"])
             rs = [o["rs"] for o in outs]
             check(all(r["loss"] == ref["rs"]["loss"] for r in rs),
                   f"11{role}: dlrm losses {[r['loss'] for r in rs]} vs "
@@ -6613,7 +7070,16 @@ def phase0_contrastive() -> None:
           "block: " + ", ".join(out) + " (the first: the main path's)")
 
 
+def progress(t0: float, what: str) -> None:
+    """One line on stderr as a phase starts, with the seconds since
+    ``t0``: where a run cut at its time limit stood."""
+    print(f"[chip_smoke] {time.perf_counter() - t0:.1f} s: {what}",
+          file=sys.stderr, flush=True)
+
+
 def main() -> int:
+    t_main = time.perf_counter()
+    sys.stdout.reconfigure(line_buffering=True)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--selection-sweep", type=int, default=0,
@@ -6634,6 +7100,11 @@ def main() -> int:
                     help="only build the flash-attention kernels and run "
                          "Phase 10 (run_lm, dense and MoE training, kimi "
                          "serving)")
+    ap.add_argument("--kimi-train-only", action="store_true",
+                    help="only build the flash-attention kernels and run "
+                         "Phase 13 (kimi-k2's training at head dim 112: one "
+                         "layer at full width with 64 experts, and card "
+                         "against CPU at a cut width)")
     ap.add_argument("--distributed-only", action="store_true",
                     help="only build the kernels Phase 3's construction "
                          "and training use, make Phase 3's corpus (no "
@@ -6704,6 +7175,13 @@ def main() -> int:
         phase10(args.seed, dev)
         print(f"[phase10] wall {time.perf_counter() - t:.2f} s")
         return 0
+    if args.kimi_train_only:
+        print_build(common.build(["flash_attention", "flash_attention_bwd"]))
+        t = time.perf_counter()
+        phase13(args.seed, dev)
+        print(f"[phase13] wall {time.perf_counter() - t:.2f} s")
+        return 0
+    progress(t_main, "Phase 0 (build)")
     t = time.perf_counter()
     logs = common.build(["rq_assign", "queue_gather", "ppr_walk",
                          "fused_contrastive", "embedding_bag",
@@ -6761,6 +7239,7 @@ def main() -> int:
                   f"{bwd_lib.flash_attention_bwd_smem(bf, 2, d)}"
                   for d in FA.BWD_HEAD_DIMS))
 
+    progress(t_main, "Phase 1")
     g = torch.Generator(device=dev).manual_seed(args.seed)
     rows = [phase1_rq_assign(g, dev, peaks), phase1_queue_gather(g, dev, peaks),
             phase1_ppr_walk(g, dev, peaks),
@@ -6768,57 +7247,75 @@ def main() -> int:
             *phase1_embedding_bag(g, dev, peaks)]
     rows += phase1_flash_attention(g, dev, peaks)
     rows += phase1_flash_attention_bwd(g, dev, peaks)
+    progress(t_main, "Phase 2")
     t = time.perf_counter()
     launches, p2 = phase2(args.seed, dev)
     print(f"[phase2] wall {time.perf_counter() - t:.2f} s")
+    progress(t_main, "Phase 8")
     t = time.perf_counter()
     launches8 = phase8(args.seed, dev, p2)
     print(f"[phase8] wall {time.perf_counter() - t:.2f} s")
     del p2
     torch.cuda.empty_cache()
+    progress(t_main, "Phase 3")
     launches3, corpus = phase3(args.seed, dev)
     torch.cuda.empty_cache()
+    progress(t_main, "Phase 6")
     t = time.perf_counter()
     launches6, p6 = phase6(args.seed, dev)
     print(f"[phase6] wall {time.perf_counter() - t:.2f} s")
     torch.cuda.empty_cache()
+    progress(t_main, "Phase 7")
     t = time.perf_counter()
     launches7 = phase7(args.seed, dev, p6)
     print(f"[phase7] wall {time.perf_counter() - t:.2f} s")
     del p6
     torch.cuda.empty_cache()
+    progress(t_main, "Phase 4")
     t = time.perf_counter()
     launches4 = phase4(args.seed, dev)
     print(f"[phase4] wall {time.perf_counter() - t:.2f} s")
     torch.cuda.empty_cache()             # Phase 4's tables took 66.56 GB
+    progress(t_main, "Phase 5")
     t = time.perf_counter()
     launches5 = phase5(args.seed, dev)
     print(f"[phase5] wall {time.perf_counter() - t:.2f} s")
     torch.cuda.empty_cache()
+    progress(t_main, "Phase 9")
     t = time.perf_counter()
     launches9 = phase9(args.seed, dev)
     print(f"[phase9] wall {time.perf_counter() - t:.2f} s")
     torch.cuda.empty_cache()
+    progress(t_main, "Phase 10")
     t = time.perf_counter()
     launches10 = phase10(args.seed, dev)
     print(f"[phase10] wall {time.perf_counter() - t:.2f} s")
     torch.cuda.empty_cache()
+    progress(t_main, "Phase 13")
+    t = time.perf_counter()
+    launches13 = phase13(args.seed, dev)
+    print(f"[phase13] wall {time.perf_counter() - t:.2f} s")
+    torch.cuda.empty_cache()
+    progress(t_main, "Phase 11")
     launches11 = phase11(args.seed, dev, corpus, smi)
     del corpus
     torch.cuda.empty_cache()
+    progress(t_main, "Phase 12")
     launches12 = phase12(args.seed, dev, smi)
-    for r in rows:     # each path's launches, Phases 6-12's added to its own
+    for r in rows:     # each path's launches, Phases 6-13's added to its own
         counter = r.get("counter", r["name"])
         r["launches"] = (next((ls[counter] for ls in (
             {n: launches[n] for n in SLICE1}, launches4, launches5,
             launches3) if counter in ls), 0)
             + sum(ls.get(counter, 0)
                   for ls in (launches6, launches7, launches8, launches9,
-                             launches10, launches11, launches12)))
+                             launches10, launches11, launches12,
+                             launches13)))
         check(r["launches"] > 0, f"{r['name']} was not launched on its "
               f"main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    progress(t_main, "the kernels line")
     print(smi)          # again here, where the end of a long output keeps it
     extra = ("device_ms",)       # where Phase 1 took it
     print(json.dumps({"kernels": [

@@ -86,6 +86,13 @@ def block_size(B: int, shard_block: int = 0) -> int:
         else B
 
 
+def shard_block_for(B: int, dp: int) -> int:
+    """The reference's in-batch block of a global step over ``dp`` data
+    ranks (``repro/core/trainer.py::_forward_losses``'s ``blk``): ``B //
+    dp`` where ``dp > 1`` divides ``B``, else 0 (whole-batch negatives)."""
+    return B // dp if dp > 1 and B % dp == 0 else 0
+
+
 def negative_draws(B: int, n_heads: int, n_neg: int, n_pool: int,
                    pool_fill: int, *, generator: torch.Generator,
                    device=None, shard_block: int = 0
@@ -113,23 +120,31 @@ def sample_negatives(dst_primary: torch.Tensor, dst_heads: torch.Tensor,
                      n_pool: int, *,
                      draws: Optional[Dict[str, torch.Tensor]] = None,
                      generator: Optional[torch.Generator] = None,
-                     shard_block: int = 0) -> torch.Tensor:
+                     shard_block: int = 0,
+                     rows: Optional[slice] = None) -> torch.Tensor:
     """The (B, n_neg, d) negative bank for each positive edge, in
     ``dst_primary``'s type: (1) in-batch negatives, other rows' dst
     primaries; (2) rows of the rolling pool (in-batch rows while the pool
     is empty); (3) single heads of other in-batch dst nodes.  In-batch
     rows stay inside a row's block of ``block_size(B, shard_block)``
     rows.  ``draws`` defaults to ``negative_draws`` from ``generator``
-    (with the same ``shard_block``)."""
+    (with the same ``shard_block``).  ``rows``: the banks of those rows
+    of the batch only (a data rank's rows under whole-batch negatives),
+    ``dst_primary`` and ``dst_heads`` being the whole batch's and
+    ``draws`` those rows' own."""
     B, d = dst_primary.shape
     H = dst_heads.shape[1]
     dev = dst_primary.device
     blk = block_size(B, shard_block)
     if draws is None:
+        if rows is not None:
+            raise ValueError("the banks of some rows need those rows' "
+                             "draws")
         draws = negative_draws(B, H, n_neg, n_pool, pool_fill,
                                generator=generator, device=dev,
                                shard_block=shard_block)
-    i = torch.arange(B, device=dev)[:, None]
+    rows = rows or slice(0, B)
+    i = torch.arange(rows.start, rows.stop, device=dev)[:, None]
 
     def other_rows(off):   # row i -> its block's base + (i + off) % blk
         if blk == B:

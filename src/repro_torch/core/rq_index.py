@@ -22,7 +22,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as tdist
 
 from repro_torch.configs.base import RQConfig
 from repro_torch.distributed.collectives import sum_across, sum_across_
@@ -93,7 +92,8 @@ def _row_mean(x: torch.Tensor, group, n_total: int) -> torch.Tensor:
 def rq_forward(rq_params, state: RQState, h: torch.Tensor, cfg: RQConfig,
                *, train: bool = True,
                codes: Optional[torch.Tensor] = None,
-               group=None) -> Dict[str, object]:
+               group=None, n_rows: Optional[int] = None
+               ) -> Dict[str, object]:
     """Quantize h (B, d).  Returns codes, recon, losses and the new state.
 
     Code *selection* is discrete; the reconstruction h' = sum_l C_l[k_l]
@@ -105,20 +105,20 @@ def rq_forward(rq_params, state: RQState, h: torch.Tensor, cfg: RQConfig,
     held to the same discrete choices; everything else is computed as
     usual.
 
-    ``group``: a data-parallel process group whose ranks each pass an
-    equal block of the batch.  The batch statistics (the soft and hard
-    code frequencies, the routed counts, the mean reconstruction and
-    commitment losses, the EMA usage) are then the whole batch's,
-    reduced over the group, and every rank gets the same losses and new
-    state; the selections and ``recon_st`` stay this rank's rows."""
+    ``group``: a data-parallel process group whose ranks each pass a
+    block of the batch, ``n_rows`` rows in all.
+    The batch statistics (the soft and hard code frequencies, the routed
+    counts, the mean reconstruction and commitment losses, the EMA
+    usage) are then the whole batch's, reduced over the group, and every
+    rank gets the same losses and new state; the selections and
+    ``recon_st`` stay this rank's rows."""
     h32 = h.to(torch.float32)
     resid = h32
     recon = torch.zeros_like(h32)
     given, codes, reg_terms, util_terms = codes, [], [], []
     new_counts, hard_counts = [], []
     biased = cfg.biased_selection and train
-    B = h32.shape[0] if group is None else \
-        h32.shape[0] * tdist.get_world_size(group)
+    B = h32.shape[0] if group is None else n_rows
 
     for l, n_l in enumerate(cfg.codebook_sizes):
         C = rq_params["codebooks"][f"layer{l}"].to(torch.float32)  # (n, d)

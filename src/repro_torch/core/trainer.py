@@ -35,9 +35,19 @@ insert (the blocks' embeddings gathered in global row order) and the
 gradients, before clipping.  The log-variances enter only through the
 reduced task losses, so every rank already holds their whole gradient:
 they are not summed again.  After the step every rank holds the same
-state.  Departure: where ``dp`` does not divide an edge type's ``B`` the
-reference falls back to whole-batch negatives, which GSPMD gathers
-across shards; the port raises, naming ``B`` and ``dp``.
+state.  Where ``dp`` does not divide an edge type's ``B`` the reference
+falls back to whole-batch negatives, which GSPMD gathers across shards.
+The port does the same: rank ``r`` then keeps rows
+``r*c`` to ``min(B, (r+1)*c) - 1``, ``c = ceil(B/dp)``
+(``collectives.block_rows``: the last ranks hold fewer, possibly none),
+and gathers the whole batch's destination rows of that type
+(``collectives.gather_blocks``, whose backward returns each row's
+gradient, summed over the ranks, to the rank that owns it) to build its
+own rows' banks from them (``negatives.sample_negatives(rows=)``); each
+task loss is every rank's sum over the global ``B``, never a mean of the
+ranks' means.  A rank with no rows of a type runs the same collectives
+on empty blocks (the contrastive kernels launch nothing at zero rows),
+so every rank takes part in every exchange.
 """
 from __future__ import annotations
 
@@ -52,7 +62,8 @@ from repro_torch.core import losses as L
 from repro_torch.core import model as M
 from repro_torch.core import negatives as N
 from repro_torch.core import rq_index as RQ
-from repro_torch.distributed.collectives import (gather_rows, reduce_grads_,
+from repro_torch.distributed.collectives import (block_rows, gather_blocks,
+                                                 gather_rows, reduce_grads_,
                                                  sum_across)
 from repro_torch.distributed.sharding import ShardingCtx
 from repro_torch.kernels.common import resolve_device
@@ -161,14 +172,13 @@ def loss_directions(batch) -> Tuple[str, ...]:
     return tuple(out)
 
 
-def _mean(x: torch.Tensor, group) -> torch.Tensor:
+def _mean(x: torch.Tensor, group, n: int) -> torch.Tensor:
     """The whole batch's mean of a per-row loss: ``x.mean()`` on one
-    process; over a data group of equal blocks, this rank's sum reduced
-    over the group (gradient to this rank's rows only) over the whole
-    batch's row count."""
+    process; over a data group, this rank's sum reduced over the group
+    (gradient to this rank's rows only) over the whole batch's row count
+    ``n``."""
     if group is None:
         return x.mean()
-    n = x.shape[0] * torch.distributed.get_world_size(group)
     return sum_across(x.sum(), group) / n
 
 
@@ -178,7 +188,8 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                    rq_codes: Optional[torch.Tensor] = None,
-                   shard_block: int = 0, group=None):
+                   shard_block: int = 0, group=None,
+                   spans: Optional[Dict[str, Tuple[int, slice]]] = None):
     """Returns (task_losses, aux); aux carries the RQ state, the
     endpoint embeddings for the pool update, and the RQ's input rows
     (``rq_input``) and selections (``codes``).  ``draws`` maps each of
@@ -191,17 +202,28 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
     when ``batch`` is this rank's block (``rank_batch``); the task
     losses and RQ statistics are then the whole batch's, the pool's
     embeddings in ``aux`` the whole batch's in global row order, and
-    ``rq_input`` and ``codes`` this rank's rows."""
+    ``rq_input`` and ``codes`` this rank's rows.  ``spans`` (needed with
+    ``group``) maps each edge type to the whole batch's row count and
+    this rank's rows of it (``block_rows``); a
+    type that the group does not divide takes whole-batch negatives
+    (module docstring), its ``draws`` laid out for the whole batch
+    (``shard_block`` 0) and cut to this rank's rows."""
     tasks: Dict[str, torch.Tensor] = {}
     per_type = _dedup_per_type(params, cfg, batch, features)
     draws = draws or {}
+    world = 1 if group is None else torch.distributed.get_world_size(group)
+    if spans is None:
+        if group is not None:
+            raise ValueError("a data group's step needs each edge type's "
+                             "spans (make_grad_step's)")
+        spans = {et: (v[1].shape[0], None) for et, v in per_type.items()}
 
     user_embs, item_embs = [], []
     endpoint_prims, endpoint_splits = [], []
     for et, (sh, sp, dh, dp) in per_type.items():
         st, dt = _ET_TYPES[et]
-        (user_embs if st == M.USER else item_embs).append(sp)
-        (user_embs if dt == M.USER else item_embs).append(dp)
+        (user_embs if st == M.USER else item_embs).append((sp, et))
+        (user_embs if dt == M.USER else item_embs).append((dp, et))
         endpoint_prims += [sp, dp]
         endpoint_splits += [(et, "src"), (et, "dst")]
 
@@ -221,19 +243,30 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
     for suffix, sp_, dp_, dh_, dt_ in loss_dirs:
         buf = pool.user if dt_ == M.USER else pool.item
         fill = pool.user_fill if dt_ == M.USER else pool.item_fill
-        negs = N.sample_negatives(dp_, dh_, buf, fill, cfg.n_negatives,
-                                  cfg.n_pool_neg, draws=draws.get(suffix),
-                                  generator=generator,
-                                  shard_block=shard_block)
+        n, rows = spans["ui" if suffix == "iu" else suffix]
+        if group is not None and not N.shard_block_for(n, world):
+            # whole-batch negatives: this rank's rows' banks drawn from
+            # the whole batch's destination rows
+            negs = N.sample_negatives(
+                gather_blocks(dp_, n, group), gather_blocks(dh_, n, group),
+                buf, fill, cfg.n_negatives, cfg.n_pool_neg,
+                draws=draws[suffix], rows=rows)
+        else:
+            negs = N.sample_negatives(dp_, dh_, buf, fill, cfg.n_negatives,
+                                      cfg.n_pool_neg,
+                                      draws=draws.get(suffix),
+                                      generator=generator,
+                                      shard_block=shard_block)
         dir_negs[suffix] = negs
         marg, info = _pair(sp_, dp_, negs)
-        tasks[f"margin_{suffix}"] = _mean(marg, group)
-        tasks[f"infonce_{suffix}"] = _mean(info, group)
+        tasks[f"margin_{suffix}"] = _mean(marg, group, n)
+        tasks[f"infonce_{suffix}"] = _mean(info, group, n)
 
     # --- RQ co-learning on all endpoint embeddings -----------------------
     all_prim = torch.cat(endpoint_prims, dim=0)
     rq_out = RQ.rq_forward(params["rq"], rq_state, all_prim, cfg.rq,
-                           train=train, codes=rq_codes, group=group)
+                           train=train, codes=rq_codes, group=group,
+                           n_rows=2 * sum(n for n, _ in spans.values()))
     tasks["rq_recon"] = rq_out["l_recon"]
     tasks["rq_reg"] = rq_out["l_reg"]
     if cfg.rq.util_coef > 0:
@@ -251,11 +284,13 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
     for et in per_type:
         marg, info = _pair(recon_parts[(et, "src")],
                            recon_parts[(et, "dst")], dir_negs[et])
-        lprime.append(_mean(0.5 * marg + 0.5 * info, group))
+        lprime.append(_mean(0.5 * marg + 0.5 * info, group, spans[et][0]))
     tasks["rq_contrastive"] = torch.stack(lprime).mean()
-    if group is not None:   # the pool takes the whole batch's rows
-        user_embs = [gather_rows(e, group) for e in user_embs]
-        item_embs = [gather_rows(e, group) for e in item_embs]
+    # the pool takes the whole batch's rows, in global row order
+    user_embs = [e if group is None else gather_rows(e, group, spans[et][0])
+                 for e, et in user_embs]
+    item_embs = [e if group is None else gather_rows(e, group, spans[et][0])
+                 for e, et in item_embs]
 
     aux = dict(rq_state=rq_out["state"],
                user_emb=torch.cat(user_embs) if user_embs else None,
@@ -269,24 +304,18 @@ _SIDE_NAMES = {M.USER: "user", M.ITEM: "item"}
 
 def rank_batch(batch, rank: int, dp: int):
     """Rank ``rank``'s block of a ``dedup_ids`` batch split over ``dp``
-    ranks: rows ``rank*B/dp`` to ``(rank+1)*B/dp - 1`` of each edge
-    type, with a dedup pack of its own that holds only the nodes those
-    rows need (their endpoints first, in pack order, then the
-    neighbours the endpoints reference, in pack order), so the rank
-    encodes and aggregates only those.  Raises where ``dp`` does not
-    divide an edge type's ``B``."""
+    ranks: its ``block_rows`` of each edge type (rows ``rank*B/dp`` to
+    ``(rank+1)*B/dp - 1`` where ``dp`` divides ``B``; else blocks of
+    ``ceil(B/dp)``, the last ranks holding fewer or none), with a dedup
+    pack of its own that holds only the nodes those rows need (their
+    endpoints first, in pack order, then the neighbours the endpoints
+    reference, in pack order), so the rank encodes and aggregates only
+    those."""
     nodes, edges = batch["nodes"], batch["edges"]
     ep = {"user": [], "item": []}
     rows = {}
     for et in sorted(edges):
-        B = edges[et]["src_map"].shape[0]
-        if B % dp:
-            raise ValueError(
-                f"edge type {et}: B {B} is not a multiple of dp {dp}; the "
-                f"reference falls back to whole-batch negatives there, "
-                f"which the port's data-parallel step does not take")
-        b = B // dp
-        rows[et] = slice(rank * b, (rank + 1) * b)
+        rows[et] = block_rows(edges[et]["src_map"].shape[0], dp, rank)
         st, dt = _ET_TYPES[et]
         ep[_SIDE_NAMES[st]].append(edges[et]["src_map"][rows[et]].long())
         ep[_SIDE_NAMES[dt]].append(edges[et]["dst_map"][rows[et]].long())
@@ -334,24 +363,24 @@ _DST_OF = {"uu": M.USER, "ui": M.ITEM, "iu": M.USER, "ii": M.ITEM}
 
 
 def _rank_draws(cfg: RankGraph2Config, batch, pool: N.NegPoolState, draws,
-                generator, rank: int, dp: int):
-    """This rank's rows of the whole batch's draws of each direction: the
-    given ones, or those the global step with shard-local negatives
-    would draw from ``generator`` (the same generator state on every
-    rank gives every rank the same draws)."""
+                generator, spans, dp: int):
+    """This rank's rows (``spans``) of the whole batch's draws of
+    each direction: the given ones, or those the global step would draw
+    from ``generator`` (shard-local negatives where ``dp`` divides ``B``,
+    else whole-batch ones: ``shard_block_for``; the same generator state
+    on every rank gives every rank the same draws)."""
     out = {}
     for suffix in loss_directions(batch):
-        et = "ui" if suffix == "iu" else suffix
-        B = batch["edges"][et]["src_map"].shape[0]
-        b = B // dp
+        B, rows = spans["ui" if suffix == "iu" else suffix]
         d = (draws or {}).get(suffix)
         if d is None:
             fill = pool.user_fill if _DST_OF[suffix] == M.USER \
                 else pool.item_fill
             d = N.negative_draws(B, cfg.n_heads, cfg.n_negatives,
                                  cfg.n_pool_neg, fill, generator=generator,
-                                 device=pool.user.device, shard_block=b)
-        out[suffix] = {k: v[rank * b:(rank + 1) * b] for k, v in d.items()}
+                                 device=pool.user.device,
+                                 shard_block=N.shard_block_for(B, dp))
+        out[suffix] = {k: v[rows] for k, v in d.items()}
     return out
 
 
@@ -377,16 +406,18 @@ def make_grad_step(cfg: RankGraph2Config, ctx: Optional[ShardingCtx] = None,
     makes the data-parallel step (see the module docstring): each rank
     passes the same whole ``batch`` and the whole batch's ``draws`` (or
     a generator in the same state), laid out as ``negative_draws`` with
-    ``shard_block = B/dp``; ``aux`` then holds this rank's rows.  With
-    no mesh or ``dp == 1`` it is the one-process step; ``shard_block``
-    then keeps its in-batch negatives inside blocks of that many rows
-    (the global step a ``dp``-rank run equals)."""
+    ``shard_block = negatives.shard_block_for(B, dp)`` (``B/dp``, or 0
+    for whole-batch negatives where ``dp`` does not divide ``B``);
+    ``aux`` then holds this rank's rows.  With no mesh or ``dp == 1`` it
+    is the one-process step; ``shard_block`` then keeps its in-batch
+    negatives inside blocks of that many rows (the global step a
+    ``dp``-rank run equals)."""
     dp = 1 if ctx is None else ctx.axis_size("batch")
     group, rank = None, 0
     if dp > 1:
         if shard_block:
             raise ValueError("the data-parallel step sets its own "
-                             "shard_block (B / dp)")
+                             "shard_block (shard_block_for(B, dp))")
         axes = ctx.mesh_axes("batch")
         group, rank = ctx.group(axes), ctx.axis_index(axes)
 
@@ -396,15 +427,19 @@ def make_grad_step(cfg: RankGraph2Config, ctx: Optional[ShardingCtx] = None,
         params = named_params(state.params)
         for p in params.values():
             p.grad = None
+        spans = None
         if group is not None:
+            spans = {et: (e["src_map"].shape[0],
+                          block_rows(e["src_map"].shape[0], dp, rank))
+                     for et, e in batch["edges"].items()}
             draws = _rank_draws(cfg, batch, state.pool, draws, generator,
-                                rank, dp)
+                                spans, dp)
             batch = rank_batch(batch, rank, dp)
         tasks, aux = forward_losses(state.params, cfg, batch, state.pool,
                                     state.rq_state, features=features,
                                     train=True, generator=generator,
                                     draws=draws, shard_block=shard_block,
-                                    group=group)
+                                    group=group, spans=spans)
         total = L.uncertainty_combine(tasks, state.params["uncertainty"])
         total.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)

@@ -97,14 +97,23 @@
 // built the consumers at 168 with spills and serialised wgmma, and the
 // dkdv pass ran slower.
 // D 32 (rows of 64 bytes, below the 128-byte swizzle) runs the D 64
-// kernels with the head dim zero-padded in shared memory (the padding adds
-// exact zeros to S and dP, and its dQ, dK, dV columns are not written).
+// kernels and D 112 (kimi-k2; rows of 224 bytes, 14 16-byte chunks) the D
+// 128 kernels, with the head dim zero-padded in shared memory: the
+// producer copies a row's DG / 8 chunks and zero-fills the rest of the
+// tile's, as the forward does at D 112.  The padding adds exact zeros to
+// S and dP, so the sums are the unpadded ones; its dQ, dK, dV columns are
+// zeros and are not written (store_rows and the fold stop at DG columns:
+// a 128-column store would overrun into the next 224-byte row).  Di sums
+// DG columns.  A split key tile's f32 partials keep the tile's width
+// (slots, B * Hkv, 64, 128 at D 112): store_partial writes whole
+// accumulator rows, and the fold reads and writes DG columns of them.
 //
 // f32 (the card-vs-CPU checks): FP32 pipes, no tensor cores, no TF32,
 // blocks of 16 x 16 threads over 16-row and 16-key tiles, P and dS
-// through shared memory, exp as expf.
+// through shared memory, exp as expf; any head dim a multiple of 16 with
+// rows on 16 bytes (D 112: 7 columns a thread).
 //
-// Head dims 32, 64, 128, 256 (templates).  Shared memory is dynamic.
+// Head dims 32, 64, 112, 128, 256 (templates).  Shared memory is dynamic.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -718,9 +727,11 @@ __global__ void __launch_bounds__(256, 1) fa_bwd_dkdv(BwdArgs a) {
   if (t == 0) atomicExch(cnt, 0);       // zero for the next launch
 }
 
-// the kernels' head dim (D 32 runs the D 64 kernels, padded), key tile of
-// pass 1 and ring depth
-template <int D> constexpr int kdim() { return D < 64 ? 64 : D; }
+// the kernels' head dim (D 32 runs the D 64 kernels and D 112 the D 128
+// ones, padded), key tile of pass 1 and ring depth
+template <int D> constexpr int kdim() {
+  return D < 64 ? 64 : D == 112 ? 128 : D;
+}
 constexpr int DQ_BN = 64;
 template <int D> constexpr int stages() { return D <= 128 ? 3 : 2; }
 
@@ -1027,6 +1038,7 @@ static cudaError_t launch_pass(const BwdArgs& a, int D, int pass,
   switch (D) {
     FA_BWD_CASE(32)
     FA_BWD_CASE(64)
+    FA_BWD_CASE(112)
     FA_BWD_CASE(128)
     FA_BWD_CASE(256)
     default: return cudaErrorInvalidValue;
@@ -1077,7 +1089,8 @@ int flash_attention_bwd_dq_launch(int D, const void* q, const void* k,
 // holds n_blocks entries of 4 ints (key tile, first row tile, end row
 // tile, split) then n_kt of 2 (first workspace slot, splits); splits is
 // the largest.  Where it is above 1: ws_k (modes 0 and 2) and ws_v (modes
-// 0 and 1) hold (slots, B * Hkv, 64, D) f32 each, and counters at least
+// 0 and 1) hold (slots, B * Hkv, 64, W) f32 each, W the kernels' tile
+// width (64 at D 32, 128 at D 112, else D), and counters at least
 // n_kt * B * Hkv int32 zeros, zero again when the launch ends.
 int flash_attention_bwd_dkdv_launch(int D, const void* q, const void* k,
                                     const void* v, const void* dout,
@@ -1137,6 +1150,7 @@ int flash_attention_bwd_smem(int bf16, int pass, int D) {
   switch (D) {
     FA_BWD_SMEM(32)
     FA_BWD_SMEM(64)
+    FA_BWD_SMEM(112)
     FA_BWD_SMEM(128)
     FA_BWD_SMEM(256)
     default: return 0;

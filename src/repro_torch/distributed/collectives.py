@@ -11,7 +11,10 @@ the gradient as well, and a term built from the statistic would then
 be counted once a rank.
 
 ``gather_rows`` concatenates every rank's rows in rank order, outside
-autograd; ``reduce_grads_`` sums gradients over a group in place, one
+autograd, and ``gather_blocks`` under it (its backward sums the
+cotangents over the group and returns each rank its own rows' block);
+both take ranks that hold ``block_rows`` blocks, the last ones shorter
+or empty.  ``reduce_grads_`` sums gradients over a group in place, one
 flat all-reduce a dtype.
 
 The autograd collectives of the LM family under a mesh
@@ -79,13 +82,47 @@ def sum_across_(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+def block_rows(n: int, world: int, rank: int) -> slice:
+    """Rank ``rank``'s rows of ``n`` rows over ``world`` ranks: blocks of
+    ``ceil(n / world)`` rows in rank order, so the last ranks hold fewer
+    (or none) where ``world`` does not divide ``n``, and the ``rank``-th
+    of ``world`` equal blocks where it does."""
+    c = -(-n // world)
+    lo = min(n, rank * c)
+    return slice(lo, min(n, lo + c))
+
+
+def _padded(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x`` with zero rows appended up to ``rows``."""
+    if x.shape[0] == rows:
+        return x
+    return torch.cat([x, x.new_zeros((rows - x.shape[0],) + x.shape[1:])])
+
+
 @torch.no_grad()
-def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's ``x`` (the same shape on each), concatenated along
-    dim 0 in the group's rank order; detached."""
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.detach().contiguous(), group=group)
-    return torch.cat(parts, dim=0)
+def gather_rows(x: torch.Tensor, group, n: Optional[int] = None
+                ) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in the group's rank
+    order; detached.  ``n``: the whole's rows, each rank holding its
+    ``block_rows`` (every block padded to ``ceil(n / world)`` rows for the
+    exchange, the padding dropped); by default every rank's ``x`` has the
+    same shape."""
+    world = dist.get_world_size(group)
+    c = x.shape[0] if n is None else -(-n // world)
+    parts = [x.new_empty((c,) + x.shape[1:]) for _ in range(world)]
+    dist.all_gather(parts, _padded(x.detach(), c).contiguous(), group=group)
+    out = torch.cat(parts, dim=0)
+    return out if n is None else out[:n]
+
+
+def gather_blocks(x: torch.Tensor, n: int, group) -> torch.Tensor:
+    """``gather_rows(x, group, n)`` under autograd: the whole's (n, ...)
+    rows, each rank holding its ``block_rows``.  Every rank may use every
+    row (in-batch negatives across ranks), so the gradient of this rank's
+    ``x`` is the sum over the group of the cotangents of its rows
+    (``gather_dim``'s reduce-scatter, in f32)."""
+    c = -(-n // group_size(group))
+    return gather_dim(_padded(x, c), 0, group)[:n]
 
 
 @torch.no_grad()

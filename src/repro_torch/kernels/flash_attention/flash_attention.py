@@ -20,7 +20,8 @@ also writes each row's logsumexp), and the backward is
 counted under its own name: ``flash_attention_bwd_dq`` (writes dQ and
 each row's ``Di``) then ``flash_attention_bwd_dkdv`` (dK and dV; twice at
 head dim 256, dV then dK), or ``flash_attention_bwd_f32_dq`` and
-``flash_attention_bwd_f32_dkdv`` for f32 inputs.  The bf16 dkdv pass
+``flash_attention_bwd_f32_dkdv`` for f32 inputs (head dim 112 on the
+bf16 kernels' 128 tiles, as the forward).  The bf16 dkdv pass
 follows ``bwd_plan``: each 64-key tile's row tiles cut into ranges, more
 of them for the key tiles that more rows see, the split ones folded in
 split order by the same launch.  It takes what
@@ -52,7 +53,7 @@ import torch
 from repro_torch.kernels.common import CudaKernel, check_cuda, stream_ptr
 
 HEAD_DIMS = (32, 64, 112, 128, 256)     # the forward kernels'
-BWD_HEAD_DIMS = (32, 64, 128, 256)      # the backward's
+BWD_HEAD_DIMS = (32, 64, 112, 128, 256)  # the backward's
 PADDED = {112: 128}            # the bf16 kernels' tile width at a head dim
 BK = 64                        # keys per tile
 MMA_ROWS = 128                 # query rows of a tensor-core block
@@ -327,8 +328,7 @@ def check_train_case(*, S: int, T: int, D: int, causal: bool, q_offset: int,
     """Raises, naming the case, for a call under autograd that the
     backward kernels do not take: they take what ``lm_loss`` calls
     (causal, ``q_offset`` 0, no ``kv_len``, S equal to T, a head dim of
-    ``BWD_HEAD_DIMS``; kimi-k2's 112, which only the forward takes, waits
-    for ROADMAP item 3 with kimi's training across cards)."""
+    ``BWD_HEAD_DIMS``, kimi-k2's 112 among them)."""
     why = []
     if not causal:
         why.append("causal=False")
@@ -339,9 +339,7 @@ def check_train_case(*, S: int, T: int, D: int, causal: bool, q_offset: int,
     if S != T:
         why.append(f"{S} queries over {T} keys")
     if D not in BWD_HEAD_DIMS:
-        why.append(f"head dim {D}" + (" (forward only; its backward is "
-                                      "ROADMAP item 3)" if D in HEAD_DIMS
-                                      else ""))
+        why.append(f"head dim {D}")
     if why:
         raise NotImplementedError(
             "the flash-attention backward takes causal self-attention with "
@@ -427,7 +425,10 @@ def bwd_plan(B: int, S: int, Hq: int, Hkv: int, D: int, n_sm: int, *,
     most half that share (at least ``MIN_SPLIT_ROW_TILES``), so each split
     holds about the same causal work and the key tiles that more rows
     see get more splits.  ``splits`` forces that many ranges a key tile
-    (fewer where it has fewer row tiles)."""
+    (fewer where it has fewer row tiles).  The plan counts tiles, not
+    columns: a padded head dim (32 on the 64 tiles, 112 on the 128 ones,
+    ``bwd_tile_width``) costs its tile width's products, so the same
+    ranges fit it."""
     if D not in BWD_HEAD_DIMS or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"no backward plan at head dim {D}, {Hq} heads "
                          f"over {Hkv}")
@@ -448,6 +449,13 @@ def bwd_plan(B: int, S: int, Hq: int, Hkv: int, D: int, n_sm: int, *,
     return BwdPlan(BWD_KEYS, BWD_ROWS, tuple(
         tuple((f + i * w // n, f + (i + 1) * w // n) for i in range(n))
         for f, w, n in zip(first, work, counts)))
+
+
+def bwd_tile_width(D: int) -> int:
+    """The bf16 backward kernels' head dim at head dim ``D``: the tile
+    width its shared memory, registers and split partials follow
+    (``PADDED``'s, and at least 64: D 32 runs the D 64 kernels)."""
+    return max(PADDED.get(D, D), 64)
 
 
 # the plans' tables on the card, by (plan, device): (table, blocks, slots)
@@ -547,9 +555,10 @@ def bwd_dkdv(q, k, v, do, lse, di, *, scale: float,
     modes = (0,) if D <= 128 else (1, 2)
     ws, cnt, n = [None, None], None, 0
     if plan.splits > 1:
-        # the kernels' head dim (D 32 runs padded to 64); the two modes at
-        # D 256 run one after the other and share one buffer
-        per = slots * B * Hkv * plan.key_tile * max(D, 64)
+        # the kernels' tile width (D 32 runs padded to 64, D 112 to 128);
+        # the two modes at D 256 run one after the other and share one
+        # buffer
+        per = slots * B * Hkv * plan.key_tile * bwd_tile_width(D)
         buf = torch.empty(per * len(ws) // len(modes), dtype=torch.float32,
                           device=q.device)
         ws = [buf[:per], buf[-per:]]

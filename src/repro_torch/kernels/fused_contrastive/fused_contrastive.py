@@ -110,10 +110,12 @@ def fused_contrastive_fwd(src: torch.Tensor, dst: torch.Tensor,
                                      torch.Tensor, torch.Tensor]:
     """Forward kernel.  src/dst (B, d), negs (B, N, d), contiguous CUDA
     float32 or bfloat16 of one type.  Returns (marg, info, s_pos, lse),
-    each (B,) float32."""
+    each (B,) float32; no launch at B 0."""
     B, N, d = _check(src, dst, negs)
     outs = [torch.empty(B, dtype=torch.float32, device=src.device)
             for _ in range(4)]
+    if B == 0:     # no rows (a data rank's empty block): nothing to launch
+        return tuple(outs)
     FWD.launch(_DTYPE_CODE[src.dtype], src.data_ptr(), dst.data_ptr(),
                negs.data_ptr(), B, N, d, float(np.float32(margin)),
                float(np.float32(tau)), *[o.data_ptr() for o in outs],
@@ -130,7 +132,8 @@ def fused_contrastive_bwd(src: torch.Tensor, dst: torch.Tensor,
     """Backward kernel: the cotangents ``gm``, ``gi`` of the two losses
     and the forward's ``s_pos``, ``lse`` ((B,) float32 each) ->
     (d_src, d_dst, d_negs) in the inputs' type.  The kernel picks its
-    plan (``bwd_plan``) from N, d and the rows' alignment."""
+    plan (``bwd_plan``) from N, d and the rows' alignment; no launch at
+    B 0."""
     B, N, d = _check(src, dst, negs)
     dev = src.device
     for name, t in (("gm", gm), ("gi", gi), ("s_pos", s_pos),
@@ -142,6 +145,8 @@ def fused_contrastive_bwd(src: torch.Tensor, dst: torch.Tensor,
     d_src = torch.empty_like(src)
     d_dst = torch.empty_like(dst)
     d_negs = torch.empty_like(negs)
+    if B == 0:
+        return d_src, d_dst, d_negs
     BWD.launch(_DTYPE_CODE[src.dtype], src.data_ptr(), dst.data_ptr(),
                negs.data_ptr(), gm.data_ptr(), gi.data_ptr(),
                s_pos.data_ptr(), lse.data_ptr(), B, N, d,

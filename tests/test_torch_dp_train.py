@@ -24,9 +24,22 @@ global step under a ``ShardingCtx`` on a 4-device mesh, at the small
     order, equal the one-process global step's (shard-local negatives,
     the same draws) at both steps.  Gradients and selections come from
     ``make_grad_step``, which ``apply_grads`` completes into the step.
+  * The same at ``B`` that 4 does not divide (30 uu and 29 ii edges, 32
+    ui: the reference's whole-batch negatives beside shard-local ones in
+    one step; JAX's global step runs there under the same 4-device
+    mesh): each rank keeps ``block_rows`` (8, 8, 8, 6 of 30), gathers the
+    whole batch's destination rows for those types' banks, and every
+    loss is the global mean; held as above, against the one-process
+    global step's selections with the same draws.
+  * A rank with no rows of a type (5 uu and 3 ii edges over 4 ranks:
+    blocks 2, 2, 1, 0 and 1, 1, 1, 0; 32 ui) runs the same step, held
+    against JAX's global step under the same mesh as above; each
+    log-variance's gradient ``1 - exp(-s) L`` there within 1e-5 of the
+    larger of its terms, since its two terms nearly cancel at one step.
   * ``dp = 1`` (a one-rank mesh) is bitwise the one-process step;
-    ``rank_batch`` keeps each rank's edges' endpoints and neighbours and
-    raises where ``dp`` does not divide ``B``.
+    ``rank_batch`` keeps each rank's edges' endpoints and neighbours,
+    also in ragged blocks (dp 3: 11, 11, 10 of 32; dp 12: the last rank
+    empty).
 """
 import os
 import subprocess
@@ -43,6 +56,7 @@ from repro.core import trainer as JT
 from repro_torch.configs.base import RankGraph2Config, RQConfig
 from repro_torch.convert import train_state_from_jax
 from repro_torch.core import trainer as T
+from repro_torch.distributed.collectives import block_rows
 from repro_torch.optim import optimizers as O
 
 torch.set_num_threads(2)
@@ -53,6 +67,8 @@ SMALL = dict(d_user_feat=64, d_item_feat=64, d_embed=16, n_heads=2,
              dtype="float32")
 RQ_SIZES = (8, 4)
 PER_TYPE = {"uu": 32, "ui": 32, "ii": 32}
+RAGGED = {"uu": 30, "ui": 32, "ii": 29}     # 4 divides only ui
+EMPTY = {"uu": 5, "ui": 32, "ii": 3}        # a rank with no uu or ii rows
 DP, STEPS, POOL = 4, 2, 64
 LOSS_REL, GRAD_REL, USAGE_ABS, POOL_ABS = 1e-5, 1e-5, 1e-6, 1e-5
 GAP_MEDIAN, GAP_FAR, GAP_FAR_SHARE = 1e-6, 1e-4, 0.01
@@ -161,7 +177,8 @@ JAX_CHILD = textwrap.dedent("""
                 fill = state.pool.user_fill if dn in ("uu", "iu") \\
                     else state.pool.item_fill
                 B = PER["ui" if dn == "iu" else dn]
-                put(f"draws{t}/{dn}", draws(keys[i], B, fill, B // DP))
+                blk = B // DP if B %% DP == 0 else B   # whole-batch
+                put(f"draws{t}/{dn}", draws(keys[i], B, fill, blk))
             put(f"grads{t}", gradf(state.params, state, jb, key))
             state, m = step(state, jb, key)
             put(f"metrics{t}", dict(m))
@@ -179,6 +196,7 @@ JAX_CHILD = textwrap.dedent("""
 RANK = textwrap.dedent("""
     import sys, torch
     torch.set_num_threads(1)
+    from repro_torch.core import negatives as N
     from repro_torch.core import trainer as T
     from repro_torch.distributed.sharding import ShardingCtx, make_rules
     from repro_torch.launch.mesh import init_distributed, make_mesh
@@ -199,16 +217,23 @@ RANK = textwrap.dedent("""
         codes = sg.aux["codes"].clone()
         st, m = T.apply_grads(st, sg, opt)
         res.append(({k: float(v) for k, v in m.items()}, grads, codes))
-    # the one-process global step on the same inputs: its RQ selections
+    # the one-process global step on the same inputs (shard-local blocks
+    # where world divides B, else the whole batch): its metrics,
+    # gradients and RQ selections
     glob = []
     if rank == 0:
         gst = torch.load(f"{tmp}/inputs.pt", weights_only=False)["state"]
-        B = inp["batches"][0]["edges"]["uu"]["src_map"].shape[0]
-        gstep = T.make_grad_step(cfg, features=feats, shard_block=B // world)
+        blks = {N.shard_block_for(e["src_map"].shape[0], world)
+                for e in inp["batches"][0]["edges"].values()} - {0}
+        assert len(blks) <= 1
+        gstep = T.make_grad_step(cfg, features=feats,
+                                 shard_block=blks.pop() if blks else 0)
         for batch, draws in zip(inp["batches"], inp["draws"]):
             sg = gstep(gst, batch, draws=draws)
-            glob.append(sg.aux["codes"].clone())
-            gst, _ = T.apply_grads(gst, sg, opt)
+            grads = {k: g.detach().clone() for k, g in sg.grads.items()}
+            codes = sg.aux["codes"].clone()
+            gst, m = T.apply_grads(gst, sg, opt)
+            glob.append(({k: float(v) for k, v in m.items()}, grads, codes))
     torch.save(dict(steps=res, params={k: v.detach() for k, v in
                                        T.named_params(st.params).items()},
                     pool=st.pool, rq=st.rq_state, global_codes=glob),
@@ -217,13 +242,20 @@ RANK = textwrap.dedent("""
 """)
 
 
-def _global_rows(parts):
+def _global_rows(parts, per):
     """The ranks' RQ rows (each laid out as its block's endpoints: every
-    edge type in sorted order, its src rows then its dst rows) in the
-    whole batch's order; every edge type has the same ``B``."""
-    b = PER_TYPE["uu"] // len(parts)
-    return torch.cat([p[i * b:(i + 1) * b]
-                      for i in range(2 * len(PER_TYPE)) for p in parts])
+    edge type in sorted order, its src rows then its dst rows, a rank's
+    ``block_rows`` of each) in the whole batch's order."""
+    out, offs = [], [0] * len(parts)
+    for et in sorted(per):
+        for _ in ("src", "dst"):
+            for r, p in enumerate(parts):
+                n = len(range(*block_rows(per[et], len(parts), r)
+                              .indices(per[et])))
+                out.append(p[offs[r]:offs[r] + n])
+                offs[r] += n
+    assert all(o == p.shape[0] for o, p in zip(offs, parts))
+    return torch.cat(out)
 
 
 def _cfgs():
@@ -272,12 +304,26 @@ def _norm_rel(a, b):
                  / max(np.linalg.norm(np.asarray(b).ravel()), 1e-30))
 
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
+def _jax_global(tmp_path_factory, per):
     path = tmp_path_factory.mktemp("jaxdp") / "jax.npz"
-    consts = repr((SMALL, RQ_SIZES, PER_TYPE, DP, STEPS, POOL))
+    consts = repr((SMALL, RQ_SIZES, per, DP, STEPS, POOL))
     assert "JAX_DP_OK" in _run_child(JAX_CHILD % consts, str(path))
     return dict(np.load(path))
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    return _jax_global(tmp_path_factory, PER_TYPE)
+
+
+@pytest.fixture(scope="module")
+def jax_ragged(tmp_path_factory):
+    return _jax_global(tmp_path_factory, RAGGED)
+
+
+@pytest.fixture(scope="module")
+def jax_empty(tmp_path_factory):
+    return _jax_global(tmp_path_factory, EMPTY)
 
 
 def _initial_state(device="cpu"):
@@ -287,13 +333,17 @@ def _initial_state(device="cpu"):
                                 device=device)
 
 
-def test_dp4_step_matches_jax_global_step(jax_run, tmp_path):
+def _dp4_ranks(j, tmp_path, batches=None, draws=None):
+    """The port's ``DP`` ranks (and rank 0's one-process global step) on
+    the JAX run's batches and draws (or the given ones), from its
+    initial state; checks that every rank ends with the same state and
+    returns the ranks' results."""
     _, pcfg = _cfgs()
-    j = jax_run
-    batches = [_to_torch(_nest(j, f"batch{t}")) for t in range(STEPS)]
-    draws = [{d: {k: v.long() for k, v in sub.items()}
-              for d, sub in _to_torch(_nest(j, f"draws{t}")).items()}
-             for t in range(STEPS)]
+    batches = batches or [_to_torch(_nest(j, f"batch{t}"))
+                          for t in range(STEPS)]
+    draws = draws or [{d: {k: v.long() for k, v in sub.items()}
+                       for d, sub in _to_torch(_nest(j, f"draws{t}")).items()}
+                      for t in range(STEPS)]
     torch.save(dict(state=_initial_state(), cfg=pcfg, batches=batches,
                     draws=draws,
                     feats=(torch.from_numpy(j["user_feat"]),
@@ -312,6 +362,27 @@ def test_dp4_step_matches_jax_global_step(jax_run, tmp_path):
         for a, b in zip(r0["rq"].hists + r0["rq"].usage,
                         r["rq"].hists + r["rq"].usage):
             assert torch.equal(a, b)
+    return ranks
+
+
+def test_dp4_step_matches_jax_global_step(jax_run, tmp_path):
+    _held_against_jax(jax_run, tmp_path, PER_TYPE)
+
+
+def test_dp4_ragged_step_matches_jax_global_step(jax_ragged, tmp_path):
+    """30 uu and 29 ii edges over 4 ranks (whole-batch negatives), 32 ui
+    (shard-local): held as the even case."""
+    _held_against_jax(jax_ragged, tmp_path, RAGGED)
+
+
+def _held_against_jax(j, tmp_path, per, log_var_terms=False):
+    """The checks of the module docstring.  ``log_var_terms``: hold each
+    log-variance's gradient, ``1 - exp(-s) L``, within ``GRAD_REL`` of
+    the larger of its two terms (``exp(-s) L`` is ``1`` less JAX's
+    gradient) rather than of their difference, which cancels where a
+    task loss is near ``exp(s)``."""
+    ranks = _dp4_ranks(j, tmp_path)
+    r0 = ranks[0]
     for t, (metrics, grads, _) in enumerate(r0["steps"]):
         jm = _nest(j, f"metrics{t}")
         assert set(metrics) == set(jm)
@@ -323,7 +394,11 @@ def test_dp4_step_matches_jax_global_step(jax_run, tmp_path):
             f"grads{t}/")])
         for name in names:
             want = _jax_leaf(j, f"grads{t}", name)
-            rel = _norm_rel(grads[name].numpy(), want)
+            if log_var_terms and name.startswith("uncertainty."):
+                w = float(want)
+                rel = abs(float(grads[name]) - w) / max(abs(w), abs(1 - w))
+            else:
+                rel = _norm_rel(grads[name].numpy(), want)
             assert rel <= GRAD_REL, (t, name, rel)
     for name, p in r0["params"].items():
         d = np.abs(p.numpy() - _jax_leaf(j, "params", name)).ravel()
@@ -332,8 +407,8 @@ def test_dp4_step_matches_jax_global_step(jax_run, tmp_path):
             (name, np.median(d), far, d.max())
     # the ranks' RQ selections, in global row order, are the one-process
     # global step's at every step
-    for t, want in enumerate(r0["global_codes"]):
-        got = _global_rows([r["steps"][t][2] for r in ranks])
+    for t, (_, _, want) in enumerate(r0["global_codes"]):
+        got = _global_rows([r["steps"][t][2] for r in ranks], per)
         assert torch.equal(got, want), t
     assert len(r0["global_codes"]) == STEPS
     pool = r0["pool"]
@@ -348,6 +423,24 @@ def test_dp4_step_matches_jax_global_step(jax_run, tmp_path):
                                       j[f"hist{l}"])
         np.testing.assert_allclose(r0["rq"].usage[l].numpy(),
                                    j[f"usage{l}"], atol=USAGE_ABS)
+    return ranks
+
+
+def test_dp4_step_with_an_empty_rank(jax_empty, tmp_path):
+    """``EMPTY``: 5 uu and 3 ii edges (32 ui) over 4 ranks, so rank 3
+    holds none of either (blocks 2, 2, 1, 0 and 1, 1, 1, 0); JAX's global
+    step runs there under the same 4-device mesh.  Held as the even
+    case, the log-variances' gradients in the units of their terms: at
+    the first step rq_recon's loss is 1.00486, its gradient ``1 - L``
+    -0.00486, and the loss's f32 gap to JAX's (2.4e-7) reads 4.9e-5 of
+    that difference."""
+    ranks = _held_against_jax(jax_empty, tmp_path, EMPTY, log_var_terms=True)
+    batch = _to_torch(_nest(jax_empty, "batch0"))
+    for r in range(DP):
+        assert ranks[r]["steps"][0][2].shape[0] == 2 * sum(
+            len(range(*block_rows(b["src_map"].shape[0], DP, r).indices(
+                b["src_map"].shape[0]))) for b in batch["edges"].values())
+    assert ranks[3]["steps"][0][2].shape[0] == 2 * 8      # ui's rows only
 
 
 def test_dp1_step_is_bitwise_the_one_process_step(jax_run, tmp_path):
@@ -420,5 +513,16 @@ def test_rank_batch_keeps_each_rank_s_rows(jax_run):
     # each rank encodes a part of the pack, not all of it
     assert max(sizes) < sum(batch["nodes"][t]["ids"].shape[0]
                             for t in ("user", "item"))
-    with pytest.raises(ValueError, match="B 32 is not a multiple of dp 3"):
-        T.rank_batch(batch, 0, 3)
+    # ragged blocks where dp does not divide B: ceil(B / dp) rows a rank,
+    # the last ones fewer or none, covering every row once in order
+    for dp, want in ((3, [11, 11, 10]), (12, [3] * 10 + [2, 0])):
+        got = []
+        for r in range(dp):
+            sub = T.rank_batch(batch, r, dp)
+            rows = block_rows(32, dp, r)
+            for et in batch["edges"]:
+                for side in ("src_map", "dst_map"):
+                    assert torch.equal(endpoint_ids(sub, et, side),
+                                       endpoint_ids(batch, et, side)[rows])
+            got.append(sub["edges"]["uu"]["src_map"].shape[0])
+        assert got == want, (dp, got)

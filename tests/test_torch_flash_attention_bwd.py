@@ -6,8 +6,8 @@ run only on the card: ``chip_smoke.py`` Phase 1 holds them there).
     (``chunked_attention_ref(..., return_lse=True)``) against autograd of
     ``chunked_attention_ref`` and against ``jax.vjp`` of the JAX package's
     ``_chunked_attention`` on the same numpy inputs, f32 and bf16, head
-    dims 32, 128 and 256, GQA and MQA, S not a multiple of any tile,
-    ``block_q`` 32 and 1024.
+    dims 32, 112 (kimi-k2's 8:1 grouping), 128 and 256, GQA and MQA, S
+    not a multiple of any tile, ``block_q`` 32 and 1024.
   * A write-out in torch of the kernels' tiling and summation order (the
     dq pass over 64-row tiles and 64-key tiles, with Di from the output in
     its own type; the dkdv pass over 64-key tiles and 64-row tiles of the
@@ -16,7 +16,10 @@ run only on the card: ``chip_smoke.py`` Phase 1 holds them there).
     ranges, each range's f32 partial added in split order from 0; P and
     dS rounded once to bf16 as wgmma operands; f32 sums tile by tile; the
     f32 kernels' 16 x 16 tiles with no rounding) held against the closed
-    form, at the planned splits and at forced ones.
+    form, at the planned splits and at forced ones.  Head dim 112 runs
+    the D 128 kernels with Q, K, V, dO and O zero-padded to 128 columns in
+    shared memory: the write-out on the padded inputs is the unpadded
+    one's (within f32 summation order), and its padding columns are 0.
   * ``bwd_plan``: gemma-2b's MQA fills 132 SMs, and every plan's ranges
     cover each key tile's row tiles once, in order, none empty; its
     table (``bwd_table``) lists the longest ranges first.
@@ -78,6 +81,7 @@ CASES = [
     (2, 77, 4, 4, 32),       # run_lm's reduced head dim, no grouping
     (1, 150, 6, 2, 128),     # GQA 3:1, llama's head dim
     (1, 130, 8, 1, 256),     # MQA 8:1, gemma's head dim
+    (2, 77, 8, 1, 112),      # kimi-k2's head dim, its 8:1 grouping
 ]
 
 
@@ -313,7 +317,8 @@ def test_block_gap_sees_a_lost_split_partial():
 PLAN_SHAPES = [(1, 4096, 16, 16, 128), (1, 4096, 24, 8, 128),
                (1, 4096, 8, 1, 256), (2, 77, 6, 2, 64), (3, 100, 4, 1, 32),
                (1, 70, 8, 1, 256), (1, 128, 8, 1, 256), (4, 64, 4, 4, 32),
-               (1, 1, 2, 1, 64), (2, 1000, 12, 4, 128)]
+               (1, 1, 2, 1, 64), (2, 1000, 12, 4, 128),
+               (1, 4096, 64, 8, 112), (2, 77, 8, 1, 112)]
 
 
 def test_bwd_plan_fills_the_card_at_gemma():
@@ -405,6 +410,36 @@ def test_writeout_with_splits_within_bound_and_of_one_split(B, S, Hq, Hkv,
     torch.testing.assert_close(got[0], one[0], rtol=0, atol=0)
     for g, w, m in zip(got[1:], one[1:], mag[1:]):
         within(g, w, m, F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_112_padded_to_the_tile_width(dtype):
+    """Head dim 112 on the D 128 kernels: Q, K, V, dO and O with 16 zero
+    columns appended (as the producer zero-fills a tile's last two 16-byte
+    chunks) give the unpadded write-out's dQ, dK and dV in their first 112
+    columns, within f32 summation order (``F32_TOL`` of M), and zeros in
+    the padding, which the kernels therefore need not write; the scale
+    stays 112^-0.5.  ``bwd_tile_width`` names the tiles."""
+    B, S, Hq, Hkv, D = 2, 77, 8, 1, 112
+    assert K.bwd_tile_width(D) == 128 and K.bwd_tile_width(32) == 64
+    assert K.bwd_tile_width(128) == 128
+    q, k, v, do = (_torch(a, dtype) for a in
+                   _inputs(B, S, Hq, Hkv, D, seed=112))
+    scale = D ** -0.5
+    o32, lse = chunked_attention_ref(q.float(), k.float(), v.float(),
+                                     causal=True, scale=scale,
+                                     return_lse=True)
+    o = o32.to(dtype)
+    mag = attention_bwd_ref(q, k, v, o32, do, lse, scale=scale,
+                            absolute=True)
+    bf16 = dtype == torch.bfloat16
+    want = kernel_writeout(q, k, v, o, do, lse, scale=scale, bf16=bf16)
+    pad = lambda t: torch.nn.functional.pad(t, (0, 16))  # noqa: E731
+    got = kernel_writeout(pad(q), pad(k), pad(v), pad(o), pad(do), lse,
+                          scale=scale, bf16=bf16)
+    for g, w, m in zip(got, want, mag):
+        assert g.shape[-1] == 128 and not g[..., D:].any()
+        within(g[..., :D], w, m, F32_TOL)
 
 
 def test_library_path_follows_included_headers(tmp_path, monkeypatch):
@@ -513,9 +548,8 @@ REFUSED = [
     (dict(kv_len=30), "a kv_len"),
     (dict(T=48), "32 queries over 48 keys"),
     (dict(D=48), "head dim 48"),
-    # kimi-k2's 112: the forward takes it, the backward waits for ROADMAP 3
-    (dict(D=112), r"head dim 112 \(forward only; its backward is ROADMAP "
-                  r"item 3\)"),
+    # a multiple of 16 between the kernels' head dims: no kernel takes it
+    (dict(D=96), "head dim 96"),
 ]
 
 
