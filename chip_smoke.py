@@ -28,6 +28,10 @@ edge shapes in both types (one row, one negative, scalar-load widths,
 Phase 8d's d 24, the old kernel's largest row block and widest row,
 rows off 16-byte alignment, the register path's widest row); Phase 0
 holds its shared memory against the wrapper's count.  The
+``embedding_bag`` forward is also held with f32 out (the partial bags of
+a row shard, Phase 11) on a (26e6/4, 64) shard, rounded once bitwise
+its bf16 out, and the backward into that shard against its plain
+version and a repeat.  The
 flash-attention kernels fold their own kv splits in one launch: at 2, 5
 and 11 forced splits on all three kernels, and at the split main-path
 shapes (decode_32k, long_500k), the output is also held against
@@ -102,7 +106,9 @@ forward and backward kernels); wide-deep, sasrec and bst serve one
 serve_bulk batch each.  It checks 512 bulk logits, spread evenly over
 the batch, against the CPU on only the rows they touch, the top 100 against the CPU ranking,
 that the losses are finite and every parameter moved, and four f32
-steps on the card against the CPU.
+steps on the card against the CPU.  It prints the warm retrieval step
+and its scoring (``dot_scores``), each beside the same with the plain
+product ``u @ cvec.T``.
 
 Phase 5 runs the dense LM serve path at the full width of
 ``llama3.2-3b`` (28 layers, d 3,072, 24 query heads over 8 KV heads,
@@ -303,14 +309,16 @@ parent with the same batches and draws, each side on its own RQ
 selections, in f32 and bf16 at train_batch's own 10,922 edges a type,
 which 4 does not divide: each rank keeps ``block_rows``, 2,731 rows and
 the last 2,729, and the negatives are the reference's whole-batch
-fallback, each rank gathering the whole batch's destination rows.  In
-f32 the losses by
+fallback, each rank gathering the whole batch's destination rows.  Both
+sides run under torch's deterministic algorithms (``deterministic_sums``),
+so each repeats itself and the readings below are the tree's, not the
+run's.  In f32 the losses by
 ``f32_gap``, every row whose selection differs a near tie of the biased
 selection under the global step's inputs, widened only by what the
 histograms and codebooks that differ between the two sides can move
-(``selection_ties``), and pool rows within 1e-4.  In bf16 the global
-step does not repeat its own losses within Phase 3's bf16 tolerance by
-step 2 (its sums run in another order each run), so both bf16 sides are
+(``selection_ties``), and pool rows within 1e-4.  In bf16 the two sides'
+selections part at near ties from step 1 on, and by step 2 their losses
+lie up to four times Phase 3's bf16 tolerance apart, so both bf16 sides are
 held against the f32 global step on the same batches and draws: at
 every step and loss the data-parallel step may lie no farther from it
 than the bf16 global step does, plus that tolerance at the f32 value
@@ -323,10 +331,37 @@ codebooks' drift (``near_ties``).  At mesh (1, 4) ``("data",
 "model")``: dlrm-rm2 with 26 x 1,000,000 x 64 f32 tables row-sharded,
 65,536 serve logits bitwise the parent's one-process lookup, one
 65,536-row step's table gradient rows within ``P11_TABLE_REL`` of the
-local ones (and none elsewhere), then one ``recsys_train_step``.  It
-prints the backend, the world size, each rank's step seconds and peak
-memory; gloo stages CUDA tensors through the host, so its times say
-nothing of NCCL.
+local ones (and none elsewhere), then one ``recsys_train_step``.  Then,
+at the same mesh, wide-deep, sasrec and bst at full width (wide-deep 40
+fields at embed 32, MLP 1024-512-256; sasrec embed 50, seq 50, 2 blocks;
+bst embed 32, seq 20, 8 heads, 8 profile fields) with 1,000,000 rows a
+table and every row-sharded leaf (``row_sharded_leaves``) in rank
+shards: 16,384 serve outputs (sasrec: the user representation) bitwise
+the parent's, one train batch's gradient rows of every sharded leaf
+within ``P11_TABLE_REL`` of the parent's one-process ones (none
+elsewhere), and one ``recsys_train_step`` whose parameters (the rows
+the batch reached, ``P11_SAMPLE_ROWS`` others, every other leaf whole)
+are held by the f32 gap rule.  dlrm's multi-hot bags on row shards
+(16,384 rows x 26 bags of 1..16 ids, as Phase 4's): a serve step of bags
+(logits within ``P4_REL`` of the parent's), then the bag lookup, whose
+output must be one rounding of the model group's f32 sum of
+``embedding_bag_fwd``'s f32 partial bags; that sum within
+``P11_BAG_REL`` of the one-process kernel's f32 bags; the bf16 entries
+that differ after rounding counted, none more than one step apart but
+where the f32 sum lies below the floor; and the shard's table gradient
+(``embedding_bag_bwd`` into the shard, under a fixed cotangent) bitwise
+the one-process kernel's rows where no row of a shard holds
+``EB.PIECE`` ids (each row's terms then come in position order; else
+within ``P11_TABLE_REL``; the line says which held), zero elsewhere.
+Last, at mesh (2, 2) in the same world, sasrec's and dlrm's retrieval
+step against 1,000,000 candidates (``RS_CAND``), the candidates split
+over the data axis: the merged top 100 bitwise ``top_k`` of the ranks'
+gathered block scores, every block score bitwise the parent's
+one-process score and the merged top 100 the one-process step's (the
+line prints the count and largest gap of block scores apart, and any id
+in one top 100 only).  It prints the backend, the
+world size, each rank's step seconds and peak memory; gloo stages CUDA
+tensors through the host, so its times say nothing of NCCL.
 
 Phase 12 runs the LM family under a mesh after Phase 11.  The parent
 first computes its sides and frees the card: kimi-k2-1t-a32b at full
@@ -371,7 +406,9 @@ Phase 8's of ``queue_gather``, ``rq_assign`` and
 and ``flash_attention_bwd_*``, Phase 10's runs' (``run_lm``, the
 train steps, kimi's prefill and decode; not its checks), Phase 13a's
 steps and Phase 11's and Phase 12's ranks' (each rank counts its own and
-returns them: 12a's prefill, 12b's steps) are added to those; the f32 kernels' come from
+returns them: 11b's ``embedding_bag_fwd`` and ``embedding_bag_bwd`` on
+row shards, its own checks' launches left out; 12a's prefill, 12b's
+steps) are added to those; the f32 kernels' come from
 Phase 10a alone.  Every kernel in the list must have launched on its
 path.
 
@@ -444,7 +481,7 @@ from repro_torch.faults import (REQUIRED_SITES,  # noqa: E402
                                 default_specs, run_chaos)
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
-    embedding_bag as EB)
+    embedding_bag as EB, ops as EB_OPS)
 from repro_torch.kernels.embedding_bag.ref import (  # noqa: E402
     embedding_bag_bwd_ref, embedding_bag_ref)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -468,16 +505,18 @@ from repro_torch.kernels.queue_gather.ref import (  # noqa: E402
 from repro_torch.kernels.rq_assign import rq_assign as RQA  # noqa: E402
 from repro_torch.kernels.rq_assign.ref import rq_assign_ref  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
-from repro_torch.distributed.collectives import block_rows  # noqa: E402
+from repro_torch.distributed.collectives import (  # noqa: E402
+    block_rows, gather_rows)
 from repro_torch.distributed.sharding import (ShardingCtx,  # noqa: E402
                                               make_rules)
 from repro_torch.launch.mesh import init_distributed, make_mesh  # noqa: E402
-from repro_torch.launch.steps import (lm_decode_step,  # noqa: E402
-                                      lm_prefill_step, lm_rules,
-                                      lm_train_step, loss_and_grads,
+from repro_torch.launch.steps import (dot_scores,  # noqa: E402
+                                      lm_decode_step, lm_prefill_step,
+                                      lm_rules, lm_train_step,
+                                      loss_and_grads,
                                       recsys_retrieval_step,
                                       recsys_serve_step, recsys_train_step,
-                                      top_k)
+                                      retrieval_scores, top_k)
 from repro_torch.lifecycle import (LifecycleConfig,  # noqa: E402
                                    LifecycleRuntime)
 from repro_torch.lifecycle.publish import (build_snapshot,  # noqa: E402
@@ -624,6 +663,15 @@ P11_POOL_BF16 = 5e-2         # bf16 pool rows, largest gap
 # optimizer-sign hazard; the CPU test's rule for the parameters)
 P11_GAP_MEDIAN, P11_GAP_FAR, P11_GAP_FAR_SHARE = 1e-6, 1e-4, 0.01
 P11_TABLE_REL = 1e-5         # table gradient rows: sharded vs local
+# 11b's other recsys kinds, row-sharded at Phase 4's train cut, and
+# dlrm's multi-hot bags on its row shards
+P11_KINDS = ("wide-deep", "sasrec", "bst")
+P11_KIND_ROWS = 16_384       # each kind's serve and train batch; the bags'
+P11_SASREC_NEG = 20          # sasrec's negatives a row (the launcher's)
+P11_SAMPLE_ROWS = 4096       # rows of a sharded leaf held after a step
+P11_BAG_REL = 1e-5           # f32 partial-bag sums: sharded vs one process
+P11_RETRIEVAL = ("sasrec", "dlrm-rm2")   # 11b's retrieval at mesh (2, 2)
+P11_RETRIEVAL_MESH = (2, 2)
 P12_WORLD = 4                # ranks (12a's model axis, 12b's data axis)
 P12_KIMI_S = 4096            # 12a's prefill, B 1: T_my 1,024 a rank
 P12_OLMO_B, P12_OLMO_S = 4, 2048   # 12b: one sequence a rank
@@ -1382,18 +1430,19 @@ def random_bags(g: torch.Generator, n: int, L: int, rows: int, dev, *,
 
 
 def eb_bound(ids: torch.Tensor, D: int, V: int, backward: bool,
-             peaks) -> tuple:
+             peaks, out_bytes: int = 2) -> tuple:
     """(bound ms, what bounds it) of the main path's call on the (N, L)
     bags ``ids``: an f32 (V, D) table, bf16 compute, no weights (weights
     would add their read, the rows' read and the d_weights write).
-    Forward: ids read once, each distinct valid row read once, the bf16
-    output written once; a multiply and an add per valid element.
+    Forward: ids read once, each distinct valid row read once, the
+    output written once (bf16, or ``out_bytes`` a value: 4 for the f32
+    partial bags); a multiply and an add per valid element.
     Backward: ids and the bf16 cotangent read once, the dense f32 d_table
     written once; an add per valid element.  Operations at the FP32
     rate."""
     N, L = ids.shape
     valid = ids[ids >= 0]
-    nbytes = 4.0 * N * L + 2.0 * N * D
+    nbytes = 4.0 * N * L + (2.0 if backward else out_bytes) * N * D
     if backward:
         ops = 1.0 * valid.numel() * D
         nbytes += 4.0 * V * D
@@ -1554,6 +1603,46 @@ def phase1_embedding_bag(g: torch.Generator, dev, peaks) -> list:
           f"without the split into pieces of {EB.PIECE} ids "
           f"{u_ms:.4f} ms, {u_ms / b_ms:.2f}x); repeat bitwise equal")
     del table, ids, gout
+    torch.cuda.empty_cache()
+
+    # (b'') the f32-out forward and the backward on a row shard, as Phase
+    # 11's sharded bags run them on rank 0: a (26e6/4, 64) f32 shard, rows
+    # rounded to bf16, 16,384 x 26 bags of 1..16 ids with the other ranks'
+    # ids as padding
+    v_loc = TRAIN_VOCAB // P11_WORLD
+    shard = torch.empty((F_ * v_loc, D), device=dev).normal_(
+        generator=g).mul_(0.01)
+    ids = R._shard_bags(random_bags(g, P11_KIND_ROWS * F_, BAG, TRAIN_VOCAB,
+                                    dev).view(P11_KIND_ROWS, F_, BAG),
+                        0, v_loc, TRAIN_VOCAB)
+    out32 = EB.embedding_bag_fwd(shard, ids, None, "sum", bf16, f32)
+    p_err = held(out32, embedding_bag_ref(shard, ids, None, "sum", bf16,
+                                          f32), f32, "f32-out fwd on a shard")
+    check(torch.equal(out32.to(bf16), EB.embedding_bag_fwd(
+        shard, ids, None, "sum", bf16)), "embedding_bag_fwd on a shard: its "
+        "f32 out rounded once is not its bf16 out")
+    del out32
+    cot = (torch.randn((ids.shape[0], D), generator=g, device=dev)
+           * 1e-3).to(bf16)
+    dk, _ = EB.embedding_bag_bwd(cot, shard, ids, None, "sum", bf16)
+    dp, _ = embedding_bag_bwd_ref(cot, shard, ids, None, "sum", bf16)
+    q_err = held(dk, dp, bf16, "d_table into a shard")
+    del dp
+    eb_repeat(cot, shard, ids, dk, "into a shard")
+    del dk, cot
+    p_ms = time_ms(lambda: EB.embedding_bag_fwd(shard, ids, None, "sum", bf16,
+                                                f32), 10)
+    p_plain = time_ms(lambda: embedding_bag_ref(shard, ids, None, "sum",
+                                                bf16, f32), 3)
+    pb, pby = eb_bound(ids, D, F_ * v_loc, False, peaks, out_bytes=4)
+    print(f"[phase1] embedding_bag fwd with f32 out (partial bags) on a row "
+          f"shard ({F_ * v_loc}, {D}) f32, rows rounded to bf16: bags="
+          f"{ids.shape[0]} L<={BAG} valid ids={int((ids >= 0).sum())} "
+          f"max_abs_err={p_err:.3g} (f32 within 1e-5) kernel_ms={p_ms:.4f} "
+          f"plain_ms={p_plain:.4f} bound_ms={pb:.4f} ({pby}); rounded once "
+          f"bitwise its bf16 out; bwd into the shard max_abs_err="
+          f"{q_err:.3g} (within one bf16 step), repeat bitwise equal")
+    del shard, ids
     torch.cuda.empty_cache()
 
     # (c) the serving table, 2.6e8 x 64 f32 (66.56 GB): ids above 2^24,
@@ -3322,7 +3411,7 @@ def phase4(seed: int, dev) -> dict:
     u = tab[q["sparse"][0].long()].mean(dim=0, keepdim=True).to(
         torch.bfloat16)
     cvec = tab[torch.remainder(cand, tab.shape[0]).long()].to(torch.bfloat16)
-    scores = (u @ cvec.T)[0].cpu()
+    scores = dot_scores(u, cvec).cpu()
     _, want = top_k(scores, 100)
     check(torch.equal(idx.cpu(), want),
           "retrieval top-100 differs from the CPU ranking of its scores")
@@ -3335,6 +3424,19 @@ def phase4(seed: int, dev) -> dict:
     checks["retrieval_ties_in_top100"] = 100 - len(set(vals.float().tolist()))
     checks["retrieval_cpu_scores_same_ids"] = bool(torch.equal(
         cpu_ids, idx.cpu()))
+    def product_step():
+        """The one-process step with the plain product for its scoring
+        (the step's formula before ``dot_scores``)."""
+        e = R.take_rows(tab, torch.remainder(q["sparse"][0], tab.shape[0]))
+        uu = torch.mean(e, dim=0, keepdim=True).to(torch.bfloat16)
+        cv = R.take_rows(tab, torch.remainder(cand, tab.shape[0]), uu.dtype)
+        return top_k((uu @ cv.T)[0], 100)
+
+    # warm: the whole step and its scoring, each beside the plain product's
+    checks["retrieval_ms"] = [time_ms(f, 10) for f in (
+        lambda: recsys_retrieval_step(params, cfg, q, cand, k=100),
+        product_step, lambda: dot_scores(u, cvec),
+        lambda: (u @ cvec.T)[0])]
     del params, tab, u, cvec, cand
     torch.cuda.empty_cache()
 
@@ -3434,7 +3536,11 @@ def phase4(seed: int, dev) -> dict:
     print(f"[phase4] retrieval: {RS_CAND} candidates, top 100 equal to the "
           f"CPU ranking of the card's scores; CPU-computed scores give the "
           f"same ids: {checks['retrieval_cpu_scores_same_ids']}; tied "
-          f"scores in the top 100: {checks['retrieval_ties_in_top100']}")
+          f"scores in the top 100: {checks['retrieval_ties_in_top100']}; "
+          f"warm ms: the step {checks['retrieval_ms'][0]:.4f} (scoring with "
+          f"u @ cvec.T instead: {checks['retrieval_ms'][1]:.4f}), its "
+          f"scoring (dot_scores) {checks['retrieval_ms'][2]:.4f}, u @ "
+          f"cvec.T on the same rows {checks['retrieval_ms'][3]:.4f}")
     print(f"[phase4] train: {P4_STEPS} steps x {RS_TRAIN} rows, vocab "
           f"{TRAIN_VOCAB} per field; loss {[round(v, 5) for v in losses]}")
     print(f"[phase4] f32 card vs cpu, {P4_F32_STEPS} steps at vocab "
@@ -5992,6 +6098,27 @@ def p11a_checks(tmp: str, dev) -> dict:
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
+class deterministic_sums:
+    """Torch's deterministic algorithms inside the block, the setting
+    before it restored after.  11b's rankgraph2 sides run under it: with
+    torch's CUDA scatter sums (the gathers' backward) free to reorder,
+    a bf16 step's losses at step 2 moved by more than the bf16 tolerance
+    from run to run, so ``bf16_lead`` read another value each run, once
+    past its limit; under it each run reads the same.  The port's
+    kernels and a one-stream cuBLAS repeat as they are."""
+
+    def __enter__(self):
+        self.was = (torch.are_deterministic_algorithms_enabled(),
+                    torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        return self
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self.was[0],
+                                           warn_only=self.was[1])
+        return False
+
+
 def p11_rankgraph2(tmp: str, world: int, dev) -> dict:
     """This rank's half of the rankgraph2 DP check: three steps at mesh
     (world,) in f32, then in bf16, from the seed's initial state on the
@@ -6107,6 +6234,249 @@ def p11_dlrm(tmp: str, world: int, dev) -> dict:
                 peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
 
 
+def p11_kind_cfg(arch: str):
+    """An arch's config at Phase 4's train cut (``TRAIN_VOCAB`` rows a
+    table), every width its own."""
+    return dataclasses.replace(get_arch(arch).config,
+                               default_vocab=TRAIN_VOCAB)
+
+
+def p11_train_batch(cfg, g: torch.Generator, n: int, dev) -> dict:
+    """``recsys_batch``'s train batch of ``n`` rows; sasrec's with a
+    positive and ``P11_SASREC_NEG`` negatives a row."""
+    b = recsys_batch(cfg, g, n, dev)
+    if cfg.kind == "sasrec":
+        V = cfg.default_vocab
+        b["pos"] = torch.randint(0, V, (n,), generator=g, device=dev,
+                                 dtype=torch.int32)
+        b["neg"] = torch.randint(0, V, (n, P11_SASREC_NEG), generator=g,
+                                 device=dev, dtype=torch.int32)
+    return b
+
+
+def leaf_rows(t: torch.Tensor) -> torch.Tensor:
+    """A table (V, D) or a stack of them (F, V, D) as rows (F*V, D)."""
+    return t.reshape(-1, t.shape[-1])
+
+
+def own_rows(idx: torch.Tensor, V: int, rows: slice) -> tuple:
+    """(mask, local rows): which of the whole rows ``idx`` of a leaf
+    (``f * V + r``) lie in this rank's rows, and where in its shard."""
+    f, r = idx // V, idx % V
+    own = (r >= rows.start) & (r < rows.stop)
+    return own, f[own] * (rows.stop - rows.start) + (r[own] - rows.start)
+
+
+class uncounted:
+    """Launches inside leave the kernels' counts as they were: the
+    checks' own launches are not the main path's."""
+
+    def __enter__(self):
+        self.saved = common.launch_counts()
+
+    def __exit__(self, *exc):
+        for name, k in common.KERNELS.items():
+            k.launches = self.saved.get(name, 0)
+
+
+def p11_kind(tmp: str, world: int, dev, ctx, arch: str) -> dict:
+    """This rank's half of a row-sharded kind's check at mesh (1, world):
+    its rows of every row-sharded leaf drawn as the parent drew the whole
+    ones, the serve outputs bitwise the parent's, the gradient rows it
+    owns against the parent's (and none elsewhere), then one
+    ``recsys_train_step`` and the parameters after it against the
+    parent's step."""
+    cfg = p11_kind_cfg(arch)
+    spec = torch.load(f"{tmp}/spec_{cfg.kind}.pt", weights_only=False)
+    V = cfg.default_vocab
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = R.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        spec["seed"]), device=dev, ctx=ctx)
+    leaves, rows = R.row_sharded_leaves(cfg, ctx), R.shard_rows(ctx, V)
+    check(leaves == R.ROW_SHARDED[cfg.kind] and all(
+        params[k].shape[-2] == V // world for k in leaves),
+        f"11b: {arch}'s leaves {leaves} are not row-sharded")
+    serve = p11_to(spec["serve"], dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = recsys_serve_step(params, cfg, serve, ctx)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    check(torch.equal(out.cpu(), spec["out"]),
+          f"11b: {arch}'s row-sharded serve outputs are not bitwise the "
+          f"parent's")
+    train = p11_to(spec["train"], dev)
+    loss, grads = loss_and_grads(params, cfg, train, ctx)
+    check(float(loss) == spec["loss"], f"11b: {arch}'s loss {float(loss)} "
+          f"vs the parent's {spec['loss']}")
+    gaps, n_own = {}, 0
+    for k in leaves:
+        gk = leaf_rows(grads[k])
+        own, local = own_rows(spec["touched"][k], V, rows)
+        local = local.to(dev)
+        got, want = gk[local], spec["rows"][k][own].to(dev)
+        gaps[k] = float(((got - want).abs() / (
+            P11_TABLE_REL * want.abs() + 1e-4 * want.abs().max())).max())
+        check(close(got, want, P11_TABLE_REL), f"11b: {arch}'s {k} gradient "
+              f"rows differ from the parent's (worst {gaps[k]:.3g} of 1)")
+        gk[local] = 0
+        check(not bool(gk.any()), f"11b: {arch}'s {k} gradient outside the "
+              f"batch's rows")
+        n_own += int(own.sum())
+    del grads, gk, got, want
+    opt = rankgraph2_optimizer()
+    st = opt.init(R.flatten_params(params))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss2, st = recsys_train_step(params, st, train, cfg, opt, ctx)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    del st
+    flat = R.flatten_params(params)
+    after = {}
+    for k, v in flat.items():
+        if k in leaves:
+            own, local = own_rows(spec["sample"][k], V, rows)
+            after[k] = p11_gaps([leaf_rows(v.detach())[local.to(dev)]],
+                                [spec["after"][k][own]])
+        else:
+            after[k] = p11_gaps([v.detach()], [spec["after"][k]])
+    worst = tuple(max(g[i] for g in after.values()) for i in range(3))
+    check(worst[0] <= P11_GAP_MEDIAN and worst[1] <= P11_GAP_FAR_SHARE,
+          f"11b: {arch}'s parameters after a step: median {worst[0]:.3g}, "
+          f"share beyond {P11_GAP_FAR} {worst[1]:.3g}")
+    return dict(serve_s=serve_s, train_s=train_s, loss=float(loss2),
+                own_rows=n_own, table_gap=max(gaps.values()), after=worst,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def p11_bags(tmp: str, world: int, dev, ctx) -> dict:
+    """This rank's half of dlrm's multi-hot bags on row shards at mesh
+    (1, world): a serve step of bags (its logits near the parent's), then
+    the bag lookup under a fixed cotangent.  Held: the bags are one
+    rounding of the model group's f32 sum of partial bags, which lies
+    within ``P11_BAG_REL`` of the one-process kernel's f32 bags; the
+    entries that differ after rounding, by at most one bf16 step unless
+    their f32 sums sit below the floor; the shard's table gradient
+    bitwise the one-process kernel's rows where no row of the shard holds
+    ``EB.PIECE`` ids (each row's terms then come in position order), else
+    within ``P11_TABLE_REL``, and zero outside the batch's rows."""
+    import torch.distributed as dist
+    spec = torch.load(f"{tmp}/spec_bags.pt", weights_only=False)
+    mine = torch.load(f"{tmp}/spec_bags-{ctx.axis_index('model')}.pt",
+                      weights_only=False)
+    cfg = P11_DLRM
+    V, D, F_ = cfg.default_vocab, cfg.embed_dim, cfg.n_sparse
+    bf16 = torch.bfloat16
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = R.dlrm_init(cfg, generator=torch.Generator(dev).manual_seed(
+        spec["seed"]), device=dev, ctx=ctx)
+    rows = R.shard_rows(ctx, V)
+    batch = p11_to(spec["batch"], dev)
+    ids = batch["sparse"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = recsys_serve_step(params, cfg, batch, ctx)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    want_l = spec["logits"].to(dev).float()
+    logit_gap = float((logits.float() - want_l).abs().max()
+                      / want_l.abs().max())
+    check(bool(torch.isfinite(logits).all()) and logit_gap <= P4_REL,
+          f"11b: dlrm bag logits {logit_gap:.3g} of the largest from the "
+          f"parent's")
+    shard = params["tables"].detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = R._bag_lookup(shard, ids, bf16, ctx, V)
+    out.backward(spec["cot"].to(dev).view_as(out))
+    torch.cuda.synchronize()
+    bag_s = time.perf_counter() - t
+    v_loc = V // world
+    with uncounted():       # the model group's f32 sum, as the op forms it
+        part = EB_OPS.embedding_bag_partials(
+            shard.detach().reshape(-1, D),
+            R._shard_bags(ids, ctx.axis_index("model"), v_loc, V), bf16)
+        dist.all_reduce(part, group=ctx.group("model"))
+    out = out.detach().reshape(-1, D)
+    check(torch.equal(part.to(bf16), out), "11b: the sharded bags are not "
+          "one rounding of the model group's f32 sum")
+    want32 = spec["bags32"].to(dev)
+    bag_gap = float(((part - want32).abs() / (
+        P11_BAG_REL * want32.abs() + 1e-4 * want32.abs().max())).max())
+    check(close(part, want32, P11_BAG_REL), f"11b: f32 bags {bag_gap:.3g} "
+          f"of the tolerance from the one-process kernel's")
+    want16 = want32.to(bf16)
+    diff = out != want16
+    a16, b16 = out.view(torch.int16).int(), want16.view(torch.int16).int()
+    far = diff & (((a16 < 0) != (b16 < 0)) | ((a16 - b16).abs() > 1))
+    floor = 1e-4 * float(want32.abs().max())
+    check(bool((want32[far].abs() <= floor).all()), "11b: a bf16 bag more "
+          "than one step from the one-process one above the floor")
+    # the shard's table gradient against the one-process kernel's rows
+    dtab = leaf_rows(shard.grad)
+    own_ids = R._shard_bags(ids, ctx.axis_index("model"), v_loc, V)
+    counts = torch.bincount(own_ids[own_ids >= 0].long(),
+                            minlength=F_ * v_loc)
+    most = int(counts.max())
+    local = mine["local"].to(dev)
+    got, want = dtab[local], mine["rows"].to(dev).float()
+    bitwise = most < EB.PIECE
+    grad_gap = float(((got - want).abs() / (
+        P11_TABLE_REL * want.abs() + 1e-4 * want.abs().max())).max())
+    check(torch.equal(got, want) if bitwise else close(got, want,
+                                                       P11_TABLE_REL),
+          f"11b: the shard's bag gradient rows differ from the one-process "
+          f"kernel's ({'bitwise' if bitwise else grad_gap})")
+    dtab[local] = 0
+    check(not bool(dtab.any()), "11b: bag gradient outside the batch's rows")
+    return dict(serve_s=serve_s, bag_s=bag_s, logit_gap=logit_gap,
+                bag_gap=bag_gap, differ=int(diff.sum()), far=int(far.sum()),
+                entries=out.numel(), most=most, bitwise=bitwise,
+                grad_gap=grad_gap, own_rows=int(local.numel()),
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def p11_retrieval(tmp: str, world: int, dev) -> dict:
+    """This rank's half of the sharded retrieval at mesh
+    ``P11_RETRIEVAL_MESH``: sasrec's and dlrm's step against
+    ``RS_CAND`` candidates; the merged top 100 against ``top_k`` of the
+    ranks' block scores gathered, and those scores against the parent's
+    one-process scores."""
+    spec = torch.load(f"{tmp}/spec_retrieval.pt", weights_only=False)
+    mesh = make_mesh(P11_RETRIEVAL_MESH, ("data", "model"))
+    ctx = ShardingCtx(make_rules(mesh), mesh)
+    axes = ctx.mesh_axes("candidates")
+    out = {}
+    for arch in P11_RETRIEVAL:
+        s = spec[arch]
+        cfg = p11_kind_cfg(arch)
+        params = R.init_params(cfg, generator=torch.Generator(dev)
+                               .manual_seed(s["seed"]), device=dev, ctx=ctx)
+        q, cand = p11_to(s["query"], dev), s["cand"].to(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        vals, idx = recsys_retrieval_step(params, cfg, q, cand, 100, ctx)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        scores, blk = retrieval_scores(params, cfg, q, cand, ctx)
+        whole = gather_rows(scores, ctx.group(axes), cand.shape[0])
+        tv, ti = top_k(whole, 100)
+        check(torch.equal(ti, idx) and torch.equal(tv, vals),
+              f"11b: {arch}'s merged top 100 is not top_k of the ranks' "
+              f"block scores")
+        one = s["scores"].to(dev)
+        d = (whole.float() - one.float()).abs()
+        out[arch] = dict(secs=secs, block=(blk.start, blk.stop),
+                         differ=int((d > 0).sum()), gap=float(d.max()),
+                         idx=idx.cpu(), vals=vals.cpu())
+        del params, scores, whole
+        torch.cuda.empty_cache()
+    return out
+
+
 def p11_rank(rank: int, world: int, tmp: str, role: str) -> None:
     """One rank of Phase 11, a ``torch.multiprocessing.spawn`` child using
     the kernels the parent built: joins the process group through a file
@@ -6126,9 +6496,22 @@ def p11_rank(rank: int, world: int, tmp: str, role: str) -> None:
     if role == "a":
         out["a"] = p11a_checks(tmp, dev)
     else:
-        out["rg"] = p11_rankgraph2(tmp, world, dev)
+        with deterministic_sums():
+            out["rg"] = p11_rankgraph2(tmp, world, dev)
         torch.cuda.empty_cache()
         out["rs"] = p11_dlrm(tmp, world, dev)
+        torch.cuda.empty_cache()
+        mesh = make_mesh((1, world), ("data", "model"))
+        ctx = ShardingCtx(make_rules(mesh), mesh)
+        t = time.perf_counter()
+        out["kinds"] = {}
+        for arch in P11_KINDS:
+            out["kinds"][arch] = p11_kind(tmp, world, dev, ctx, arch)
+            torch.cuda.empty_cache()
+        out["bags"] = p11_bags(tmp, world, dev, ctx)
+        torch.cuda.empty_cache()
+        out["retrieval"] = p11_retrieval(tmp, world, dev)
+        out["recsys_s"] = time.perf_counter() - t
     out["launches"] = common.launch_counts()
     torch.save(out, f"{tmp}/{role}-rank{rank}.pt")
     dist.barrier()
@@ -6196,41 +6579,47 @@ def p11_reference(seed: int, dev, corpus, tmp: str) -> dict:
                   for t in range(P11_STEPS)]
     batches = {"f32": batch_list, "bf16": batch_list}
     draw_list, ref = [], {}
-    g = torch.Generator().manual_seed(seed + 11)
-    for tag, cfg in (("f32", dataclasses.replace(CONFIG, dtype="float32")),
-                     ("bf16", CONFIG)):
-        state, opt = init_state(cfg, generator=torch.Generator().manual_seed(
-            seed), pool_size=P3_POOL, device=dev)
-        grad_step = make_grad_step(cfg, features=feats, shard_block=blk)
-        metrics, secs, codes, starts = [], [], [], []
-        for t in range(P11_STEPS):
-            if tag == "f32":     # the pool fills alike in both types
-                draw_list.append(draws_for(cfg, state.pool, batch_list[t],
-                                           P11_ROWS, g, shard_block=blk))
-            start = ([h.sum(dim=0) for h in state.rq_state.hists],
-                     [b.detach().float().clone() for b in layer_books(
-                         state.params["rq"], len(cfg.rq.codebook_sizes))])
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sg = grad_step(state, batch_list[t], draws=draw_list[t])
-            state, m = apply_grads(state, sg, opt)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            metrics.append({k: float(v) for k, v in m.items()})
-            codes.append(sg.aux["codes"].cpu())
-            if tag == "f32":
-                starts.append((sg.aux["rq_input"].float(), *start))
-            del sg
-            if t == 0:
-                first = p11_params(state)
-        ref[tag] = dict(metrics=metrics, secs=secs, state=state, cfg=cfg,
-                        step_codes=codes, starts=starts, params_first=first)
-    probe = {tag: ref[tag]["state"].pool.user.detach().clone()
-             for tag in ("f32", "bf16")}
-    for tag in probe:
-        r = ref[tag]
-        r["codes"] = assign_codes(r["state"].params["rq"], probe[tag],
-                                  r["cfg"].rq).cpu()
+    with deterministic_sums():     # its docstring says why
+        g = torch.Generator().manual_seed(seed + 11)
+        for tag, cfg in (("f32", dataclasses.replace(CONFIG,
+                                                     dtype="float32")),
+                         ("bf16", CONFIG)):
+            state, opt = init_state(cfg, generator=torch.Generator()
+                                    .manual_seed(seed), pool_size=P3_POOL,
+                                    device=dev)
+            grad_step = make_grad_step(cfg, features=feats,
+                                       shard_block=blk)
+            metrics, secs, codes, starts = [], [], [], []
+            for t in range(P11_STEPS):
+                if tag == "f32":     # the pool fills alike in both types
+                    draw_list.append(draws_for(cfg, state.pool,
+                                               batch_list[t], P11_ROWS, g,
+                                               shard_block=blk))
+                start = ([h.sum(dim=0) for h in state.rq_state.hists],
+                         [b.detach().float().clone() for b in layer_books(
+                             state.params["rq"], len(cfg.rq.codebook_sizes))])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sg = grad_step(state, batch_list[t], draws=draw_list[t])
+                state, m = apply_grads(state, sg, opt)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in m.items()})
+                codes.append(sg.aux["codes"].cpu())
+                if tag == "f32":
+                    starts.append((sg.aux["rq_input"].float(), *start))
+                del sg
+                if t == 0:
+                    first = p11_params(state)
+            ref[tag] = dict(metrics=metrics, secs=secs, state=state,
+                            cfg=cfg, step_codes=codes, starts=starts,
+                            params_first=first)
+        probe = {tag: ref[tag]["state"].pool.user.detach().clone()
+                 for tag in ("f32", "bf16")}
+        for tag in probe:
+            r = ref[tag]
+            r["codes"] = assign_codes(r["state"].params["rq"], probe[tag],
+                                      r["cfg"].rq).cpu()
     check_rows = {et: CHECK_ROWS for et in ("uu", "ui", "ii")}
     check_batch = ds.sample_batch(P11_STEPS, seed, check_rows)
     fresh, _ = init_state(CONFIG, generator=torch.Generator().manual_seed(
@@ -6271,6 +6660,117 @@ def p11_reference(seed: int, dev, corpus, tmp: str) -> dict:
     del whole, grads, rows
     torch.cuda.empty_cache()
     return ref
+
+
+def p11_recsys_reference(seed: int, dev, tmp: str) -> dict:
+    """The parent's one-process sides of 11b's new recsys checks, each
+    made and freed in turn, written to ``tmp`` for the ranks: for each
+    of ``P11_KINDS`` at ``TRAIN_VOCAB`` rows a table, a serve batch of
+    ``P11_KIND_ROWS`` and its outputs, a train batch, its loss and the
+    gradient rows of every row-sharded leaf that the batch reaches, then
+    one ``recsys_train_step`` and the parameters after it (the reached
+    rows and ``P11_SAMPLE_ROWS`` others of each sharded leaf, the other
+    leaves whole); dlrm's multi-hot bags (``P11_KIND_ROWS`` rows, lengths
+    1..``BAG``): the one-process kernel's f32 bags, the logits, a
+    cotangent and the backward kernel's table gradient rows, split by
+    rank; and the one-process retrieval scores of ``P11_RETRIEVAL``."""
+    cpu = torch.device("cpu")
+    out = {}
+    for i, arch in enumerate(P11_KINDS):
+        cfg = p11_kind_cfg(arch)
+        whole = R.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+            seed + 60 + i), device=dev)
+        g = torch.Generator(dev).manual_seed(seed + 70 + i)
+        serve = recsys_batch(cfg, g, P11_KIND_ROWS, dev, labels=False)
+        served = recsys_serve_step(whole, cfg, serve)
+        train = p11_train_batch(cfg, g, P11_KIND_ROWS, dev)
+        loss, grads = loss_and_grads(whole, cfg, train)
+        touched, rows = {}, {}
+        for k in R.ROW_SHARDED[cfg.kind]:
+            gk = leaf_rows(grads[k])
+            touched[k] = torch.nonzero(gk.abs().amax(dim=1) > 0).flatten()
+            rows[k] = gk[touched[k]].cpu()
+        del grads, gk
+        opt = rankgraph2_optimizer()
+        st = opt.init(R.flatten_params(whole))
+        recsys_train_step(whole, st, train, cfg, opt)
+        del st
+        sample, after = {}, {}
+        for k, v in R.flatten_params(whole).items():
+            if k in touched:
+                n = leaf_rows(v).shape[0]
+                sample[k] = torch.unique(torch.cat([touched[k], torch.randint(
+                    0, n, (P11_SAMPLE_ROWS,), generator=g, device=dev)]))
+                after[k] = leaf_rows(v)[sample[k]].detach().cpu()
+            else:
+                after[k] = v.detach().cpu()
+        torch.save(dict(seed=seed + 60 + i, serve=p11_to(serve, cpu),
+                        out=served.cpu(), train=p11_to(train, cpu),
+                        loss=float(loss), touched=p11_to(touched, cpu),
+                        rows=rows, sample=p11_to(sample, cpu), after=after),
+                   f"{tmp}/spec_{cfg.kind}.pt")
+        out[arch] = dict(loss=float(loss), touched={
+            k: int(v.numel()) for k, v in touched.items()})
+        del whole, serve, served, train, touched, rows, sample, after
+        torch.cuda.empty_cache()
+    # dlrm's multi-hot bags: the tables whole, as p11_dlrm's
+    cfg = P11_DLRM
+    V, D, F_ = cfg.default_vocab, cfg.embed_dim, cfg.n_sparse
+    bf16 = torch.bfloat16
+    whole = R.dlrm_init(cfg, generator=torch.Generator(dev).manual_seed(
+        seed + 40), device=dev)
+    g = torch.Generator(dev).manual_seed(seed + 80)
+    batch = recsys_batch(cfg, g, P11_KIND_ROWS, dev, bags=BAG, labels=False)
+    logits = recsys_serve_step(whole, cfg, batch)
+    ids = batch["sparse"]
+    offs = (torch.arange(F_, device=dev) * V)[None, :, None]
+    flat_ids = torch.where(ids >= 0, ids.long() % V + offs, -1).reshape(
+        -1, BAG).to(torch.int32)
+    table = leaf_rows(whole["tables"])
+    bags32 = EB.embedding_bag_fwd(table, flat_ids, None, "sum", bf16,
+                                  torch.float32)
+    check(torch.equal(bags32.to(bf16), EB.embedding_bag_fwd(
+        table, flat_ids, None, "sum", bf16)), "embedding_bag_fwd: its f32 "
+        "out rounded once is not its bf16 out")
+    cot = (torch.randn((flat_ids.shape[0], D), generator=g, device=dev)
+           * 1e-3).to(bf16)
+    d_table, _ = EB.embedding_bag_bwd(cot, table, flat_ids, None, "sum",
+                                      bf16)
+    reached = torch.unique(flat_ids[flat_ids >= 0].long())
+    for r in range(P11_WORLD):
+        rows = slice(r * V // P11_WORLD, (r + 1) * V // P11_WORLD)
+        own, local = own_rows(reached, V, rows)
+        torch.save(dict(local=local.cpu(),
+                        rows=d_table[reached[own]].to(bf16).cpu()),
+                   f"{tmp}/spec_bags-{r}.pt")
+    torch.save(dict(seed=seed + 40, batch=p11_to(batch, cpu),
+                    logits=logits.cpu(), bags32=bags32.cpu(),
+                    cot=cot.cpu()), f"{tmp}/spec_bags.pt")
+    out["bags"] = dict(reached=int(reached.numel()),
+                       valid=int((flat_ids >= 0).sum()))
+    del whole, table, bags32, d_table, cot, batch
+    torch.cuda.empty_cache()
+    # retrieval: one query against RS_CAND candidates, one process
+    spec = {}
+    for i, arch in enumerate(P11_RETRIEVAL):
+        cfg = p11_kind_cfg(arch)
+        params = R.init_params(cfg, generator=torch.Generator(dev)
+                               .manual_seed(seed + 90 + i), device=dev)
+        g = torch.Generator(dev).manual_seed(seed + 95 + i)
+        q = recsys_batch(cfg, g, 1, dev, labels=False)
+        cand = torch.randint(0, 4 * cfg.default_vocab, (RS_CAND,),
+                             generator=g, device=dev, dtype=torch.int32)
+        vals, idx = recsys_retrieval_step(params, cfg, q, cand, 100)
+        scores, _ = retrieval_scores(params, cfg, q, cand)
+        spec[arch] = dict(seed=seed + 90 + i, query=p11_to(q, cpu),
+                          cand=cand.cpu(), scores=scores.cpu(),
+                          vals=vals.cpu(), idx=idx.cpu())
+        del params
+        torch.cuda.empty_cache()
+    torch.save(spec, f"{tmp}/spec_retrieval.pt")
+    out["retrieval"] = {a: (spec[a]["vals"], spec[a]["idx"])
+                        for a in P11_RETRIEVAL}
+    return out
 
 
 def p11_params(state) -> dict:
@@ -6328,10 +6828,10 @@ def p11_rankgraph2_held(role: str, backend: str, world: int, tag: str,
              f"{want['metrics']}")
         loss_note = f"worst loss gap {max(gaps):.3f} of the tolerance"
     else:
-        # the bf16 global step does not repeat its own losses within the
-        # bf16 tolerance by step 2 (its sums run in another order each
-        # run), so each bf16 side is held against the f32 global step:
-        # the data-parallel step no farther from it than the global bf16
+        # by step 2 the two bf16 sides' selections have parted at near
+        # ties and their losses lie up to four tolerances apart, so each
+        # bf16 side is held against the f32 global step: the
+        # data-parallel step no farther from it than the global bf16
         # step, plus the tolerance
         gaps = [within(x, y, CARD_CPU_REL, CARD_CPU_ABS)
                 for x, y in zip(mine["metrics"], want["metrics"])]
@@ -6471,6 +6971,98 @@ def p11_summary(outs: list, key: str, field: str) -> str:
     return "[" + ", ".join(f"{o[key][field]:.4f}" for o in outs) + "]"
 
 
+def p11_recsys_held(role: str, backend: str, world: int, outs: list,
+                    ref: dict, note: str, smi: str) -> None:
+    """11b's row-sharded kinds, dlrm's bags and the retrieval: the ranks'
+    results against each other and the parent's, and their lines."""
+    for arch in P11_KINDS:
+        ks = [o["kinds"][arch] for o in outs]
+        want = ref[arch]
+        check(all(k["loss"] == want["loss"] for k in ks),
+              f"11{role}: {arch} losses {[k['loss'] for k in ks]} vs "
+              f"{want['loss']}")
+        check(sum(k["own_rows"] for k in ks) == sum(want["touched"].values()),
+              f"11{role}: {arch}: the shards' rows do not cover the batch's")
+        cfg = p11_kind_cfg(arch)
+        after = [float(f"{max(k['after'][i] for k in ks):.3g}")
+                 for i in range(3)]
+        width = {"wide_deep": f"{cfg.n_sparse} fields, embed "
+                 f"{cfg.embed_dim}, MLP {cfg.bot_mlp}",
+                 "sasrec": f"embed {cfg.embed_dim}, seq {cfg.seq_len}, "
+                 f"{cfg.n_blocks} blocks",
+                 "bst": f"embed {cfg.embed_dim}, seq {cfg.seq_len}, "
+                 f"{cfg.n_heads} heads, {cfg.n_sparse} profile fields"}
+        print(f"[phase11{role}] backend {backend}, mesh (1, {world}): "
+              f"{arch} at full width ({width[cfg.kind]}), {TRAIN_VOCAB:,} "
+              f"rows a table, "
+              f"{', '.join(R.ROW_SHARDED[cfg.kind])} row-sharded: "
+              f"{P11_KIND_ROWS:,} serve outputs bitwise the parent's; the "
+              f"gradient rows ({json.dumps(want['touched'])} reached) "
+              f"within {P11_TABLE_REL} (worst "
+              f"{max(k['table_gap'] for k in ks):.3g} of 1), none "
+              f"elsewhere; after one recsys_train_step the parameters' "
+              f"worst (median, share beyond {P11_GAP_FAR}, largest) gap "
+              f"{after}; "
+              f"serve seconds {[round(k['serve_s'], 4) for k in ks]}, train "
+              f"step seconds {[round(k['train_s'], 4) for k in ks]}, peak GB "
+              f"{[round(k['peak_gb'], 3) for k in ks]} ({note}; {smi})")
+    bs = [o["bags"] for o in outs]
+    b0 = bs[0]
+    check(all(b["differ"] == b0["differ"] for b in bs),
+          f"11{role}: the ranks' bags differ from each other")
+    print(f"[phase11{role}] dlrm-rm2 multi-hot bags on row shards (mesh "
+          f"(1, {world}), {P11_KIND_ROWS:,} rows x {DLRM.n_sparse} bags of "
+          f"1..{BAG} ids, {ref['bags']['valid']:,} valid, "
+          f"{ref['bags']['reached']:,} rows reached): embedding_bag_fwd "
+          f"with f32 out on each shard, the model group's f32 sum within "
+          f"{P11_BAG_REL} of the one-process kernel's f32 bags (worst "
+          f"{max(b['bag_gap'] for b in bs):.3g} of 1), rounded once: "
+          f"{b0['differ']:,} of {b0['entries']:,} bf16 entries differ, "
+          f"{b0['far']} by more than one step (each below the floor); "
+          f"logits {max(b['logit_gap'] for b in bs):.3g} of the largest "
+          f"from the parent's (limit {P4_REL}); the shard's table gradient "
+          f"(embedding_bag_bwd into the shard) "
+          + ("bitwise the one-process kernel's rows (no row of a shard "
+             f"holds {EB.PIECE} ids: at most "
+             f"{max(b['most'] for b in bs)}; each row's terms in position "
+             f"order)" if all(b["bitwise"] for b in bs) else
+             f"within {P11_TABLE_REL} of the one-process kernel's rows "
+             f"(worst {max(b['grad_gap'] for b in bs):.3g} of 1; a shard "
+             f"row holds {max(b['most'] for b in bs)} ids, pieces of "
+             f"{EB.PIECE} cut elsewhere)")
+          + f", none elsewhere; serve seconds "
+          f"{[round(b['serve_s'], 4) for b in bs]}, bag forward and "
+          f"backward seconds {[round(b['bag_s'], 4) for b in bs]}, peak GB "
+          f"{[round(b['peak_gb'], 3) for b in bs]} ({note}; {smi})")
+    for arch in P11_RETRIEVAL:
+        rs = [o["retrieval"][arch] for o in outs]
+        vals, idx = ref["retrieval"][arch]
+        check(all(torch.equal(r["idx"], rs[0]["idx"])
+                  and torch.equal(r["vals"], rs[0]["vals"]) for r in rs),
+              f"11{role}: {arch}'s ranks return different top 100s")
+        swaps = sorted(set(idx.tolist()) ^ set(rs[0]["idx"].tolist()))
+        same = (torch.equal(idx, rs[0]["idx"])
+                and torch.equal(vals, rs[0]["vals"]))
+        differ = max(r["differ"] for r in rs)
+        check(same and differ == 0, f"11{role}: {arch}: {differ} block "
+              f"scores differ from the one-process step's (largest gap "
+              f"{max(r['gap'] for r in rs):.3g}), the merged top 100 "
+              f"{'equal to' if same else 'not'} the one-process step's: "
+              f"dot_scores promises both bitwise")
+        print(f"[phase11{role}] retrieval at mesh {P11_RETRIEVAL_MESH} "
+              f"(candidates over data, rows over model): {arch} against "
+              f"{RS_CAND:,} candidates, blocks "
+              f"{sorted({r['block'] for r in rs})}; the merged top 100 "
+              f"bitwise top_k of the ranks' block scores; block scores "
+              f"that differ from the one-process step's: {differ} (largest "
+              f"gap {max(r['gap'] for r in rs):.3g}); the top 100 "
+              f"{'equal to' if same else 'not equal to'} the one-process "
+              f"step's (ids in one only: {swaps}); seconds "
+              f"{[round(r['secs'], 4) for r in rs]} ({note}; {smi})")
+    print(f"[phase11{role}] the row-sharded recsys checks took "
+          f"{[round(o['recsys_s'], 2) for o in outs]} s a rank")
+
+
 def phase11(seed: int, dev, corpus, smi: str) -> dict:
     """Phase 11: 11a on one NCCL rank (and 11b on NCCL, one rank a card,
     where the machine has four cards), 11b on four gloo ranks sharing
@@ -6481,6 +7073,11 @@ def phase11(seed: int, dev, corpus, smi: str) -> dict:
         t = time.perf_counter()
         ref = p11_reference(seed, dev, corpus, tmp)
         ref_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ref["recsys"] = p11_recsys_reference(seed, dev, tmp)
+        print(f"[phase11] the parent's side of the row-sharded recsys "
+              f"checks ({', '.join(P11_KINDS)}, dlrm's bags, retrieval) took "
+              f"{time.perf_counter() - t:.2f} s ({smi})")
         rows, blk = P11_ROWS, shard_block_for(P11_ROWS, P11_WORLD)
         c = -(-rows // P11_WORLD)
         side = (f"shard-local negatives of {blk} rows" if blk else
@@ -6552,6 +7149,8 @@ def phase11(seed: int, dev, corpus, smi: str) -> dict:
                   f"step seconds {p11_summary(outs, 'rs', 'train_s')}, peak "
                   f"GB {p11_summary(outs, 'rs', 'peak_gb')}; wall "
                   f"{wall:.2f} s ({note}; {smi})")
+            p11_recsys_held(role, backend, world, outs, ref["recsys"], note,
+                            smi)
     print(f"[phase11] wall {time.perf_counter() - t_all:.2f} s; the ranks' "
           f"launches {json.dumps(nonzero(total))}")
     return total
@@ -7158,7 +7757,7 @@ def main() -> int:
         return 0
     if args.distributed_only:
         print_build(common.build(["rq_assign", "ppr_walk",
-                                  "fused_contrastive"]))
+                                  "fused_contrastive", "embedding_bag"]))
         t = time.perf_counter()
         corpus = p11_corpus(args.seed, dev)
         print(f"[phase11] Phase 3's corpus made in "

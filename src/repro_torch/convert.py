@@ -11,7 +11,8 @@ the RQ histograms and the negative pool over, and
 optimizer's moments, RQ state, pool, step), so the port can start a
 train step or a lifecycle runtime from the exact JAX state.  ``recsys_params_from_jax`` carries
 a recsys model's tree over (MLP ``w`` transposed, everything else as
-it is).  ``lm_params_from_jax`` carries an LM's tree over (dense or MoE), its
+it is; under a mesh a rank's rows of the row-sharded tables).
+``lm_params_from_jax`` carries an LM's tree over (dense or MoE), its
 stacked layers split into one dict per layer.
 """
 from __future__ import annotations
@@ -27,6 +28,7 @@ from repro_torch.core.negatives import NegPoolState
 from repro_torch.core.rq_index import RQState, codebooks_module
 from repro_torch.core.trainer import TrainState, named_params
 from repro_torch.models.lm.model import shard_params
+from repro_torch.models.recsys.models import ROW_SHARDED, shard_rows
 from repro_torch.optim.optimizers import AdamState, is_sparse
 from repro_torch.kernels.common import resolve_device
 
@@ -149,15 +151,26 @@ def _recsys_tree(tree, dev):
 
 
 def recsys_params_from_jax(tree: Dict[str, Any], kind: str, *,
-                           device=None) -> Dict[str, Any]:
+                           device=None, ctx=None) -> Dict[str, Any]:
     """A JAX recsys params tree (numpy leaves) of model ``kind`` (dlrm,
     wide_deep, sasrec, bst) -> the port's tree on ``device``: linear
     layers ``{"w", "b"}`` with ``w`` transposed to ``(d_out, d_in)``;
-    tables and the attention matrices as they are."""
+    tables and the attention matrices as they are.  Under ``ctx`` (a
+    ``ShardingCtx`` over a mesh) each row-sharded leaf of the kind
+    (``models.recsys.models.ROW_SHARDED``) keeps this rank's rows
+    (``shard_rows`` of its whole row count), as
+    ``init_params(ctx=)`` holds them."""
     if set(tree) != RECSYS_KEYS[kind]:
         raise ValueError(f"a {kind} tree has keys {sorted(RECSYS_KEYS[kind])}"
                          f", got {sorted(tree)}")
-    return _recsys_tree(tree, resolve_device(device))
+    out = _recsys_tree(tree, resolve_device(device))
+    for k in ROW_SHARDED[kind]:
+        dim = out[k].dim() - 2          # a stack (F, V, D) by V, else (V, D)
+        rows = shard_rows(ctx, out[k].shape[dim])
+        if rows is not None:
+            out[k] = out[k].narrow(dim, rows.start,
+                                   rows.stop - rows.start).contiguous()
+    return out
 
 
 def lm_params_from_jax(tree: Dict[str, Any], *, device=None, ctx=None,

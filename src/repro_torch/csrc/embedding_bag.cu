@@ -10,11 +10,12 @@
 //   w[l]   = 1{ids[b,l] >= 0} * weights[b,l]          (weights optional)
 //   cnt    = max(sum_l w[l], 1e-9)                    (mean mode only)
 //   out[b] = sum_l w[l] * c(table[ids[b,l]])  [/ cnt]
-// accumulated in f32 and written once in the compute type.  c() rounds
-// each loaded value to the compute type: with an f32 table and bf16
-// compute this equals the Pallas kernel run on the bf16-cast table (the
-// cast is elementwise), without casting the whole table first.  The
-// backward writes
+// accumulated in f32 and written once in the output type (the compute
+// type, or f32 for a partial bag that a sum across ranks will round
+// later).  c() rounds each loaded value to the compute type: with an
+// f32 table and bf16 compute this equals the Pallas kernel run on the
+// bf16-cast table (the cast is elementwise), without casting the whole
+// table first.  The backward writes
 //   d_table[v] = c(sum over (b, l) with ids[b,l] = v of g[b] * w[l] [/ cnt])
 // accumulated in f32, rounded once to the compute type (ops.py:64's
 // astype) and stored in the table's type (the cast's VJP), and, with
@@ -176,7 +177,7 @@ __device__ __forceinline__ void bag_sum(const T* __restrict__ table,
   }
 }
 
-// Forward: out (N, D) in the compute type O.
+// Forward: out (N, D) in the output type O (the compute type or f32).
 template <typename T, typename O, int CPL, bool RB>
 __global__ void __launch_bounds__(NT)
 fwd_kernel(const T* __restrict__ table, long long V, int D,
@@ -501,15 +502,20 @@ static void fwd_cpl(int cpl, dim3 grid, cudaStream_t s, const void* table,
 }
 
 // table (V, D) of table_dtype (0 f32, 1 bf16); ids (N, L) int32 (-1
-// pad); weights (N, L) f32 or null; out (N, D) of compute_dtype.
+// pad); weights (N, L) f32 or null; each row rounded through
+// compute_dtype; out (N, D) of out_dtype, which is compute_dtype or f32
+// (0): f32 out keeps the bag's f32 sum unrounded, for partial bags that
+// are summed across ranks before their one rounding.
 // Requires 1 <= D <= 256 (the wrapper checks).
 extern "C" int embedding_bag_fwd_launch(
-    int table_dtype, int compute_dtype, const void* table, long long V,
-    int D, const void* ids, const void* weights, long long N, int L,
-    int mean, void* out, void* stream, int device) {
+    int table_dtype, int compute_dtype, int out_dtype, const void* table,
+    long long V, int D, const void* ids, const void* weights, long long N,
+    int L, int mean, void* out, void* stream, int device) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   if (N == 0) return (int)cudaGetLastError();
+  if (out_dtype != 0 && out_dtype != compute_dtype)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const dim3 grid((unsigned)((N + WARPS - 1) / WARPS));
   const int cpl = cols_per_lane(D);
@@ -518,10 +524,13 @@ extern "C" int embedding_bag_fwd_launch(
   if (table_dtype == 0 && compute_dtype == 0)
     fwd_cpl<float, float, false>(cpl, grid, s, table, V, D, id, w, N, L,
                                  mean, out);
+  else if (table_dtype == 0 && out_dtype == 0)  // bf16 rows, f32 out
+    fwd_cpl<float, float, true>(cpl, grid, s, table, V, D, id, w, N, L,
+                                mean, out);
   else if (table_dtype == 0)
     fwd_cpl<float, __nv_bfloat16, true>(cpl, grid, s, table, V, D, id, w,
                                         N, L, mean, out);
-  else if (compute_dtype == 0)
+  else if (compute_dtype == 0 || out_dtype == 0)
     fwd_cpl<__nv_bfloat16, float, false>(cpl, grid, s, table, V, D, id, w,
                                          N, L, mean, out);
   else

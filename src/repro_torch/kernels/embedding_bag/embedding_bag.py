@@ -26,7 +26,7 @@ _MODES = {"sum": 0, "mean": 1}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 FWD = CudaKernel("embedding_bag_fwd", "embedding_bag_fwd_launch",
-                 [_I, _I, _P, _LL, _I, _P, _P, _LL, _I, _I, _P, _P, _I],
+                 [_I, _I, _I, _P, _LL, _I, _P, _P, _LL, _I, _I, _P, _P, _I],
                  source="embedding_bag")
 BWD = CudaKernel("embedding_bag_bwd", "embedding_bag_bwd_launch",
                  [_I, _I, _P, _P, _LL, _I, _P, _P, _LL, _I, _P, _P, _P, _I,
@@ -67,19 +67,26 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def embedding_bag_fwd(table: torch.Tensor, ids: torch.Tensor,
                       weights: Optional[torch.Tensor] = None,
                       mode: str = "sum",
-                      compute_dtype: Optional[torch.dtype] = None
+                      compute_dtype: Optional[torch.dtype] = None,
+                      out_dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
     """Forward kernel.  table (V, D) f32 or bf16, ids (N, L) int32 (-1
     pad), weights (N, L) f32 or None, contiguous CUDA tensors on one
-    device.  Returns (N, D) in ``compute_dtype`` (default: the table's
-    type): f32 sums of rows rounded to the compute type, rounded once."""
+    device.  Returns (N, D): f32 sums of rows rounded to ``compute_dtype``
+    (default: the table's type), rounded once to ``out_dtype`` (default:
+    the compute type; f32 keeps the sums unrounded, for partial bags that
+    are summed before their one rounding)."""
     compute_dtype = compute_dtype or table.dtype
+    out_dtype = out_dtype or compute_dtype
     V, D, N, L = _check(table, ids, weights, mode, compute_dtype)
-    out = torch.empty((N, D), dtype=compute_dtype, device=table.device)
+    if out_dtype not in (compute_dtype, torch.float32):
+        raise ValueError(f"embedding_bag_fwd writes the compute type or "
+                         f"float32, got {out_dtype}")
+    out = torch.empty((N, D), dtype=out_dtype, device=table.device)
     FWD.launch(_DTYPE_CODE[table.dtype], _DTYPE_CODE[compute_dtype],
-               table.data_ptr(), V, D, ids.data_ptr(), _ptr(weights), N, L,
-               _MODES[mode], out.data_ptr(), stream_ptr(table),
-               table.device.index)
+               _DTYPE_CODE[out_dtype], table.data_ptr(), V, D,
+               ids.data_ptr(), _ptr(weights), N, L, _MODES[mode],
+               out.data_ptr(), stream_ptr(table), table.device.index)
     return out
 
 

@@ -6,6 +6,13 @@ CPU tensors both come from the plain versions in ``ref.py``.  Either
 way the backward is ``repro/kernels/embedding_bag/ops.py::_bwd``'s:
 a dense f32 segment-sum rounded once to the compute type, not autograd
 through the gather.
+
+``embedding_bag_partials`` and ``embedding_bag_table_grad`` are the two
+halves without autograd, for bags over a row shard
+(``models.recsys.models._RowShardBag``): f32 sums of a shard's rows,
+which a sum across ranks rounds once, and the sum's ``d_table`` into the
+shard.  They follow the device the same way: a CUDA tensor launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -70,3 +77,32 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor,
         table = table.contiguous()
     return EmbeddingBag.apply(table, ids, weights, mode,
                               compute_dtype or table.dtype)
+
+
+def embedding_bag_partials(table: torch.Tensor, ids: torch.Tensor,
+                           compute_dtype: torch.dtype) -> torch.Tensor:
+    """table (V, D), ids (B, L) int (-1 pad) -> (B, D) f32: each bag's
+    f32 sum of its rows rounded to ``compute_dtype``, not rounded after
+    (the forward kernel with f32 out on CUDA tensors)."""
+    if _on_card(table):
+        return embedding_bag_fwd(table.contiguous(),
+                                 ids.to(torch.int32).contiguous(), None,
+                                 "sum", compute_dtype, torch.float32)
+    return embedding_bag_ref(table, ids, None, "sum", compute_dtype,
+                             torch.float32)
+
+
+def embedding_bag_table_grad(g: torch.Tensor, table: torch.Tensor,
+                             ids: torch.Tensor, compute_dtype: torch.dtype
+                             ) -> torch.Tensor:
+    """d_table (V, D) in the table's type of a sum of bags (mode "sum",
+    no weights) with cotangent ``g`` (B, D): the f32 segment-sum rounded
+    once to ``compute_dtype`` (the backward kernel on CUDA tensors)."""
+    g = g.to(compute_dtype).contiguous()
+    if _on_card(table):
+        d_table, _ = embedding_bag_bwd(g, table.contiguous(),
+                                       ids.to(torch.int32).contiguous(),
+                                       None, "sum", compute_dtype)
+        return d_table
+    return embedding_bag_bwd_ref(g, table, ids, None, "sum",
+                                 compute_dtype)[0]

@@ -5,7 +5,8 @@ the CUDA kernels (``csrc/embedding_bag.cu``) are held against.
     valid entries) of table rows, ids < 0 as padding, as
     ``repro/kernels/embedding_bag/ref.py::embedding_bag_ref`` and the
     Pallas kernel compute it: f32 accumulation, one rounding to the
-    compute type at the end;
+    compute type at the end (``out_dtype=torch.float32``: not rounded,
+    the partial bags of a row shard, ``models.recsys.models``);
   * ``embedding_bag_bwd_ref``: what ``repro/kernels/embedding_bag/
     ops.py::_bwd`` returns: the dense segment-sum of the weighted
     upstream gradient into the table (f32, rounded once to the compute
@@ -48,16 +49,19 @@ def _count(w: torch.Tensor) -> torch.Tensor:
 def embedding_bag_ref(table: torch.Tensor, ids: torch.Tensor,
                       weights: Optional[torch.Tensor] = None,
                       mode: str = "sum",
-                      compute_dtype: Optional[torch.dtype] = None
+                      compute_dtype: Optional[torch.dtype] = None,
+                      out_dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
     """table (V, D), ids (B, L) int (-1 = pad), weights (B, L) optional.
-    Returns (B, D) in ``compute_dtype`` (default: the table's type)."""
+    Returns (B, D) in ``out_dtype`` (default: ``compute_dtype``, whose
+    default is the table's type): the f32 sums of rows rounded through
+    the compute type, rounded once to ``out_dtype`` (f32: unrounded)."""
     compute_dtype = compute_dtype or table.dtype
     mask, w = _weights(ids, weights)
     out = (_rows(table, ids, mask, compute_dtype) * w[..., None]).sum(dim=1)
     if mode == "mean":
         out = out / _count(w)
-    return out.to(compute_dtype)
+    return out.to(out_dtype or compute_dtype)
 
 
 def embedding_bag_bwd_ref(g: torch.Tensor, table: torch.Tensor,

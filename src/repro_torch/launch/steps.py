@@ -41,13 +41,14 @@ The recsys steps:
     candidate items, top k (100) with the lowest index first among equal
     scores, as ``jax.lax.top_k``.
 
-The recsys train and serve steps take ``ctx`` (a ``ShardingCtx``; dlrm
-only): under a mesh that shards the tables' rows every rank passes the
-whole batch and its own rows of the tables (``models.dlrm_init(ctx=)``),
-the lookup is ``models._lookup_sharded``, and the rest of the model runs
-replicated, so the loss, the dense gradients and the logits are the
-whole batch's on every rank and each rank's table gradient covers its
-own rows.
+The recsys steps take ``ctx`` (a ``ShardingCtx``), every kind: under a
+mesh that shards the tables' rows every rank passes the whole batch and
+its own rows of the tables (``models.init_params(ctx=)``), the lookups
+are ``models._lookup_sharded`` and ``_bag_sharded``, and the rest of the
+model runs replicated, so the loss, the dense gradients and the logits
+are the whole batch's on every rank and each rank's table gradients
+cover its own rows.  The retrieval step splits the candidates over the
+``candidates`` rule's axes and merges the ranks' top k.
 
 Batches are dicts of tensors on the parameters' device: ``dense``,
 ``sparse`` ((B, F) ids, or (B, F, L) multi-hot bags for dlrm) and
@@ -74,24 +75,22 @@ Batch = Dict[str, torch.Tensor]
 def recsys_forward(params: R.Params, cfg: RecsysConfig, batch: Batch,
                    ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     kind = cfg.kind
-    R.check_ctx(cfg, ctx)
     if kind == "dlrm":
         return R.dlrm_forward(params, cfg, batch["dense"], batch["sparse"],
                               ctx)
     if kind == "wide_deep":
-        return R.wide_deep_forward(params, cfg, None, batch["sparse"])
+        return R.wide_deep_forward(params, cfg, None, batch["sparse"], ctx)
     if kind == "sasrec":
-        return R.sasrec_user_repr(params, cfg, batch["seq"])
+        return R.sasrec_user_repr(params, cfg, batch["seq"], ctx)
     return R.bst_forward(params, cfg, batch["seq"], batch["target"],
-                         batch["other"])
+                         batch["other"], ctx)
 
 
 def recsys_loss(params: R.Params, cfg: RecsysConfig, batch: Batch,
                 ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     if cfg.kind == "sasrec":
-        R.check_ctx(cfg, ctx)
         return R.sasrec_loss(params, cfg, batch["seq"], batch["pos"],
-                             batch["neg"])
+                             batch["neg"], ctx)
     return R.bce_loss(recsys_forward(params, cfg, batch, ctx),
                       batch["labels"])
 
@@ -117,14 +116,14 @@ def recsys_train_step(params: R.Params, opt_state, batch: Batch,
     ``rankgraph2_optimizer()``, its state ``optimizer.init(
     flatten_params(params))``.  Under a ``ctx`` that shards the tables'
     rows the global norm of the clip is the whole model's: the squared
-    norms of the shards are summed over the model group."""
+    norms of every row-sharded leaf's shards (``row_sharded_leaves``)
+    are summed over the model group."""
     loss, grads = loss_and_grads(params, cfg, batch, ctx)
     flat = R.flatten_params(params)
     with torch.no_grad():
-        sharded = R.row_shards(ctx, cfg.default_vocab) > 1
-        grads, _ = O.clip_by_global_norm(
-            grads, 1.0, {"tables": (None, ctx.group("model"), None)}
-            if sharded else None)
+        shards = {k: (ctx.group("model"),)
+                  for k in R.row_sharded_leaves(cfg, ctx)}
+        grads, _ = O.clip_by_global_norm(grads, 1.0, shards or None)
         upd, opt_state = optimizer.update(grads, opt_state, flat)
         del grads
         O.apply_updates(flat, upd)
@@ -152,33 +151,110 @@ def top_k(scores: torch.Tensor, k: int
     return scores[idx], idx
 
 
+SCORE_ROWS = 1 << 17  # candidate rows ``dot_scores`` scores at a time
+
+
+def dot_scores(u: torch.Tensor, cvec: torch.Tensor) -> torch.Tensor:
+    """(1, D) query x (N, D) candidate rows -> (N,) scores in ``u``'s
+    type: each the f32 sum of its D products (exact in f32 for bf16
+    inputs), rounded once, as ``u @ cvec.T`` with f32 accumulation.  A
+    row-wise reduction: a candidate's score depends on its row alone,
+    where a matrix product's CPU and cuBLAS kernels sum a column of an
+    edge tile in another order, so that equal candidates at other
+    positions, or in a block of another width, would not tie.  Scored
+    ``SCORE_ROWS`` rows at a time (the rows cast to f32 inside the
+    product), so that the f32 products stay small: 32 MB at D 64."""
+    uf = u.to(torch.float32)
+    out = torch.empty(cvec.shape[0], dtype=torch.float32, device=cvec.device)
+    for r0 in range(0, cvec.shape[0], SCORE_ROWS):
+        torch.sum(cvec[r0:r0 + SCORE_ROWS] * uf, dim=-1,
+                  out=out[r0:r0 + SCORE_ROWS])
+    return out.to(u.dtype)
+
+
+def merge_top_k(values: torch.Tensor, indices: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k best of candidate (value, index) pairs, in ``top_k``'s order:
+    value descending, the lower index first among equal values."""
+    order = torch.argsort(indices, stable=True)  # position order = index
+    v, i = top_k(values[order], k)
+    return v, indices[order][i]
+
+
+def _candidate_axes(ctx: Optional[ShardingCtx]) -> Tuple[str, ...]:
+    """The mesh axes of the ``candidates`` rule that hold more than one
+    rank (none in one process)."""
+    if ctx is None or ctx.mesh is None:
+        return ()
+    return tuple(a for a in ctx.mesh_axes("candidates") if ctx.size(a) > 1)
+
+
 @torch.no_grad()
-def recsys_retrieval_step(params: R.Params, cfg: RecsysConfig,
-                          batch: Batch, cand_ids: torch.Tensor,
-                          k: int = 100) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One query (a batch of one) against ``cand_ids`` (N,): the query
-    representation (sasrec: its user representation; the others: the
-    mean of its rows in the first table, in the stored type, then cast),
-    dot scores in the compute type, top ``k``.  Returns (scores, indices
-    into ``cand_ids``)."""
-    compute = R.DTYPES[cfg.dtype]
+def retrieval_scores(params: R.Params, cfg: RecsysConfig, batch: Batch,
+                     cand_ids: torch.Tensor,
+                     ctx: Optional[ShardingCtx] = None
+                     ) -> Tuple[torch.Tensor, slice]:
+    """(scores, block): this rank's block of ``cand_ids`` (N,) and its dot
+    scores (``dot_scores``, in the compute type) against the query
+    representation of ``batch`` (a batch of one; sasrec: its user
+    representation; the others: the mean of its rows in the first table,
+    in the stored type, then cast).  The block is the
+    ``collectives.block_rows`` block of the ``candidates`` rule's axes
+    under ``ctx``, all the candidates otherwise; the rows come through
+    the sharded lookup."""
+    compute, V = R.DTYPES[cfg.dtype], cfg.default_vocab
     if cfg.kind == "sasrec":
-        u = R.sasrec_user_repr(params, cfg, batch["seq"])
-    elif cfg.kind == "bst":
-        V = params["items"].shape[0]
-        e = R.take_rows(params["items"], torch.remainder(batch["seq"][0], V))
-        u = torch.mean(e, dim=0, keepdim=True).to(compute)
+        u = R.sasrec_user_repr(params, cfg, batch["seq"], ctx)
     else:
-        tab = params["tables"]
-        e = R.take_rows(tab[0], torch.remainder(batch["sparse"][0],
-                                                tab.shape[1]))
+        tab = params["items"] if cfg.kind == "bst" else params["tables"][0]
+        ids = batch["seq"] if cfg.kind == "bst" else batch["sparse"]
+        e = R.take_rows(tab, torch.remainder(ids[0], V), ctx=ctx, vocab=V)
         u = torch.mean(e, dim=0, keepdim=True).to(compute)
     table = params["items"] if cfg.kind in ("sasrec", "bst") \
         else params["tables"][0]
-    cvec = R.take_rows(table, torch.remainder(cand_ids, table.shape[0]),
-                       u.dtype)
-    scores = (u @ cvec.T)[0]
-    return top_k(scores, k)
+    axes = _candidate_axes(ctx)
+    if not axes:
+        cvec = R.take_rows(table, torch.remainder(cand_ids, V), u.dtype,
+                           ctx, V)
+        return dot_scores(u, cvec), slice(0, cand_ids.shape[0])
+    blk = C.block_rows(cand_ids.shape[0], ctx.size(axes),
+                       ctx.axis_index(axes))
+    cvec = R.take_rows_in_group(table, torch.remainder(cand_ids[blk], V),
+                                u.dtype, ctx, V)
+    return dot_scores(u, cvec), blk
+
+
+@torch.no_grad()
+def recsys_retrieval_step(params: R.Params, cfg: RecsysConfig,
+                          batch: Batch, cand_ids: torch.Tensor,
+                          k: int = 100, ctx: Optional[ShardingCtx] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One query (a batch of one) against ``cand_ids`` (N,): the scores of
+    ``retrieval_scores``, top ``k``.  Returns (scores, indices into
+    ``cand_ids``).
+
+    Under ``ctx`` (after the reference's ``retrieval_cand`` step, which
+    shards the candidates by the ``candidates`` rule): every rank passes
+    the whole query and candidates and scores its block; each rank takes
+    its block's own top ``k``, the candidate group gathers (values, global
+    indices) and merges them in ``top_k``'s order, so every rank returns
+    the same k: the one-process step's, since ``dot_scores`` gives a
+    candidate the same score in any block."""
+    scores, blk = retrieval_scores(params, cfg, batch, cand_ids, ctx)
+    axes = _candidate_axes(ctx)
+    if not axes:
+        return top_k(scores, k)
+    # each block's top, padded to the longest (index -1) for the gather
+    kk = min(k, -(-cand_ids.shape[0] // ctx.size(axes)))
+    vals = scores.new_zeros(kk)
+    idx = torch.full((kk,), -1, dtype=torch.long, device=scores.device)
+    if scores.shape[0]:
+        v, i = top_k(scores, k)
+        vals[:v.shape[0]], idx[:i.shape[0]] = v, i + blk.start
+    group = ctx.group(axes)
+    all_v, all_i = C.gather_rows(vals, group), C.gather_rows(idx, group)
+    keep = all_i >= 0
+    return merge_top_k(all_v[keep], all_i[keep], k)
 
 
 def lm_rules(arch_id: str, shape: ShapeSpec, mesh,

@@ -103,9 +103,9 @@ def _batches(cfg: RecsysConfig, rng: np.random.Generator, batch: int):
 def run_recsys(cfg: RecsysConfig, steps: int, batch: int = 256,
                device=None, ctx: Optional[ShardingCtx] = None) -> float:
     """``steps`` unclipped ``rankgraph2_optimizer`` steps; returns the
-    last loss.  Under ``ctx`` (dlrm) every rank runs the same batches on
-    its row shard of the tables (``models.dlrm_init(ctx=)``) and gets
-    the same loss."""
+    last loss.  Under ``ctx`` every rank runs the same batches on its row
+    shards of the kind's tables (``models.init_params(ctx=)``,
+    ``row_sharded_leaves``) and gets the same loss."""
     dev = resolve_device(device)
     rng = np.random.default_rng(0)
     params = R.init_params(cfg, generator=torch.Generator(dev).manual_seed(0),

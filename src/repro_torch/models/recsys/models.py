@@ -1,5 +1,6 @@
 """RecSys architecture family: dlrm-rm2, wide-deep, sasrec, bst, as
-``repro/models/recsys/models.py`` (single-device half).
+``repro/models/recsys/models.py``, on one process or row-sharded
+across ranks.
 
 Parameters are the JAX package's trees: nested dicts and lists of
 tensors, MLP layers as ``{"w": (d_out, d_in), "b": (d_out,)}`` in
@@ -16,33 +17,42 @@ copy of 66.56 GB of tables.  Multi-hot bags (``dlrm_forward`` with
 (B, F, L) ids) go through the EmbeddingBag op, whose kernels round each
 row to the compute type as they load it.
 
-``dlrm_init``, ``dlrm_forward``, the recsys train and serve steps and
-``run_recsys`` take a ``ShardingCtx`` (``ctx=None``: one process).
-Under a mesh with a ``"model"`` axis of ``nm > 1`` ranks, a vocabulary
-``V`` that ``nm`` divides and ``rules["table_rows"] == "model"`` (the
-reference's dispatch, ``row_shards``), each rank of the model axis holds
-rows ``[mi*V/nm, (mi+1)*V/nm)`` of every field's table, and the lookup
-is ``_lookup_sharded``: each rank gathers the rows it owns (zeros for
-the rest), the batch is padded to the data axes and split over them as
-the reference does, the model group sums, and the data group gathers
-the blocks back, so every rank holds the whole batch's rows, bitwise
-the local gather (``x + 0 == x``).  Its backward (``_RowShardLookup``)
-gives each rank's shard the gradient of the rows it owns, from the
-whole batch.
+Every init and forward, the recsys steps and ``run_recsys`` take a
+``ShardingCtx`` (``ctx=None``: one process).  Under a mesh with a
+``"model"`` axis of ``nm > 1`` ranks, a vocabulary ``V`` that ``nm``
+divides and ``rules["table_rows"] == "model"`` (the reference's
+dispatch, ``row_shards``), each rank of the model axis holds rows
+``[mi*V/nm, (mi+1)*V/nm)`` of every leaf that ``row_sharded_leaves``
+names (dlrm ``tables``; wide-deep ``tables`` and ``wide``; sasrec
+``items``; bst ``items`` and ``other``), and the lookup is
+``_lookup_sharded``: each rank gathers the rows it owns (zeros for the
+rest), the batch is padded to the data axes and split over them as the
+reference does, the model group sums, and the data group gathers the
+blocks back, so every rank holds the whole batch's rows, bitwise the
+local gather (``x + 0 == x``).  Its backward (``_RowShardLookup``) gives
+each rank's shard the gradient of the rows it owns, from the whole
+batch.  dlrm's multi-hot bags over row shards go through
+``_bag_sharded`` (``_RowShardBag``) on the EmbeddingBag kernels: f32
+partial bags of a rank's rows, summed over the model group and rounded
+once to the compute type; the backward kernel writes a rank's shard.
 
-Departures: a rank's tensor holds only its rows, so the lookup is told
-the table's whole row count (``vocab``; by default the tensor's own,
-the table whole).  The reference's ``REPRO_BASELINE`` switch to the
-local gather is not read.  The model runs replicated on every rank
-around the lookup (the port has no GSPMD), so the gradient coming into
-the lookup is the same on every rank and the dense parameters'
-gradients are whole on every rank.  Only ``dlrm`` takes a sharding
-context; wide-deep, sasrec and bst raise under one that shards rows.
+Departures: a rank's tensor holds only its rows, so every lookup and
+every ``remainder`` takes the whole row count from ``cfg.default_vocab``
+(the reference reads ``.shape``, which under GSPMD is the global shape);
+the one-process bag lookup still reads it from the table, as the
+reference does.  The reference's bag lookup runs on the whole table
+under GSPMD, rounding each bag once; the port sums f32 partial bags over
+the model group before that one rounding, so a bag may differ from the
+one-process sum by the order of its f32 additions.  The reference's
+``REPRO_BASELINE`` switch to the local gather is not read.  The model
+runs replicated on every rank around the lookup (the port has no
+GSPMD), so the gradient coming into the lookup is the same on every rank
+and the dense parameters' gradients are whole on every rank.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -51,7 +61,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.distributed.sharding import ShardingCtx, mesh_sizes
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ops import (
+    embedding_bag, embedding_bag_partials, embedding_bag_table_grad)
 from repro_torch.nn import core as nn
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -87,17 +98,19 @@ def _init_ctx(generator: Optional[torch.Generator], device):
 
 def _tables_init(generator: torch.Generator, shape, dtype: torch.dtype,
                  device, rows: Optional[slice] = None) -> torch.Tensor:
-    """An embedding table (or stack of them), N(0, 1) * 0.01, drawn in
-    place one field at a time (no temporary the size of the tables).
-    ``rows``: keep only these rows of each field's table (a stack's dim
-    1), each field drawn whole first, so the rows equal the whole
+    """An embedding table (V, D) or stack of them (F, V, D), N(0, 1) *
+    0.01, drawn in place one field at a time (no temporary the size of
+    the tables).  ``rows``: keep only these rows of each table (dim 0 of
+    a table, dim 1 of a stack), each table drawn whole first, so that the
+    generator advances as in the whole init and the rows equal the whole
     table's."""
     if rows is None:
         out = torch.empty(shape, dtype=dtype, device=device)
         for part in (out if out.dim() == 3 else [out]):
             part.normal_(0.0, 1.0, generator=generator).mul_(0.01)
         return out
-    F_, V, D = shape
+    stack = len(shape) == 3
+    F_, V, D = shape if stack else (1, *shape)
     out = torch.empty((F_, rows.stop - rows.start, D), dtype=dtype,
                       device=device)
     for f in range(F_):
@@ -105,7 +118,7 @@ def _tables_init(generator: torch.Generator, shape, dtype: torch.dtype,
         whole.normal_(0.0, 1.0, generator=generator).mul_(0.01)
         out[f] = whole[rows]
         del whole
-    return out
+    return out if stack else out[0]
 
 
 def row_shards(ctx: Optional[ShardingCtx], vocab: int) -> int:
@@ -132,6 +145,22 @@ def shard_rows(ctx: Optional[ShardingCtx], vocab: int) -> Optional[slice]:
     return slice(mi * v_loc, (mi + 1) * v_loc)
 
 
+# Each kind's leaves whose rows the ``table_rows`` rule shards (the
+# reference's specs with ``"table_rows"``): a stack (F, V, D) by dim 1,
+# a table (V, D) by dim 0.  ``pos``, the blocks and the MLPs stay whole.
+ROW_SHARDED = {"dlrm": ("tables",), "wide_deep": ("tables", "wide"),
+               "sasrec": ("items",), "bst": ("items", "other")}
+
+
+def row_sharded_leaves(cfg: RecsysConfig,
+                       ctx: Optional[ShardingCtx]) -> Tuple[str, ...]:
+    """The leaves of ``cfg.kind`` that ``ctx`` row-shards, each rank
+    holding its ``shard_rows``; empty where the tables stay whole."""
+    if row_shards(ctx, cfg.default_vocab) == 1:
+        return ()
+    return ROW_SHARDED[cfg.kind]
+
+
 def _lookup_local(tables: torch.Tensor, ids: torch.Tensor,
                   compute: torch.dtype) -> torch.Tensor:
     """Per-field gather: tables (F, V, D), ids (B, F) -> (B, F, D) in
@@ -140,6 +169,57 @@ def _lookup_local(tables: torch.Tensor, ids: torch.Tensor,
     offs = torch.arange(n_fields, device=ids.device)[None, :] * V
     flat = offs + torch.remainder(ids, V)
     return tables.reshape(-1, D)[flat].to(compute)
+
+
+def _data_block(ids: torch.Tensor, sctx: ShardingCtx
+                ) -> Tuple[torch.Tensor, Tuple[str, ...], int]:
+    """(this data rank's block of ``ids``, the data axes, their size):
+    the batch padded with zero ids to a multiple of the data ranks and
+    cut into equal blocks, as the reference's ``_lookup_sharded``."""
+    sizes = mesh_sizes(sctx.mesh)
+    dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    dp = math.prod(sizes[a] for a in dp_axes)
+    pad = (-ids.shape[0]) % max(dp, 1)
+    if pad:  # e.g. a single request's short id list vs 16 DP shards
+        ids = torch.cat([ids, ids.new_zeros((pad,) + ids.shape[1:])])
+    b = ids.shape[0] // dp
+    di = sctx.axis_index(dp_axes) if dp > 1 else 0
+    return ids[di * b:(di + 1) * b], dp_axes, dp
+
+
+def _gather_data(x: torch.Tensor, dp_axes: Tuple[str, ...], dp: int,
+                 sctx: ShardingCtx) -> torch.Tensor:
+    """The data ranks' equal blocks ``x`` concatenated in their order."""
+    if dp == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(dp)]
+    dist.all_gather(parts, x.contiguous(), group=sctx.group(dp_axes))
+    return torch.cat(parts)
+
+
+def _shard_meta(tables: torch.Tensor, sctx: ShardingCtx
+                ) -> Tuple[int, int, int]:
+    """(this rank's model index, its rows a field, the whole rows)."""
+    v_loc = tables.shape[1]
+    return sctx.axis_index("model"), v_loc, v_loc * sctx.size("model")
+
+
+def _own_rows(tables: torch.Tensor, ids: torch.Tensor, sctx: ShardingCtx
+              ) -> torch.Tensor:
+    """ids (b, F), the same on every rank of the model group -> (b, F, D):
+    each rank gathers the rows it owns (zeros for the others' ids) and
+    the model group sums them, so every rank of it holds the rows of
+    ``ids`` bitwise (``x + 0 == x``)."""
+    F_, _, D = tables.shape
+    mi, v_loc, V = _shard_meta(tables, sctx)
+    rel = torch.remainder(ids, V) - mi * v_loc                 # (b, F)
+    ok = (rel >= 0) & (rel < v_loc)
+    safe = torch.clamp(rel, 0, v_loc - 1)
+    flat = torch.arange(F_, device=ids.device)[None, :] * v_loc + safe
+    rows = tables.reshape(F_ * v_loc, D)[flat]
+    rows = rows * ok[..., None].to(rows.dtype)
+    dist.all_reduce(rows, group=sctx.group("model"))
+    return rows
 
 
 class _RowShardLookup(torch.autograd.Function):
@@ -151,39 +231,16 @@ class _RowShardLookup(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx_, tables, ids, sctx, compute):
-        F_, v_loc, D = tables.shape
-        sizes = mesh_sizes(sctx.mesh)
-        nm = sizes["model"]
-        V = v_loc * nm
-        mi = sctx.axis_index("model")
-        dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
-        dp = math.prod(sizes[a] for a in dp_axes)
-        n = ids.shape[0]
-        pad = (-n) % max(dp, 1)
-        if pad:  # e.g. a single request's short id list vs 16 DP shards
-            ids = torch.cat([ids, ids.new_zeros((pad, ids.shape[1]))])
-        b = ids.shape[0] // dp
-        di = sctx.axis_index(dp_axes) if dp > 1 else 0
-        blk = ids[di * b:(di + 1) * b]
-        rel = torch.remainder(blk, V) - mi * v_loc            # (b, F)
-        ok = (rel >= 0) & (rel < v_loc)
-        safe = torch.clamp(rel, 0, v_loc - 1)
-        flat = torch.arange(F_, device=ids.device)[None, :] * v_loc + safe
-        rows = tables.reshape(F_ * v_loc, D)[flat]
-        rows = rows * ok[..., None].to(rows.dtype)
-        dist.all_reduce(rows, group=sctx.group("model"))
-        if dp > 1:
-            parts = [torch.empty_like(rows) for _ in range(dp)]
-            dist.all_gather(parts, rows, group=sctx.group(dp_axes))
-            rows = torch.cat(parts)
-        ctx_.save_for_backward(ids[:n])
-        ctx_.meta = (tables.shape, tables.dtype, mi, V)
-        return rows[:n].to(compute)
+        blk, dp_axes, dp = _data_block(ids, sctx)
+        rows = _gather_data(_own_rows(tables, blk, sctx), dp_axes, dp, sctx)
+        ctx_.save_for_backward(ids)
+        ctx_.meta = (tables.shape, tables.dtype, *_shard_meta(tables, sctx))
+        return rows[:ids.shape[0]].to(compute)
 
     @staticmethod
     def backward(ctx_, g):
         (ids,) = ctx_.saved_tensors
-        (F_, v_loc, D), dtype, mi, V = ctx_.meta
+        (F_, v_loc, D), dtype, mi, _, V = ctx_.meta
         rel = torch.remainder(ids, V) - mi * v_loc
         ok = (rel >= 0) & (rel < v_loc)
         flat = (torch.arange(F_, device=ids.device)[None, :] * v_loc
@@ -209,6 +266,13 @@ def _lookup_sharded(tables: torch.Tensor, ids: torch.Tensor,
     return _RowShardLookup.apply(tables, ids, ctx, compute or tables.dtype)
 
 
+def _check_rows(tables: torch.Tensor, V: int, nm: int) -> None:
+    if tables.shape[1] * nm != V:
+        raise ValueError(f"a table of {V} rows over {nm} row shards: "
+                         f"expected {V // nm} rows here, got "
+                         f"{tables.shape[1]}")
+
+
 def _lookup_simple(tables: torch.Tensor, ids: torch.Tensor,
                    compute: torch.dtype, ctx: Optional[ShardingCtx] = None,
                    vocab: Optional[int] = None) -> torch.Tensor:
@@ -219,10 +283,7 @@ def _lookup_simple(tables: torch.Tensor, ids: torch.Tensor,
     ``tables.shape[1]``."""
     V = tables.shape[1] if vocab is None else vocab
     nm = row_shards(ctx, V)
-    if tables.shape[1] * nm != V:
-        raise ValueError(f"a table of {V} rows over {nm} row shards: "
-                         f"expected {V // nm} rows here, got "
-                         f"{tables.shape[1]}")
+    _check_rows(tables, V, nm)
     if nm > 1:
         return _lookup_sharded(tables, ids, ctx, compute)
     return _lookup_local(tables, ids, compute)
@@ -241,10 +302,103 @@ def take_rows(table: torch.Tensor, ids: torch.Tensor,
     return out.reshape(*shape, table.shape[-1])
 
 
+@torch.no_grad()
+def take_rows_in_group(table: torch.Tensor, ids: torch.Tensor,
+                       compute: torch.dtype, ctx: Optional[ShardingCtx],
+                       vocab: int) -> torch.Tensor:
+    """(V, D) table rows of ids (N,), where ``ids`` is the same on the
+    ranks of a model group but may differ between data ranks (a rank's
+    block of retrieval candidates): over row shards each rank gathers
+    the rows it owns and the model group sums them (no data split, no
+    gather), else the local gather.  (N, D) in ``compute``, no
+    gradient."""
+    nm = row_shards(ctx, vocab)
+    _check_rows(table[None], vocab, nm)
+    if nm > 1:
+        out = _own_rows(table[None], ids[:, None], ctx)
+    else:
+        out = _lookup_local(table[None], ids[:, None], table.dtype)
+    return out[:, 0].to(compute)
+
+
+def _shard_bags(ids: torch.Tensor, mi: int, v_loc: int, V: int
+                ) -> torch.Tensor:
+    """Multi-hot ids (B, F, L) (-1 pad) -> (B*F, L) int32 bags into a
+    rank's flat shard (F*v_loc, D): the ids it owns (mod V) as rows of
+    the shard, every other id -1, the op's padding."""
+    B, n_fields, L = ids.shape
+    rel = torch.remainder(ids, V) - mi * v_loc
+    ok = (ids >= 0) & (rel >= 0) & (rel < v_loc)
+    offs = (torch.arange(n_fields, device=ids.device) * v_loc)[None, :, None]
+    return torch.where(ok, rel + offs, -1).to(torch.int32).reshape(
+        B * n_fields, L)
+
+
+class _RowShardBag(torch.autograd.Function):
+    """Multi-hot bags over row-sharded tables, on the EmbeddingBag
+    kernels.  Forward: the batch padded and split over the data axes as
+    ``_RowShardLookup``; each rank sums the rows it owns of each bag of
+    its block in f32 (the forward kernel with f32 out, rows rounded to
+    the compute type), the model group sums the partial bags, the data
+    group gathers the blocks, and the sum is rounded once to the compute
+    type.  Backward: the backward kernel on the whole batch's ids masked
+    to this rank's rows, into its shard; no communication (the incoming
+    gradient is the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx_, tables, ids, sctx, compute):
+        F_, v_loc, D = tables.shape
+        mi, _, V = _shard_meta(tables, sctx)
+        flat = tables.reshape(F_ * v_loc, D)
+        blk, dp_axes, dp = _data_block(ids, sctx)
+        part = embedding_bag_partials(flat, _shard_bags(blk, mi, v_loc, V),
+                                      compute)
+        dist.all_reduce(part, group=sctx.group("model"))
+        out = _gather_data(part.reshape(-1, F_, D), dp_axes, dp, sctx)
+        ctx_.save_for_backward(tables, ids)
+        ctx_.meta = (mi, V, compute)
+        return out[:ids.shape[0]].to(compute)
+
+    @staticmethod
+    def backward(ctx_, g):
+        tables, ids = ctx_.saved_tensors
+        mi, V, compute = ctx_.meta
+        F_, v_loc, D = tables.shape
+        d_flat = embedding_bag_table_grad(
+            g.reshape(-1, D), tables.reshape(F_ * v_loc, D),
+            _shard_bags(ids, mi, v_loc, V), compute)
+        return d_flat.reshape(F_, v_loc, D), None, None, None
+
+
+def _bag_sharded(tables: torch.Tensor, ids: torch.Tensor, ctx: ShardingCtx,
+                 compute: torch.dtype,
+                 weights: Optional[torch.Tensor] = None,
+                 mode: str = "sum") -> torch.Tensor:
+    """Multi-hot bags (B, F, L) over row-sharded tables (F, V/nm, D), the
+    whole batch on every rank -> (B, F, D) in ``compute``
+    (``_RowShardBag``).  Only the form the reference's ``_bag_lookup``
+    uses, a sum without weights; anything else raises."""
+    if mode != "sum" or weights is not None:
+        raise NotImplementedError(
+            f"bags over row-sharded tables take mode 'sum' without "
+            f"weights (the reference's _bag_lookup), got mode {mode!r}"
+            f"{' with weights' if weights is not None else ''}")
+    return _RowShardBag.apply(tables, ids, ctx, compute)
+
+
 def _bag_lookup(tables: torch.Tensor, ids: torch.Tensor,
-                compute: torch.dtype) -> torch.Tensor:
+                compute: torch.dtype, ctx: Optional[ShardingCtx] = None,
+                vocab: Optional[int] = None) -> torch.Tensor:
     """Multi-hot bags: tables (F, V, D), ids (B, F, L) (-1 pad) ->
-    (B, F, D) in ``compute``, through the EmbeddingBag op (sum)."""
+    (B, F, D) in ``compute``, through the EmbeddingBag op (sum).  Where
+    ``row_shards(ctx, vocab) > 1`` ``tables`` holds this rank's rows and
+    the bags go through ``_bag_sharded``; otherwise the tables are whole
+    and their row count is read from their shape, as the reference does
+    (a caller may pass a compacted table)."""
+    nm = 1 if vocab is None else row_shards(ctx, vocab)
+    if nm > 1:
+        _check_rows(tables, vocab, nm)
+        return _bag_sharded(tables, ids, ctx, compute)
     B, n_fields, L = ids.shape
     V, D = tables.shape[1], tables.shape[2]
     flat_tab = tables.reshape(n_fields * V, D)
@@ -280,15 +434,12 @@ def dlrm_init(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
 def dlrm_forward(params: Params, cfg: RecsysConfig, dense: torch.Tensor,
                  sparse_ids: torch.Tensor,
                  ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
-    """Multi-hot bags stay local (``_bag_lookup``), as in the
-    reference."""
+    """Multi-hot bags (``sparse_ids`` (B, F, L)) go through
+    ``_bag_lookup``, over row shards ``_bag_sharded``."""
     compute = DTYPES[cfg.dtype]
     if sparse_ids.dim() == 3:          # multi-hot bags
-        if row_shards(ctx, cfg.default_vocab) > 1:
-            raise NotImplementedError("multi-hot bags over row-sharded "
-                                      "tables: the reference's bag lookup "
-                                      "is local")
-        emb = _bag_lookup(params["tables"], sparse_ids, compute)
+        emb = _bag_lookup(params["tables"], sparse_ids, compute, ctx,
+                          cfg.default_vocab)
     else:
         emb = _lookup_simple(params["tables"], sparse_ids, compute, ctx,
                              cfg.default_vocab)
@@ -310,25 +461,31 @@ def dlrm_forward(params: Params, cfg: RecsysConfig, dense: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def wide_deep_init(cfg: RecsysConfig, *, generator: Optional[
-        torch.Generator] = None, device=None) -> Params:
+        torch.Generator] = None, device=None,
+        ctx: Optional[ShardingCtx] = None) -> Params:
+    """Under a ``ctx`` that shards rows, ``tables`` and ``wide`` hold this
+    rank's rows."""
     g, dev = _init_ctx(generator, device)
     dtype = DTYPES[cfg.param_dtype]
+    rows = shard_rows(ctx, cfg.default_vocab)
     tbl = _tables_init(g, (cfg.n_sparse, cfg.default_vocab, cfg.embed_dim),
-                       dtype, dev)
-    wide = _tables_init(g, (cfg.n_sparse, cfg.default_vocab, 1), dtype, dev)
+                       dtype, dev, rows)
+    wide = _tables_init(g, (cfg.n_sparse, cfg.default_vocab, 1), dtype, dev,
+                        rows)
     deep = nn.mlp_init(g, [cfg.n_sparse * cfg.embed_dim, *cfg.bot_mlp, 1],
                        dtype=dtype, device=dev)
     return {"tables": tbl, "wide": wide, "deep": deep}
 
 
 def wide_deep_forward(params: Params, cfg: RecsysConfig, dense,
-                      sparse_ids: torch.Tensor) -> torch.Tensor:
-    compute = DTYPES[cfg.dtype]
-    emb = _lookup_simple(params["tables"], sparse_ids, compute)
+                      sparse_ids: torch.Tensor,
+                      ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
+    compute, V = DTYPES[cfg.dtype], cfg.default_vocab
+    emb = _lookup_simple(params["tables"], sparse_ids, compute, ctx, V)
     deep_in = emb.reshape(emb.shape[0], -1)               # concat interaction
     deep = nn.mlp_apply(params["deep"], deep_in, act=F.relu)[:, 0]
     # wide: sum of per-field scalar weights (an embedding of dim 1)
-    wide_e = _lookup_simple(params["wide"], sparse_ids, compute)
+    wide_e = _lookup_simple(params["wide"], sparse_ids, compute, ctx, V)
     wide = torch.sum(wide_e[..., 0], dim=1)
     return deep + wide
 
@@ -375,13 +532,15 @@ def _tx_block_apply(p: Params, x: torch.Tensor, n_heads: int,
     return x + nn.linear_apply(p["ff2"], h)
 
 
-def _seq_embed(params: Params, seq: torch.Tensor,
-               compute: torch.dtype) -> torch.Tensor:
+def _seq_embed(params: Params, cfg: RecsysConfig, seq: torch.Tensor,
+               compute: torch.dtype,
+               ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     """Item rows of a (B, S) sequence (-1 pad -> zero row) plus the
     position rows."""
-    V = params["items"].shape[0]
+    V = cfg.default_vocab
     x = take_rows(params["items"],
-                  torch.remainder(torch.where(seq >= 0, seq, 0), V), compute)
+                  torch.remainder(torch.where(seq >= 0, seq, 0), V), compute,
+                  ctx, V)
     x = x * (seq >= 0).to(compute)[..., None]
     return x + params["pos"].to(compute)[None, : x.shape[1]]
 
@@ -391,11 +550,15 @@ def _seq_embed(params: Params, seq: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def sasrec_init(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
-                = None, device=None) -> Params:
+                = None, device=None,
+                ctx: Optional[ShardingCtx] = None) -> Params:
+    """Under a ``ctx`` that shards rows, ``items`` holds this rank's
+    rows."""
     g, dev = _init_ctx(generator, device)
     dtype = DTYPES[cfg.param_dtype]
     d = cfg.embed_dim
-    items = _tables_init(g, (cfg.default_vocab, d), dtype, dev)
+    items = _tables_init(g, (cfg.default_vocab, d), dtype, dev,
+                         shard_rows(ctx, cfg.default_vocab))
     pos = _tables_init(g, (cfg.seq_len, d), dtype, dev)
     blocks = [_tx_block_init(g, d, cfg.n_heads, 4 * d, dtype, dev)
               for _ in range(cfg.n_blocks)]
@@ -403,22 +566,23 @@ def sasrec_init(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
 
 
 def sasrec_user_repr(params: Params, cfg: RecsysConfig,
-                     seq_ids: torch.Tensor) -> torch.Tensor:
+                     seq_ids: torch.Tensor,
+                     ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     """seq_ids (B, S) item history (-1 pad) -> (B, D) user representation
     (hidden state at the last position)."""
-    x = _seq_embed(params, seq_ids, DTYPES[cfg.dtype])
+    x = _seq_embed(params, cfg, seq_ids, DTYPES[cfg.dtype], ctx)
     for p in params["blocks"]:
         x = _tx_block_apply(p, x, cfg.n_heads, causal=True)
     return x[:, -1]
 
 
 def sasrec_scores(params: Params, cfg: RecsysConfig,
-                  user_repr: torch.Tensor, cand_ids: torch.Tensor
-                  ) -> torch.Tensor:
+                  user_repr: torch.Tensor, cand_ids: torch.Tensor,
+                  ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     """(B, D) x (N,) candidate ids -> (B, N) dot scores (retrieval)."""
-    V = params["items"].shape[0]
+    V = cfg.default_vocab
     cand = take_rows(params["items"], torch.remainder(cand_ids, V),
-                     user_repr.dtype)
+                     user_repr.dtype, ctx, V)
     return user_repr @ cand.T
 
 
@@ -427,13 +591,18 @@ def sasrec_scores(params: Params, cfg: RecsysConfig,
 # ---------------------------------------------------------------------------
 
 def bst_init(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
-             = None, device=None) -> Params:
+             = None, device=None,
+             ctx: Optional[ShardingCtx] = None) -> Params:
+    """Under a ``ctx`` that shards rows, ``items`` and ``other`` hold this
+    rank's rows."""
     g, dev = _init_ctx(generator, device)
     dtype = DTYPES[cfg.param_dtype]
     d = cfg.embed_dim
-    items = _tables_init(g, (cfg.default_vocab, d), dtype, dev)
+    rows = shard_rows(ctx, cfg.default_vocab)
+    items = _tables_init(g, (cfg.default_vocab, d), dtype, dev, rows)
     pos = _tables_init(g, (cfg.seq_len + 1, d), dtype, dev)
-    other = _tables_init(g, (cfg.n_sparse, cfg.default_vocab, d), dtype, dev)
+    other = _tables_init(g, (cfg.n_sparse, cfg.default_vocab, d), dtype, dev,
+                         rows)
     blocks = [_tx_block_init(g, d, cfg.n_heads, 4 * d, dtype, dev)
               for _ in range(cfg.n_blocks)]
     d_in = (cfg.seq_len + 1) * d + cfg.n_sparse * d
@@ -443,17 +612,19 @@ def bst_init(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
 
 
 def bst_forward(params: Params, cfg: RecsysConfig, seq_ids: torch.Tensor,
-                target_id: torch.Tensor, other_ids: torch.Tensor
-                ) -> torch.Tensor:
+                target_id: torch.Tensor, other_ids: torch.Tensor,
+                ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     """Behavior sequence (B, S) + target item (B,) + profile fields
     (B, F) -> CTR logit (B,)."""
     compute = DTYPES[cfg.dtype]
     B = seq_ids.shape[0]
-    x = _seq_embed(params, torch.cat([seq_ids, target_id[:, None]], dim=1),
-                   compute)
+    x = _seq_embed(params, cfg,
+                   torch.cat([seq_ids, target_id[:, None]], dim=1), compute,
+                   ctx)
     for p in params["blocks"]:
         x = _tx_block_apply(p, x, cfg.n_heads, causal=False)
-    other = _lookup_simple(params["other"], other_ids, compute)
+    other = _lookup_simple(params["other"], other_ids, compute, ctx,
+                           cfg.default_vocab)
     feats = torch.cat([x.reshape(B, -1), other.reshape(B, -1)], dim=1)
     logit = nn.mlp_apply(params["mlp"], feats, act=F.relu)
     return logit[:, 0]
@@ -470,13 +641,15 @@ def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def sasrec_loss(params: Params, cfg: RecsysConfig, seq_ids: torch.Tensor,
-                pos_ids: torch.Tensor, neg_ids: torch.Tensor
-                ) -> torch.Tensor:
+                pos_ids: torch.Tensor, neg_ids: torch.Tensor,
+                ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     """Sampled softmax: the positive next item against the negatives."""
-    u = sasrec_user_repr(params, cfg, seq_ids)
-    V = params["items"].shape[0]
-    pos = take_rows(params["items"], torch.remainder(pos_ids, V), u.dtype)
-    neg = take_rows(params["items"], torch.remainder(neg_ids, V), u.dtype)
+    u = sasrec_user_repr(params, cfg, seq_ids, ctx)
+    V = cfg.default_vocab
+    pos = take_rows(params["items"], torch.remainder(pos_ids, V), u.dtype,
+                    ctx, V)
+    neg = take_rows(params["items"], torch.remainder(neg_ids, V), u.dtype,
+                    ctx, V)
     s_pos = torch.sum(u * pos, dim=-1, keepdim=True)           # (B, 1)
     s_neg = torch.einsum("bd,bnd->bn", u, neg)                 # (B, N)
     logits = torch.cat([s_pos, s_neg], dim=1).to(torch.float32)
@@ -487,19 +660,10 @@ INITS = {"dlrm": dlrm_init, "wide_deep": wide_deep_init,
          "sasrec": sasrec_init, "bst": bst_init}
 
 
-def check_ctx(cfg: RecsysConfig, ctx: Optional[ShardingCtx]) -> None:
-    """Raise where ``ctx`` shards rows for a kind other than dlrm."""
-    if cfg.kind != "dlrm" and row_shards(ctx, cfg.default_vocab) > 1:
-        raise NotImplementedError(f"row-sharded tables for {cfg.kind}: "
-                                  f"only dlrm takes a sharding context")
-
-
 def init_params(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
                 = None, device=None,
                 ctx: Optional[ShardingCtx] = None) -> Params:
-    """The parameter tree of ``cfg.kind``; dlrm's tables row-sharded
-    under ``ctx`` (see ``dlrm_init``)."""
-    check_ctx(cfg, ctx)
-    if cfg.kind == "dlrm":
-        return dlrm_init(cfg, generator=generator, device=device, ctx=ctx)
-    return INITS[cfg.kind](cfg, generator=generator, device=device)
+    """The parameter tree of ``cfg.kind``; under a ``ctx`` that shards
+    rows, each of ``row_sharded_leaves(cfg, ctx)`` holds this rank's rows,
+    equal to those rows of the one-process init."""
+    return INITS[cfg.kind](cfg, generator=generator, device=device, ctx=ctx)
