@@ -10,6 +10,7 @@
     python3 chip_smoke.py --kimi-train-only    # Phase 13 alone
     python3 chip_smoke.py --distributed-only   # Phase 11 on Phase 3's corpus
     python3 chip_smoke.py --lm-mesh-only       # Phase 12 alone
+    python3 chip_smoke.py --tp-only            # Phase 14 on Phase 3's corpus
 
 Phase 0 prints the card (``nvidia-smi`` name and power limit) and
 builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, one
@@ -373,7 +374,9 @@ expert, so that a rank draws its 96 without a transfer), a prefill of
 grad on a random input and cotangent; and olmo-1b at full width and
 depth, two one-process ``lm_train_step``s (AdamW) on B 4 x S 2,048.
 Then four gloo ranks sharing the card (and four NCCL ranks, one a card,
-where the machine has four cards) run 12a and 12b.  12a, mesh (1, 4):
+where the machine has four cards) run 12a and 12b.  12a, mesh (1, 4),
+its rules with the tensor-parallel names unmapped (``P12_TP_OFF``: the
+check is the expert-parallel dispatch alone, Phase 14 holds the rest):
 each rank holds 96 experts and the rest of the layer (about 13.4 GB),
 prefills through ``_moe_shard_map`` (T_my 1,024, capacity 32, a send
 buffer of 4 x 96 x 32 x 7,168 bf16) and the D 112 prefill kernel, then
@@ -395,6 +398,35 @@ once.  It prints the bytes reckoned, each rank's seconds and peaks, the
 bytes a rank's gathers receive a step, with the note that gloo's times
 say nothing of NCCL.
 
+Phase 14 runs tensor parallelism over the model axis after Phase 11,
+on its corpus.  The parent first computes each part's one-process side
+on the card and frees it; then four gloo ranks sharing the card (and
+four NCCL ranks, one a card, where the machine has four cards) run them
+at mesh (1, 4).  14a: rankgraph2 at full width in f32 (each rank 256 of
+the encoders' 1,024 hidden units and 1 of the 4 aggregator heads,
+``shard_state``): ``embed_side`` and ``assign_codes`` of 512 and 16,384
+users on the initial state (primaries within ``P14_F32_REL`` norm-wise,
+codes equal but for near ties), then two steps of ``P14_ROWS`` edges a
+type on the parent's batches and draws, both sides under
+``deterministic_sums`` (losses by ``f32_gap``, every flipped selection
+within ``selection_ties``, the replicated state bitwise equal on every
+rank).  14b: olmo-1b at full width, 2 of 16 layers, B 1 x S 2,048,
+under its train rules (tensor and sequence parallelism): two AdamW steps
+in f32 compute, the second from the parent's parameters after its first
+(losses, norms and each gradient within ``P14_F32_REL``, norm-wise over
+the ranks' blocks), one bf16 step (loss within ``BF16_LM_TOL``), and one
+decode step under the decode rules on 2,048 random cached positions
+(logits within ``BF16_LM_TOL``).  14c: llama3.2-3b and gemma-2b at 2
+layers prefill 4,096 under the prefill rules (last logits within
+``BF16_LM_TOL``, each rank's caches against its heads of the
+one-process caches, 2 ``flash_attention`` launches a rank).  14d: one
+grok-1-314b layer at full width (each rank 8,192 of every expert's
+32,768 ff columns, drawn expert by expert) at S 1,024 through the dense
+loop and S 512 through the scatter, the output within ``BF16_LM_TOL`` of
+the one-process layer's.  It prints the bytes reckoned, the parent's
+and each rank's seconds, with the note that gloo stages through the
+host.
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
 ``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
@@ -405,10 +437,11 @@ Phase 8's of ``queue_gather``, ``rq_assign`` and
 ``fused_contrastive_*``, Phase 9's main run's of ``flash_attention``
 and ``flash_attention_bwd_*``, Phase 10's runs' (``run_lm``, the
 train steps, kimi's prefill and decode; not its checks), Phase 13a's
-steps and Phase 11's and Phase 12's ranks' (each rank counts its own and
-returns them: 11b's ``embedding_bag_fwd`` and ``embedding_bag_bwd`` on
-row shards, its own checks' launches left out; 12a's prefill, 12b's
-steps) are added to those; the f32 kernels' come from
+steps and Phase 11's, Phase 12's and Phase 14's ranks' (each rank counts
+its own and returns them: 11b's ``embedding_bag_fwd`` and
+``embedding_bag_bwd`` on row shards, its own checks' launches left out;
+12a's prefill, 12b's steps; 14a's serve and steps, 14b's steps and
+decode, 14c's prefills) are added to those; the f32 kernels' come from
 Phase 10a alone.  Every kernel in the list must have launched on its
 path.
 
@@ -471,7 +504,8 @@ from repro_torch.core.trainer import (FeatureStore,  # noqa: E402
                                       forward_losses, init_state,
                                       loss_directions, make_eval_step,
                                       make_grad_step, make_train_step,
-                                      named_params, reset_dead_codes)
+                                      named_params, reset_dead_codes,
+                                      shard_state)
 from repro_torch.data.edge_dataset import (EdgeDataset,  # noqa: E402
                                            NeighborTables,
                                            build_neighbor_tables,
@@ -505,13 +539,15 @@ from repro_torch.kernels.queue_gather.ref import (  # noqa: E402
 from repro_torch.kernels.rq_assign import rq_assign as RQA  # noqa: E402
 from repro_torch.kernels.rq_assign.ref import rq_assign_ref  # noqa: E402
 from repro_torch.launch import train as TRAIN  # noqa: E402
+from repro_torch.distributed import collectives as COLL  # noqa: E402
 from repro_torch.distributed.collectives import (  # noqa: E402
     block_rows, gather_rows)
 from repro_torch.distributed.sharding import (ShardingCtx,  # noqa: E402
-                                              make_rules)
+                                              make_rules, shard_of)
 from repro_torch.launch.mesh import init_distributed, make_mesh  # noqa: E402
 from repro_torch.launch.steps import (dot_scores,  # noqa: E402
-                                      lm_decode_step, lm_prefill_step,
+                                      lm_decode_step, lm_loss_and_grads,
+                                      lm_prefill_step,
                                       lm_rules, lm_train_step,
                                       loss_and_grads,
                                       recsys_retrieval_step,
@@ -679,6 +715,28 @@ P12_STEPS = 2                # 12b's AdamW steps
 P12_SAMPLE = 8               # fixed rows of each expert's gradient held
 P12_TIMEOUT_S = 300.0        # each spawn's limit, seconds
 P12_GAP_MEDIAN, P12_GAP_FAR, P12_GAP_FAR_SHARE = 1e-6, 1e-4, 0.01
+# 12a's rules without tensor parallelism, so that its check stays the
+# expert-parallel dispatch against the one-process one, bitwise
+P12_TP_OFF = {"heads": None, "kv_heads": None, "mlp": None, "vocab": None,
+              "expert_mlp": None}
+P14_WORLD = 4                # ranks sharing the card at mesh (1, 4)
+P14_ROWS = 2048              # 14a's edges a type: at mesh (1, 4) every
+# rank holds the whole batch, and four copies of 10,922 edges a type's
+# f32 activations (about 20 GB each) do not fit one card; 4,096 fit
+# (8.35 GB a rank) but kept the script past 900 s on a slow host
+P14_STEPS = 2                # 14a's steps
+P14_SERVE = (SHAPES["serve_p99"]["batch"], 16_384)   # serve_bulk cut
+P14_OLMO_LAYERS, P14_OLMO_S = 2, 2048   # 14b: 2 of 16 layers, B 1
+P14_DECODE_T = 2048          # 14b's decode step: cached positions
+P14_PREFILL_ARCHS = ("llama3.2-3b", "gemma-2b")
+P14_PREFILL_S = 4096         # 14c: B 1
+P14_GROK_S = {"dense": 1024, "scatter": 512}   # 14d: B 1
+P14_F32_REL = 1e-5           # f32 losses, norms, gradients, primaries
+P14B_KERNELS = {"flash_attention", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkdv", "flash_attention_f32",
+                "flash_attention_bwd_f32_dq", "flash_attention_bwd_f32_dkdv",
+                "flash_attention_decode"}
+P14_TIMEOUT_S = 300.0        # the spawn's limit, seconds
 
 
 def card_peaks(name: str):
@@ -7327,7 +7385,8 @@ def p12a_rank(tmp: str, seed: int, world: int, dev) -> dict:
     cfg = dataclasses.replace(KIMI, n_layers=1)
     mesh = make_mesh((1, world), ("data", "model"))
     shape = next(s for s in LM_SHAPES if s.step == "prefill")
-    ctx = ShardingCtx(lm_rules("kimi-k2-1t-a32b", shape, mesh), mesh)
+    ctx = ShardingCtx(lm_rules("kimi-k2-1t-a32b", shape, mesh,
+                               overrides=P12_TP_OFF), mesh)
     E_loc = cfg.n_experts // world
     mi = ctx.axis_index("model")
     inp = torch.load(f"{tmp}/p12a-inputs.pt")
@@ -7627,6 +7686,722 @@ def phase12(seed: int, dev, smi: str) -> dict:
     return total
 
 
+class Laps:
+    """Seconds between calls on the host clock after a sync, by name."""
+
+    def __init__(self):
+        self.secs, self.t = {}, time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.secs[name] = round(t - self.t, 3)
+        self.t = t
+
+
+def p14_reckon() -> str:
+    """Phase 14's bytes reckoned: a rank's shards and the whole sides."""
+    olmo = dataclasses.replace(OLMO, n_layers=P14_OLMO_LAYERS)
+    grok = dataclasses.replace(GROK, n_layers=1)
+    d, ff, E = grok.d_model, grok.moe_d_ff, grok.n_experts
+    hd = grok.resolved_head_dim
+    attn = d * hd * (2 * grok.n_heads + 2 * grok.n_kv_heads) + d * E
+    rg = sum(math.prod(s) for s, _ in M.param_specs(CONFIG).values())
+    return (f"rankgraph2's encoders and aggregators {gb(4 * rg)} f32, "
+            f"{gb(4 * rg / P14_WORLD)} a rank but for l2's bias; olmo-1b "
+            f"at {P14_OLMO_LAYERS} layers {gb(4 * olmo.n_params())} f32, "
+            f"{gb(olmo.n_params())} a rank; grok-1-314b's layer: experts "
+            f"{gb(2 * 3 * E * d * ff)} bf16, attention and router "
+            f"{gb(2 * attn)}, a rank {gb(2 * (3 * E * d * ff + attn) / P14_WORLD)}")
+
+
+def grok_layer(cfg, seed: int, dev, ctx=None) -> dict:
+    """One grok-1-314b layer at ``cfg`` in bf16: the attention, norms and
+    router from a generator seeded ``seed + 171``, each expert's three
+    matrices from its own (seeded ``p12_expert_seed(seed, 0, e)``), as
+    ``init_params`` scales them; under ``ctx`` this rank's shards, each
+    expert cut as it is drawn (no whole copy of the experts)."""
+    d, hd, E, ff = cfg.d_model, cfg.resolved_head_dim, cfg.n_experts, \
+        cfg.moe_d_ff
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    g = torch.Generator(dev).manual_seed(seed + 171)
+    dt = torch.bfloat16
+
+    def w(fan_in: int, *shape, gen=g):
+        return torch.empty(shape, dtype=dt, device=dev).normal_(
+            0.0, fan_in ** -0.5, generator=gen)
+    p = {"wq": w(d, d, H * hd), "wk": w(d, d, Hkv * hd),
+         "wv": w(d, d, Hkv * hd), "wo": w(H * hd, H * hd, d),
+         "ln1": torch.ones(d, dtype=dt, device=dev),
+         "ln2": torch.ones(d, dtype=dt, device=dev), "router": w(d, d, E)}
+    lay = None if ctx is None else LM.param_layout(cfg, ctx)["layers"][0]
+
+    def cut(name, x):
+        if lay is None:
+            return x
+        return shard_of(x, lay[name], ctx)
+    p = {k: cut(k, v) for k, v in p.items()}
+    shapes = {"w_gate": (d, ff), "w_up": (d, ff), "w_down": (ff, d)}
+    for n, shape in shapes.items():
+        loc = cut(n, torch.empty((1,) + shape, device="meta")).shape[1:]
+        p[n] = torch.empty((E,) + tuple(loc), dtype=dt, device=dev)
+    for e in range(E):
+        ge = torch.Generator(dev).manual_seed(p12_expert_seed(seed, 0, e))
+        for n, shape in shapes.items():
+            p[n][e] = cut(n, w(shape[0], *shape, gen=ge)[None])[0]
+    return p
+
+
+def p14_layer(lp, cfg, x, ctx, lay):
+    """One layer of ``cfg`` on ``x`` (1, S, d) under ``ctx`` (grad off):
+    its output (1, S, d) on every rank, each rank running its block of
+    the sequence where the rules make the residual sequence-parallel."""
+    S = x.shape[1]
+    tp = LM._tp(ctx, S, True)
+    pos = torch.arange(S, device=x.device)[None]
+    if tp is not None and tp.seq:
+        x = torch.chunk(x, tp.nm, dim=1)[tp.mi]
+    out = LM._layer(lp, cfg, x, pos, None, 0, True, 1024, ctx, lay, tp)[0]
+    if tp is not None and tp.seq:
+        out = COLL.gather_split(out, 1, tp.group)
+    return out
+
+
+def p14a_reference(seed: int, dev, corpus, tmp: str) -> dict:
+    """14a's parent side: ``P14_STEPS`` one-process rankgraph2 steps in
+    f32 at full width on Phase 3's corpus (``P14_ROWS`` edges a type,
+    whole-batch negatives: the (1, 4) mesh has one data rank), each
+    step's RQ inputs, selections, histogram totals and codebooks kept;
+    before them ``embed_side`` and ``assign_codes`` of the first users at
+    each of ``P14_SERVE`` on the initial state (after the steps the two
+    sides' parameters differ by their steps' rounding).  Writes the
+    ranks' inputs."""
+    cfg = dataclasses.replace(CONFIG, dtype="float32")
+    lap = Laps()
+    ds = EdgeDataset(corpus.tables, corpus.user_feat, corpus.item_feat,
+                     k_train=cfg.k_train, device=dev, g=corpus.graph)
+    feats = FeatureStore(ds.user_feat, ds.item_feat)
+    per_type = {et: P14_ROWS for et in ("uu", "ui", "ii")}
+    batches = [ds.sample_batch(t, seed + 14, per_type)
+               for t in range(P14_STEPS)]
+    lap("batches")
+    g = torch.Generator().manual_seed(seed + 141)
+    draws, metrics, codes, starts, secs = [], [], [], [], []
+    state, opt = init_state(cfg, generator=torch.Generator().manual_seed(
+        seed), pool_size=P3_POOL, device=dev)
+    lap("init")
+    with deterministic_sums():
+        serve = {}
+        with torch.no_grad():
+            for n in P14_SERVE:
+                side = ds.node_inference_batch(np.arange(n))
+                _, prim = M.embed_side(state.params, cfg, side, M.USER)
+                serve[n] = (prim.cpu(), assign_codes(
+                    state.params["rq"], prim, cfg.rq).cpu())
+        books0 = [b.detach().float().cpu() for b in layer_books(
+            state.params["rq"], len(cfg.rq.codebook_sizes))]
+        lap("serve")
+        grad_step = make_grad_step(cfg, features=feats)
+        for t in range(P14_STEPS):
+            draws.append(draws_for(cfg, state.pool, batches[t], P14_ROWS, g))
+            start = ([h.sum(dim=0) for h in state.rq_state.hists],
+                     [b.detach().float().clone() for b in layer_books(
+                         state.params["rq"], len(cfg.rq.codebook_sizes))])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sg = grad_step(state, batches[t], draws=draws[t])
+            state, m = apply_grads(state, sg, opt)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            codes.append(sg.aux["codes"].cpu())
+            starts.append((sg.aux["rq_input"].float(), *start))
+            del sg
+    lap("steps")
+    cpu = torch.device("cpu")
+    torch.save(dict(seed=seed, batches=p11_to(batches, cpu),
+                    draws=p11_to(draws, cpu),
+                    user_feat=ds.user_feat.cpu(), item_feat=ds.item_feat.cpu(),
+                    tables=(corpus.tables.user_nbrs, corpus.tables.item_nbrs,
+                            corpus.tables.n_users, corpus.tables.n_items)),
+               f"{tmp}/p14a.pt")
+    lap("save")
+    out = dict(cfg=cfg, metrics=metrics, codes=codes, starts=starts,
+               secs=secs, serve=serve, books=books0, laps=lap.secs)
+    del state, ds, feats, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def p14_replicated_hash(state) -> str:
+    """``p11_state_hash`` of what every rank of a model group holds alike:
+    the RQ codebooks, the log-variances, the pool and the RQ state."""
+    h = hashlib.sha256()
+    params = named_params(state.params)
+    for t in ([params[k] for k in sorted(params)
+               if k.startswith(("rq.", "uncertainty."))]
+              + [state.pool.user, state.pool.item, *state.rq_state.hists,
+                 *state.rq_state.usage]):
+        h.update(t.detach().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def p14a_rank(tmp: str, dev, ctx) -> dict:
+    """14a on this rank, mesh (1, 4): from the parent's initial state cut
+    to the rank's shards (``shard_state``: 256 of the encoders' 1,024
+    hidden units, one aggregator head) the serve batches' primaries and
+    codes, then the parent's steps."""
+    lap = Laps()
+    spec = torch.load(f"{tmp}/p14a.pt", weights_only=False)
+    cfg = dataclasses.replace(CONFIG, dtype="float32")
+    feats = FeatureStore(spec["user_feat"].to(dev), spec["item_feat"].to(dev))
+    lap("load")
+    metrics, codes, starts, secs = [], [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, opt = init_state(cfg, generator=torch.Generator().manual_seed(
+        spec["seed"]), pool_size=P3_POOL, device=dev)
+    lap("init")
+    state = shard_state(state, cfg, ctx)
+    ds = EdgeDataset(NeighborTables(*spec["tables"]), feats.user_feat,
+                     feats.item_feat, k_train=cfg.k_train, device=dev)
+    lap("shard")
+    with deterministic_sums():
+        serve, serve_s = {}, {}
+        with torch.no_grad():
+            for n in P14_SERVE:
+                side = ds.node_inference_batch(np.arange(n))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, prim = M.embed_side(state.params, cfg, side, M.USER, ctx)
+                cd = assign_codes(state.params["rq"], prim, cfg.rq)
+                torch.cuda.synchronize()
+                serve_s[n] = time.perf_counter() - t0
+                serve[n] = (prim.cpu(), cd.cpu())
+        books0 = [b.detach().float().cpu() for b in layer_books(
+            state.params["rq"], len(cfg.rq.codebook_sizes))]
+        lap("serve")
+        grad_step = make_grad_step(cfg, ctx, features=feats)
+        for t in range(P14_STEPS):
+            starts.append(([h.sum(dim=0).cpu() for h in state.rq_state.hists],
+                           [b.detach().float().cpu() for b in layer_books(
+                               state.params["rq"],
+                               len(cfg.rq.codebook_sizes))]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sg = grad_step(state, p11_to(spec["batches"][t], dev),
+                           draws=p11_to(spec["draws"][t], dev))
+            state, m = apply_grads(state, sg, opt)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            codes.append(sg.aux["codes"].cpu())
+            del sg
+    lap("steps")
+    return dict(metrics=metrics, codes=codes, starts=starts, secs=secs,
+                serve=serve, serve_s=serve_s, hash=p14_replicated_hash(state),
+                books=books0, laps=lap.secs,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                hidden=tuple(state.params["f_user"].l1.weight.shape),
+                heads=tuple(state.params["agg_user"].w.shape))
+
+
+def p14_olmo(dtype: str):
+    return dataclasses.replace(OLMO, n_layers=P14_OLMO_LAYERS, dtype=dtype)
+
+
+def p14b_steps(cfg, seed: int, dev, tmp: str, ctx=None, steps: int = 1,
+               start=None):
+    """``steps`` AdamW steps of olmo-1b's cut on the tokens in ``tmp``
+    (under ``ctx`` on this rank's shards) from ``init_params`` seeded
+    ``seed + 181``, or from ``start`` (parameters, optimizer, state):
+    returns those after the steps and each step's loss, norm, gradients
+    (``lm_loss_and_grads``, then ``lm_train_step``) and seconds.  Without
+    ``ctx`` the parameters after the first of two or more steps are
+    written for the ranks."""
+    if start is None:
+        params = LM.init_params(cfg, generator=torch.Generator(
+            dev).manual_seed(seed + 181), device=dev)
+        if ctx is not None:
+            params = LM.shard_params(params, cfg, ctx)
+        opt = OPT.make_optimizer(cfg.optimizer, shards=None if ctx is None
+                                 else LM.shard_groups(cfg, ctx))
+        st = opt.init(LM.named_params(params))
+    else:
+        params, opt, st = start
+    toks = torch.load(f"{tmp}/p14b-tokens.pt").to(dev)
+    out = []
+    for t in range(steps):
+        _, grads = lm_loss_and_grads(params, cfg, toks, ctx)
+        grads = {k: g.detach() for k, g in grads.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, gnorm, st = lm_train_step(params, cfg, opt, st, toks, ctx)
+        torch.cuda.synchronize()
+        out.append((float(loss), float(gnorm), grads,
+                    time.perf_counter() - t0))
+        if t == 0 and ctx is None and steps > 1:
+            torch.save({k: v.detach().cpu() for k, v in
+                        LM.named_params(params).items()},
+                       f"{tmp}/p14b-params1.pt")
+    return (params, opt, st), out
+
+
+def p14b_decode(cfg, params, dev, tmp: str, ctx=None) -> torch.Tensor:
+    """One decode step of olmo-1b's bf16 cut on the caches and token in
+    ``tmp`` (its KV heads whole under the decode rules)."""
+    spec = torch.load(f"{tmp}/p14b-decode.pt")
+    caches = {k: v.to(dev) for k, v in spec["caches"].items()}
+    with torch.no_grad():
+        logits, _ = LM.decode_step(params, cfg, spec["token"].to(dev), caches,
+                                   P14_DECODE_T - 1, ctx=ctx)
+    return logits.float().cpu()
+
+
+def p14b_reference(seed: int, dev, tmp: str) -> dict:
+    """14b's parent side: olmo-1b at full width, ``P14_OLMO_LAYERS`` of
+    its 16 layers, two one-process AdamW steps in f32 compute (each
+    step's gradients, and the parameters after the first, written for
+    the ranks), one in bf16, and one bf16 decode step on random caches of
+    ``P14_DECODE_T`` positions."""
+    g = torch.Generator(dev).manual_seed(seed + 183)
+    cfg32 = p14_olmo("float32")
+    torch.save(lm_tokens(cfg32, g, 1, P14_OLMO_S, dev).cpu(),
+               f"{tmp}/p14b-tokens.pt")
+    _, f32 = p14b_steps(cfg32, seed, dev, tmp, steps=2)
+    for t, (_, _, grads, _) in enumerate(f32):
+        torch.save({k: v.cpu() for k, v in grads.items()},
+                   f"{tmp}/p14b-grads{t}.pt")
+    cfg16 = p14_olmo("bfloat16")
+    _, b16 = p14b_steps(cfg16, seed, dev, tmp, steps=1)
+    fresh = LM.init_params(cfg16, generator=torch.Generator(dev).manual_seed(
+        seed + 181), device=dev)
+    caches = random_caches(cfg16, 1, P14_DECODE_T, g, dev)
+    torch.save(dict(caches={k: v.cpu() for k, v in caches.items()},
+                    token=lm_tokens(cfg16, g, 1, 1, dev).cpu()),
+               f"{tmp}/p14b-decode.pt")
+    logits = p14b_decode(cfg16, fresh, dev, tmp)
+    out = dict(f32=[(l, n, s) for l, n, _, s in f32],
+               bf16=[(l, n, s) for l, n, _, s in b16], decode=logits)
+    del fresh, caches, f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def p14b_rank(seed: int, dev, tmp: str, mesh) -> dict:
+    """14b on this rank at mesh (1, 4) under olmo-1b's train rules (tensor
+    and sequence parallelism): two f32 steps, the second from the
+    parent's parameters after its first, each gradient's block held
+    against the parent's
+    (its squared gap and norm returned), one bf16 step, then one decode
+    step under the decode rules."""
+    train = next(s for s in LM_SHAPES if s.step == "train")
+    ctx = ShardingCtx(lm_rules("olmo-1b", train, mesh), mesh)
+    cfg32 = p14_olmo("float32")
+    common.reset_launches()
+    # the second step from the one-process parameters after the first:
+    # AdamW's first update is about lr times each gradient's sign, so the
+    # two sides' roundings would part their parameters before it
+    start, f32 = p14b_steps(cfg32, seed, dev, tmp, ctx, steps=1)
+    lay = LM.named_params(LM.param_layout(cfg32, ctx))
+    saved = torch.load(f"{tmp}/p14b-params1.pt", mmap=True)
+    with torch.no_grad():
+        for k, v in LM.named_params(start[0]).items():
+            v.copy_(shard_of(saved[k], lay[k], ctx))
+    del saved
+    f32 += p14b_steps(cfg32, seed, dev, tmp, ctx, start=start)[1]
+    del start
+    gaps = []
+    for t, (_, _, grads, _) in enumerate(f32):
+        want = torch.load(f"{tmp}/p14b-grads{t}.pt", mmap=True)
+        gaps.append({})
+        for k, g in grads.items():
+            w = shard_of(want[k], lay[k], ctx).to(dev)
+            gaps[t][k] = (float((g.float() - w).square().sum()),
+                          float(w.square().sum()),
+                          any(x is not None for x in lay[k]))
+    cfg16 = p14_olmo("bfloat16")
+    _, b16 = p14b_steps(cfg16, seed, dev, tmp, ctx, steps=1)
+    decode = next(s for s in LM_SHAPES if s.name == "decode_32k")
+    dctx = ShardingCtx(lm_rules("olmo-1b", decode, mesh), mesh)
+    fresh = LM.shard_params(LM.init_params(
+        cfg16, generator=torch.Generator(dev).manual_seed(seed + 181),
+        device=dev), cfg16, dctx)
+    logits = p14b_decode(cfg16, fresh, dev, tmp, dctx)
+    launches = common.launch_counts()
+    return dict(f32=[(l, n, s) for l, n, _, s in f32],
+                bf16=[(l, n, s) for l, n, _, s in b16], gaps=gaps,
+                decode=logits, launches=launches)
+
+
+def p14c_params(arch: str, seed: int, dev, ctx=None):
+    cfg = dataclasses.replace(get_arch(arch).config, n_layers=2)
+    params = LM.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        seed + 191), device=dev)
+    return cfg, params if ctx is None else LM.shard_params(params, cfg, ctx)
+
+
+def p14c_reference(seed: int, dev, tmp: str) -> dict:
+    """14c's parent side: llama3.2-3b and gemma-2b at full width, 2
+    layers, a one-process prefill of B 1 x S ``P14_PREFILL_S``."""
+    out = {}
+    for arch in P14_PREFILL_ARCHS:
+        cfg, params = p14c_params(arch, seed, dev)
+        toks = lm_tokens(cfg, torch.Generator(dev).manual_seed(seed + 193), 1,
+                         P14_PREFILL_S, dev)
+        torch.save(toks.cpu(), f"{tmp}/p14c-{arch}.pt")
+        last, caches = lm_prefill_step(params, cfg, toks)
+        out[arch] = (last.float().cpu(),
+                     {k: v.cpu() for k, v in caches.items()})
+        del params, caches
+        torch.cuda.empty_cache()
+    return out
+
+
+def p14c_rank(seed: int, dev, tmp: str, mesh) -> dict:
+    """14c on this rank at mesh (1, 4) under the prefill rules: the
+    prefill's last logits (whole on every rank), its caches (the rank's
+    KV heads) and flash-attention launches."""
+    prefill = next(s for s in LM_SHAPES if s.step == "prefill")
+    out = {}
+    for arch in P14_PREFILL_ARCHS:
+        ctx = ShardingCtx(lm_rules(arch, prefill, mesh), mesh)
+        cfg, params = p14c_params(arch, seed, dev, ctx)
+        toks = torch.load(f"{tmp}/p14c-{arch}.pt").to(dev)
+        common.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, caches = lm_prefill_step(params, cfg, toks, ctx)
+        torch.cuda.synchronize()
+        out[arch] = dict(last=last.float().cpu(),
+                         caches={k: v.cpu() for k, v in caches.items()},
+                         secs=time.perf_counter() - t0,
+                         launches=common.launch_counts(),
+                         heads=(LM.cache_heads(cfg, ctx),
+                                ctx.axis_index("model")))
+        del params, caches
+        torch.cuda.empty_cache()
+    return out
+
+
+def p14d_reference(seed: int, dev, tmp: str) -> dict:
+    """14d's parent side: one grok-1-314b layer at full width, bf16
+    (9.66 GB of experts), on random inputs at each of ``P14_GROK_S``,
+    without the embedding and head; freed before the spawn."""
+    cfg = dataclasses.replace(GROK, n_layers=1)
+    lp = grok_layer(cfg, seed, dev)
+    out = {}
+    g = torch.Generator(dev).manual_seed(seed + 197)
+    block = LM._moe_block
+    for kind, S in P14_GROK_S.items():
+        x = torch.randn((1, S, cfg.d_model), generator=g, device=dev).to(
+            torch.bfloat16)
+        torch.save(x.cpu(), f"{tmp}/p14d-{kind}.pt")
+        # one process takes the scatter; the dense loop where the ranks do
+        if kind == "dense":
+            LM._moe_block = lambda p, c, x_, ctx=None, lay=None: \
+                LM._moe_dense(p, c, x_)
+        try:
+            with torch.no_grad():
+                out[kind] = p14_layer(lp, cfg, x, None, None).float().cpu()
+        finally:
+            LM._moe_block = block
+    del lp
+    torch.cuda.empty_cache()
+    return out
+
+
+def p14d_rank(seed: int, dev, tmp: str, mesh) -> dict:
+    """14d on this rank at mesh (1, 4) under grok's train rules: each
+    expert split over ``expert_mlp`` (8,192 of its 32,768 ff columns a
+    rank), the attention over heads, the residual over the sequence."""
+    train = next(s for s in LM_SHAPES if s.step == "train")
+    ctx = ShardingCtx(lm_rules("grok-1-314b", train, mesh), mesh)
+    cfg = dataclasses.replace(GROK, n_layers=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    lp = grok_layer(cfg, seed, dev, ctx)
+    lay = LM.param_layout(cfg, ctx)["layers"][0]
+    out = {"ff": tuple(lp["w_gate"].shape)}
+    for kind, S in P14_GROK_S.items():
+        x = torch.load(f"{tmp}/p14d-{kind}.pt").to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y = p14_layer(lp, cfg, x, ctx, lay)
+        torch.cuda.synchronize()
+        out[kind] = (y.float().cpu(), time.perf_counter() - t0,
+                     LM.moe_dispatch(cfg, S, ctx))
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del lp
+    torch.cuda.empty_cache()
+    return out
+
+
+def p14_rank(rank: int, world: int, tmp: str, role: str, seed: int) -> None:
+    """One rank of Phase 14 (``torch.multiprocessing.spawn``), mesh (1,
+    world): 14a-14d, written with its launch counts to
+    ``tmp/14<role>-rank<rank>.pt``."""
+    import torch.distributed as dist
+    backend, dev = init_distributed(rank, world, f"{tmp}/rdv14-{role}")
+    if backend == "gloo":
+        p11_gloo_cuda(rank, world, dev)
+    mesh = make_mesh((1, world), ("data", "model"))
+    out = {"backend": backend}
+    t = time.perf_counter()
+    common.reset_launches()
+    out["a"] = p14a_rank(tmp, dev, ShardingCtx(make_rules(mesh), mesh))
+    total = common.launch_counts()
+    out["a_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["b"] = p14b_rank(seed, dev, tmp, mesh)
+    total = add_counts(total, out["b"]["launches"])
+    out["b_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["c"] = p14c_rank(seed, dev, tmp, mesh)
+    for arch in P14_PREFILL_ARCHS:
+        total = add_counts(total, out["c"][arch]["launches"])
+    out["c_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["d"] = p14d_rank(seed, dev, tmp, mesh)
+    out["d_s"] = time.perf_counter() - t
+    out["launches"] = total
+    torch.save(out, f"{tmp}/14{role}-rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p14a_held(role: str, outs: list, ref: dict) -> str:
+    """14a's checks; returns its line's body."""
+    cfg = ref["cfg"]
+    a0 = outs[0]["a"]
+    check(len({o["a"]["hash"] for o in outs}) == 1,
+          f"14{role}a: the ranks' replicated states differ")
+    check(all(o["a"]["metrics"] == a0["metrics"] for o in outs),
+          f"14{role}a: the ranks' losses differ")
+    check(a0["hidden"] == (cfg.d_hidden // P14_WORLD, cfg.d_user_feat)
+          and a0["heads"][0] == cfg.n_heads // P14_WORLD,
+          f"14{role}a: shards {a0['hidden']} and {a0['heads']}")
+    gaps = [f32_gap(x, y) for x, y in zip(a0["metrics"], ref["metrics"])]
+    check(max(gaps) <= 1, f"14{role}a: losses {a0['metrics']} vs the plain "
+          f"step's {ref['metrics']}")
+    flips = []
+    for t in range(P14_STEPS):
+        h, tot_p, books_p = ref["starts"][t]
+        tot_k, books_k = a0["starts"][t]
+        n, lead = selection_ties(h, a0["codes"][t], ref["codes"][t], books_p,
+                                 books_k, tot_p, tot_k, cfg.rq,
+                                 f"14{role}a step {t}")
+        flips.append((n, round(lead, 4)))
+    sizes = cfg.rq.codebook_sizes
+    serve = []
+    for n in P14_SERVE:
+        pk, ck = a0["serve"][n]
+        pp, cp = ref["serve"][n]
+        check(all(torch.equal(o["a"]["serve"][n][0], pk) for o in outs),
+              f"14{role}a: the ranks' primaries differ at {n} rows")
+        rel = float((pk - pp).norm() / pp.norm())
+        check(rel <= P14_F32_REL, f"14{role}a serve {n}: primaries {rel:.3g}"
+              f" apart, past {P14_F32_REL}")
+        check(all(torch.equal(x, y) for x, y in zip(ref["books"],
+                                                     a0["books"])),
+              f"14{role}a: the initial codebooks differ")
+        near = near_ties(pp, torch.from_numpy(layer_codes(ck, sizes)),
+                         torch.from_numpy(layer_codes(cp, sizes)),
+                         ref["books"], f"14{role}a serve {n}")
+        serve.append(f"{n} rows: primaries {rel:.3g} apart (norm-wise), "
+                     f"codes differing {near} (near ties), seconds "
+                     f"{[round(o['a']['serve_s'][n], 4) for o in outs]}")
+    return (f"rankgraph2 at full width (d_hidden {cfg.d_hidden}, "
+            f"{cfg.n_heads} heads, d_embed {cfg.d_embed}, RQ "
+            f"{' x '.join(map(str, sizes))}, f32), a rank "
+            f"{a0['hidden'][0]} hidden units and {a0['heads'][0]} head: "
+            f"{P14_STEPS} steps of {P14_ROWS} edges a type against the "
+            f"plain step (deterministic sums on both): loss gaps "
+            f"{[round(x, 3) for x in gaps]} of the f32 tolerance, selections "
+            f"differing (rows, largest lead over its allowance) {flips}; the "
+            f"replicated state bitwise equal on every rank ({a0['hash']}); "
+            f"serve {'; '.join(serve)}; step seconds "
+            f"{[[round(x, 3) for x in o['a']['secs']] for o in outs]} (the "
+            f"plain step's {[round(x, 3) for x in ref['secs']]}), peak GB "
+            f"{[round(o['a']['peak_gb'], 3) for o in outs]}; stage seconds, "
+            f"a rank {a0['laps']}, the parent {ref['laps']}")
+
+
+def p14b_held(role: str, outs: list, ref: dict) -> str:
+    b0 = outs[0]["b"]
+    for o in outs:
+        check([x[:2] for x in o["b"]["f32"]] == [x[:2] for x in b0["f32"]],
+              f"14{role}b: the ranks' losses or norms differ")
+    rel = []
+    for side, want in (("f32", ref["f32"]), ("bf16", ref["bf16"])):
+        for t, ((lk, nk, _), (lp, np_, _)) in enumerate(zip(b0[side], want)):
+            r = abs(lk - lp) / abs(lp)
+            tol = P14_F32_REL if side == "f32" else BF16_LM_TOL
+            check(r <= tol, f"14{role}b {side} step {t}: loss {lk} vs the "
+                  f"one-process {lp}")
+            if side == "f32":
+                check(abs(nk - np_) <= P14_F32_REL * np_, f"14{role}b f32 "
+                      f"step {t}: norm {nk} vs {np_}")
+            rel.append(round(r, 9))
+    worst = []
+    for t in range(2):
+        # each leaf norm-wise: a split leaf's blocks' squared gaps and
+        # norms summed over the ranks, a whole leaf's from rank 0
+        per = {}
+        for k, (_, _, split) in b0["gaps"][t].items():
+            parts = [o["b"]["gaps"][t][k] for o in (outs if split
+                                                    else outs[:1])]
+            per[k] = (sum(p[0] for p in parts)
+                      / max(sum(p[1] for p in parts), 1e-30)) ** 0.5
+        k = max(per, key=per.get)
+        check(per[k] <= P14_F32_REL, f"14{role}b f32 step {t}: {k}'s "
+              f"gradient {per[k]:.3g} apart, norm-wise")
+        worst.append((k, float(f"{per[k]:.3g}")))
+    gap = near(b0["decode"], ref["decode"], BF16_LM_TOL)
+    check(all(torch.equal(o["b"]["decode"], b0["decode"]) for o in outs),
+          f"14{role}b: the ranks' decode logits differ")
+    check(gap <= 1, f"14{role}b decode: logits {gap:.3g} of {BF16_LM_TOL}")
+    L = P14_OLMO_LAYERS
+    for r, o in enumerate(outs):
+        got = nonzero(o["b"]["launches"])
+        check(set(got) == P14B_KERNELS, f"14{role}b rank {r}: launches "
+              f"{got}, want each of {sorted(P14B_KERNELS)}")
+    return (f"olmo-1b at full width, {L} of 16 layers, B 1 x S "
+            f"{P14_OLMO_S}, train rules (heads, mlp and vocab over model, "
+            f"the residual over the sequence): 2 AdamW steps in f32 compute, "
+            f"losses {[x[0] for x in b0['f32']]} vs "
+            f"{[x[0] for x in ref['f32']]}, each gradient's worst leaf "
+            f"{worst} (limit {P14_F32_REL}); a bf16 step's loss "
+            f"{b0['bf16'][0][0]} vs {ref['bf16'][0][0]} (relative gaps "
+            f"{rel}); a decode step under the decode rules (heads whole, "
+            f"mlp and vocab split) on {P14_DECODE_T} cached positions: "
+            f"logits {gap:.3g} of {BF16_LM_TOL}; step seconds "
+            f"{[[round(x[2], 3) for x in o['b']['f32']] for o in outs]} "
+            f"(one process {[round(x[2], 3) for x in ref['f32']]}); launches "
+            f"a rank {nonzero(b0['launches'])}")
+
+
+def p14c_held(role: str, outs: list, ref: dict) -> str:
+    parts = []
+    for arch in P14_PREFILL_ARCHS:
+        last_p, caches_p = ref[arch]
+        cfg = get_arch(arch).config
+        c0 = outs[0]["c"][arch]
+        gap = near(c0["last"], last_p, BF16_LM_TOL)
+        check(gap <= 1, f"14{role}c {arch}: last logits {gap:.3g} of "
+              f"{BF16_LM_TOL}")
+        cg = 0.0
+        for o in outs:
+            c = o["c"][arch]
+            check(torch.equal(c["last"], c0["last"]),
+                  f"14{role}c {arch}: the ranks' logits differ")
+            h, mi = c["heads"]
+            check(c["caches"]["k"].shape[3] == h, f"14{role}c {arch}: "
+                  f"caches of {c['caches']['k'].shape[3]} heads, want {h}")
+            lo = mi * h if h < cfg.n_kv_heads else 0
+            for k in ("k", "v"):
+                cg = max(cg, near(c["caches"][k],
+                                  caches_p[k][:, :, :, lo:lo + h],
+                                  BF16_LM_TOL))
+            got = {k: v for k, v in c["launches"].items() if v}
+            check(got == {"flash_attention": 2}, f"14{role}c {arch}: "
+                  f"launches {got}")
+        check(cg <= 1, f"14{role}c {arch}: caches {cg:.3g} of {BF16_LM_TOL}")
+        h = c0["heads"][0]
+        parts.append(f"{arch} ({cfg.n_heads // P14_WORLD} query heads over "
+                     f"{h} KV head{'s' if h > 1 else ''} a rank): last "
+                     f"logits {gap:.3g}, the ranks' caches against their "
+                     f"heads of the one-process caches {cg:.3g} of "
+                     f"{BF16_LM_TOL}, 2 flash_attention launches a rank, "
+                     f"seconds {[round(o['c'][arch]['secs'], 3) for o in outs]}")
+    return (f"prefill B 1 x S {P14_PREFILL_S}, 2 layers at full width, "
+            f"prefill rules: " + "; ".join(parts))
+
+
+def p14d_held(role: str, outs: list, ref: dict) -> str:
+    d0 = outs[0]["d"]
+    parts = []
+    for kind in P14_GROK_S:
+        y0 = d0[kind][0]
+        check(all(torch.equal(o["d"][kind][0], y0) for o in outs),
+              f"14{role}d {kind}: the ranks' outputs differ")
+        check(all(o["d"][kind][2] == kind for o in outs),
+              f"14{role}d {kind}: dispatch {d0[kind][2]}")
+        gap = near(y0, ref[kind], BF16_LM_TOL)
+        check(gap <= 1, f"14{role}d {kind}: output {gap:.3g} of "
+              f"{BF16_LM_TOL}")
+        parts.append(f"S {P14_GROK_S[kind]} ({kind}): output {gap:.3g} of "
+                     f"{BF16_LM_TOL}, seconds "
+                     f"{[round(o['d'][kind][1], 3) for o in outs]}")
+    return (f"one grok-1-314b layer at full width, bf16, train rules, a "
+            f"rank's experts {d0['ff']} (expert_mlp over model): "
+            + "; ".join(parts) + f"; peak GB "
+            f"{[round(o['d']['peak_gb'], 3) for o in outs]}")
+
+
+def phase14(seed: int, dev, corpus, smi: str) -> dict:
+    """Phase 14 (module docstring): the parent's sides, then four gloo
+    ranks sharing the card run 14a-14d (and four NCCL ranks, one a card,
+    where the machine has four cards).  Returns the ranks' launch
+    counts, summed."""
+    t_all = time.perf_counter()
+    print(f"[phase14] bytes reckoned: {p14_reckon()} ({smi})")
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="phase14-") as tmp:
+        ref, ref_s = {}, {}
+        for part, fn in (("a", lambda: p14a_reference(seed, dev, corpus,
+                                                      tmp)),
+                         ("b", lambda: p14b_reference(seed, dev, tmp)),
+                         ("c", lambda: p14c_reference(seed, dev, tmp)),
+                         ("d", lambda: p14d_reference(seed, dev, tmp))):
+            t = time.perf_counter()
+            ref[part] = fn()
+            ref_s[part] = round(time.perf_counter() - t, 2)
+        print(f"[phase14] the parent's sides took {sum(ref_s.values()):.2f}"
+              f" s (14a-14d: {list(ref_s.values())})")
+        roles = [("", P14_WORLD)]
+        if torch.cuda.device_count() >= P14_WORLD:
+            roles.insert(0, ("nccl", P14_WORLD))
+        for role, world in roles:
+            t = time.perf_counter()
+            spawn_ranks(p14_rank, (world, tmp, role, seed), world,
+                        P14_TIMEOUT_S, f"phase 14{role}")
+            print(f"[phase14{role}] the ranks took "
+                  f"{time.perf_counter() - t:.2f} s")
+            outs = [torch.load(f"{tmp}/14{role}-rank{r}.pt",
+                               weights_only=False) for r in range(world)]
+            backend = outs[0]["backend"]
+            check(backend == ("nccl" if role == "nccl" else "gloo"),
+                  f"14{role} chose {backend}")
+            for o in outs:
+                total = add_counts(total, o["launches"])
+            note = ("gloo stages CUDA tensors through the host: these times "
+                    "say nothing of NCCL" if backend == "gloo" else
+                    "one rank a card")
+            secs = {p: [round(o[f"{p}_s"], 2) for o in outs]
+                    for p in "abcd"}
+            failed = []
+            for part, held in (("a", p14a_held), ("b", p14b_held),
+                               ("c", p14c_held), ("d", p14d_held)):
+                try:        # every part's line, then the first failure
+                    line = held(role, outs, ref[part])
+                except AssertionError as e:
+                    failed.append(str(e))
+                    line = f"FAILED: {e}"
+                print(f"[phase14{role}{part}] mesh (1, {world}), backend "
+                      f"{backend}: {line}; each rank's seconds "
+                      f"{secs[part]} ({note}; {smi})", flush=True)
+            print(f"[phase14{role}] wall {time.perf_counter() - t:.2f} s")
+            for what in failed:
+                check(False, what)
+    print(f"[phase14] wall {time.perf_counter() - t_all:.2f} s; the ranks' "
+          f"launches {json.dumps(nonzero(total))}")
+    return total
+
+
 def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
@@ -7714,6 +8489,11 @@ def main() -> int:
                          "Phase 12 (the LM family under a mesh: kimi's "
                          "expert-parallel prefill and MoE backward, "
                          "olmo's FSDP train steps)")
+    ap.add_argument("--tp-only", action="store_true",
+                    help="only build the kernels Phase 3's construction, "
+                         "training and the LM's attention use, make Phase "
+                         "3's corpus (no training) and run Phase 14 "
+                         "(tensor parallelism over the model axis)")
     ap.add_argument("--decode-only", type=int, default=0, metavar="REPS",
                     help="only build flash_attention, print the whole op's "
                          "lines as --attention-only does, and run Phase 5's "
@@ -7767,6 +8547,16 @@ def main() -> int:
     if args.lm_mesh_only:
         print_build(common.build(["flash_attention", "flash_attention_bwd"]))
         phase12(args.seed, dev, smi)
+        return 0
+    if args.tp_only:
+        print_build(common.build(["rq_assign", "ppr_walk",
+                                  "fused_contrastive", "flash_attention",
+                                  "flash_attention_bwd"]))
+        t = time.perf_counter()
+        corpus = p11_corpus(args.seed, dev)
+        print(f"[phase14] Phase 3's corpus made in "
+              f"{time.perf_counter() - t:.2f} s")
+        phase14(args.seed, dev, corpus, smi)
         return 0
     if args.lm_train_only:
         print_build(common.build(["flash_attention", "flash_attention_bwd"]))
@@ -7897,6 +8687,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     progress(t_main, "Phase 11")
     launches11 = phase11(args.seed, dev, corpus, smi)
+    torch.cuda.empty_cache()
+    progress(t_main, "Phase 14")
+    launches14 = phase14(args.seed, dev, corpus, smi)
     del corpus
     torch.cuda.empty_cache()
     progress(t_main, "Phase 12")
@@ -7909,7 +8702,7 @@ def main() -> int:
             + sum(ls.get(counter, 0)
                   for ls in (launches6, launches7, launches8, launches9,
                              launches10, launches11, launches12,
-                             launches13)))
+                             launches13, launches14)))
         check(r["launches"] > 0, f"{r['name']} was not launched on its "
               f"main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

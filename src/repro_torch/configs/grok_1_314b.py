@@ -5,9 +5,11 @@ second moments: AdamW's state for 314B params would not fit).
 8 experts do not divide the 16-way model axis, so under a mesh the
 experts are replicated over ``model`` (``RULES_OVERRIDE``, the JAX
 config's): ``_moe_block`` then takes the dense loop where a data rank
-has 1,024 tokens or more.  The override's
-``expert_mlp -> model`` is tensor parallelism inside each expert, which
-the port keeps whole (``distributed.sharding.TENSOR_PARALLEL``)."""
+has 1,024 tokens or more.  The override's ``expert_mlp -> model`` is
+tensor parallelism inside each expert, the only split of the experts:
+each model rank holds every expert's ``w_gate`` and ``w_up`` columns and
+``w_down`` rows of its block of the expert ff (``models/lm/model.py``,
+under ``_moe_dense`` and ``_moe_scatter``)."""
 from repro_torch.configs.base import ArchSpec, LMConfig, LM_SHAPES, register
 
 CONFIG = LMConfig(

@@ -8,8 +8,9 @@ and computes ``x @ w``; ``nn.Linear`` keeps ``(d_out, d_in)``, so ``w``
 is transposed here.  ``rq_state_from_jax`` and ``pool_from_jax`` carry
 the RQ histograms and the negative pool over, and
 ``train_state_from_jax`` a whole ``TrainState`` (parameters, the
-optimizer's moments, RQ state, pool, step), so the port can start a
-train step or a lifecycle runtime from the exact JAX state.  ``recsys_params_from_jax`` carries
+optimizer's moments, RQ state, pool, step; under a mesh a rank's
+shards), so the port can start a train step or a lifecycle runtime
+from the exact JAX state.  ``recsys_params_from_jax`` carries
 a recsys model's tree over (MLP ``w`` transposed, everything else as
 it is; under a mesh a rank's rows of the row-sharded tables).
 ``lm_params_from_jax`` carries an LM's tree over (dense or MoE), its
@@ -26,7 +27,7 @@ from repro_torch.core.losses import TASKS
 from repro_torch.core.model import DTYPES, Aggregator, Encoder
 from repro_torch.core.negatives import NegPoolState
 from repro_torch.core.rq_index import RQState, codebooks_module
-from repro_torch.core.trainer import TrainState, named_params
+from repro_torch.core.trainer import TrainState, named_params, shard_state
 from repro_torch.models.lm.model import shard_params
 from repro_torch.models.recsys.models import ROW_SHARDED, shard_rows
 from repro_torch.optim.optimizers import AdamState, is_sparse
@@ -110,11 +111,14 @@ def _moments_from_jax(tree, like: Dict[str, torch.Tensor], dev
         params_from_jax(fill(tree, like), device=dev)).items()}
 
 
-def train_state_from_jax(state, *, device=None) -> TrainState:
+def train_state_from_jax(state, *, device=None, ctx=None,
+                         cfg=None) -> TrainState:
     """A JAX ``TrainState`` (``rankgraph2_optimizer``'s partitioned
     AdaGrad/AdamW state) -> the port's, on ``device``, with gradients
     on: parameters and every moment in the port's layout, the AdamW
-    count, RQ state, pool and step as they are."""
+    count, RQ state, pool and step as they are.  Under ``ctx`` (a
+    ``ShardingCtx`` over a mesh, with the ``RankGraph2Config`` ``cfg``)
+    this rank's shards (``core.trainer.shard_state``)."""
     dev = resolve_device(device)
     tree = state.params
     params = params_from_jax(tree, device=dev, trainable=True)
@@ -127,10 +131,11 @@ def train_state_from_jax(state, *, device=None) -> TrainState:
                      {k: v for k, v in mu.items() if not is_sparse(k)},
                      {k: v for k, v in nu.items() if not is_sparse(k)},
                      int(np.asarray(dense.count)))}
-    return TrainState(params, opt_state,
-                      rq_state_from_jax(state.rq_state, device=dev),
-                      pool_from_jax(state.pool, device=dev),
-                      int(np.asarray(state.step)))
+    out = TrainState(params, opt_state,
+                     rq_state_from_jax(state.rq_state, device=dev),
+                     pool_from_jax(state.pool, device=dev),
+                     int(np.asarray(state.step)))
+    return out if ctx is None else shard_state(out, cfg, ctx)
 
 
 RECSYS_KEYS = {"dlrm": {"tables", "bot", "top"},

@@ -48,6 +48,18 @@ task loss is every rank's sum over the global ``B``, never a mean of the
 ranks' means.  A rank with no rows of a type runs the same collectives
 on empty blocks (the contrastive kernels launch nothing at zero rows),
 so every rank takes part in every exchange.
+
+Under a ``(data, model)`` mesh the model axis adds tensor parallelism
+(``core/model.py``: the encoders' hidden layer over ``mlp``, the
+aggregators over ``heads``; ``shard_state`` cuts a whole state to a
+rank's shards).  The data group works as above and ``rank_batch``
+reads the data index, so the ranks of a model group hold the same rows
+and compute the same losses; a split leaf's gradient is its block's,
+reduced over the data group only, and the clip's norm counts each split
+leaf once over its group (``StepGrads.shards``).  Everything after the
+aggregators is the same on every rank of a model group, so after a step
+the replicated state (RQ codebooks, histograms, pool, log-variances) is
+bitwise equal across ranks.
 """
 from __future__ import annotations
 
@@ -110,6 +122,28 @@ def init_state(cfg: RankGraph2Config, *, generator: torch.Generator,
     return state, optimizer
 
 
+def shard_state(state: TrainState, cfg: RankGraph2Config,
+                ctx: Optional[ShardingCtx]) -> TrainState:
+    """``state`` (whole) with its split parameters and their optimizer
+    moments cut to this rank's blocks under ``ctx``
+    (``model.param_layout``), in place; returns ``state``."""
+    lay = M.param_layout(cfg, ctx)
+    if not any(any(s is not None for s in v) for v in lay.values()):
+        return state
+    M.shard_params(state.params, cfg, ctx)
+
+    def cut(tree):
+        if isinstance(tree, opt_lib.AdamState):
+            return opt_lib.AdamState(cut(tree.mu), cut(tree.nu), tree.count)
+        if isinstance(tree, dict):
+            return {k: M.shard_tensor(k, v, cfg, ctx)
+                    if isinstance(v, torch.Tensor) and k in lay else cut(v)
+                    for k, v in tree.items()}
+        return tree
+    state.opt_state = cut(state.opt_state)
+    return state
+
+
 # edge type -> (src node type, dst node type)
 _ET_TYPES = {"uu": (M.USER, M.USER), "ui": (M.USER, M.ITEM),
              "ii": (M.ITEM, M.ITEM)}
@@ -123,7 +157,8 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _dedup_per_type(params, cfg: RankGraph2Config, batch,
-                    features: FeatureStore):
+                    features: FeatureStore,
+                    ctx: Optional[ShardingCtx] = None):
     """Unique-node forward: encode each pack row once, aggregate each
     endpoint-unique node once, gather per-(edge_type, side) views.
     Returns {et: (src_heads, src_prim, dst_heads, dst_prim)} with the
@@ -136,7 +171,7 @@ def _dedup_per_type(params, cfg: RankGraph2Config, batch,
     for tname, ntype in _NODE_TYPES:
         table = features.user_feat if ntype == M.USER else features.item_feat
         enc[tname] = M.encode_nodes(params, cfg, ntype,
-                                    _take(table, nodes[tname]["ids"]))
+                                    _take(table, nodes[tname]["ids"]), ctx)
     heads, prims = {}, {}
     for tname, ntype in _NODE_TYPES:
         side = nodes[tname]
@@ -144,7 +179,7 @@ def _dedup_per_type(params, cfg: RankGraph2Config, batch,
         h = M.aggregate_nodes(
             params, cfg, ntype, enc[tname][:e_pad],
             _take(enc["user"], side["unbr_idx"]), side["unbr_mask"],
-            _take(enc["item"], side["inbr_idx"]), side["inbr_mask"])
+            _take(enc["item"], side["inbr_idx"]), side["inbr_mask"], ctx)
         heads[tname] = h
         prims[tname] = M.primary_embedding(h)
     per_type = {}
@@ -189,7 +224,8 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
                    draws: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                    rq_codes: Optional[torch.Tensor] = None,
                    shard_block: int = 0, group=None,
-                   spans: Optional[Dict[str, Tuple[int, slice]]] = None):
+                   spans: Optional[Dict[str, Tuple[int, slice]]] = None,
+                   ctx: Optional[ShardingCtx] = None):
     """Returns (task_losses, aux); aux carries the RQ state, the
     endpoint embeddings for the pool update, and the RQ's input rows
     (``rq_input``) and selections (``codes``).  ``draws`` maps each of
@@ -207,9 +243,10 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
     this rank's rows of it (``block_rows``); a
     type that the group does not divide takes whole-batch negatives
     (module docstring), its ``draws`` laid out for the whole batch
-    (``shard_block`` 0) and cut to this rank's rows."""
+    (``shard_block`` 0) and cut to this rank's rows.  ``ctx``: the mesh
+    whose model axis splits ``params`` (``core/model.py``)."""
     tasks: Dict[str, torch.Tensor] = {}
-    per_type = _dedup_per_type(params, cfg, batch, features)
+    per_type = _dedup_per_type(params, cfg, batch, features, ctx)
     draws = draws or {}
     world = 1 if group is None else torch.distributed.get_world_size(group)
     if spans is None:
@@ -389,11 +426,15 @@ class StepGrads:
     """One train step's forward and backward: the task losses, their
     uncertainty-weighted total, ``forward_losses``'s ``aux`` and every
     parameter's gradient by name as the update takes it, before
-    clipping (summed over the data group in a data-parallel step)."""
+    clipping (summed over the data group in a data-parallel step);
+    ``shards``: the split leaves' groups (``model.shard_groups``), by
+    which the clip's norm counts each leaf once, None where every leaf
+    is whole."""
     tasks: Dict[str, torch.Tensor]
     total: torch.Tensor
     aux: Dict[str, object]
     grads: Dict[str, torch.Tensor]
+    shards: Optional[Dict[str, Tuple[Any, ...]]] = None
 
 
 def make_grad_step(cfg: RankGraph2Config, ctx: Optional[ShardingCtx] = None,
@@ -411,8 +452,11 @@ def make_grad_step(cfg: RankGraph2Config, ctx: Optional[ShardingCtx] = None,
     ``aux`` then holds this rank's rows.  With no mesh or ``dp == 1`` it
     is the one-process step; ``shard_block`` then keeps its in-batch
     negatives inside blocks of that many rows (the global step a
-    ``dp``-rank run equals)."""
+    ``dp``-rank run equals).  A mesh with a ``model`` axis splits the
+    model over it (module docstring): ``state`` then holds this rank's
+    shards (``shard_state``)."""
     dp = 1 if ctx is None else ctx.axis_size("batch")
+    shards = M.shard_groups(cfg, ctx) or None
     group, rank = None, 0
     if dp > 1:
         if shard_block:
@@ -439,7 +483,7 @@ def make_grad_step(cfg: RankGraph2Config, ctx: Optional[ShardingCtx] = None,
                                     state.rq_state, features=features,
                                     train=True, generator=generator,
                                     draws=draws, shard_block=shard_block,
-                                    group=group, spans=spans)
+                                    group=group, spans=spans, ctx=ctx)
         total = L.uncertainty_combine(tasks, state.params["uncertainty"])
         total.backward()
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
@@ -450,7 +494,7 @@ def make_grad_step(cfg: RankGraph2Config, ctx: Optional[ShardingCtx] = None,
             reduce_grads_(grads, [k for k in grads
                                   if not k.startswith("uncertainty.")],
                           group)
-        return StepGrads(tasks, total, aux, grads)
+        return StepGrads(tasks, total, aux, grads, shards)
 
     return grad_step
 
@@ -463,7 +507,8 @@ def apply_grads(state: TrainState, sg: StepGrads,
     ``(state, metrics)``; ``metrics`` are 0-d device tensors (reading
     them is the caller's sync)."""
     params = named_params(state.params)
-    grads, gnorm = opt_lib.clip_by_global_norm(sg.grads, grad_clip)
+    grads, gnorm = opt_lib.clip_by_global_norm(sg.grads, grad_clip,
+                                               sg.shards)
     with torch.no_grad():
         updates, state.opt_state = optimizer.update(
             grads, state.opt_state, params)
@@ -553,13 +598,16 @@ def reset_dead_codes(state: TrainState, probe_emb, cfg: RankGraph2Config,
 
 @torch.inference_mode()
 def embed_all(params, cfg: RankGraph2Config, dataset, *, node_type: int,
-              ids: np.ndarray, batch: int = 4096) -> torch.Tensor:
+              ids: np.ndarray, batch: int = 4096,
+              ctx: Optional[ShardingCtx] = None) -> torch.Tensor:
     """Primary embeddings (len(ids), d_embed) in ``cfg.dtype`` on the
     dataset's device, for global node ids.
 
     Every chunk is padded to the fixed ``batch`` by repeating its last
     id, as the JAX package does: the neighbour draw of a chunk depends
-    on its padded shape, so the same rule gives the same draws."""
+    on its padded shape, so the same rule gives the same draws.  Under
+    ``ctx`` ``params`` are this rank's shards (``shard_state``) and every
+    rank returns every id's embedding."""
     ids = np.asarray(ids)
     out = []
     for lo in range(0, len(ids), batch):
@@ -568,7 +616,7 @@ def embed_all(params, cfg: RankGraph2Config, dataset, *, node_type: int,
         if pad:
             chunk = np.r_[chunk, np.repeat(chunk[-1:], pad)]
         side = dataset.node_inference_batch(chunk)
-        _, prim = M.embed_side(params, cfg, side, node_type)
+        _, prim = M.embed_side(params, cfg, side, node_type, ctx)
         out.append(prim[: len(prim) - pad] if pad else prim)
     if not out:
         return torch.empty((0, cfg.d_embed), dtype=M.DTYPES[cfg.dtype],

@@ -35,14 +35,40 @@ same cotangent for it, so those rules read:
   * ``slice_rows``: this rank's ``i``-th of ``n`` row blocks of a value
     replicated over the group; its backward puts the cotangent into its
     rows of zeros and all-reduces over the group;
-  * ``replicate``: the identity on a value replicated over the group; its
-    gradient is summed over the group;
   * ``mean_across``: the mean over the group (``pmean``), an output
     replicated over it: its backward is the all-reduced cotangent over
     ``n ** 2``;
   * ``all_sum``: the sum over the group whose backward is the sum of the
     cotangents, for a statistic of every rank's rows in a step that
     averages its gradients over those ranks.
+
+Tensor parallelism over a model group (``models/lm/model.py``'s split
+products and vocabulary, ``core/model.py``'s encoders and aggregators)
+keeps another rule: a value every rank of the group holds alike has the
+whole of its gradient on every rank, a split value the gradient of the
+rank's block, and between ``enter_split`` and ``leave_split`` a rank's
+gradients are its partial sums.  The pair and its gathers:
+
+  * ``enter_split``: a replicated value entering the rank's split
+    products (or a whole parameter used among them): the identity, and
+    its cotangents, partial a rank, all-reduced;
+  * ``leave_split``: the split products' partial sums leaving: the
+    all-reduce, and the cotangent passed back unchanged (``sum_across``);
+  * ``seq_gather``: sequence parallelism's entry, the ranks' blocks of
+    the sequence all-gathered and the partial cotangents reduce-scattered
+    (``gather_dim``'s gradient);
+  * ``seq_scatter``: its exit, the partial sums reduce-scattered to each
+    rank's block of the sequence and the cotangents all-gathered;
+  * ``gather_split``: the ranks' blocks of a value that each computes for
+    its own heads (or vocabulary rows) put back together, and each rank's
+    block of the whole cotangent taken back;
+  * ``split_of``: a rank's block of a replicated value, and the blocks'
+    cotangents all-gathered.
+
+``gather_dim`` and ``all_sum`` must not stand in for these: their
+gradients sum over the group a cotangent that every rank computes
+alike, which makes it ``n`` times too large.  With grad mode off (serving,
+``torch.inference_mode``) each runs its forward's collective alone.
 
 Under gloo a CUDA tensor is staged through the host for ``all_to_all``
 and ``reduce_scatter`` (``_host_staged``), which gloo does not take on
@@ -251,25 +277,6 @@ def slice_rows(x: torch.Tensor, i: int, n: int, group) -> torch.Tensor:
     return _SliceRows.apply(x, i, n, group)
 
 
-class _Replicate(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-def replicate(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` as it is; its gradient is summed over ``group`` (a value
-    replicated over the group and used by each rank on its own part)."""
-    return _Replicate.apply(x, group)
-
-
 class _MeanAcross(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -312,3 +319,110 @@ def all_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over ``group``; each rank's ``x`` gets the sum of
     the ranks' cotangents (``jax.lax.psum``'s transpose)."""
     return _AllSum.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over a model group (module docstring)
+# ---------------------------------------------------------------------------
+
+class _EnterSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g32 = g.to(torch.float32, copy=True).contiguous()
+        dist.all_reduce(g32, group=ctx.group)
+        return g32.to(g.dtype), None
+
+
+def enter_split(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (alike on every rank of ``group``) as the input of this
+    rank's split products; its gradient is the ranks' partial ones,
+    all-reduced in f32 and cast back to their type once."""
+    if not torch.is_grad_enabled():
+        return x
+    return _EnterSplit.apply(x, group)
+
+
+def leave_split(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of the split products' partial sums ``x``,
+    on every rank; the cotangent of the sum is each partial's."""
+    if not torch.is_grad_enabled():
+        return sum_across_(x.clone(), group)
+    return _SumAcross.apply(x, group)
+
+
+def seq_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks of the sequence along ``dim`` concatenated, as
+    the input of split products; the partial cotangents are
+    reduce-scattered (in f32) back to each rank's block."""
+    if not torch.is_grad_enabled():
+        return _all_gather(x, dim, group)
+    return _GatherDim.apply(x, dim, group, None, 1.0)
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+def seq_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``group`` of the
+    partial sums ``x`` (a reduce-scatter in ``x``'s type); the blocks'
+    cotangents are all-gathered."""
+    if not torch.is_grad_enabled():
+        return _reduce_scatter(x, dim, group)
+    return _SeqScatter.apply(x, dim, group)
+
+
+class _GatherSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        ctx.i, ctx.n = dist.get_rank(group), group_size(group)
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.chunk(g, ctx.n, dim=ctx.dim)[ctx.i].contiguous(), \
+            None, None
+
+
+def gather_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' blocks of equal shape concatenated along ``dim``, a
+    value every rank then uses alike; the gradient of this rank's block
+    is its block of the (whole, equal) cotangent."""
+    if not torch.is_grad_enabled():
+        return _all_gather(x, dim, group)
+    return _GatherSplit.apply(x, dim, group)
+
+
+class _SplitOf(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = group_size(group)
+        return torch.chunk(x, n, dim=dim)[dist.get_rank(group)].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group), None, None
+
+
+def split_of(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` (alike on every rank of
+    ``group``), in the group's rank order; the gradient of ``x`` is the
+    blocks' cotangents all-gathered."""
+    if not torch.is_grad_enabled():
+        return torch.chunk(x, group_size(group), dim=dim)[
+            dist.get_rank(group)].contiguous()
+    return _SplitOf.apply(x, dim, group)

@@ -13,20 +13,23 @@ Departures:
 
   * The port has no GSPMD.  ``constrain`` and ``ShardingCtx.__call__``
     return their input unchanged; the paths that run across ranks
-    (data-parallel rankgraph2 training, the row-sharded recsys lookup)
-    are written as manual SPMD against ``ShardingCtx.axis_size``,
-    ``axis_index`` and ``group``.  Tensor parallelism of the dense
-    layers, which the reference gets from GSPMD under these rules, is
-    not in the port.
+    (data-parallel rankgraph2 training, the row-sharded recsys lookup,
+    the LM family under a mesh, tensor parallelism over ``model``) are
+    written as manual SPMD against ``ShardingCtx.axis_size``,
+    ``axis_index`` and ``group``, each rank holding its shards and the
+    collectives of ``distributed.collectives`` placed where the
+    reference's constraints would make GSPMD put them.
   * ``tree_shardings`` has no counterpart: it builds jax
     ``NamedSharding`` objects, and a torch tensor carries no sharding.
     A rank holds its own shard of a parameter instead: ``param_spec``
-    lays it out by the parameter's logical spec under the rules, with
-    the tensor-parallel names (``TENSOR_PARALLEL``) whole, and a dim
+    lays it out by the parameter's logical spec under the rules, a dim
     that its axes' size does not divide whole
-    (``repro/launch/steps.py::_safe``); the LM family under a mesh
-    (FSDP over ``embed``, experts over ``expert``) gathers where it uses
-    a leaf.
+    (``repro/launch/steps.py::_safe``: gemma-2b's one KV head,
+    rankgraph2's 4 heads at ``model`` 8).  The LM family under a mesh
+    gathers its FSDP dims (``embed``) where it uses a leaf and uses its
+    tensor-parallel dims (``heads``, ``kv_heads``, ``mlp``, ``vocab``,
+    ``expert_mlp``) where they lie; rankgraph2 splits its encoders'
+    hidden layer (``mlp``) and its aggregators (``heads``).
   * A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` (see
     ``launch.mesh``).  ``make_rules`` and ``axis_size`` read only its
     ``mesh_dim_names`` and ``shape``; ``make_rules`` also takes a plain
@@ -131,19 +134,13 @@ def logical_to_spec(logical: Optional[LogicalSpec],
     return tuple(out)
 
 
-# Logical names whose split is tensor parallelism, which the port does not
-# have: a parameter keeps these dims whole on every rank.
-TENSOR_PARALLEL = ("heads", "kv_heads", "mlp", "vocab", "expert_mlp")
-
-
 def param_spec(logical: LogicalSpec, rules: Mapping[str, Any],
                shape: Sequence[int], sizes: Mapping[str, int]) -> Spec:
     """The spec by which a rank holds its shard of a parameter of
-    ``shape``: ``logical_to_spec`` under ``rules`` with the
-    ``TENSOR_PARALLEL`` names whole, then each dim that the product of its
-    axes' ``sizes`` does not divide whole, as ``_safe`` keeps it."""
-    spec = logical_to_spec(tuple(None if n in TENSOR_PARALLEL else n
-                                 for n in logical), rules)
+    ``shape``: ``logical_to_spec`` under ``rules``, then each dim that the
+    product of its axes' ``sizes`` does not divide whole, as ``_safe``
+    keeps it."""
+    spec = logical_to_spec(tuple(logical), rules)
     out = []
     for dim, s in zip(shape, spec):
         axes = (s,) if isinstance(s, str) else tuple(s or ())
@@ -151,6 +148,32 @@ def param_spec(logical: LogicalSpec, rules: Mapping[str, Any],
         for a in axes:
             n *= sizes[a]
         out.append(s if axes and dim % n == 0 else None)
+    return tuple(out)
+
+
+def split_axes(spec: Spec) -> list:
+    """(dim, axes) for each dim a spec splits."""
+    return [(dim, (s,) if isinstance(s, str) else tuple(s))
+            for dim, s in enumerate(spec) if s is not None]
+
+
+def shard_of(x: Any, spec: Spec, ctx: "ShardingCtx") -> Any:
+    """This rank's block of ``x`` (held whole) under ``spec``: each split
+    dim cut into equal blocks, taken at the rank's coordinate along its
+    axes."""
+    for dim, axes in split_axes(spec):
+        x = x.chunk(ctx.size(axes), dim=dim)[ctx.axis_index(axes)]
+    return x.contiguous()
+
+
+def spec_groups(spec: Spec, ctx: "ShardingCtx") -> Tuple[Any, ...]:
+    """For each dim of ``spec`` the process group it is split over, None
+    where whole (axes of size 1 split nothing): a leaf's entry of the
+    optimizers' ``shards``."""
+    out: list = [None] * len(spec)
+    for dim, axes in split_axes(spec):
+        if ctx.size(axes) > 1:
+            out[dim] = ctx.group(axes)
     return tuple(out)
 
 
@@ -174,7 +197,8 @@ def tree_logical_to_spec(tree: Any, rules: Mapping[str, Any]) -> Any:
 def constrain(x: Any, logical: LogicalSpec,
               rules: Optional[Mapping[str, Any]]) -> Any:
     """The reference's ``with_sharding_constraint`` by logical names.
-    The port has no GSPMD: ``x`` comes back unchanged."""
+    The port has no GSPMD: ``x`` comes back unchanged, and the manual
+    SPMD paths place their collectives themselves."""
     return x
 
 

@@ -20,7 +20,9 @@ same rows), the loss is the mean of the data ranks' means, the gradients
 of the parameters split over the data ranks come from their gathers'
 reduce-scatter and the others are all-reduced, both over ``dp``, and the
 clip's norm and Adafactor's statistics are the whole parameters'
-(``optim.optimizers``, ``shards``).
+(``optim.optimizers``, ``shards``).  The model axis runs tensor and
+sequence parallelism (``models.lm.model``): a leaf split over it keeps
+its block's gradient, which no reduction over the model group touches.
 
 The LM serve steps:
 
@@ -262,10 +264,15 @@ def lm_rules(arch_id: str, shape: ShapeSpec, mesh,
     """The rules of an LM cell, as ``repro/launch/steps.py::_rules_for``
     makes them for the LM family: grok's ``RULES_OVERRIDE``; for a train
     shape FSDP (``embed -> data``) and sequence parallelism (``seq ->
-    model``, which the port's replicated activations ignore); for a
-    decode shape the KV cache over ``kv_seq``, heads whole and, at a
-    global batch of 1, the batch whole.  ``mesh``: a ``DeviceMesh`` or a
-    sequence of axis names."""
+    model``: the residual between blocks is a rank's ``S / nm``
+    positions); for a decode shape the KV cache over ``kv_seq`` (the port
+    keeps its caches whole), heads whole and, at a global batch of 1,
+    the batch whole.  The default rules split ``heads``, ``kv_heads``,
+    ``mlp`` and ``vocab`` over ``model`` (tensor parallelism,
+    ``models.lm.model``); ``overrides`` map names first, as the
+    reference's ``_rules_for(overrides=)`` (``{"mlp": None}`` keeps the
+    MLP whole).  ``mesh``: a ``DeviceMesh`` or a sequence of axis
+    names."""
     if get_arch(arch_id).family != "lm":
         raise ValueError(f"{arch_id} is not an LM")
     ov = dict(overrides or {})

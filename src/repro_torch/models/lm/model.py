@@ -58,12 +58,43 @@ a model group hold the same rows) and its own shards of the parameters:
 ``param_specs`` are the reference's logical specs (``_layer_init``,
 ``init_params``), ``param_layout`` lays them out under the rules
 (``distributed.sharding.param_spec``: FSDP splits ``embed`` over
-``data``, expert parallelism splits ``expert`` over ``model``; the
-tensor-parallel names stay whole: the port has no tensor parallelism),
-and ``shard_params`` cuts a whole tree to a rank's
-shards. A sharded leaf is gathered where it is used (``_w``; under remat
-again in the backward), cast to the compute type before it is sent where
-the product casts it; its gradient comes back reduce-scattered.
+``data``, expert parallelism ``expert`` over ``model``, tensor
+parallelism ``heads``, ``kv_heads``, ``mlp``, ``vocab`` and
+``expert_mlp`` over ``model``; a dim the axis does not divide stays
+whole), and ``shard_params`` cuts a whole tree to a rank's shards. An
+FSDP leaf is gathered over the data axes where it is used (``_w``; under
+remat again in the backward), cast to the compute type before it is
+sent where the product casts it; its gradient comes back
+reduce-scattered.  Its model-axis dims stay local.
+
+Tensor parallelism (manual SPMD, the collectives of
+``distributed.collectives``' tensor-parallel pair): ``wq``, ``wk`` and
+``wv`` are split by columns (a rank's ``H / nm`` query heads over its
+``Hkv / nm`` KV heads, or over the KV heads they use where the axis
+does not divide ``Hkv``: gemma-2b's one head), ``wo`` by rows; the
+dense MLP's ``w_gate`` and ``w_up`` by columns, ``w_down`` by rows, and
+grok's experts the same way over ``expert_mlp``.  A block's input enters
+its split products by ``enter_split`` and its partial sums leave by
+``leave_split``; in bf16 a row-split product gives its partial sums in
+f32 (``nn.mm_f32``), which are summed over the model group in f32 and
+rounded once, where the one-process product rounds its one f32 sum.
+The embedding is split by rows: a rank looks up the tokens of its rows
+(zeros elsewhere) and the model group sums them.  The head is split by
+columns (tied: the embedding's rows): ``lm_loss`` takes each position's
+logsumexp and gold logit over the model group in f32 (the maximum, then
+the sum of the exponentials), and ``forward``, ``prefill`` and
+``decode_step`` gather the whole vocabulary's logits on every rank.
+Under the train rules (``seq -> model``) the residual between blocks is
+the rank's ``S / nm`` positions (sequence parallelism, where ``nm``
+divides ``S``): ``seq_gather`` before a block's split products,
+``seq_scatter`` after them; a block that runs whole (its weights
+unsplit) and the MoE block get the whole sequence (``_moe_shard_map``'s
+``in_specs``) and keep the rank's block of their output.  A norm's
+scale applied to the rank's positions enters by ``enter_split``, so its
+gradient is the whole sequence's.  Caches are a rank's own KV heads
+(``init_kv_cache(ctx=)``); the decode rules keep heads and caches whole
+(the reference's ``kv_seq`` split of the cache is not ported).
+
 ``_moe_block`` takes the reference's dispatch (``moe_dispatch``, its
 conditions at ``repro/models/lm/model.py:357-369``): ``_moe_shard_map``
 (each model rank routes its ``1 / nm`` of the tokens, packs an ``(nm,
@@ -72,23 +103,27 @@ its own ``E / nm`` experts, an ``all_gather`` puts the slices back, aux
 is ``pmean``ed), then ``_moe_dense`` when ``E <= 16`` and a data rank
 has 1,024 tokens or more, else ``_moe_scatter``; these two see the whole
 batch's router statistics, capacity and slot order through collectives
-over the data group, as the reference's global arrays.
+over the data group, as the reference's global arrays, and run the
+experts split over ``expert_mlp`` where the rules say so (grok).
 ``_moe_shard_map_plain`` is the shard_map dispatch in one process (the
 ``nm`` slices in turn on the whole experts), for tests and checks only.
 Without a ``ctx`` every path is the one-process path.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (ShardingCtx, mesh_sizes,
-                                              param_spec)
+                                              param_spec, shard_of,
+                                              spec_groups, split_axes)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.flash_attention.ops import chunked_attention
 from repro_torch.nn import core as nn
@@ -237,28 +272,15 @@ def param_layout(cfg: LMConfig, ctx: ShardingCtx) -> Dict[str, Any]:
                                              sizes), _leaves(cfg))
 
 
-def _split_axes(spec) -> list:
-    """(dim, axes) for each split dim of a spec."""
-    return [(dim, (s,) if isinstance(s, str) else tuple(s))
-            for dim, s in enumerate(spec) if s is not None]
-
-
-def _shard(x: torch.Tensor, spec, ctx: ShardingCtx) -> torch.Tensor:
-    for dim, axes in _split_axes(spec):
-        n = ctx.size(axes)
-        x = torch.chunk(x, n, dim=dim)[ctx.axis_index(axes)]
-    return x.contiguous()
-
-
 def shard_params(params: Params, cfg: LMConfig, ctx: ShardingCtx
                  ) -> Params:
     """This rank's shards of a whole parameter tree, laid out by
     ``param_layout`` (each split dim cut into equal blocks in the order
     of the rank's coordinate along its axes)."""
     lay = param_layout(cfg, ctx)
-    out = {k: _shard(v, lay[k], ctx) for k, v in params.items()
+    out = {k: shard_of(v, lay[k], ctx) for k, v in params.items()
            if k != "layers"}
-    out["layers"] = [{k: _shard(v, ll[k], ctx) for k, v in lp.items()}
+    out["layers"] = [{k: shard_of(v, ll[k], ctx) for k, v in lp.items()}
                      for lp, ll in zip(params["layers"], lay["layers"])]
     return out
 
@@ -272,32 +294,90 @@ def shard_groups(cfg: LMConfig, ctx: ShardingCtx,
     nothing.  ``lay``: ``param_layout(cfg, ctx)`` where the caller has
     it."""
     flat = named_params(param_layout(cfg, ctx) if lay is None else lay)
-
-    def groups(spec):
-        out = [None] * len(spec)
-        for dim, axes in _split_axes(spec):
-            if ctx.size(axes) > 1:
-                out[dim] = ctx.group(axes)
-        return tuple(out)
-    return {k: groups(v) for k, v in flat.items()}
+    return {k: spec_groups(v, ctx) for k, v in flat.items()}
 
 
 def _w(p: Dict[str, Any], name: str, lay: Optional[Dict[str, Any]],
        ctx: Optional[ShardingCtx], dtype: Optional[torch.dtype] = None,
-       axes: Optional[Tuple[str, ...]] = None) -> Optional[torch.Tensor]:
+       model: bool = False) -> Optional[torch.Tensor]:
     """Parameter ``name`` of ``p`` as the product uses it: cast to
     ``dtype``, and under a mesh gathered over the axes its spec splits
-    (only those in ``axes`` where given; axes of size 1 split nothing),
-    cast before it is sent."""
+    other than ``model`` (axes of size 1 split nothing), cast before it is
+    sent.  A dim split over ``model`` stays local, unless ``model``: then
+    it is gathered too, for a product every model rank runs alike (its
+    gradient scaled by ``1 / nm``, the reduce-scatter's sum of the ranks'
+    equal cotangents)."""
     x = p.get(name)
     if x is None or lay is None:
         return x if x is None or dtype is None else x.to(dtype)
-    for dim, ax in _split_axes(lay[name]):
-        if axes is not None and not set(ax) <= set(axes):
+    for dim, ax in split_axes(lay[name]):
+        n = ctx.size(ax)
+        if n == 1 or ("model" in ax and not model):
             continue
-        if ctx.size(ax) > 1:
-            x = C.gather_dim(x, dim, ctx.group(ax), dtype=dtype)
+        x = C.gather_dim(x, dim, ctx.group(ax), dtype=dtype,
+                         grad_scale=1.0 / n if "model" in ax else 1.0)
     return x if dtype is None else x.to(dtype)
+
+
+def _on_model(lay: Optional[Dict[str, Any]], name: str, dim: int) -> bool:
+    """Whether dim ``dim`` of leaf ``name`` is split over ``model``."""
+    if lay is None or name not in lay:
+        return False
+    s = lay[name][dim]
+    return s is not None and "model" in ((s,) if isinstance(s, str) else s)
+
+
+@dataclasses.dataclass(frozen=True)
+class _TP:
+    """A mesh's model group, for tensor parallelism: ``nm`` ranks, this
+    rank's index ``mi``, the ``group``; ``seq``: the residual between
+    blocks is this rank's ``S / nm`` positions (dim 1)."""
+    nm: int
+    mi: int
+    group: Any
+    seq: bool
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual as the input of split products."""
+        return C.seq_gather(x, 1, self.group) if self.seq \
+            else C.enter_split(x, self.group)
+
+    def leave(self, y: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """Split products' partial sums back into the residual's layout,
+        summed in their own type and then cast to ``dtype``."""
+        y = C.seq_scatter(y, 1, self.group) if self.seq \
+            else C.leave_split(y, self.group)
+        return y.to(dtype)
+
+    def whole(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual whole, for a block every rank runs alike."""
+        return C.gather_split(x, 1, self.group) if self.seq else x
+
+    def part(self, y: torch.Tensor) -> torch.Tensor:
+        """A block's whole output in the residual's layout."""
+        return C.split_of(y, 1, self.group) if self.seq else y
+
+    def scale(self, w: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A norm's scale as it applies to the residual: under ``seq`` to
+        the rank's positions, so that its gradient is summed over the
+        group."""
+        return C.enter_split(w, self.group) if self.seq and w is not None \
+            else w
+
+
+def _tp(ctx: Optional[ShardingCtx], S: int, seq: bool) -> Optional[_TP]:
+    """The model group of ``ctx`` where the mesh's ``model`` axis has more
+    than one rank (None otherwise); sequence parallelism where ``seq``
+    (no caches), the rules map ``seq`` to ``model`` and ``nm`` divides
+    ``S``."""
+    if ctx is None or ctx.mesh is None \
+            or "model" not in ctx.mesh.mesh_dim_names:
+        return None
+    nm = ctx.size("model")
+    if nm == 1:
+        return None
+    sp = seq and "model" in ctx.mesh_axes("seq") and S % nm == 0
+    return _TP(nm, ctx.axis_index("model"), ctx.group("model"), sp)
 
 
 # ---------------------------------------------------------------------------
@@ -317,10 +397,21 @@ def _act(cfg: LMConfig, g: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_mlp(p, cfg: LMConfig, x: torch.Tensor,
-               ctx: Optional[ShardingCtx] = None, lay=None) -> torch.Tensor:
-    g = x @ _w(p, "w_gate", lay, ctx, x.dtype)
-    u = x @ _w(p, "w_up", lay, ctx, x.dtype)
-    return (_act(cfg, g) * u) @ _w(p, "w_down", lay, ctx, x.dtype)
+               ctx: Optional[ShardingCtx] = None, lay=None,
+               tp: Optional[_TP] = None) -> torch.Tensor:
+    """The GLU MLP of the residual ``x``; under ``tp`` (module docstring)
+    split by columns, then rows, where the layout splits ``mlp``."""
+    if tp is None or not _on_model(lay, "w_gate", 1):
+        h = x if tp is None else tp.whole(x)
+        g = h @ _w(p, "w_gate", lay, ctx, h.dtype)
+        u = h @ _w(p, "w_up", lay, ctx, h.dtype)
+        out = (_act(cfg, g) * u) @ _w(p, "w_down", lay, ctx, h.dtype)
+        return out if tp is None else tp.part(out)
+    h = tp.enter(x)
+    g = h @ _w(p, "w_gate", lay, ctx, h.dtype)
+    u = h @ _w(p, "w_up", lay, ctx, h.dtype)
+    return tp.leave(nn.mm_f32(_act(cfg, g) * u,
+                              _w(p, "w_down", lay, ctx, h.dtype)), x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -427,7 +518,9 @@ def _moe_scatter(p, cfg: LMConfig, x: torch.Tensor,
     runs as batched products over the buffer; each token sums its kept
     slots' outputs weighted by their gates.  Under a mesh with several
     data ranks the slot order, the capacity and the router's statistics
-    are the whole batch's (the rows of lower data ranks first)."""
+    are the whole batch's (the rows of lower data ranks first), and
+    where the layout splits ``expert_mlp`` over the model group the
+    experts' products are split by columns, then rows (``_expert_glu``)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.n_experts_per_tok
     T = B * S
@@ -451,14 +544,35 @@ def _moe_scatter(p, cfg: LMConfig, x: torch.Tensor,
                          torch.where(keep, pos, cap - 1)), src,
                         accumulate=True)
     del src
-    g = torch.bmm(buf, _w(p, "w_gate", lay, ctx, x.dtype))
-    u = torch.bmm(buf, _w(p, "w_up", lay, ctx, x.dtype))
-    eout = torch.bmm(_act(cfg, g) * u, _w(p, "w_down", lay, ctx, x.dtype))
-    del g, u
+    eout = _expert_glu(p, cfg, buf, ctx, lay)
     got = eout[torch.where(keep, flat_e, 0), torch.where(keep, pos, 0)]
     got = got * (keep[:, None].to(torch.float32)
                  * gate.reshape(-1)[:, None]).to(x.dtype)
     return torch.sum(got.reshape(T, k, d), dim=1).reshape(B, S, d), aux
+
+
+def _expert_tp(ctx: Optional[ShardingCtx], lay) -> Optional[_TP]:
+    """The model group the experts' ff dim is split over, or None."""
+    tp = _tp(ctx, 1, False)
+    return tp if tp is not None and _on_model(lay, "w_gate", 2) else None
+
+
+def _expert_glu(p, cfg: LMConfig, buf: torch.Tensor,
+                ctx: Optional[ShardingCtx], lay) -> torch.Tensor:
+    """The experts' GLU over their (E, cap, d) buffers, as batched
+    products.  Split over ``expert_mlp`` (``_expert_tp``): the buffer
+    enters the split products, ``w_down``'s f32 partial sums leave summed
+    over the model group; else the experts whole (gathered over the
+    model axis where ``expert`` splits them there)."""
+    tp = _expert_tp(ctx, lay)
+    whole = _on_model(lay, "w_gate", 0)
+    wg, wu, wd = (_w(p, n, lay, ctx, buf.dtype, model=whole)
+                  for n in ("w_gate", "w_up", "w_down"))
+    if tp is None:
+        return _experts(cfg, buf, wg, wu, wd)
+    b = C.enter_split(buf, tp.group)
+    h = _act(cfg, torch.bmm(b, wg)) * torch.bmm(b, wu)
+    return C.leave_split(nn.mm_f32(h, wd), tp.group).to(buf.dtype)
 
 
 def _moe_dense(p, cfg: LMConfig, x: torch.Tensor,
@@ -467,7 +581,10 @@ def _moe_dense(p, cfg: LMConfig, x: torch.Tensor,
     """Every expert over every token, weighted by a (T, E) gate mask (zero
     off each token's top k): no capacity, nothing dropped; E / k times
     the products of ``_moe_scatter``.  Under a mesh the router's
-    statistics are the whole batch's."""
+    statistics are the whole batch's; split over ``expert_mlp``
+    (``_expert_tp``) each expert's products are split by columns, then
+    rows, and the gate-weighted sum of their f32 partial sums is summed
+    over the model group once."""
     B, S, d = x.shape
     T = B * S
     xt = x.reshape(T, d)
@@ -475,12 +592,26 @@ def _moe_dense(p, cfg: LMConfig, x: torch.Tensor,
                              _data_group(ctx))
     w = torch.zeros((T, cfg.n_experts), dtype=x.dtype, device=x.device
                     ).scatter_add(1, eid, gate.to(x.dtype))
-    wg, wu, wd = (_w(p, n, lay, ctx) for n in ("w_gate", "w_up", "w_down"))
-    out = torch.zeros_like(xt)
+    tp = _expert_tp(ctx, lay)
+    whole = _on_model(lay, "w_gate", 0)
+    wg, wu, wd = (_w(p, n, lay, ctx, model=whole)
+                  for n in ("w_gate", "w_up", "w_down"))
+    if tp is not None:
+        xt, w = C.enter_split(xt, tp.group), C.enter_split(w, tp.group)
+        out = torch.zeros((T, d), dtype=torch.float32, device=x.device)
+    else:
+        out = torch.zeros_like(xt)
     for e in range(cfg.n_experts):
         g = xt @ wg[e].to(x.dtype)
         u = xt @ wu[e].to(x.dtype)
-        out = out + ((_act(cfg, g) * u) @ wd[e].to(x.dtype)) * w[:, e:e + 1]
+        if tp is None:
+            out = out + ((_act(cfg, g) * u) @ wd[e].to(x.dtype)) \
+                * w[:, e:e + 1]
+        else:
+            out = out + nn.mm_f32(_act(cfg, g) * u, wd[e].to(x.dtype)) \
+                * w[:, e:e + 1].to(torch.float32)
+    if tp is not None:
+        out = C.leave_split(out, tp.group).to(x.dtype)
     return out.reshape(B, S, d), aux
 
 
@@ -542,11 +673,10 @@ def _moe_shard_map(p, cfg: LMConfig, x: torch.Tensor, ctx: ShardingCtx,
     nm, mi, mg = ctx.size("model"), ctx.axis_index("model"), \
         ctx.group("model")
     E_loc, T_my = E // nm, B * S // nm
-    fsdp = tuple(a for a in ctx.mesh.mesh_dim_names if a != "model")
     x_my = C.slice_rows(x.reshape(B * S, d), mi, nm, mg)
-    router = _w({"router": C.replicate(p["router"], mg)}, "router", lay, ctx,
-                axes=fsdp)
-    wg, wu, wd = (_w(p, n, lay, ctx, x.dtype, axes=fsdp)
+    router = _w({"router": C.enter_split(p["router"], mg)}, "router", lay,
+                ctx)
+    wg, wu, wd = (_w(p, n, lay, ctx, x.dtype)
                   for n in ("w_gate", "w_up", "w_down"))
     gate, eid, aux = _router({"router": router}, cfg, x_my)
     slots = _shard_map_slots(cfg, gate, eid, nm, T_my)
@@ -632,21 +762,57 @@ def _moe_block(p, cfg: LMConfig, x: torch.Tensor,
     return _moe_shard_map(p, cfg, x, ctx, lay)
 
 
+def _kv_used(cfg: LMConfig, tp: _TP, H: int) -> slice:
+    """The KV heads (of all ``Hkv``) that this rank's ``H`` query heads
+    use, where the model axis splits the query heads but not the KV heads
+    (gemma-2b's single KV head)."""
+    r = cfg.n_heads // cfg.n_kv_heads
+    q0 = tp.mi * H
+    used = slice(q0 // r, (q0 + H - 1) // r + 1)
+    if H % r and r % H:
+        raise ValueError(f"{H} query heads a rank cannot keep the groups of "
+                         f"{r} that share a KV head")
+    return used
+
+
 def _attn_block(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 cache_len: int, causal: bool, block_q: int,
-                ctx: Optional[ShardingCtx] = None, lay=None
+                ctx: Optional[ShardingCtx] = None, lay=None,
+                tp: Optional[_TP] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (out, k, v).  ``kv``: None (prefill from scratch) or one
     layer's caches (B, T, Hkv, hd), into which the new keys and values
     are written at ``cache_len`` (in place) before attending over the
-    first ``cache_len + S`` positions."""
-    B, S, _ = x.shape
+    first ``cache_len + S`` positions.  Under ``tp`` where the layout
+    splits ``heads`` and ``nm`` divides ``H``: this rank's query heads
+    over its KV heads where ``nm`` divides ``Hkv`` (else over those of all
+    that they use, ``wk`` and ``wv`` gathered over the model axis where
+    the layout splits them within a head), ``wo`` by rows; ``k`` and
+    ``v`` are the heads a rank's caches hold (``cache_heads``).  Where
+    ``nm`` does not divide ``H`` every rank runs the whole attention (its
+    weights gathered over the model axis)."""
     hd = cfg.resolved_head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    q = (x @ _w(p, "wq", lay, ctx, x.dtype)).reshape(B, S, H, hd)
-    k = (x @ _w(p, "wk", lay, ctx, x.dtype)).reshape(B, S, Hkv, hd)
-    v = (x @ _w(p, "wv", lay, ctx, x.dtype)).reshape(B, S, Hkv, hd)
+    split = tp is not None and _on_model(lay, "wq", 1) and H % tp.nm == 0
+    h = x if tp is None else (tp.enter(x) if split else tp.whole(x))
+    B, S, _ = h.shape
+    wq = _w(p, "wq", lay, ctx, h.dtype, model=not split)
+    if split and not _on_model(lay, "wk", 1):   # whole among split products
+        wk, wv = (C.enter_split(_w(p, n, lay, ctx), tp.group).to(h.dtype)
+                  for n in ("wk", "wv"))
+    else:
+        wk, wv = (_w(p, n, lay, ctx, h.dtype, model=not split)
+                  for n in ("wk", "wv"))
+    if split:
+        H //= tp.nm
+        if Hkv % tp.nm == 0:
+            Hkv //= tp.nm
+        elif _on_model(lay, "wk", 1):   # split within a head: every rank's
+            wk, wv = (C.seq_gather(w, 1, tp.group) for w in (wk, wv))
+    q = (h @ wq).reshape(B, S, H, hd)
+    k = (h @ wk).reshape(B, S, Hkv, hd)
+    v = (h @ wv).reshape(B, S, Hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if kv is not None:
@@ -656,63 +822,99 @@ def _attn_block(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
                              f"{S} more at {cache_len}")
         ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
         cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
-        out = chunked_attention(q, ck, cv, causal=False, q_offset=0,
-                                kv_len=cache_len + S, block_q=block_q,
-                                scale=hd ** -0.5)
         k, v = ck, cv
-    else:
-        out = chunked_attention(q, k, v, causal=causal, q_offset=0,
-                                kv_len=None, block_q=block_q,
-                                scale=hd ** -0.5)
-    return (out.reshape(B, S, H * hd) @ _w(p, "wo", lay, ctx, x.dtype),
-            k, v)
+    used = _kv_used(cfg, tp, H) if split and Hkv == cfg.n_kv_heads \
+        else slice(None)
+    out = chunked_attention(q, k[:, :, used], v[:, :, used],
+                            causal=causal and kv is None, q_offset=0,
+                            kv_len=None if kv is None else cache_len + S,
+                            block_q=block_q, scale=hd ** -0.5)
+    out = out.reshape(B, S, H * hd)
+    wo = _w(p, "wo", lay, ctx, h.dtype, model=not split)
+    if split:
+        return tp.leave(nn.mm_f32(out, wo), x.dtype), k, v
+    out = out @ wo
+    return (out if tp is None else tp.part(out)), k, v
 
 
 def _layer(p, cfg: LMConfig, x, positions, kv, cache_len, causal, block_q,
-           ctx: Optional[ShardingCtx] = None, lay=None):
+           ctx: Optional[ShardingCtx] = None, lay=None,
+           tp: Optional[_TP] = None):
     """Returns (x, k, v, aux): aux the MoE load-balancing term, None for a
-    dense layer (the reference's 0.0, which adds nothing)."""
-    h = _norm(cfg, x, _w(p, "ln1", lay, ctx))
+    dense layer (the reference's 0.0, which adds nothing).  ``tp``: the
+    model group of tensor parallelism (``_tp``)."""
+    def scale(name):
+        w = _w(p, name, lay, ctx)
+        return w if tp is None else tp.scale(w)
+    h = _norm(cfg, x, scale("ln1"))
     attn, k, v = _attn_block(p, cfg, h, positions, kv, cache_len, causal,
-                             block_q, ctx, lay)
+                             block_q, ctx, lay, tp)
     x = x + attn
-    h = _norm(cfg, x, _w(p, "ln2", lay, ctx))
+    h = _norm(cfg, x, scale("ln2"))
     if cfg.n_experts:
-        mlp, aux = _moe_block(p, cfg, h, ctx, lay)
+        if tp is None:
+            mlp, aux = _moe_block(p, cfg, h, ctx, lay)
+        else:
+            mlp, aux = _moe_block(p, cfg, tp.whole(h), ctx, lay)
+            mlp = tp.part(mlp)
         return x + mlp, k, v, aux
-    return x + _dense_mlp(p, cfg, h, ctx, lay), k, v, None
+    return x + _dense_mlp(p, cfg, h, ctx, lay, tp), k, v, None
 
 
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
 
+def _embed(params: Params, cfg: LMConfig, tokens: torch.Tensor,
+           ctx: Optional[ShardingCtx], lay, tp: Optional[_TP]
+           ) -> torch.Tensor:
+    """The tokens' embedding rows in the compute type, in the residual's
+    layout.  Split over ``vocab``: this rank's rows for the tokens they
+    hold (zeros for the others), summed over the model group in f32 (one
+    term is not zero: exact)."""
+    compute = DTYPES[cfg.dtype]
+    emb = _w(params, "embed", lay, ctx)
+    if tp is not None and _on_model(lay, "embed", 0):
+        rows = emb.shape[0]
+        idx = tokens - tp.mi * rows
+        inside = (idx >= 0) & (idx < rows)
+        x = emb[torch.where(inside, idx, 0)].to(torch.float32) \
+            * inside[..., None].to(torch.float32)
+        x = tp.leave(x, compute)
+    else:
+        x = emb[tokens].to(compute)
+        if tp is not None:
+            x = tp.part(x)
+    if cfg.norm == "rmsnorm_p1":     # gemma scales embeddings by sqrt(d)
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute)
+    return x
+
+
 def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
            positions: Optional[torch.Tensor], kv_caches: Optional[Caches],
            cache_len: int, causal: bool, block_q: int, keep_cache: bool,
            remat: bool = False, ctx: Optional[ShardingCtx] = None,
            lay=None
-           ) -> Tuple[torch.Tensor, Optional[Caches], Optional[torch.Tensor]]:
+           ) -> Tuple[torch.Tensor, Optional[Caches], Optional[torch.Tensor],
+                      Optional[_TP]]:
     """tokens (B, S) -> (residual stream after the last layer (B, S, d),
-    caches, aux): the given ``kv_caches`` (written in place), or with
-    ``keep_cache`` new (L, B, S, Hkv, hd) ones in the compute type; aux
-    the sum of the MoE layers' terms in layer order (None for a dense
-    config).  With ``remat`` (no caches) each layer keeps only its input
-    for the backward and runs again there, its gathers too.  ``lay``:
-    ``param_layout(cfg, ctx)`` under a mesh."""
+    caches, aux, tp): the given ``kv_caches`` (written in place), or with
+    ``keep_cache`` new (L, B, S, Hkv, hd) ones in the compute type (a
+    rank's own KV heads under tensor parallelism); aux the sum of the MoE
+    layers' terms in layer order (None for a dense config); tp the model
+    group (``_tp``; sequence parallelism only without caches, and the
+    residual then this rank's ``S / nm`` positions).  With ``remat`` (no
+    caches) each layer keeps only its input for the backward and runs
+    again there, its gathers too.  ``lay``: ``param_layout(cfg, ctx)``
+    under a mesh."""
     compute = DTYPES[cfg.dtype]
     B, S = tokens.shape
     dev = tokens.device
     if positions is None:
         positions = torch.arange(S, device=dev)[None, :].expand(B, S)
-    x = _w(params, "embed", lay, ctx)[tokens].to(compute)
-    if cfg.norm == "rmsnorm_p1":     # gemma scales embeddings by sqrt(d)
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=compute)
+    tp = _tp(ctx, S, kv_caches is None and not keep_cache)
+    x = _embed(params, cfg, tokens, ctx, lay, tp)
     caches = kv_caches
-    if kv_caches is None and keep_cache:
-        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.resolved_head_dim)
-        caches = {n: torch.empty(shape, dtype=compute, device=dev)
-                  for n in ("k", "v")}
     aux = None
     for i, lp in enumerate(params["layers"]):
         ll = None if lay is None else lay["layers"][i]
@@ -721,24 +923,41 @@ def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
         if remat and kv is None and not keep_cache:
             x, a = checkpoint(lambda x_, lp_, ll_=ll: _layer(
                 lp_, cfg, x_, positions, None, cache_len, causal,
-                block_q, ctx, ll_)[::3], x, lp, use_reentrant=False)
+                block_q, ctx, ll_, tp)[::3], x, lp, use_reentrant=False)
         else:
             x, k, v, a = _layer(lp, cfg, x, positions, kv, cache_len,
-                                causal, block_q, ctx, ll)
+                                causal, block_q, ctx, ll, tp)
             if kv_caches is None and keep_cache:
+                if caches is None:
+                    caches = {n: torch.empty((cfg.n_layers,) + k.shape,
+                                             dtype=compute, device=dev)
+                              for n in ("k", "v")}
                 caches["k"][i] = k
                 caches["v"][i] = v
         if a is not None:
             aux = a if aux is None else aux + a
-    return x, caches, aux
+    return x, caches, aux, tp
 
 
 def _head(params: Params, cfg: LMConfig, x: torch.Tensor,
-          ctx: Optional[ShardingCtx] = None, lay=None) -> torch.Tensor:
-    x = nn.rmsnorm_apply(_w(params, "final_norm", lay, ctx), x)
-    if cfg.tie_embeddings:
-        return x @ _w(params, "embed", lay, ctx, x.dtype).T
-    return x @ _w(params, "lm_head", lay, ctx, x.dtype)
+          ctx: Optional[ShardingCtx] = None, lay=None,
+          tp: Optional[_TP] = None) -> Tuple[torch.Tensor, bool]:
+    """(logits, split): the final norm and the head on the residual ``x``;
+    ``split`` where the head is split over ``vocab`` (the logits are then
+    this rank's columns, every position's), else the whole vocabulary's
+    (every position's under sequence parallelism)."""
+    w = _w(params, "final_norm", lay, ctx)
+    x = nn.rmsnorm_apply(w if tp is None else tp.scale(w), x)
+    name, dim = ("embed", 0) if cfg.tie_embeddings else ("lm_head", 1)
+    split = tp is not None and _on_model(lay, name, dim)
+    h = x if tp is None else (tp.enter(x) if split else tp.whole(x))
+    w = _w(params, name, lay, ctx, h.dtype)
+    return h @ (w.T if cfg.tie_embeddings else w), split
+
+
+def _whole_vocab(logits: torch.Tensor, split: bool, tp: Optional[_TP]
+                 ) -> torch.Tensor:
+    return C.gather_split(logits, -1, tp.group) if split else logits
 
 
 def _layout(cfg: LMConfig, ctx: Optional[ShardingCtx], lay=None):
@@ -766,12 +985,35 @@ def forward(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
     every position (``prefill`` and ``decode_step`` serve; the reference's
     cache options of ``forward`` live there).  An MoE config's aux term is
     ``lm_loss``'s: the logits are all this returns.  Under ``ctx`` tokens
-    are this rank's rows and ``params`` its shards (module docstring)."""
+    are this rank's rows and ``params`` its shards (module docstring);
+    every rank of a model group returns the whole vocabulary's logits."""
     lay = _layout(cfg, ctx)
-    x, _, _ = _trunk(params, cfg, tokens, positions=None, kv_caches=None,
-                     cache_len=0, causal=True, block_q=block_q,
-                     keep_cache=False, ctx=ctx, lay=lay)
-    return _head(params, cfg, x, ctx, lay)
+    x, _, _, tp = _trunk(params, cfg, tokens, positions=None, kv_caches=None,
+                         cache_len=0, causal=True, block_q=block_q,
+                         keep_cache=False, ctx=ctx, lay=lay)
+    return _whole_vocab(*_head(params, cfg, x, ctx, lay, tp), tp)
+
+
+def _vocab_ce(lg: torch.Tensor, tgt: torch.Tensor, split: bool,
+              tp: Optional[_TP]) -> torch.Tensor:
+    """The mean over positions of logsumexp minus the gold logit of f32
+    logits (B, S, V') and targets (B, S).  ``split``: ``lg`` is this
+    rank's block of the vocabulary: the maximum, the sum of the
+    exponentials and the gold logit (on the rank that holds it, zero on
+    the others) are taken over the model group."""
+    if not split:
+        gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+        return torch.mean(torch.logsumexp(lg, dim=-1) - gold)
+    rows = lg.shape[-1]
+    m = torch.amax(lg.detach(), dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=tp.group)
+    se = C.leave_split(torch.sum(torch.exp(lg - m[..., None]), dim=-1),
+                       tp.group)
+    idx = tgt - tp.mi * rows
+    inside = (idx >= 0) & (idx < rows)
+    gold = torch.gather(lg, -1, torch.where(inside, idx, 0)[..., None])[..., 0]
+    gold = C.leave_split(gold * inside.to(lg.dtype), tp.group)
+    return torch.mean(torch.log(se) + m - gold)
 
 
 def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
@@ -784,17 +1026,17 @@ def lm_loss(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
     and is not added).  Each layer is rematerialised under ``cfg.remat``
     when grad mode is on.  Under ``ctx``: the mean over this rank's rows
     plus its aux terms (``launch.steps.lm_train_step`` averages over the
-    data ranks); ``lay``: ``param_layout(cfg, ctx)`` where the caller has
-    it."""
+    data ranks), the same on every rank of a model group; ``lay``:
+    ``param_layout(cfg, ctx)`` where the caller has it."""
     lay = _layout(cfg, ctx, lay)
-    x, _, aux = _trunk(params, cfg, tokens, positions=None, kv_caches=None,
-                       cache_len=0, causal=True, block_q=block_q,
-                       keep_cache=False,
-                       remat=cfg.remat and torch.is_grad_enabled(),
-                       ctx=ctx, lay=lay)
-    lg = _head(params, cfg, x, ctx, lay)[:, :-1].to(torch.float32)
-    gold = torch.gather(lg, -1, tokens[:, 1:, None].long())[..., 0]
-    loss = torch.mean(torch.logsumexp(lg, dim=-1) - gold)
+    x, _, aux, tp = _trunk(params, cfg, tokens, positions=None,
+                           kv_caches=None, cache_len=0, causal=True,
+                           block_q=block_q, keep_cache=False,
+                           remat=cfg.remat and torch.is_grad_enabled(),
+                           ctx=ctx, lay=lay)
+    lg, split = _head(params, cfg, x, ctx, lay, tp)
+    loss = _vocab_ce(lg[:, :-1].to(torch.float32), tokens[:, 1:].long(),
+                     split, tp)
     return loss if aux is None else loss + aux
 
 
@@ -807,12 +1049,27 @@ def named_params(params: Params) -> Dict[str, torch.Tensor]:
     return flat
 
 
+def cache_heads(cfg: LMConfig, ctx: Optional[ShardingCtx] = None) -> int:
+    """The KV heads a rank's caches hold: ``Hkv / nm`` where attention is
+    split by heads over a model axis of ``nm > 1`` ranks (``_attn_block``)
+    and ``nm`` divides ``Hkv``, else all ``Hkv``."""
+    tp = _tp(ctx, 1, False)
+    if tp is None:
+        return cfg.n_kv_heads
+    lay = {n: param_spec(logical, ctx.rules, shape, mesh_sizes(ctx.mesh))
+           for n, (shape, logical) in _layer_leaves(cfg).items()
+           if n in ("wq", "wk")}
+    H, Hkv = cfg.n_heads, cfg.n_kv_heads
+    return Hkv // tp.nm if _on_model(lay, "wq", 1) and H % tp.nm == 0 \
+        and _on_model(lay, "wk", 1) and Hkv % tp.nm == 0 else Hkv
+
+
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
-                  device=None) -> Caches:
+                  device=None, ctx: Optional[ShardingCtx] = None) -> Caches:
     """Zeroed (L, B, T, Hkv, hd) caches in ``dtype`` (default: the compute
-    type) on ``device``."""
+    type) on ``device``; under ``ctx`` a rank's ``cache_heads``."""
     dtype = dtype or DTYPES[cfg.dtype]
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+    shape = (cfg.n_layers, batch, max_len, cache_heads(cfg, ctx),
              cfg.resolved_head_dim)
     dev = resolve_device(device)
     return {n: torch.zeros(shape, dtype=dtype, device=dev)
@@ -825,16 +1082,19 @@ def decode_step(params: Params, cfg: LMConfig, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Caches]:
     """One decode step: tokens (B, 1) against caches filled to
     ``cache_len``.  Writes the step's keys and values into the caches in
-    place at ``cache_len``; returns (logits (B, V), the caches)."""
+    place at ``cache_len``; returns (logits (B, V), the caches).  Under
+    ``ctx`` the caches are the rank's (``init_kv_cache(ctx=)``) and every
+    rank of a model group returns the whole vocabulary's logits."""
     B = tokens.shape[0]
     positions = torch.full((B, 1), cache_len, dtype=torch.int64,
                            device=tokens.device)
     lay = _layout(cfg, ctx)
-    x, caches, _ = _trunk(params, cfg, tokens, positions=positions,
-                          kv_caches=kv_caches, cache_len=cache_len,
-                          causal=False, block_q=1, keep_cache=True,
-                          ctx=ctx, lay=lay)
-    return _head(params, cfg, x[:, -1], ctx, lay), caches
+    x, caches, _, tp = _trunk(params, cfg, tokens, positions=positions,
+                              kv_caches=kv_caches, cache_len=cache_len,
+                              causal=False, block_q=1, keep_cache=True,
+                              ctx=ctx, lay=lay)
+    return _whole_vocab(*_head(params, cfg, x[:, -1], ctx, lay, tp), tp), \
+        caches
 
 
 def prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
@@ -842,11 +1102,12 @@ def prefill(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
             ) -> Tuple[torch.Tensor, Caches]:
     """Prefill: returns (last-position logits (B, V), caches (L, B, S,
     Hkv, hd) in the compute type).  The head runs on the last position
-    only."""
+    only.  Under ``ctx`` the caches hold the rank's ``cache_heads`` and
+    every rank of a model group returns the whole vocabulary's logits."""
     lay = _layout(cfg, ctx)
-    x, caches, _ = _trunk(params, cfg, tokens, positions=None,
-                          kv_caches=None, cache_len=0, causal=True,
-                          block_q=block_q, keep_cache=True, ctx=ctx,
-                          lay=lay)
-    return _head(params, cfg, x[:, -1], ctx, lay), caches
-
+    x, caches, _, tp = _trunk(params, cfg, tokens, positions=None,
+                              kv_caches=None, cache_len=0, causal=True,
+                              block_q=block_q, keep_cache=True, ctx=ctx,
+                              lay=lay)
+    return _whole_vocab(*_head(params, cfg, x[:, -1], ctx, lay, tp), tp), \
+        caches

@@ -1,6 +1,7 @@
 """Layer helpers: initialisers drawn from an explicit ``torch.Generator``,
 the linear layer, the MLP, RMSNorm, non-parametric LayerNorm and
-``l2_normalize``, as in ``repro/nn/core.py``.
+``l2_normalize``, as in ``repro/nn/core.py``; and ``mm_f32``, the
+product whose partial sums a row-split product sums over its ranks.
 
 Weights use PyTorch's ``nn.Linear`` layout ``(d_out, d_in)``; the JAX
 package keeps ``(d_in, d_out)`` and computes ``x @ w``, so
@@ -60,6 +61,48 @@ def linear(lin: torch.nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """``x @ W^T + b`` in ``x``'s type (parameters are cast, as the JAX
     ``linear_apply`` casts to ``x.dtype``)."""
     return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
+class _MmF32(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        if a.dtype == torch.float32 and b.dtype == torch.float32:
+            return torch.matmul(a, b)
+        if a.is_cuda:      # cuBLAS's bf16 product with an f32 output
+            if b.dim() == 2:
+                y = torch.mm(a.reshape(-1, a.shape[-1]), b,
+                             out_dtype=torch.float32)
+                return y.reshape(*a.shape[:-1], b.shape[-1])
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.matmul(a.to(torch.float32), b.to(torch.float32))
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.transpose(-1, -2).to(a.dtype))
+        if ctx.needs_input_grad[1]:
+            if b.dim() == 2:
+                gb = a.reshape(-1, a.shape[-1]).T @ g.reshape(-1, g.shape[-1])
+            else:
+                gb = torch.bmm(a.transpose(1, 2), g)
+            gb = gb.to(b.dtype)
+        return ga, gb
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (``a`` (..., k) by ``b`` (k, n), or ``a`` (E, m, k) by ``b``
+    (E, k, n)) with an f32 result: for bf16 inputs the product's f32 sums
+    before the rounding to bf16 (on the card cuBLAS's product with
+    ``out_dtype``, on the CPU the product of the f32 casts, which is exact
+    on bf16 values), so that partial sums added across ranks round once.
+    The backward is the plain product's, in ``a``'s type: the cotangent
+    cast to it (exact where it came from a bf16 value), then the two
+    products."""
+    return _MmF32.apply(a, b)
 
 
 def mlp_init(generator: torch.Generator, dims: Sequence[int], *,

@@ -19,10 +19,15 @@ the same mesh:
     (1, 4), B 1 (the prefill on ``_moe_shard_map``, the decode step on
     the scatter).
 
+The port runs tensor parallelism over ``model`` under these rules: under
+the prefill rules attention by heads (a rank's caches are its own KV
+heads, ``init_kv_cache(ctx=)``), the MLP and the vocabulary; under the
+decode rules heads and caches whole, the MLP and the vocabulary split.
 Held: every output (the forward's logits, the prefill's last logits and
 caches, the decode step's logits and caches) on every rank within 1e-5
-of the largest magnitude of JAX's rows for that rank (seen: 1.1e-6);
-the ranks of a model group bitwise equal.  In one process: the 500k
+of the largest magnitude of JAX's rows for that rank (a rank's caches
+against its KV heads of JAX's; seen: 1.1e-6); the ranks of a model
+group bitwise equal, but for caches split by heads.  In one process: the 500k
 decode shape's rules at a data axis of 2 (the batch whole over two data
 ranks) make ``forward``, ``prefill``, ``decode_step`` and ``lm_loss``
 raise, and ``rank_rows`` raises for a batch the data ranks do not divide.
@@ -170,7 +175,8 @@ RANK = textwrap.dedent("""
             with torch.no_grad():
                 logits = LM.forward(params, cfg, toks[:, :S], ctx=ctx)
                 last, caches = LM.prefill(params, cfg, toks[:, :S], ctx=ctx)
-                full = LM.init_kv_cache(cfg, rows, S + 1, device="cpu")
+                full = LM.init_kv_cache(cfg, rows, S + 1, device="cpu",
+                                        ctx=ctx)
                 for k in full:
                     full[k][:, :, :S] = caches[k]
                 dec, full = LM.decode_step(params, cfg, toks[:, S:S + 1],
@@ -242,13 +248,25 @@ def test_lm_serve_matches_jax_under_a_mesh(runs, arch_id, case):
         assert rows * mshape[0] == b
         sl = slice(di * rows, (di + 1) * rows)
         peer = ranks[di * mshape[1]]
+        mi = r % mshape[1]
         for n in OUTS:
-            # the caches are (L, B, T, Hkv, hd): rows on dim 1
+            # the caches are (L, B, T, Hkv, hd): rows on dim 1, and a
+            # rank's own KV heads on dim 3 where the rules split them
             want = j[f"{tag}/{n}"][:, sl] if "caches" in n \
                 else j[f"{tag}/{n}"][sl]
+            split = "caches" in n and got[n].shape[3] < want.shape[3]
+            if split:
+                h = got[n].shape[3]
+                want = want[:, :, :, mi * h:(mi + 1) * h]
             assert got[n].shape == want.shape, (tag, r, n)
             assert _of_max(got[n], want) <= OF_MAX, (tag, r, n)
-            assert torch.equal(got[n], peer[n]), (tag, r, n)
+            if not split:
+                assert torch.equal(got[n], peer[n]), (tag, r, n)
+        # the prefill rules split the KV heads over the model axis where
+        # it divides them; the decode rules keep them whole
+        heads, Hkv = got["caches/k"].shape[3], _cfgs(arch_id)[1].n_kv_heads
+        assert (heads < Hkv) == (CASES[case][0] == "prefill_32k"
+                                 and Hkv % mshape[1] == 0), (tag, heads)
 
 
 def test_a_batch_kept_whole_over_data_ranks_raises():
