@@ -11,6 +11,7 @@
     python3 chip_smoke.py --distributed-only   # Phase 11 on Phase 3's corpus
     python3 chip_smoke.py --lm-mesh-only       # Phase 12 alone
     python3 chip_smoke.py --tp-only            # Phase 14 on Phase 3's corpus
+    python3 chip_smoke.py --tp2-only           # Phase 15 alone
 
 Phase 0 prints the card (``nvidia-smi`` name and power limit) and
 builds every CUDA kernel from ``src/repro_torch/csrc`` with nvcc, one
@@ -56,6 +57,15 @@ bitwise equal to the training route's output; it prints the dkdv plan
 (query, key) pair and SDPA's forward and backward under autograd, and
 checks the F1 guard (every case the backward does not take raises under
 grad).
+``flash_attention_decode_lse`` (the decode kernel writing each row's
+lse and its rows in f32, for the fold across ``kv_seq`` ranks) is held
+against ``chunked_attention_ref(..., return_lse=True)`` at a rank's block
+of decode_32k and long_500k over four ranks, at head dim 112 and at D
+256 with one KV head, each at one split and at ``plan``'s, with a
+``kv_len`` below T: the f32 rows within ``DECODE_LSE_OUT_TOL``, the lse
+within ``DECODE_LSE_TOL``, a repeat bitwise, and the same launch with
+both options off bitwise the rounding of its f32 rows; it prints the
+route's time beside the bf16-only route's.
 ``--attention-only`` runs only the forward's checks, then prints the
 whole op's times and a hash of its output at decode_32k and long_500k
 and hashes of the forced-split outputs, then the backward's checks.
@@ -415,8 +425,9 @@ under its train rules (tensor and sequence parallelism): two AdamW steps
 in f32 compute, the second from the parent's parameters after its first
 (losses, norms and each gradient within ``P14_F32_REL``, norm-wise over
 the ranks' blocks), one bf16 step (loss within ``BF16_LM_TOL``), and one
-decode step under the decode rules on 2,048 random cached positions
-(logits within ``BF16_LM_TOL``).  14c: llama3.2-3b and gemma-2b at 2
+decode step under the decode rules on 2,048 random cached positions,
+each rank on its block of 512 (``shard_caches``; logits within
+``BF16_LM_TOL``).  14c: llama3.2-3b and gemma-2b at 2
 layers prefill 4,096 under the prefill rules (last logits within
 ``BF16_LM_TOL``, each rank's caches against its heads of the
 one-process caches, 2 ``flash_attention`` launches a rank).  14d: one
@@ -426,6 +437,40 @@ loop and S 512 through the scatter, the output within ``BF16_LM_TOL`` of
 the one-process layer's.  It prints the bytes reckoned, the parent's
 and each rank's seconds, with the note that gloo stages through the
 host.
+
+Phase 15 runs last: the recsys family's tensor parallelism and the
+decode rules' sequence-sharded KV cache.  The parent first computes
+each part's one-process side on the card and frees it; then four gloo
+ranks sharing the card (and four NCCL ranks, one a card, where the
+machine has four cards) run 15a-15c.  15a, at meshes (1, 4) and (2, 2)
+under the default rules (``mlp``, ``heads`` and ``table_rows`` over
+``model``): dlrm-rm2 (multi-hot bags through the ``embedding_bag``
+kernels), wide-deep, sasrec and bst at full width on Phase 11's cut of
+1,000,000 rows a table, ``P15A_ROWS`` rows a batch (half Phase 11's,
+for the script's time), the MLPs split
+by columns then rows, bst's heads over the model ranks, sasrec's one
+head whole at (1, 4) and split within the head at (2, 2): in f32 compute
+the serve outputs within ``P15_F32_REL`` of the largest, the loss within
+``P15_F32_REL`` relative and each rank's block of every dense gradient
+within ``P15_GRAD_REL`` norm-wise of the parent's (a ReLU flip between
+two sum orders moves an earlier layer's gradient by about 1e-3 at
+random labels; a wrong block, scale or sum reads 0.5 or more); in bf16
+the serve
+outputs within ``P15_BF16_OUT`` of the largest.  15b, decode_32k's rules
+at (1, 4) (``kv_seq -> model``): llama3.2-3b and gemma-2b at full width,
+2 layers, B 8, T 32,768, caches of N(0, 1) noise; 15c, long_500k's rules
+at (2, 2) (``kv_seq -> ("data", "model")``, the batch whole): llama at
+B 1, T 524,288.  Each at ``cache_len`` T - 1, T / 4 (the first position
+of block 1) and T / 4 + 100 (blocks 2 and 3 hold no key): the logits
+within ``BF16_LM_TOL`` of the parent's one-process ``decode_step`` and
+bitwise equal on every rank, each rank's block after the step equal to
+its block before it but at the new position, which one rank writes,
+near the parent's new key and value, and one ``flash_attention_decode``
+launch a layer on a rank whose block holds a key, none on the others.
+It prints each rank's cache bytes, the fold's bytes a layer, the step
+seconds and the peak memory, with the note that gloo stages through the
+host.  ``--tp2-only`` builds ``embedding_bag`` and ``flash_attention``
+and runs Phase 15 alone.
 
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
@@ -437,11 +482,12 @@ Phase 8's of ``queue_gather``, ``rq_assign`` and
 ``fused_contrastive_*``, Phase 9's main run's of ``flash_attention``
 and ``flash_attention_bwd_*``, Phase 10's runs' (``run_lm``, the
 train steps, kimi's prefill and decode; not its checks), Phase 13a's
-steps and Phase 11's, Phase 12's and Phase 14's ranks' (each rank counts
-its own and returns them: 11b's ``embedding_bag_fwd`` and
+steps and Phase 11's, Phase 12's, Phase 14's and Phase 15's ranks' (each
+rank counts its own and returns them: 11b's ``embedding_bag_fwd`` and
 ``embedding_bag_bwd`` on row shards, its own checks' launches left out;
 12a's prefill, 12b's steps; 14a's serve and steps, 14b's steps and
-decode, 14c's prefills) are added to those; the f32 kernels' come from
+decode, 14c's prefills; 15a's bags, 15b's and 15c's decode steps) are
+added to those; the f32 kernels' come from
 Phase 10a alone.  Every kernel in the list must have launched on its
 path.
 
@@ -737,6 +783,33 @@ P14B_KERNELS = {"flash_attention", "flash_attention_bwd_dq",
                 "flash_attention_bwd_f32_dq", "flash_attention_bwd_f32_dkdv",
                 "flash_attention_decode"}
 P14_TIMEOUT_S = 300.0        # the spawn's limit, seconds
+P15_WORLD = 4                # gloo ranks sharing the card
+P15_MESHES = ((1, 4), (2, 2))   # 15a's
+P15_KINDS = ("dlrm-rm2", "wide-deep", "sasrec", "bst")
+# 15a's batch, cut from Phase 11's 16,384 rows: a slow host ran the whole
+# script in 1,006.6 s, past the 900 s it aims at, so Phase 15 shrank its
+# own work (15a's ranks spend their time staging each split layer's
+# 16,384-row partial sums through the host)
+P15A_ROWS = P11_KIND_ROWS // 2
+P15_F32_REL = 1e-5           # 15a f32: outputs (of the largest), loss
+# 15a f32: each dense gradient block, norm-wise.  A ReLU whose input lies
+# within rounding of zero flips between two sum orders, and at random
+# labels the batch's gradient terms cancel, so one flip moves an earlier
+# layer's gradient by about 1e-3 (a one-process reordering alone moves
+# dlrm's bot.0.w by 5.7e-4 on the CPU: tests/test_torch_tp_recsys.py::
+# test_reordered_sums_move_gradients_past_relus); a wrong block, scale or
+# sum reads 0.5 or more
+P15_GRAD_REL = 2.0 ** -6
+P15_BF16_OUT = 2.0 ** -5     # 15a bf16 serve outputs, of the largest
+P15_DECODE_ARCHS = ("llama3.2-3b", "gemma-2b")   # 15b, decode_32k's rules
+P15_LAYERS = 2
+P15_DECODE_T = LM_SH["decode_32k"]["seq_len"]    # 32,768
+P15_LONG_T = LM_SH["long_500k"]["seq_len"]       # 524,288, 15c at (2, 2)
+P15_TIMEOUT_S = 300.0        # the spawn's limit, seconds
+# Phase 11b's rules for the row-sharded kinds: the tensor-parallel names
+# unmapped, so that its checks stay the row sharding against the one
+# process, bitwise (Phase 15a holds the tensor parallelism)
+P11_TP_OFF = {"mlp": None, "heads": None}
 
 
 def card_peaks(name: str):
@@ -2095,6 +2168,123 @@ def phase1_flash_attention(g: torch.Generator, dev, peaks) -> list:
                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                         library_ms=lib_ms, device_ms=dev_ms))
     return out
+
+
+# flash_attention_decode_lse at a rank's block of a sequence-sharded cache
+# (name, B, Hq, Hkv, T, D), each with kv_len T - 37
+DECODE_LSE_SHAPES = (
+    ("decode_32k_block", 8, 24, 8, 8192, 128),    # decode_32k, 4 kv_seq ranks
+    ("long_500k_block", 1, 24, 8, 131072, 128),   # long_500k, 4 kv_seq ranks
+    ("kimi_block", 1, 64, 8, 4096, 112),          # kimi-k2's head dim
+    ("gemma_block", 8, 8, 1, 8192, 256),          # gemma-2b's MQA, D 256
+)
+# the f32 rows against the plain version's f32 rows: relative, with a
+# floor at the same share of the largest magnitude (P carries 16 bits in
+# the kernel's P.V, and the sums run in another order); the lse absolute
+DECODE_LSE_OUT_TOL = 2.0 ** -12
+DECODE_LSE_TOL = 1e-4
+
+
+def phase1_decode_lse(g: torch.Generator, dev, peaks) -> dict:
+    """``flash_attention_decode_lse`` (the decode kernel writing each
+    row's lse and its rows in f32, for the fold across ``kv_seq`` ranks)
+    against ``chunked_attention_ref(..., return_lse=True)`` on q in f32 at
+    ``DECODE_LSE_SHAPES``, at one split and at ``plan``'s: the f32 rows
+    within ``DECODE_LSE_OUT_TOL``, the lse within ``DECODE_LSE_TOL``, one
+    ``flash_attention_decode`` launch, a repeat bitwise; the same launch
+    with both options off (the serving route) bitwise the rounding of its
+    f32 rows, and at ``plan``'s splits bitwise ``flash_attention``.  Times
+    the route beside the bf16-only route at the decode_32k block.
+    Returns its kernels-line row (its launches are
+    ``flash_attention_decode``'s)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    worst, out_row = 0.0, None
+    for name, B, Hq, Hkv, T, D in DECODE_LSE_SHAPES:
+        q = torch.randn((B, 1, Hq, D), generator=g, device=dev).to(bf16)
+        k = torch.empty((B, T, Hkv, D), dtype=bf16, device=dev).normal_(
+            generator=g)
+        v = torch.empty((B, T, Hkv, D), dtype=bf16, device=dev).normal_(
+            generator=g)
+        kv_len, scale = T - 37, D ** -0.5
+        want, want_lse = chunked_attention_ref(
+            q.float(), k, v, causal=False, kv_len=kv_len, block_q=1,
+            scale=scale, return_lse=True)
+        want_lse = want_lse[..., 0]
+        _, planned = FA.plan(B, 1, Hq, Hkv, kv_len, n_sm, D=D)
+        errs = []
+        for splits in sorted({1, planned}):
+            def run():
+                return FA.flash_attention_decode_lse(
+                    q, k, v, kv_len=kv_len, scale=scale, splits=splits)
+            (out, lse), n = fa_launches(run)
+            what = f"flash_attention_decode_lse at {name}, {splits} splits"
+            check(n == {"flash_attention_decode": 1}, f"{what}: launches {n}")
+            check(out.dtype == f32 and out.shape == q.shape
+                  and lse.shape == (B, Hq), f"{what}: {out.dtype} "
+                  f"{tuple(out.shape)}, lse {tuple(lse.shape)}")
+            err = float((out - want).abs().max())
+            bound = DECODE_LSE_OUT_TOL * (want.abs() + want.abs().max())
+            check(bool(((out - want).abs() <= bound).all()),
+                  f"{what}: rows off the plain version ({err:.3g})")
+            lerr = float((lse - want_lse).abs().max())
+            check(lerr <= DECODE_LSE_TOL, f"{what}: lse {lerr:.3g} off")
+            again = run()
+            check(same_bits(again[0], out) and same_bits(again[1], lse),
+                  f"{what}: a repeat differs")
+            off = FA._fwd(q, k, v, FA._kv(kv_len, q, B, T), causal=False,
+                          scale=scale, q_offset=0, kernel=FA.DECODE.name,
+                          splits=splits)[0]
+            check(same_bits(off, out.to(bf16)), f"{what}: the options-off "
+                  f"output is not the rounding of the f32 rows")
+            if splits == planned:
+                pub = FA.flash_attention(q, k, v, causal=False, scale=scale,
+                                         kv_len=kv_len)
+                check(same_bits(pub, off), f"{what}: flash_attention's "
+                      f"output differs from the options-off launch")
+            errs.append((splits, err, lerr))
+            worst = max(worst, err)
+        print(f"[phase1] flash_attention_decode_lse {name}: q "
+              f"{tuple(q.shape)} k/v {tuple(k.shape)} kv_len {kv_len}; "
+              f"(splits, f32 rows max_abs_err, lse max_abs_err) {errs} "
+              f"(limits {DECODE_LSE_OUT_TOL:.3g} relative, "
+              f"{DECODE_LSE_TOL} absolute); repeats bitwise; the "
+              f"options-off output bitwise the f32 rows rounded")
+        if name == "decode_32k_block":
+            kw = dict(kv_len=kv_len, scale=scale)
+            ms = time_ms(lambda: FA.flash_attention_decode_lse(q, k, v, **kw),
+                         20)
+            dev_ms = time_ms(lambda: FA.flash_attention_decode_lse(
+                q, k, v, **kw), 20, lead=True)
+            off_ms = time_ms(lambda: FA.flash_attention(
+                q, k, v, causal=False, **kw), 20)
+            off_dev = time_ms(lambda: FA.flash_attention(
+                q, k, v, causal=False, **kw), 20, lead=True)
+            plain_ms = time_ms(lambda: chunked_attention_ref(
+                q.float(), k, v, causal=False, block_q=1, return_lse=True,
+                **kw), 2)
+            ops = 4.0 * D * kv_len * B * Hq
+            nbytes = (2.0 * B * Hq * D + 2 * 2.0 * B * kv_len * Hkv * D
+                      + 4.0 * B * Hq * (D + 1))
+            t_o, t_b = ops / peaks[2], nbytes / peaks[1]
+            by = "operations" if t_o >= t_b else "bytes"
+            print(f"[phase1] flash_attention_decode_lse at {name} "
+                  f"(splits {planned}): kernel_ms={ms:.4f} device_ms="
+                  f"{dev_ms:.4f}; the bf16-only route (flash_attention) "
+                  f"kernel_ms={off_ms:.4f} device_ms={off_dev:.4f}; "
+                  f"plain_ms={plain_ms:.4f} bound_ms="
+                  f"{max(t_o, t_b) * 1e3:.5f} ({by}; {nbytes / 1e9:.4f} GB)")
+            out_row = dict(name="flash_attention_decode_lse", route="cuda",
+                           counter="flash_attention_decode",
+                           source="src/repro_torch/csrc/flash_attention.cu",
+                           replaces="src/repro/kernels/flash_attention/"
+                           "flash_attention.py:91", ms=ms, plain_ms=plain_ms,
+                           bound_ms=max(t_o, t_b) * 1e3, bound_by=by,
+                           library_ms=None, device_ms=dev_ms)
+        del q, k, v, want, want_lse
+        torch.cuda.empty_cache()
+    out_row["max_abs_err"] = worst
+    return out_row
 
 
 def sha16(t: torch.Tensor) -> str:
@@ -6245,7 +6435,7 @@ def p11_dlrm(tmp: str, world: int, dev) -> dict:
     ``recsys_train_step``."""
     spec = torch.load(f"{tmp}/spec_rs.pt", weights_only=False)
     mesh = make_mesh((1, world), ("data", "model"))
-    ctx = ShardingCtx(make_rules(mesh), mesh)
+    ctx = ShardingCtx(make_rules(mesh, P11_TP_OFF), mesh)
     cfg = P11_DLRM
     V, D = cfg.default_vocab, cfg.embed_dim
     torch.cuda.synchronize()
@@ -6505,7 +6695,7 @@ def p11_retrieval(tmp: str, world: int, dev) -> dict:
     one-process scores."""
     spec = torch.load(f"{tmp}/spec_retrieval.pt", weights_only=False)
     mesh = make_mesh(P11_RETRIEVAL_MESH, ("data", "model"))
-    ctx = ShardingCtx(make_rules(mesh), mesh)
+    ctx = ShardingCtx(make_rules(mesh, P11_TP_OFF), mesh)
     axes = ctx.mesh_axes("candidates")
     out = {}
     for arch in P11_RETRIEVAL:
@@ -6560,7 +6750,7 @@ def p11_rank(rank: int, world: int, tmp: str, role: str) -> None:
         out["rs"] = p11_dlrm(tmp, world, dev)
         torch.cuda.empty_cache()
         mesh = make_mesh((1, world), ("data", "model"))
-        ctx = ShardingCtx(make_rules(mesh), mesh)
+        ctx = ShardingCtx(make_rules(mesh, P11_TP_OFF), mesh)
         t = time.perf_counter()
         out["kinds"] = {}
         for arch in P11_KINDS:
@@ -7949,9 +8139,12 @@ def p14b_steps(cfg, seed: int, dev, tmp: str, ctx=None, steps: int = 1,
 
 def p14b_decode(cfg, params, dev, tmp: str, ctx=None) -> torch.Tensor:
     """One decode step of olmo-1b's bf16 cut on the caches and token in
-    ``tmp`` (its KV heads whole under the decode rules)."""
+    ``tmp`` (under the decode rules, ``ctx``, a rank's block of their
+    positions: ``shard_caches``)."""
     spec = torch.load(f"{tmp}/p14b-decode.pt")
     caches = {k: v.to(dev) for k, v in spec["caches"].items()}
+    if ctx is not None:
+        caches = LM.shard_caches(caches, cfg, ctx)
     with torch.no_grad():
         logits, _ = LM.decode_step(params, cfg, spec["token"].to(dev), caches,
                                    P14_DECODE_T - 1, ctx=ctx)
@@ -8277,7 +8470,8 @@ def p14b_held(role: str, outs: list, ref: dict) -> str:
             f"{worst} (limit {P14_F32_REL}); a bf16 step's loss "
             f"{b0['bf16'][0][0]} vs {ref['bf16'][0][0]} (relative gaps "
             f"{rel}); a decode step under the decode rules (heads whole, "
-            f"mlp and vocab split) on {P14_DECODE_T} cached positions: "
+            f"mlp and vocab split, the caches' positions over kv_seq) on "
+            f"{P14_DECODE_T} cached positions: "
             f"logits {gap:.3g} of {BF16_LM_TOL}; step seconds "
             f"{[[round(x[2], 3) for x in o['b']['f32']] for o in outs]} "
             f"(one process {[round(x[2], 3) for x in ref['f32']]}); launches "
@@ -8402,6 +8596,364 @@ def phase14(seed: int, dev, corpus, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the recsys family's tensor parallelism, the decode rules'
+# sequence-sharded KV cache
+# ---------------------------------------------------------------------------
+
+def p15a_cfgs(arch: str) -> tuple:
+    """(f32, bf16) configs of a recsys arch at Phase 11's cut."""
+    cfg = p11_kind_cfg(arch)
+    return dataclasses.replace(cfg, dtype="float32"), cfg
+
+
+def p15a_inputs(arch: str, seed: int, dev, ctx=None) -> tuple:
+    """(parameters, batch): ``init_params`` from the arch's own seed (under
+    ``ctx`` this rank's shards of the same draws) and its train batch of
+    ``P15A_ROWS`` rows (dlrm: multi-hot bags of 1..``BAG`` ids)."""
+    i = P15_KINDS.index(arch)
+    cfg = p11_kind_cfg(arch)
+    params = R.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        seed + 211 + i), device=dev, ctx=ctx)
+    g = torch.Generator(dev).manual_seed(seed + 221 + i)
+    batch = (recsys_batch(cfg, g, P15A_ROWS, dev, bags=BAG)
+             if cfg.kind == "dlrm" else
+             p11_train_batch(cfg, g, P15A_ROWS, dev))
+    return params, batch
+
+
+def p15a_run(arch: str, params, batch, ctx=None) -> dict:
+    """f32: the serve outputs, the loss and the dense leaves' gradients
+    (those ``ROW_SHARDED`` does not name); bf16: the serve outputs."""
+    c32, c16 = p15a_cfgs(arch)
+    out32 = recsys_serve_step(params, c32, batch, ctx)
+    loss, grads = loss_and_grads(params, c32, batch, ctx)
+    dense = {k: g.detach() for k, g in grads.items()
+             if k.split(".")[0] not in R.ROW_SHARDED[c32.kind]}
+    del grads
+    out16 = recsys_serve_step(params, c16, batch, ctx)
+    return dict(out32=out32.float(), loss=float(loss), dense=dense,
+                out16=out16.float())
+
+
+def p15a_reference(seed: int, dev, tmp: str) -> dict:
+    """15a's one-process side on the card, written for the ranks."""
+    secs = {}
+    for arch in P15_KINDS:
+        t = time.perf_counter()
+        params, batch = p15a_inputs(arch, seed, dev)
+        res = p15a_run(arch, params, batch)
+        torch.save({k: ({n: g.cpu() for n, g in v.items()}
+                        if k == "dense" else
+                        v.cpu() if torch.is_tensor(v) else v)
+                    for k, v in res.items()}, f"{tmp}/p15a-{arch}.pt")
+        del params, batch, res
+        torch.cuda.empty_cache()
+        secs[arch] = round(time.perf_counter() - t, 2)
+    return secs
+
+
+def p15a_rank(seed: int, dev, tmp: str) -> dict:
+    """15a on this rank at each of ``P15_MESHES`` under the default rules
+    (``mlp``, ``heads`` and ``table_rows`` over ``model``): each kind's
+    shards, the same batch, and the gaps to the parent's outputs, loss
+    and dense gradients (each leaf's block, by ``param_layout``)."""
+    out = {}
+    for shape in P15_MESHES:
+        mesh = make_mesh(shape, ("data", "model"))
+        ctx = ShardingCtx(make_rules(mesh), mesh)
+        m = f"{shape[0]}x{shape[1]}"
+        for arch in P15_KINDS:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, batch = p15a_inputs(arch, seed, dev, ctx)
+            got = p15a_run(arch, params, batch, ctx)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            ref = torch.load(f"{tmp}/p15a-{arch}.pt")
+            lay = R.param_layout(p11_kind_cfg(arch), ctx)
+            grad_gap, split = {}, []
+            for k, g in got["dense"].items():
+                w = shard_of(ref["dense"][k], lay[k], ctx).to(dev)
+                grad_gap[k] = float((g.float() - w).norm()
+                                    / max(float(w.norm()), 1e-30))
+                if any(lay[k]):
+                    split.append(k)
+            out[f"{m}/{arch}"] = dict(
+                out32=near(got["out32"], ref["out32"], P15_F32_REL),
+                loss=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                grad=max(grad_gap.values()),
+                worst=max(grad_gap, key=grad_gap.get),
+                out16=near(got["out16"], ref["out16"], P15_BF16_OUT),
+                split=len(split), secs=secs)
+            del params, batch, got, ref
+            torch.cuda.empty_cache()
+    return out
+
+
+def p15_decode_cases() -> list:
+    """(tag, arch, shape name, mesh, B, T): 15b's two archs under
+    decode_32k's rules at (1, 4), B 8; 15c's llama under long_500k's at
+    (2, 2), B 1 (the batch whole over the data ranks)."""
+    return ([(f"b/{a}", a, "decode_32k", (1, 4), P5_DECODE_B, P15_DECODE_T)
+             for a in P15_DECODE_ARCHS]
+            + [("c/llama3.2-3b", "llama3.2-3b", "long_500k", (2, 2), 1,
+                P15_LONG_T)])
+
+
+def p15_lens(T: int) -> tuple:
+    """T - 1 (every block holds keys), T / 4 (the first position of block
+    1 of 4), T / 4 + 100 (blocks 2 and 3 hold none)."""
+    return (T - 1, T // 4, T // 4 + 100)
+
+
+def p15_decode_inputs(arch: str, B: int, T: int, cache_len: int, seed: int,
+                      dev, ctx=None) -> tuple:
+    """(parameters, caches, token) of a 15b/15c step: ``init_params`` at
+    ``P15_LAYERS`` layers and N(0, 1) bf16 caches, each from its own seed
+    (under ``ctx`` this rank's shards and block of the same draws)."""
+    cfg = dataclasses.replace(get_arch(arch).config, n_layers=P15_LAYERS)
+    i = P15_DECODE_ARCHS.index(arch)
+    params = LM.init_params(cfg, generator=torch.Generator(dev).manual_seed(
+        seed + 231 + i), device=dev)
+    g = torch.Generator(dev).manual_seed(seed + 241 + i + cache_len % 97)
+    caches = random_caches(cfg, B, T, g, dev)
+    tok = lm_tokens(cfg, g, B, 1, dev)
+    if ctx is not None:
+        params = LM.shard_params(params, cfg, ctx)
+        caches = LM.shard_caches(caches, cfg, ctx)
+    return cfg, params, caches, tok
+
+
+def p15_decode_reference(seed: int, dev, tmp: str) -> dict:
+    """15b's and 15c's one-process steps on whole caches: each step's
+    logits and the new key and value at ``cache_len``, written for the
+    ranks."""
+    secs = {}
+    for tag, arch, _, _, B, T in p15_decode_cases():
+        t = time.perf_counter()
+        for n in p15_lens(T):
+            cfg, params, caches, tok = p15_decode_inputs(arch, B, T, n,
+                                                         seed, dev)
+            with torch.no_grad():
+                logits, caches = LM.decode_step(params, cfg, tok, caches, n)
+            torch.save(dict(logits=logits.float().cpu(),
+                            k=caches["k"][:, :, n].cpu(),
+                            v=caches["v"][:, :, n].cpu()),
+                       f"{tmp}/p15-{tag.replace('/', '-')}-{n}.pt")
+            del params, caches, logits
+            torch.cuda.empty_cache()
+        secs[tag] = round(time.perf_counter() - t, 2)
+    return secs
+
+
+def p15_decode_rank(seed: int, dev, tmp: str) -> dict:
+    """15b and 15c on this rank: each case's rules (``lm_rules``) at its
+    mesh, each ``cache_len`` from fresh draws: the rank's block
+    (``shard_caches``), one ``decode_step``, and what it held: the logits'
+    gap to the parent's, its block after the step equal to its block
+    before it but at the new position (written only where the block holds
+    it, there near the parent's new key and value), and its
+    ``flash_attention_decode`` launches (one a layer where its block
+    holds a key, none elsewhere)."""
+    out = {}
+    for tag, arch, shape_name, shape, B, T in p15_decode_cases():
+        mesh = make_mesh(shape, ("data", "model"))
+        sh = next(s for s in LM_SHAPES if s.name == shape_name)
+        ctx = ShardingCtx(lm_rules(arch, sh, mesh), mesh)
+        for n in p15_lens(T):
+            cfg, params, caches, tok = p15_decode_inputs(arch, B, T, n,
+                                                         seed, dev, ctx)
+            seq = LM._kv_seq(ctx)
+            t_loc = caches["k"].shape[2]
+            lo = seq.j * t_loc
+            before = {k: c.clone() for k, c in caches.items()}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            common.reset_launches()
+            t = time.perf_counter()
+            with torch.no_grad():
+                logits, caches = LM.decode_step(params, cfg, tok, caches, n,
+                                                ctx=ctx)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            launches = common.launch_counts().get("flash_attention_decode",
+                                                  0)
+            ref = torch.load(f"{tmp}/p15-{tag.replace('/', '-')}-{n}.pt")
+            mine = lo <= n < lo + t_loc
+            same = True
+            new_gap = 0.0
+            for k in ("k", "v"):
+                diff = (caches[k] != before[k]).transpose(0, 2).reshape(
+                    t_loc, -1).any(dim=1)
+                if mine:
+                    diff[n - lo] = False
+                    new_gap = max(new_gap, near(caches[k][:, :, n - lo],
+                                                ref[k], BF16_LM_TOL))
+                same = same and not bool(diff.any())
+            kv_len = min(max(n + 1 - lo, 0), t_loc)
+            out[f"{tag}/{n}"] = dict(
+                logits=near(logits, ref["logits"], BF16_LM_TOL),
+                bits=sha16(logits), same=same, mine=mine,
+                new_gap=new_gap, launches=launches,
+                want=cfg.n_layers if kv_len else 0, kv_len=kv_len,
+                block=seq.j, secs=secs,
+                cache_gb=sum(c.numel() * c.element_size()
+                             for c in caches.values()) / 1e9,
+                fold_kb=B * cfg.n_heads * (cfg.resolved_head_dim + 1)
+                * 4 / 1e3,
+                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+            del params, caches, before, logits
+            torch.cuda.empty_cache()
+    return out
+
+
+def p15_rank(rank: int, world: int, tmp: str, role: str, seed: int) -> None:
+    """One rank of Phase 15 (``torch.multiprocessing.spawn``): 15a, then
+    15b and 15c, written with its launch counts to
+    ``tmp/15<role>-rank<rank>.pt``."""
+    import torch.distributed as dist
+    backend, dev = init_distributed(rank, world, f"{tmp}/rdv15-{role}")
+    if backend == "gloo":
+        p11_gloo_cuda(rank, world, dev)
+    out = {"backend": backend}
+    common.reset_launches()
+    t = time.perf_counter()
+    out["a"] = p15a_rank(seed, dev, tmp)
+    total = common.launch_counts()
+    out["a_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["bc"] = p15_decode_rank(seed, dev, tmp)
+    total = add_counts(total, {"flash_attention_decode": sum(
+        o["launches"] for o in out["bc"].values())})
+    out["bc_s"] = time.perf_counter() - t
+    out["launches"] = total
+    torch.save(out, f"{tmp}/15{role}-rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p15a_held(role: str, outs: list) -> str:
+    """Every kind's line at both meshes; raises with them all and each
+    failed check after the last."""
+    parts, failed = [], []
+    for shape in P15_MESHES:
+        m = f"{shape[0]}x{shape[1]}"
+        for arch in P15_KINDS:
+            rs = [o["a"][f"{m}/{arch}"] for o in outs]
+            worst = {k: max(r[k] for r in rs)
+                     for k in ("out32", "loss", "grad", "out16")}
+            gw = max(rs, key=lambda r: r["grad"])["worst"]
+            what = f"15{role}a {arch} at ({shape[0]}, {shape[1]})"
+            for ok, why in (
+                    (all(r["split"] > 0 for r in rs),
+                     "no dense leaf split over the model axis"),
+                    (worst["out32"] <= 1, f"f32 outputs {worst['out32']:.3g}"
+                     f" of {P15_F32_REL} of the largest"),
+                    (worst["loss"] <= P15_F32_REL,
+                     f"loss {worst['loss']:.3g} relative"),
+                    (worst["grad"] <= P15_GRAD_REL, f"a dense gradient block "
+                     f"{worst['grad']:.3g} apart norm-wise ({gw})"),
+                    (worst["out16"] <= 1, f"bf16 outputs {worst['out16']:.3g}"
+                     f" of {P15_BF16_OUT} of the largest")):
+                if not ok:
+                    failed.append(f"{what}: {why}")
+            parts.append(f"{arch} ({shape[0]}, {shape[1]}): f32 out "
+                         f"{worst['out32'] * P15_F32_REL:.3g}, loss "
+                         f"{worst['loss']:.3g}, dense grads {worst['grad']:.3g}"
+                         f" ({gw}; {rs[0]['split']} split dense leaves), bf16 "
+                         f"out {worst['out16'] * P15_BF16_OUT:.3g}; "
+                         f"{max(r['secs'] for r in rs):.2f} s")
+    check(not failed, "; ".join(parts) + " -- " + "; ".join(failed))
+    return f"{P15A_ROWS:,} rows a batch: " + "; ".join(parts)
+
+
+def p15_decode_held(role: str, outs: list) -> str:
+    parts = []
+    for tag, arch, shape_name, shape, B, T in p15_decode_cases():
+        for n in p15_lens(T):
+            rs = [o["bc"][f"{tag}/{n}"] for o in outs]
+            what = f"15{role}{tag} cache_len {n}"
+            worst = max(r["logits"] for r in rs)
+            check(worst <= 1, f"{what}: logits {worst:.3g} of "
+                  f"{BF16_LM_TOL} of the largest")
+            check(all(r["same"] for r in rs), f"{what}: a block changed "
+                  f"besides the new position")
+            check(sum(r["mine"] for r in rs) == (shape[0] if shape_name
+                                                 == "decode_32k" else 1),
+                  f"{what}: the new position written on "
+                  f"{sum(r['mine'] for r in rs)} ranks")
+            check(max(r["new_gap"] for r in rs) <= 1, f"{what}: the new "
+                  f"key or value off the parent's")
+            check(all(r["launches"] == r["want"] for r in rs), f"{what}: "
+                  f"launches {[r['launches'] for r in rs]}, want "
+                  f"{[r['want'] for r in rs]} (none where a block holds "
+                  f"no key)")
+            check(len({r["bits"] for r in rs}) == 1, f"{what}: the ranks' "
+                  f"logits differ")
+            parts.append(
+                f"{tag[2:]} {shape_name} ({shape[0]}, {shape[1]}) B {B} T "
+                f"{T} cache_len {n}: logits {worst * BF16_LM_TOL:.3g}, "
+                f"kv_len by rank {[r['kv_len'] for r in rs]}, launches "
+                f"{[r['launches'] for r in rs]}, cache "
+                f"{rs[0]['cache_gb']:.3f} GB a rank, fold "
+                f"{rs[0]['fold_kb']:.1f} KB a layer a rank, step seconds "
+                f"{[round(r['secs'], 3) for r in rs]}, peak "
+                f"{max(r['peak_gb'] for r in rs):.2f} GB")
+    return "; ".join(parts)
+
+
+def phase15(seed: int, dev, smi: str) -> dict:
+    """Phase 15 (module docstring): the parent's sides, then four gloo
+    ranks sharing the card run 15a-15c (and four NCCL ranks, one a card,
+    where the machine has four cards).  Returns the ranks' launch counts,
+    summed."""
+    t_all = time.perf_counter()
+    total = {}
+    with tempfile.TemporaryDirectory(prefix="phase15-") as tmp:
+        t = time.perf_counter()
+        ref_s = {"a": p15a_reference(seed, dev, tmp),
+                 "bc": p15_decode_reference(seed, dev, tmp)}
+        torch.cuda.empty_cache()
+        print(f"[phase15] the parent's sides took "
+              f"{time.perf_counter() - t:.2f} s ({ref_s})")
+        roles = [("", P15_WORLD)]
+        if torch.cuda.device_count() >= P15_WORLD:
+            roles.insert(0, ("nccl", P15_WORLD))
+        for role, world in roles:
+            t = time.perf_counter()
+            spawn_ranks(p15_rank, (world, tmp, role, seed), world,
+                        P15_TIMEOUT_S, f"phase 15{role}")
+            print(f"[phase15{role}] the ranks took "
+                  f"{time.perf_counter() - t:.2f} s")
+            outs = [torch.load(f"{tmp}/15{role}-rank{r}.pt",
+                               weights_only=False) for r in range(world)]
+            backend = outs[0]["backend"]
+            check(backend == ("nccl" if role == "nccl" else "gloo"),
+                  f"15{role} chose {backend}")
+            for o in outs:
+                total = add_counts(total, o["launches"])
+            note = ("gloo stages CUDA tensors through the host: these times "
+                    "say nothing of NCCL" if backend == "gloo" else
+                    "one rank a card")
+            failed = []
+            for part, held in (("a", p15a_held), ("bc", p15_decode_held)):
+                try:        # every part's line, then the first failure
+                    line = held(role, outs)
+                except AssertionError as e:
+                    failed.append(str(e))
+                    line = f"FAILED: {e}"
+                secs = [round(o[f"{part}_s"], 2) for o in outs]
+                print(f"[phase15{role}{part}] backend {backend}: {line}; "
+                      f"each rank's seconds {secs} ({note}; {smi})",
+                      flush=True)
+            for what in failed:
+                check(False, what)
+    print(f"[phase15] wall {time.perf_counter() - t_all:.2f} s; the ranks' "
+          f"launches {json.dumps(nonzero(total))}")
+    return total
+
+
 def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
@@ -8494,6 +9046,11 @@ def main() -> int:
                          "training and the LM's attention use, make Phase "
                          "3's corpus (no training) and run Phase 14 "
                          "(tensor parallelism over the model axis)")
+    ap.add_argument("--tp2-only", action="store_true",
+                    help="only build embedding_bag and the flash-attention "
+                         "kernels and run Phase 15 (the recsys family's "
+                         "tensor parallelism, the decode rules' "
+                         "sequence-sharded KV cache)")
     ap.add_argument("--decode-only", type=int, default=0, metavar="REPS",
                     help="only build flash_attention, print the whole op's "
                          "lines as --attention-only does, and run Phase 5's "
@@ -8528,6 +9085,7 @@ def main() -> int:
         g = torch.Generator(device=dev).manual_seed(args.seed)
         attention_whole_op(g, dev)
         forced_split_hashes(g, dev)
+        phase1_decode_lse(g, dev, peaks)
         phase1_flash_attention_bwd(torch.Generator(device=dev).manual_seed(
             args.seed), dev, peaks)
         return 0
@@ -8557,6 +9115,10 @@ def main() -> int:
         print(f"[phase14] Phase 3's corpus made in "
               f"{time.perf_counter() - t:.2f} s")
         phase14(args.seed, dev, corpus, smi)
+        return 0
+    if args.tp2_only:
+        print_build(common.build(["embedding_bag", "flash_attention"]))
+        phase15(args.seed, dev, smi)
         return 0
     if args.lm_train_only:
         print_build(common.build(["flash_attention", "flash_attention_bwd"]))
@@ -8635,6 +9197,9 @@ def main() -> int:
             *phase1_fused_contrastive(g, dev, peaks),
             *phase1_embedding_bag(g, dev, peaks)]
     rows += phase1_flash_attention(g, dev, peaks)
+    progress(t_main, "Phase 1 (decode with lse)")
+    rows.append(phase1_decode_lse(g, dev, peaks))
+    progress(t_main, "Phase 1 (the attention backward)")
     rows += phase1_flash_attention_bwd(g, dev, peaks)
     progress(t_main, "Phase 2")
     t = time.perf_counter()
@@ -8694,6 +9259,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     progress(t_main, "Phase 12")
     launches12 = phase12(args.seed, dev, smi)
+    torch.cuda.empty_cache()
+    progress(t_main, "Phase 15")
+    launches15 = phase15(args.seed, dev, smi)
     for r in rows:     # each path's launches, Phases 6-13's added to its own
         counter = r.get("counter", r["name"])
         r["launches"] = (next((ls[counter] for ls in (
@@ -8702,7 +9270,7 @@ def main() -> int:
             + sum(ls.get(counter, 0)
                   for ls in (launches6, launches7, launches8, launches9,
                              launches10, launches11, launches12,
-                             launches13, launches14)))
+                             launches13, launches14, launches15)))
         check(r["launches"] > 0, f"{r['name']} was not launched on its "
               f"main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -29,7 +29,8 @@ from repro_torch.core.negatives import NegPoolState
 from repro_torch.core.rq_index import RQState, codebooks_module
 from repro_torch.core.trainer import TrainState, named_params, shard_state
 from repro_torch.models.lm.model import shard_params
-from repro_torch.models.recsys.models import ROW_SHARDED, shard_rows
+from repro_torch.models.recsys.models import (ROW_SHARDED, shard_dense,
+                                              shard_rows)
 from repro_torch.optim.optimizers import AdamState, is_sparse
 from repro_torch.kernels.common import resolve_device
 
@@ -163,8 +164,9 @@ def recsys_params_from_jax(tree: Dict[str, Any], kind: str, *,
     tables and the attention matrices as they are.  Under ``ctx`` (a
     ``ShardingCtx`` over a mesh) each row-sharded leaf of the kind
     (``models.recsys.models.ROW_SHARDED``) keeps this rank's rows
-    (``shard_rows`` of its whole row count), as
-    ``init_params(ctx=)`` holds them."""
+    (``shard_rows`` of its whole row count) and every other leaf its
+    block under the tensor-parallel layout (``shard_dense``,
+    ``param_layout``), as ``init_params(ctx=)`` holds them."""
     if set(tree) != RECSYS_KEYS[kind]:
         raise ValueError(f"a {kind} tree has keys {sorted(RECSYS_KEYS[kind])}"
                          f", got {sorted(tree)}")
@@ -175,7 +177,7 @@ def recsys_params_from_jax(tree: Dict[str, Any], kind: str, *,
         if rows is not None:
             out[k] = out[k].narrow(dim, rows.start,
                                    rows.stop - rows.start).contiguous()
-    return out
+    return shard_dense(out, kind, ctx)
 
 
 def lm_params_from_jax(tree: Dict[str, Any], *, device=None, ctx=None,

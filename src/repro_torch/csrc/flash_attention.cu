@@ -120,9 +120,20 @@
 // split also write each row's logsumexp in natural units, lse = m + log(l)
 // with m the row's max of the scaled scores and l its sum of e^(s - m)
 // (the exp2 form computes the same l), to an f32 (B, Hkv, rows) buffer:
-// csrc/flash_attention_bwd.cu forms P = e^(s - lse) from it.  A launch
-// with splits > 1, or of fa_decode, refuses an lse; serving passes null,
-// and its outputs are bitwise what they were.
+// csrc/flash_attention_bwd.cu forms P = e^(s - lse) from it.  A tile
+// kernel's launch with splits > 1 refuses an lse.
+//
+// Decode route with lse (flash_attention.py's flash_attention_decode_lse,
+// a rank's block of a sequence-sharded KV cache under the decode rules).
+// fa_decode takes two options: lse, each row's logsumexp in the same
+// natural units, m + log(l) from its warps' combine at one split, M +
+// log(L) from fold_splits after a split launch; and out_f32, the output
+// rows written in f32 before any rounding (to an f32 tensor with its own
+// strides).  A cross-rank fold (distributed/collectives.py::fold_seq)
+// weighs each rank's f32 rows by e^(lse - max lse) and rounds once, as
+// the fold of one launch's splits does.  Serving passes neither: the
+// bf16 output is computed by the same instructions and is bitwise what
+// it was.
 //
 // Head dims 32, 64, 112, 128, 256 (templates).  Shared memory is dynamic.
 // Head dim 112 (kimi-k2: 7168 / 64): its 224-byte rows are no whole
@@ -187,7 +198,9 @@ struct Args {
   float* ws_m; float* ws_l; float* ws_acc;   // (splits, B, Hkv, rows[, D])
   int* counters;                // (B * Hkv * row tiles,), zero at launch
   int n_counters;
-  float* lse;                   // (B, Hkv, rows) or null: splits 1 only
+  float* lse;                   // (B, Hkv, rows) or null: splits 1 only,
+                                // but for fa_decode
+  int out_f32;                  // fa_decode: o is f32, written unrounded
 };
 
 // The training route's logsumexp of row r, in natural units (the
@@ -265,10 +278,18 @@ __device__ __forceinline__ void fold_splits(const Args& a, int b, int kvh,
       }
     }
     const int r = r0 + rr;
-    T* o = static_cast<T*>(a.o) + b * a.osb + (r / rep) * a.oss
-           + (kvh * rep + r % rep) * a.osh + c;
+    const long long off = b * a.osb + (r / rep) * a.oss
+                          + (kvh * rep + r % rep) * a.osh + c;
+    if (a.out_f32) {
+      float* o = static_cast<float*>(a.o) + off;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) put(o + e, A[e] / fmaxf(L, 1e-30f));
+      for (int e = 0; e < 4; ++e) o[e] = A[e] / fmaxf(L, 1e-30f);
+    } else {
+      T* o = static_cast<T*>(a.o) + off;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) put(o + e, A[e] / fmaxf(L, 1e-30f));
+    }
+    if (a.lse && c == 0) write_lse(a, b, kvh, rows, r, M, L);
   }
   if (t == 0) atomicExch(cnt, 0);       // zero for the next launch
 }
@@ -776,10 +797,15 @@ __device__ __forceinline__ void write_row(const Args& a, int b, int kvh,
   }
   if (a.splits == 1) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    bf16* o = static_cast<bf16*>(a.o) + b * a.osb + (r / rep) * a.oss
-              + (kvh * rep + r % rep) * a.osh + col;
-    *reinterpret_cast<__nv_bfloat162*>(o) =
-        __floats2bfloat162_rn(x0 * inv, x1 * inv);
+    const long long off = b * a.osb + (r / rep) * a.oss
+                          + (kvh * rep + r % rep) * a.osh + col;
+    if (a.out_f32) {
+      *reinterpret_cast<float2*>(static_cast<float*>(a.o) + off) =
+          make_float2(x0 * inv, x1 * inv);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(a.o) + off) =
+          __floats2bfloat162_rn(x0 * inv, x1 * inv);
+    }
   } else {
     const long long w = (((long long)split * a.B + b) * a.Hkv + kvh) * rows + r;
     if (col == 0) {
@@ -1007,6 +1033,7 @@ __global__ void __launch_bounds__(128) fa_decode(Args a) {
       A[1] += x.y * e;
     }
     write_row<D, DV>(a, b, kvh, split, rep, rows, r, M, L, A[0], A[1], c);
+    if (a.lse && a.splits == 1 && c == 0) write_lse(a, b, kvh, rows, r, M, L);
   }
   if (a.splits > 1)
     fold_splits<bf16, D, NTH, 0, DV>(a, b, kvh, rep, rows, 0, BQ, tid);
@@ -1268,7 +1295,7 @@ static Args make_args(const void* q, const void* k, const void* v, void* o,
                       const long long* st, int causal, int q_offset,
                       const int* kv_len, int kv_max, float scale, int splits,
                       float* ws_m, float* ws_l, float* ws_acc, int* counters,
-                      int n_counters, float* lse) {
+                      int n_counters, float* lse, int out_f32 = 0) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
   a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv;
@@ -1282,17 +1309,21 @@ static Args make_args(const void* q, const void* k, const void* v, void* o,
   a.ws_m = ws_m; a.ws_l = ws_l; a.ws_acc = ws_acc;
   a.counters = counters; a.n_counters = n_counters;
   a.lse = lse;
+  a.out_f32 = out_f32;
   return a;
 }
 
 // What every entry refuses: no output, a bad head grouping, a split
-// launch without its workspace and counters, or an lse with splits (the
-// training route runs at one split, so the fold writes no lse).
+// launch without its workspace and counters, or, from a tile kernel, an
+// lse with splits (the training route runs at one split; only fa_decode's
+// fold writes lse).
 static bool bad_args(void* o, int Hq, int Hkv, int splits, const float* ws_m,
                      const float* ws_l, const float* ws_acc,
-                     const int* counters, const float* lse) {
+                     const int* counters, const float* lse,
+                     bool fold_lse = false) {
   return !o || splits < 1 || Hkv < 1 || Hq % Hkv
-         || (splits > 1 && (!ws_m || !ws_l || !ws_acc || !counters || lse));
+         || (splits > 1 && (!ws_m || !ws_l || !ws_acc || !counters
+                            || (lse && !fold_lse)));
 }
 
 extern "C" {
@@ -1303,8 +1334,9 @@ extern "C" {
 // note's "Split-KV"): counters holds n_counters int32 zeros, at least
 // B * Hkv * the grid's row tiles, and is zero again when the launch ends.
 // lse: null, or (B, Hkv, rows) f32 for each row's logsumexp (write_lse),
-// at splits 1 on the tile kernels (the training route; serving passes
-// null and its outputs do not change).
+// at splits 1 on the tile kernels (the training route) and at any split
+// on fa_decode (a rank's block of a sequence-sharded cache); serving
+// passes null and its outputs do not change.
 
 // f32 inputs, the FP32-pipe kernel; rpt: 1 or 4.
 int flash_attention_f32_launch(int D, const void* q, const void* k,
@@ -1325,19 +1357,20 @@ int flash_attention_f32_launch(int D, const void* q, const void* k,
 
 // bf16 inputs: `decode` 0 for the tensor-core tile kernel (fa_wgmma,
 // fa_mma at D 32), 1 for the streaming decode kernel (fa_decode: S * Hq /
-// Hkv <= 16; it writes no lse).
+// Hkv <= 16; it takes an lse at any split, and out_f32).
 static int bf16_launch(int decode, int D, const void* q, const void* k,
                        const void* v, void* o, int B, int S, int Hq, int Hkv,
                        const long long* strides, int causal, int q_offset,
                        const int* kv_len, int kv_max, float scale, int splits,
                        float* ws_m, float* ws_l, float* ws_acc, int* counters,
-                       int n_counters, float* lse, void* stream) {
-  if (bad_args(o, Hq, Hkv, splits, ws_m, ws_l, ws_acc, counters, lse)
-      || (decode && lse))
+                       int n_counters, float* lse, int out_f32,
+                       void* stream) {
+  if (bad_args(o, Hq, Hkv, splits, ws_m, ws_l, ws_acc, counters, lse,
+               decode) || (out_f32 && !decode))
     return cudaErrorInvalidValue;
   Args a = make_args(q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset,
                      kv_len, kv_max, scale, splits, ws_m, ws_l, ws_acc,
-                     counters, n_counters, lse);
+                     counters, n_counters, lse, out_f32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return decode ? tc::launch_bf16<true>(a, D, st)
                 : tc::launch_bf16<false>(a, D, st);
@@ -1352,9 +1385,12 @@ int flash_attention_mma_launch(int D, const void* q, const void* k,
                                int n_counters, float* lse, void* stream) {
   return bf16_launch(0, D, q, k, v, o, B, S, Hq, Hkv, strides, causal,
                      q_offset, kv_len, kv_max, scale, splits, ws_m, ws_l,
-                     ws_acc, counters, n_counters, lse, stream);
+                     ws_acc, counters, n_counters, lse, 0, stream);
 }
 
+// out_f32: o is f32 (its strides in f32 elements), each row written
+// unrounded; with lse non-null, each row's logsumexp, at one split or
+// after the fold.
 int flash_attention_decode_launch(int D, const void* q, const void* k,
                                   const void* v, void* o, int B, int S,
                                   int Hq, int Hkv, const long long* strides,
@@ -1362,10 +1398,11 @@ int flash_attention_decode_launch(int D, const void* q, const void* k,
                                   const int* kv_len, int kv_max, float scale,
                                   int splits, float* ws_m, float* ws_l,
                                   float* ws_acc, int* counters,
-                                  int n_counters, float* lse, void* stream) {
+                                  int n_counters, float* lse, int out_f32,
+                                  void* stream) {
   return bf16_launch(1, D, q, k, v, o, B, S, Hq, Hkv, strides, causal,
                      q_offset, kv_len, kv_max, scale, splits, ws_m, ws_l,
-                     ws_acc, counters, n_counters, lse, stream);
+                     ws_acc, counters, n_counters, lse, out_f32, stream);
 }
 
 // Dynamic shared memory of a bf16 kernel (decode 0: the tile kernel, 1:

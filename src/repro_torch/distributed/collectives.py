@@ -65,6 +65,11 @@ gradients are its partial sums.  The pair and its gathers:
   * ``split_of``: a rank's block of a replicated value, and the blocks'
     cotangents all-gathered.
 
+The decode rules split a KV cache's sequence over ``kv_seq``'s ranks
+(``models/lm/model.py``): each rank attends over its block of the keys
+and ``fold_seq`` folds the ranks' (f32 output, lse) partials into the
+softmax over every key, in rank order, with no gradient.
+
 ``gather_dim`` and ``all_sum`` must not stand in for these: their
 gradients sum over the group a cotangent that every rank computes
 alike, which makes it ``n`` times too large.  With grad mode off (serving,
@@ -426,3 +431,35 @@ def split_of(x: torch.Tensor, dim: int, group) -> torch.Tensor:
         return torch.chunk(x, group_size(group), dim=dim)[
             dist.get_rank(group)].contiguous()
     return _SplitOf.apply(x, dim, group)
+
+
+# ---------------------------------------------------------------------------
+# the fold of a sequence-sharded decode (no gradient)
+# ---------------------------------------------------------------------------
+
+def fold_seq(out: torch.Tensor, lse: torch.Tensor, group) -> torch.Tensor:
+    """Each rank's attention over its block of the keys, ``out`` (..., D)
+    f32 and ``lse`` (...) f32 (its rows' logsumexp; -inf for a rank that
+    holds no key, whose ``out`` is 0), folded into the attention over
+    every key: one all-gather of (out, lse) over ``group``, then in f32 in
+    the group's rank order ``M = max_j lse_j`` and ``sum_j e^(lse_j - M)
+    out_j / sum_j e^(lse_j - M)``, the same on every rank.  Returns f32:
+    the caller rounds once.  A rank with lse -inf weighs exactly 0.
+    Serving only: refuses grad."""
+    if out.dtype != torch.float32 or lse.dtype != torch.float32:
+        raise ValueError(f"fold_seq folds f32 partials, got {out.dtype} and "
+                         f"{lse.dtype}")
+    if torch.is_grad_enabled() and (out.requires_grad or lse.requires_grad):
+        raise RuntimeError("fold_seq has no backward: call it with grad off "
+                           "(decode is serving)")
+    packed = torch.cat([out, lse[..., None]], dim=-1)
+    parts = gather_rows(packed[None], group)
+    outs, lses = parts[..., :-1], parts[..., -1]
+    M = torch.amax(lses, dim=0)
+    num = torch.zeros_like(out)
+    den = torch.zeros_like(lse)
+    for j in range(parts.shape[0]):
+        w = torch.exp(lses[j] - M)
+        num = num + w[..., None] * outs[j]
+        den = den + w
+    return num / den[..., None]

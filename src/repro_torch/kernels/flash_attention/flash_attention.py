@@ -8,7 +8,10 @@
     zero-filled in shared memory and writes 112 columns (so does the
     decode kernel);
   * ``flash_attention_decode``: bf16, at most 16 rows per KV head (a
-    decode step), streaming K and V once (``mma.sync``);
+    decode step), streaming K and V once (``mma.sync``); also
+    ``flash_attention_decode_lse``'s launch, which asks it for each row's
+    logsumexp and an f32 output (a rank's block of a sequence-sharded
+    cache, folded across ranks by ``distributed.collectives.fold_seq``);
   * ``flash_attention_f32``: f32 inputs, the FP32-pipe kernel (the f32
     card-vs-CPU checks).
 
@@ -66,14 +69,15 @@ _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 # D, q, k, v, o, B, S, Hq, Hkv, strides, causal, q_offset, kv_len, kv_max,
-# scale, [rpt,] splits, ws_m, ws_l, ws_acc, counters, n_counters, lse, stream
+# scale, [rpt,] splits, ws_m, ws_l, ws_acc, counters, n_counters, lse,
+# [out_f32 (decode),] stream
 _ARGS = [_I, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.POINTER(_LL), _I, _I,
          _P, _I, _F]
 _SPLIT = [_I, _P, _P, _P, _P, _I, _P, _P]
 MMA = CudaKernel("flash_attention", "flash_attention_mma_launch",
                  _ARGS + _SPLIT)
 DECODE = CudaKernel("flash_attention_decode", "flash_attention_decode_launch",
-                    _ARGS + _SPLIT, source="flash_attention")
+                    _ARGS + _SPLIT[:-1] + [_I, _P], source="flash_attention")
 F32 = CudaKernel("flash_attention_f32", "flash_attention_f32_launch",
                  _ARGS + [_I] + _SPLIT, source="flash_attention")
 _FWD = {k.name: k for k in (MMA, DECODE, F32)}
@@ -205,11 +209,13 @@ def _counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def _fwd(q, k, v, kv, *, causal, scale, q_offset, kernel, splits,
-         rpt=None, lse=None):
+         rpt=None, lse=None, out_f32=False):
     """One launch of ``kernel`` (``kv``: ``_kv``'s pointer and kv_max):
-    the output (B, S, Hq, D) in q's type, and with ``splits`` > 1 the
-    partials it folded, else None.  ``lse``: None, or a (B, Hkv, rows) f32
-    tensor the tile kernels fill with each row's logsumexp (splits 1)."""
+    the output (B, S, Hq, D) in q's type (f32 with ``out_f32``, the decode
+    kernel's option), and with ``splits`` > 1 the partials it folded, else
+    None.  ``lse``: None, or a (B, Hkv, rows) f32 tensor filled with each
+    row's logsumexp (the tile kernels at splits 1, the decode kernel at
+    any)."""
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
     rows = S * (Hq // Hkv)
@@ -221,12 +227,17 @@ def _fwd(q, k, v, kv, *, causal, scale, q_offset, kernel, splits,
     if kernel == DECODE.name and rows > DECODE_ROWS:
         raise ValueError(f"{kernel} takes at most {DECODE_ROWS} rows per KV "
                          f"head, got {rows}")
+    if out_f32 and kernel != DECODE.name:
+        raise ValueError(f"an f32 output is a {DECODE.name} option")
+    if lse is not None and splits > 1 and kernel != DECODE.name:
+        raise ValueError(f"{kernel} writes lse at one split only")
     if rpt is not None and kernel != F32.name:
         raise ValueError("rows per thread (rpt) is a flash_attention_f32 "
                          "option")
     rpt = rpt or (1 if rows <= 16 else 4)
     kv_ptr, kv_max = kv
-    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, S, Hq, D), dtype=torch.float32 if out_f32
+                      else q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 12)(*(
         t.stride(i) for t in (q, k, v, out) for i in range(3)))
     stream = stream_ptr(q)
@@ -248,11 +259,13 @@ def _fwd(q, k, v, kv, *, causal, scale, q_offset, kernel, splits,
         cnt = _counters(q.device, stream, n)
         split_args = [*(w.data_ptr() for w in ws), cnt.data_ptr(), n]
     extra = [rpt, splits] if kernel == F32.name else [splits]
+    tail = [None if lse is None else lse.data_ptr()]
+    if kernel == DECODE.name:
+        tail.append(int(out_f32))
     _FWD[kernel].launch(D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), B, S, Hq, Hkv, strides, int(causal),
                         q_offset, kv_ptr, kv_max, scale, *extra,
-                        *split_args, None if lse is None else lse.data_ptr(),
-                        stream)
+                        *split_args, *tail, stream)
     if ws is not None and ws[2].shape[-1] != D:
         ws = (ws[0], ws[1], ws[2][..., :D])
     return out, ws
@@ -313,6 +326,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel, splits = _plan(q, k, kv[1])
     return _fwd(q, k, v, kv, causal=causal, scale=scale, q_offset=q_offset,
                 kernel=kernel, splits=splits)[0]
+
+
+def flash_attention_decode_lse(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *,
+                               kv_len: Union[int, torch.Tensor],
+                               scale: float, splits: Optional[int] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decode row per query head over a block of keys, for a fold
+    across ranks: q (B, 1, Hq, D), k/v (B, T, Hkv, D), ``kv_len`` (at
+    least 1 for every row) -> (out (B, 1, Hq, D) f32, lse (B, Hq) f32), the
+    output's rows unrounded and each row's logsumexp in natural units (log
+    of the sum of e^(q.k * scale) over keys below ``kv_len``).  bf16: one
+    launch of ``flash_attention_decode`` (counted there), at ``plan``'s kv
+    splits unless ``splits`` forces a count, its fold writing lse and the
+    f32 rows; f32 inputs: ``flash_attention_f32`` at one split.  Head dims
+    ``HEAD_DIMS`` (112 on the D 128 tiles); no backward."""
+    if _wants_grad(q, k, v):
+        raise RuntimeError("flash_attention_decode_lse has no backward: call "
+                           "it with grad off (decode is serving)")
+    _check(q, k, v)
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    if S != 1:
+        raise ValueError(f"flash_attention_decode_lse takes one query row a "
+                         f"head, got S {S}")
+    kv = _kv(kv_len, q, B, k.shape[1])
+    if q.dtype == torch.float32:
+        kernel, n = F32.name, 1
+        if splits not in (None, 1):
+            raise ValueError("f32 inputs run flash_attention_f32 at one "
+                             "split")
+    else:
+        kernel, n = _plan(q, k, kv[1])
+        if kernel != DECODE.name:
+            raise ValueError(f"{Hq // Hkv} rows per KV head: more than the "
+                             f"{DECODE_ROWS} {DECODE.name} takes")
+        n = n if splits is None else splits
+    lse = torch.empty((B, Hkv, Hq // Hkv), dtype=torch.float32,
+                      device=q.device)
+    out = _fwd(q, k, v, kv, causal=False, scale=scale, q_offset=0,
+               kernel=kernel, splits=n, lse=lse,
+               out_f32=kernel == DECODE.name)[0]
+    return out, lse.view(B, Hq)
 
 
 # ---------------------------------------------------------------------------

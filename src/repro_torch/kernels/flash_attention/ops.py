@@ -8,6 +8,11 @@ differentiates them).
     (B, T, Hkv, D), ``causal``, ``q_offset``, ``kv_len`` (on the CPU,
     ``chunked_attention_ref``: ``repro/models/lm/model.py::
     _chunked_attention``);
+  * ``decode_attention_lse``: one decode step's rows over a block of
+    keys with each row's logsumexp and the output in f32, for the fold
+    across the ranks of a sequence-sharded cache (on the card
+    ``flash_attention_decode_lse``; on the CPU ``chunked_attention_ref(...,
+    return_lse=True)`` on q in f32, so that its output is not rounded);
   * ``attention``: the Pallas wrapper's contract, (B, H, S, D), causal
     mask aligned to the end of the keys (on the CPU, ``attention_ref``,
     as ``repro/kernels/flash_attention/ops.py::attention`` without
@@ -15,12 +20,12 @@ differentiates them).
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
-    check_kv_len, flash_attention)
+    check_kv_len, flash_attention, flash_attention_decode_lse)
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      chunked_attention_ref)
 
@@ -45,6 +50,27 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_kv_len(kv_len)
     return chunked_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                  kv_len=kv_len, block_q=block_q, scale=scale)
+
+
+def decode_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, kv_len: Union[int, torch.Tensor], scale: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q (B, S, H, D), k/v (B, T, Hkv, D), non-causal, keys below
+    ``kv_len`` (at least 1) -> (out (B, S, H, D) f32, lse (B, S, H) f32).
+    The kernel takes S 1 (a decode step); both refuse grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("decode_attention_lse has no backward: call it "
+                           "with grad off (decode is serving)")
+    B, S, H, _ = q.shape
+    if _on_card(q):
+        out, lse = flash_attention_decode_lse(q, k, v, kv_len=kv_len,
+                                              scale=scale)
+        return out, lse.view(B, S, H)
+    check_kv_len(kv_len)
+    out, lse = chunked_attention_ref(q.to(torch.float32), k, v, causal=False,
+                                     kv_len=kv_len, block_q=S, scale=scale,
+                                     return_lse=True)
+    return out, lse.transpose(1, 2)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -30,7 +30,8 @@ The LM serve steps:
     and the caches (L, B, S, Hkv, hd);
   * ``lm_decode_step``: one token (B, 1) against caches (L, B, S, Hkv,
     hd) filled to ``S - 1``, as the JAX decode cell takes it; the caches
-    are written in place.
+    are written in place.  Under the decode rules a rank passes its block
+    of the caches' sequence (``models.lm.model.shard_caches``).
 
 The recsys steps:
 
@@ -47,9 +48,12 @@ The recsys steps take ``ctx`` (a ``ShardingCtx``), every kind: under a
 mesh that shards the tables' rows every rank passes the whole batch and
 its own rows of the tables (``models.init_params(ctx=)``), the lookups
 are ``models._lookup_sharded`` and ``_bag_sharded``, and the rest of the
-model runs replicated, so the loss, the dense gradients and the logits
-are the whole batch's on every rank and each rank's table gradients
-cover its own rows.  The retrieval step splits the candidates over the
+model runs replicated over the data ranks and, where the rules split
+``mlp`` and ``heads`` over ``model`` (the default rules), tensor
+parallel over the model group (``models.param_layout``), so the loss and
+the logits are the whole batch's on every rank, a whole leaf's gradient
+is whole, and a split leaf's (a table's rows, a layer's block) covers
+the rank's block.  The retrieval step splits the candidates over the
 ``candidates`` rule's axes and merges the ranks' top k.
 
 Batches are dicts of tensors on the parameters' device: ``dense``,
@@ -116,16 +120,17 @@ def recsys_train_step(params: R.Params, opt_state, batch: Batch,
     """One step; updates ``params`` in place (the JAX step returns new
     ones) and returns (loss, new optimizer state).  ``optimizer`` is
     ``rankgraph2_optimizer()``, its state ``optimizer.init(
-    flatten_params(params))``.  Under a ``ctx`` that shards the tables'
-    rows the global norm of the clip is the whole model's: the squared
-    norms of every row-sharded leaf's shards (``row_sharded_leaves``)
-    are summed over the model group."""
+    flatten_params(params))``.  Under a ``ctx`` the global norm of the
+    clip is the whole model's: the squared norms of every split leaf's
+    blocks (the row-sharded tables, ``row_sharded_leaves``, and the
+    tensor-parallel layers, ``param_layout``) are summed over the groups
+    they are split over, each whole leaf counted once
+    (``shard_groups``).  The optimizers are elementwise."""
     loss, grads = loss_and_grads(params, cfg, batch, ctx)
     flat = R.flatten_params(params)
     with torch.no_grad():
-        shards = {k: (ctx.group("model"),)
-                  for k in R.row_sharded_leaves(cfg, ctx)}
-        grads, _ = O.clip_by_global_norm(grads, 1.0, shards or None)
+        grads, _ = O.clip_by_global_norm(grads, 1.0,
+                                         R.shard_groups(cfg, ctx))
         upd, opt_state = optimizer.update(grads, opt_state, flat)
         del grads
         O.apply_updates(flat, upd)
@@ -265,9 +270,11 @@ def lm_rules(arch_id: str, shape: ShapeSpec, mesh,
     makes them for the LM family: grok's ``RULES_OVERRIDE``; for a train
     shape FSDP (``embed -> data``) and sequence parallelism (``seq ->
     model``: the residual between blocks is a rank's ``S / nm``
-    positions); for a decode shape the KV cache over ``kv_seq`` (the port
-    keeps its caches whole), heads whole and, at a global batch of 1,
-    the batch whole.  The default rules split ``heads``, ``kv_heads``,
+    positions); for a decode shape the KV cache's sequence over ``kv_seq``
+    (``model``, or ``("data", "model")`` at a global batch of 1, where the
+    batch stays whole: a rank holds its block of the positions and the
+    ranks fold their attention, ``models.lm.model.decode_step``), heads
+    whole.  The default rules split ``heads``, ``kv_heads``,
     ``mlp`` and ``vocab`` over ``model`` (tensor parallelism,
     ``models.lm.model``); ``overrides`` map names first, as the
     reference's ``_rules_for(overrides=)`` (``{"mlp": None}`` keeps the
@@ -366,4 +373,4 @@ def lm_decode_step(params: LM.Params, cfg: LMConfig, caches: LM.Caches,
                    tokens: torch.Tensor, ctx: Optional[ShardingCtx] = None
                    ) -> Tuple[torch.Tensor, LM.Caches]:
     return LM.decode_step(params, cfg, tokens, caches,
-                          caches["k"].shape[2] - 1, ctx=ctx)
+                          LM.cache_length(caches, ctx) - 1, ctx=ctx)

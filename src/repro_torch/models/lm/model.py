@@ -91,9 +91,28 @@ divides ``S``): ``seq_gather`` before a block's split products,
 unsplit) and the MoE block get the whole sequence (``_moe_shard_map``'s
 ``in_specs``) and keep the rank's block of their output.  A norm's
 scale applied to the rank's positions enters by ``enter_split``, so its
-gradient is the whole sequence's.  Caches are a rank's own KV heads
-(``init_kv_cache(ctx=)``); the decode rules keep heads and caches whole
-(the reference's ``kv_seq`` split of the cache is not ported).
+gradient is the whole sequence's.  Under the prefill rules a rank's
+caches are its own KV heads (``init_kv_cache(ctx=)``).
+
+The decode rules keep heads whole and split the caches' sequence over
+``kv_seq`` (``model``, or ``("data", "model")`` with the batch whole at a
+global batch of 1: ``repro/launch/steps.py:162-169``): a rank holds
+``(L, B_loc, T / n, Hkv, hd)``, block ``j`` of the positions, ``j`` its
+coordinate along those axes with ``data`` the major one
+(``shard_caches``, ``init_kv_cache(ctx=)``).  ``decode_step`` writes the
+new key and value only into the block that holds ``cache_len``; each rank
+attends over its block (``kernels.flash_attention.ops.
+decode_attention_lse``: the decode kernel's f32 rows and each row's
+logsumexp) and ``collectives.fold_seq`` folds the ranks' partials.
+Departures: the reference forms the softmax over the sharded axis under
+GSPMD; the port folds the ranks' f32 outputs by their lse in rank order
+and rounds once, so an output may differ from the one-process one by the
+order of the f32 sums.  A rank whose block holds no key yet does not
+launch: its partial is out 0 and lse -inf, which weighs exactly 0.
+Where the reference keeps a cache that the ``kv_seq`` ranks do not divide
+whole (``_safe``), the port refuses it.  Moving from the prefill's caches
+(by heads) to these blocks is the reference's cell boundary (``jit``
+reshards), not a step of its own.
 
 ``_moe_block`` takes the reference's dispatch (``moe_dispatch``, its
 conditions at ``repro/models/lm/model.py:357-369``): ``_moe_shard_map``
@@ -125,7 +144,8 @@ from repro_torch.distributed.sharding import (ShardingCtx, mesh_sizes,
                                               param_spec, shard_of,
                                               spec_groups, split_axes)
 from repro_torch.kernels.common import resolve_device
-from repro_torch.kernels.flash_attention.ops import chunked_attention
+from repro_torch.kernels.flash_attention.ops import (chunked_attention,
+                                                     decode_attention_lse)
 from repro_torch.nn import core as nn
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -380,6 +400,30 @@ def _tp(ctx: Optional[ShardingCtx], S: int, seq: bool) -> Optional[_TP]:
     return _TP(nm, ctx.axis_index("model"), ctx.group("model"), sp)
 
 
+@dataclasses.dataclass(frozen=True)
+class _Seq:
+    """The ranks a decode cache's sequence is split over (the rules'
+    ``kv_seq``): ``n`` blocks of ``T / n`` positions, this rank's block
+    ``j`` (its coordinate along the ``kv_seq`` axes, the first axis
+    slowest, as ``P(("data", "model"))`` splits a dim: block ``di * nm +
+    mi`` under ``("data", "model")``), and their ``group`` (its rank order
+    the blocks' order)."""
+    n: int
+    j: int
+    group: Any
+
+
+def _kv_seq(ctx: Optional[ShardingCtx]) -> Optional[_Seq]:
+    """The ``kv_seq`` split of a decode cache under ``ctx``, None where
+    its axes hold one rank (or no mesh)."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    axes = ctx.mesh_axes("kv_seq")
+    if not axes or ctx.size(axes) == 1:
+        return None
+    return _Seq(ctx.size(axes), ctx.axis_index(axes), ctx.group(axes))
+
+
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------
@@ -476,13 +520,23 @@ def shard_map_capacity(cfg: LMConfig, T_my: int) -> int:
     return max(8, -(-int(k * T_my / E * cfg.capacity_factor) // 8) * 8)
 
 
-def data_axes(ctx: Optional[ShardingCtx]) -> Tuple[str, ...]:
-    """The mesh axes the batch's rows are split over (the reference's
-    ``pod`` and ``data``); none with no mesh."""
+def _mesh_data_axes(ctx: Optional[ShardingCtx]) -> Tuple[str, ...]:
+    """The mesh's data axes (the reference's ``pod`` and ``data``); none
+    with no mesh."""
     if ctx is None or ctx.mesh is None:
         return ()
     names = tuple(ctx.mesh.mesh_dim_names)
     return tuple(a for a in ("pod", "data") if a in names)
+
+
+def data_axes(ctx: Optional[ShardingCtx]) -> Tuple[str, ...]:
+    """The mesh axes the batch's rows are split over: the mesh's ``pod``
+    and ``data`` axes that the rules' ``batch`` maps to (none with no
+    mesh, and none under the 500k decode rules, which keep the batch
+    whole: every data rank then holds the same rows, and each collective
+    over "the data ranks" sees a group of one)."""
+    batch = ctx.mesh_axes("batch") if ctx is not None else ()
+    return tuple(a for a in _mesh_data_axes(ctx) if a in batch)
 
 
 def _data_group(ctx: Optional[ShardingCtx]):
@@ -729,7 +783,8 @@ def _moe_shard_map_plain(p, cfg: LMConfig, x: torch.Tensor, nm: int
 def moe_dispatch(cfg: LMConfig, T: int, ctx: Optional[ShardingCtx]) -> str:
     """The branch of ``_moe_block`` for a rank with T tokens (its data
     rank's rows), under the reference's conditions on the whole batch's
-    T_all = dp T (``repro/models/lm/model.py:357-369``): "shard_map"
+    T_all (``repro/models/lm/model.py:357-369``, dp the mesh's data
+    ranks, whether or not the rules split the batch over them): "shard_map"
     where a mesh has a model axis, the rules split ``expert`` over it, nm
     divides E and T_all / dp, and T_all / dp >= nm; else "dense" where
     E <= 16 and T_all / dp >= 1,024; else "scatter" (decode, no
@@ -738,8 +793,8 @@ def moe_dispatch(cfg: LMConfig, T: int, ctx: Optional[ShardingCtx]) -> str:
             or "model" not in ctx.mesh.mesh_dim_names:
         return "scatter"
     E, nm = cfg.n_experts, ctx.size("model")
-    dp = ctx.size(data_axes(ctx)) if data_axes(ctx) else 1
-    T_all = T * dp
+    dp = ctx.size(_mesh_data_axes(ctx)) if _mesh_data_axes(ctx) else 1
+    T_all = T * (ctx.size(data_axes(ctx)) if data_axes(ctx) else 1)
     if ((ctx.rules or {}).get("expert") == "model" and E % nm == 0
             and T_all % (dp * nm) == 0 and T_all // dp >= nm):
         return "shard_map"
@@ -775,11 +830,43 @@ def _kv_used(cfg: LMConfig, tp: _TP, H: int) -> slice:
     return used
 
 
+def _write_kv(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, cache_len: int, lo: int = 0) -> None:
+    """Writes the S new positions ``[cache_len, cache_len + S)`` of ``k``
+    and ``v`` (B, S, Hkv, hd) into caches (B, T', Hkv, hd) that hold
+    positions ``[lo, lo + T')``: the part that falls there, in place."""
+    S, T = k.shape[1], ck.shape[1]
+    a, b = max(cache_len, lo), min(cache_len + S, lo + T)
+    if a < b:
+        ck[:, a - lo:b - lo] = k[:, a - cache_len:b - cache_len].to(ck.dtype)
+        cv[:, a - lo:b - lo] = v[:, a - cache_len:b - cache_len].to(cv.dtype)
+
+
+def _seq_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                   cache_len: int, seq: _Seq, scale: float) -> torch.Tensor:
+    """Attention of q (B, S, H, hd) over keys ``[0, cache_len + S)`` of a
+    cache whose sequence is split over ``seq``, this rank holding block
+    ``j`` (B, T / n, H', hd): the rank attends over its ``kv_len_j =
+    clamp(cache_len + S - j T / n, 0, T / n)`` keys (f32 output and lse;
+    a rank with none launches nothing and gives out 0 and lse -inf, which
+    weigh 0), then ``fold_seq`` over the group.  f32 (B, S, H, hd)."""
+    T_loc = ck.shape[1]
+    kv_len = min(max(cache_len + q.shape[1] - seq.j * T_loc, 0), T_loc)
+    if kv_len > 0:
+        out, lse = decode_attention_lse(q, ck, cv, kv_len=kv_len,
+                                        scale=scale)
+    else:
+        out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        lse = torch.full(q.shape[:3], float("-inf"), dtype=torch.float32,
+                         device=q.device)
+    return C.fold_seq(out, lse, seq.group)
+
+
 def _attn_block(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
                 kv: Optional[Tuple[torch.Tensor, torch.Tensor]],
                 cache_len: int, causal: bool, block_q: int,
                 ctx: Optional[ShardingCtx] = None, lay=None,
-                tp: Optional[_TP] = None
+                tp: Optional[_TP] = None, seq: Optional[_Seq] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (out, k, v).  ``kv``: None (prefill from scratch) or one
     layer's caches (B, T, Hkv, hd), into which the new keys and values
@@ -791,7 +878,10 @@ def _attn_block(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
     the layout splits them within a head), ``wo`` by rows; ``k`` and
     ``v`` are the heads a rank's caches hold (``cache_heads``).  Where
     ``nm`` does not divide ``H`` every rank runs the whole attention (its
-    weights gathered over the model axis)."""
+    weights gathered over the model axis).  ``seq``: the caches are this
+    rank's block of a sequence split over ``kv_seq`` (``_seq_attention``;
+    the new keys and values go only into the block that holds their
+    positions)."""
     hd = cfg.resolved_head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     split = tp is not None and _on_model(lay, "wq", 1) and H % tp.nm == 0
@@ -817,18 +907,24 @@ def _attn_block(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
     k = apply_rope(k, positions, cfg.rope_theta)
     if kv is not None:
         ck, cv = kv
-        if cache_len + S > ck.shape[1]:
-            raise ValueError(f"cache of {ck.shape[1]} positions cannot take "
-                             f"{S} more at {cache_len}")
-        ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
-        cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
+        n = 1 if seq is None else seq.n
+        if cache_len + S > ck.shape[1] * n:
+            raise ValueError(f"cache of {ck.shape[1] * n} positions cannot "
+                             f"take {S} more at {cache_len}")
+        _write_kv(ck, cv, k, v, cache_len,
+                  0 if seq is None else seq.j * ck.shape[1])
         k, v = ck, cv
     used = _kv_used(cfg, tp, H) if split and Hkv == cfg.n_kv_heads \
         else slice(None)
-    out = chunked_attention(q, k[:, :, used], v[:, :, used],
-                            causal=causal and kv is None, q_offset=0,
-                            kv_len=None if kv is None else cache_len + S,
-                            block_q=block_q, scale=hd ** -0.5)
+    if seq is not None and kv is not None:
+        out = _seq_attention(q, k[:, :, used], v[:, :, used], cache_len,
+                             seq, hd ** -0.5).to(q.dtype)
+    else:
+        out = chunked_attention(q, k[:, :, used], v[:, :, used],
+                                causal=causal and kv is None, q_offset=0,
+                                kv_len=None if kv is None
+                                else cache_len + S,
+                                block_q=block_q, scale=hd ** -0.5)
     out = out.reshape(B, S, H * hd)
     wo = _w(p, "wo", lay, ctx, h.dtype, model=not split)
     if split:
@@ -839,16 +935,17 @@ def _attn_block(p, cfg: LMConfig, x: torch.Tensor, positions: torch.Tensor,
 
 def _layer(p, cfg: LMConfig, x, positions, kv, cache_len, causal, block_q,
            ctx: Optional[ShardingCtx] = None, lay=None,
-           tp: Optional[_TP] = None):
+           tp: Optional[_TP] = None, seq: Optional[_Seq] = None):
     """Returns (x, k, v, aux): aux the MoE load-balancing term, None for a
     dense layer (the reference's 0.0, which adds nothing).  ``tp``: the
-    model group of tensor parallelism (``_tp``)."""
+    model group of tensor parallelism (``_tp``); ``seq``: the ``kv_seq``
+    split of the caches (``_kv_seq``)."""
     def scale(name):
         w = _w(p, name, lay, ctx)
         return w if tp is None else tp.scale(w)
     h = _norm(cfg, x, scale("ln1"))
     attn, k, v = _attn_block(p, cfg, h, positions, kv, cache_len, causal,
-                             block_q, ctx, lay, tp)
+                             block_q, ctx, lay, tp, seq)
     x = x + attn
     h = _norm(cfg, x, scale("ln2"))
     if cfg.n_experts:
@@ -903,7 +1000,9 @@ def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
     rank's own KV heads under tensor parallelism); aux the sum of the MoE
     layers' terms in layer order (None for a dense config); tp the model
     group (``_tp``; sequence parallelism only without caches, and the
-    residual then this rank's ``S / nm`` positions).  With ``remat`` (no
+    residual then this rank's ``S / nm`` positions).  Given caches are
+    the rank's block of a sequence split over ``kv_seq`` where the rules
+    split it (``_kv_seq``).  With ``remat`` (no
     caches) each layer keeps only its input for the backward and runs
     again there, its gathers too.  ``lay``: ``param_layout(cfg, ctx)``
     under a mesh."""
@@ -913,6 +1012,7 @@ def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(S, device=dev)[None, :].expand(B, S)
     tp = _tp(ctx, S, kv_caches is None and not keep_cache)
+    seq = None if kv_caches is None else _kv_seq(ctx)
     x = _embed(params, cfg, tokens, ctx, lay, tp)
     caches = kv_caches
     aux = None
@@ -926,7 +1026,7 @@ def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
                 block_q, ctx, ll_, tp)[::3], x, lp, use_reentrant=False)
         else:
             x, k, v, a = _layer(lp, cfg, x, positions, kv, cache_len,
-                                causal, block_q, ctx, ll, tp)
+                                causal, block_q, ctx, ll, tp, seq)
             if kv_caches is None and keep_cache:
                 if caches is None:
                     caches = {n: torch.empty((cfg.n_layers,) + k.shape,
@@ -960,18 +1060,23 @@ def _whole_vocab(logits: torch.Tensor, split: bool, tp: Optional[_TP]
     return C.gather_split(logits, -1, tp.group) if split else logits
 
 
-def _layout(cfg: LMConfig, ctx: Optional[ShardingCtx], lay=None):
+def _layout(cfg: LMConfig, ctx: Optional[ShardingCtx], lay=None,
+            decode: bool = False):
     """``param_layout(cfg, ctx)`` (``lay`` where the caller has it), None
-    with no mesh.  Raises where the rules keep the batch whole over data
-    ranks (the reference's decode at a global batch of 1): every data
-    rank would hold the same rows, and the MoE dispatch would count them
-    once a data rank."""
+    with no mesh.  Except for ``decode`` (``decode_step``), raises where
+    the rules keep the batch whole over data ranks (the reference's 500k
+    decode, at a global batch of 1): no reference cell runs ``forward``,
+    ``prefill`` or ``lm_loss`` under those rules.  ``decode_step`` runs
+    there with every data rank holding the same rows, and every
+    collective "over the data ranks" (``rank_rows``, the MoE dispatch's
+    router statistics, capacity and slot order) sees a group of one
+    (``data_axes``)."""
     if ctx is None or ctx.mesh is None:
         return None
-    batch = (ctx.rules or {}).get("batch")
-    batch = (batch,) if isinstance(batch, str) else tuple(batch or ())
-    whole = [a for a in data_axes(ctx) if ctx.size(a) > 1 and a not in batch]
-    if whole:
+    batch = ctx.mesh_axes("batch")
+    whole = [a for a in _mesh_data_axes(ctx)
+             if ctx.size(a) > 1 and a not in batch]
+    if whole and not decode:
         raise ValueError(f"the rules keep the batch whole over the data "
                          f"axes {whole}: each data rank must hold rows of "
                          f"its own (run with those axes of size 1)")
@@ -1064,16 +1169,62 @@ def cache_heads(cfg: LMConfig, ctx: Optional[ShardingCtx] = None) -> int:
         and _on_model(lay, "wk", 1) and Hkv % tp.nm == 0 else Hkv
 
 
+def _seq_blocks(max_len: int, ctx: Optional[ShardingCtx]) -> int:
+    """The ``kv_seq`` blocks of a cache of ``max_len`` positions under
+    ``ctx`` (1 where the rules do not split it); raises where they do not
+    divide it."""
+    seq = _kv_seq(ctx)
+    if seq is None:
+        return 1
+    if max_len % seq.n:
+        raise ValueError(f"a cache of {max_len} positions cannot be split "
+                         f"over {seq.n} kv_seq ranks")
+    return seq.n
+
+
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
                   device=None, ctx: Optional[ShardingCtx] = None) -> Caches:
     """Zeroed (L, B, T, Hkv, hd) caches in ``dtype`` (default: the compute
-    type) on ``device``; under ``ctx`` a rank's ``cache_heads``."""
+    type) on ``device``; under ``ctx`` a rank's ``cache_heads`` and, where
+    the rules split ``kv_seq``, its block of ``max_len / n`` positions
+    (``batch``: the rows the rank holds)."""
     dtype = dtype or DTYPES[cfg.dtype]
-    shape = (cfg.n_layers, batch, max_len, cache_heads(cfg, ctx),
-             cfg.resolved_head_dim)
+    shape = (cfg.n_layers, batch, max_len // _seq_blocks(max_len, ctx),
+             cache_heads(cfg, ctx), cfg.resolved_head_dim)
     dev = resolve_device(device)
     return {n: torch.zeros(shape, dtype=dtype, device=dev)
             for n in ("k", "v")}
+
+
+def shard_caches(caches: Caches, cfg: LMConfig, ctx: ShardingCtx) -> Caches:
+    """This rank's part of whole caches (L, B, T, Hkv, hd): its rows
+    (``rank_rows``), its ``cache_heads`` (the model rank's block of the KV
+    heads where attention is split by heads) and, where the rules split
+    ``kv_seq`` over ``n`` ranks, its block ``j`` of positions ``[j T / n,
+    (j + 1) T / n)``, ``j`` its coordinate along the ``kv_seq`` axes with
+    the first slowest (under ``("data", "model")``: ``di * nm + mi``).
+    Contiguous copies."""
+    out = {}
+    T = caches["k"].shape[2]
+    n = _seq_blocks(T, ctx)
+    h = cache_heads(cfg, ctx)
+    for name, c in caches.items():
+        c = rank_rows(c.transpose(0, 1), ctx).transpose(0, 1)
+        if n > 1:
+            j = _kv_seq(ctx).j
+            c = c[:, :, j * (T // n):(j + 1) * (T // n)]
+        if h < c.shape[3]:
+            mi = ctx.axis_index("model")
+            c = c[:, :, :, mi * h:(mi + 1) * h]
+        out[name] = c.contiguous()
+    return out
+
+
+def cache_length(caches: Caches, ctx: Optional[ShardingCtx] = None) -> int:
+    """The positions of the whole caches whose block (or whole) a rank
+    holds: ``T / n`` times the ``kv_seq`` ranks ``n``."""
+    seq = _kv_seq(ctx)
+    return caches["k"].shape[2] * (1 if seq is None else seq.n)
 
 
 def decode_step(params: Params, cfg: LMConfig, tokens: torch.Tensor,
@@ -1083,12 +1234,15 @@ def decode_step(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     """One decode step: tokens (B, 1) against caches filled to
     ``cache_len``.  Writes the step's keys and values into the caches in
     place at ``cache_len``; returns (logits (B, V), the caches).  Under
-    ``ctx`` the caches are the rank's (``init_kv_cache(ctx=)``) and every
-    rank of a model group returns the whole vocabulary's logits."""
+    ``ctx`` the caches are the rank's (``init_kv_cache(ctx=)``,
+    ``shard_caches``: under the decode rules its block of the sequence,
+    ``cache_len`` the whole sequence's position) and every rank of a model
+    group returns the whole vocabulary's logits.  Under the 500k decode
+    rules (the batch whole) every data rank passes the whole batch."""
     B = tokens.shape[0]
     positions = torch.full((B, 1), cache_len, dtype=torch.int64,
                            device=tokens.device)
-    lay = _layout(cfg, ctx)
+    lay = _layout(cfg, ctx, decode=True)
     x, caches, _, tp = _trunk(params, cfg, tokens, positions=positions,
                               kv_caches=kv_caches, cache_len=cache_len,
                               causal=False, block_q=1, keep_cache=True,

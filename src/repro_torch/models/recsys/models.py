@@ -45,9 +45,27 @@ under GSPMD, rounding each bag once; the port sums f32 partial bags over
 the model group before that one rounding, so a bag may differ from the
 one-process sum by the order of its f32 additions.  The reference's
 ``REPRO_BASELINE`` switch to the local gather is not read.  The model
-runs replicated on every rank around the lookup (the port has no
-GSPMD), so the gradient coming into the lookup is the same on every rank
-and the dense parameters' gradients are whole on every rank.
+runs replicated over the data ranks around the lookup (the port has no
+GSPMD), so the gradient coming into the lookup is the same on every rank.
+
+Tensor parallelism over ``model`` (manual SPMD with the pair of
+``distributed.collectives``): ``param_layout`` lays every leaf out by the
+reference's logical specs (``param_specs``: an MLP's first layer
+``(embed, mlp)``, later ones ``(mlp, mlp)``, the last ``(mlp,
+final_name)``; a block's ``wq``/``wk``/``wv`` ``(embed, heads)``, ``wo``
+``(heads, embed)``, ``ff1`` ``(embed, mlp)``, ``ff2`` ``(mlp, embed)``)
+after ``logical_to_spec``'s once-per-axis rule and ``_safe``, reversed
+for the port's ``(d_out, d_in)`` linear weights; ``shard_dense`` cuts a
+rank's blocks, which ``init_params(ctx=)`` and
+``convert.recsys_params_from_jax(ctx=)`` hold.  Under the default rules
+a first layer splits by columns and the later ones by rows
+(``_linear_tp``); bst's heads split over the model ranks (a rank's heads
+whole, ``wo`` by rows); where the axis splits within a head (sasrec's
+one head at ``model`` 2) ``wq``/``wk``/``wv`` are gathered and the
+attention runs whole.  Departure: a row-split layer's bias, split by the
+reference's spec (``(mlp,)``) but added to a whole output, is gathered
+(``gather_split``).  A whole leaf's gradient is whole on every rank, a
+split one's the rank's block.
 """
 from __future__ import annotations
 
@@ -59,7 +77,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import RecsysConfig
-from repro_torch.distributed.sharding import ShardingCtx, mesh_sizes
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (ShardingCtx, mesh_sizes,
+                                              param_spec, shard_of,
+                                              spec_groups)
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.embedding_bag.ops import (
     embedding_bag, embedding_bag_partials, embedding_bag_table_grad)
@@ -411,6 +432,238 @@ def _bag_lookup(tables: torch.Tensor, ids: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# parameter specs and tensor parallelism over ``model``
+# ---------------------------------------------------------------------------
+
+_TABLE = (None, "table_rows", "table_dim")
+# each kind's MLPs and the logical name of their last layer's output
+# (``nn.mlp_init``'s ``final_name``)
+_MLPS = {"dlrm": {"bot": "mlp", "top": None}, "wide_deep": {"deep": None},
+         "sasrec": {}, "bst": {"mlp": None}}
+# a transformer block's leaves (``_tx_block_init``), linear ``w`` in the
+# reference's (d_in, d_out) order
+_TX = {"wq": ("embed", "heads"), "wk": ("embed", "heads"),
+       "wv": ("embed", "heads"), "wo": ("heads", "embed"),
+       "ln1": ("embed",), "ln2": ("embed",),
+       "ff1.w": ("embed", "mlp"), "ff1.b": ("mlp",),
+       "ff2.w": ("mlp", "embed"), "ff2.b": ("embed",)}
+
+
+def _mlp_dims(cfg: RecsysConfig) -> Dict[str, list]:
+    """Each MLP's ``dims`` (``nn.mlp_init``'s), by its key."""
+    F_, D = cfg.n_sparse, cfg.embed_dim
+    if cfg.kind == "dlrm":
+        n_vec = F_ + 1
+        return {"bot": [cfg.n_dense, *cfg.bot_mlp],
+                "top": [n_vec * (n_vec - 1) // 2 + cfg.bot_mlp[-1],
+                        *cfg.top_mlp]}
+    if cfg.kind == "wide_deep":
+        return {"deep": [F_ * D, *cfg.bot_mlp, 1]}
+    if cfg.kind == "bst":
+        return {"mlp": [(cfg.seq_len + 1) * D + F_ * D, *cfg.top_mlp]}
+    return {}
+
+
+def _ref_shapes(cfg: RecsysConfig) -> Dict[str, tuple]:
+    """``flatten_params``' names -> each parameter's shape in the
+    reference's layout (a linear ``w`` (d_in, d_out))."""
+    F_, V, D = cfg.n_sparse, cfg.default_vocab, cfg.embed_dim
+    out: Dict[str, tuple] = {}
+    if cfg.kind in ("dlrm", "wide_deep"):
+        out["tables"] = (F_, V, D)
+    if cfg.kind == "wide_deep":
+        out["wide"] = (F_, V, 1)
+    if cfg.kind in ("sasrec", "bst"):
+        out["items"] = (V, D)
+        out["pos"] = (cfg.seq_len + (cfg.kind == "bst"), D)
+        hd = max(D // cfg.n_heads, 1)
+        shapes = {"wq": (D, cfg.n_heads * hd), "wk": (D, cfg.n_heads * hd),
+                  "wv": (D, cfg.n_heads * hd), "wo": (cfg.n_heads * hd, D),
+                  "ln1": (D,), "ln2": (D,), "ff1.w": (D, 4 * D),
+                  "ff1.b": (4 * D,), "ff2.w": (4 * D, D), "ff2.b": (D,)}
+        for i in range(cfg.n_blocks):
+            out.update({f"blocks.{i}.{k}": v for k, v in shapes.items()})
+    if cfg.kind == "bst":
+        out["other"] = (F_, V, D)
+    for name, dims in _mlp_dims(cfg).items():
+        for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+            out[f"{name}.{i}.w"], out[f"{name}.{i}.b"] = (a, b), (b,)
+    return out
+
+
+def _logical(kind: str, name: str, depth: Dict[str, int]) -> tuple:
+    """The reference's logical spec of leaf ``name`` (a linear ``w`` in
+    its (d_in, d_out) order), as its inits annotate it
+    (``repro/models/recsys/models.py``; ``repro/nn/core.py::mlp_init``:
+    layer 0 ``(embed, mlp)``, a later one ``(mlp, mlp)``, the last
+    ``(mlp, final_name)``, each bias ``(out_name,)``).  ``depth``: each
+    MLP's layers."""
+    top, *rest = name.split(".")
+    if top in ("tables", "wide", "other"):
+        return _TABLE
+    if top == "items":
+        return ("table_rows", "table_dim")
+    if top == "pos":
+        return (None, None)
+    if top == "blocks":
+        return _TX[".".join(rest[1:])]
+    i, leaf = int(rest[0]), rest[1]
+    out = _MLPS[kind][top] if i == depth[top] - 1 else "mlp"
+    return ("embed" if i == 0 else "mlp", out) if leaf == "w" else (out,)
+
+
+def _linear_w(name: str) -> bool:
+    """A linear layer's weight, held (d_out, d_in) where the reference
+    holds (d_in, d_out)."""
+    return name.endswith(".w")
+
+
+def _depth(names) -> Dict[str, int]:
+    """Each MLP's layers, from its leaves' names."""
+    out: Dict[str, int] = {}
+    for k in names:
+        top, *rest = k.split(".")
+        if top in ("bot", "top", "deep", "mlp"):
+            out[top] = max(out.get(top, 0), int(rest[0]) + 1)
+    return out
+
+
+def param_specs(cfg: RecsysConfig) -> Dict[str, tuple]:
+    """Every parameter's logical spec by ``flatten_params``' name: the
+    reference's, in its (d_in, d_out) order for a linear ``w``."""
+    shapes = _ref_shapes(cfg)
+    depth = _depth(shapes)
+    return {k: _logical(cfg.kind, k, depth) for k in shapes}
+
+
+def _layout(kind: str, shapes: Dict[str, tuple], ctx: ShardingCtx
+            ) -> Dict[str, tuple]:
+    """Specs in the port's layout of leaves of the given port-layout
+    shapes (``param_layout``)."""
+    sizes = mesh_sizes(ctx.mesh)
+    depth = _depth(shapes)
+    out = {}
+    for k, shape in shapes.items():
+        w = _linear_w(k)
+        spec = param_spec(_logical(kind, k, depth), ctx.rules,
+                          shape[::-1] if w else shape, sizes)
+        out[k] = spec[::-1] if w else spec
+    return out
+
+
+def param_layout(cfg: RecsysConfig, ctx: ShardingCtx) -> Dict[str, tuple]:
+    """Each parameter's spec under ``ctx`` in the port's layout, by
+    ``flatten_params``' name: the reference's logical spec through
+    ``logical_to_spec`` (a mesh axis once a spec) and ``_safe`` (a dim the
+    axes do not divide stays whole; ``distributed.sharding.param_spec``),
+    on the reference's shape, then reversed for a linear ``w`` (``(d_out,
+    d_in)`` here).  Under the default rules an MLP's first layer splits
+    by columns (``mlp`` over ``model``), each later layer by rows (``(mlp,
+    mlp)`` maps ``model`` once) with its bias split all the same;
+    ``wq``/``wk``/``wv`` by columns, ``wo`` by rows; the tables by rows
+    (``table_rows``, as ``row_sharded_leaves``)."""
+    return _layout(cfg.kind, {k: v[::-1] if _linear_w(k) else v
+                              for k, v in _ref_shapes(cfg).items()}, ctx)
+
+
+def shard_groups(cfg: RecsysConfig, ctx: Optional[ShardingCtx]
+                 ) -> Optional[Dict[str, tuple]]:
+    """For the clip's norm (``optim.optimizers.global_norm(shards=)``):
+    each leaf's process group a dim, None where whole; None with no
+    mesh."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    return {k: spec_groups(v, ctx) for k, v in param_layout(cfg, ctx).items()}
+
+
+def _tp(cfg: RecsysConfig, ctx: Optional[ShardingCtx]):
+    """(the model group, ``param_layout``) where the mesh's ``model`` axis
+    holds more than one rank, else (None, None)."""
+    if ctx is None or ctx.mesh is None \
+            or "model" not in ctx.mesh.mesh_dim_names \
+            or ctx.size("model") == 1:
+        return None, None
+    return ctx.group("model"), param_layout(cfg, ctx)
+
+
+def _at(tree, name: str):
+    """The node of a tree at a dotted path's parent, and the last key."""
+    *path, last = name.split(".")
+    for p in path:
+        tree = tree[int(p)] if isinstance(tree, list) else tree[p]
+    return tree, (int(last) if isinstance(tree, list) else last)
+
+
+def shard_dense(params: Params, kind: str,
+                ctx: Optional[ShardingCtx]) -> Params:
+    """A ``kind`` tree (whole but for the row-sharded leaves, which hold
+    their rows already) with every other leaf cut to this rank's block
+    under ``param_layout``, in place of the whole one."""
+    if ctx is None or ctx.mesh is None:
+        return params
+    flat = flatten_params(params)
+    rows = ROW_SHARDED[kind]
+    lay = _layout(kind, {k: tuple(t.shape) for k, t in flat.items()}, ctx)
+    for k, t in flat.items():
+        if k.split(".")[0] not in rows and any(lay[k]):
+            node, key = _at(params, k)
+            node[key] = shard_of(t, lay[k], ctx)
+    return params
+
+
+def _on(spec: tuple, dim: int) -> bool:
+    s = spec[dim]
+    return s is not None and "model" in ((s,) if isinstance(s, str) else s)
+
+
+def _linear_tp(p: Params, x: torch.Tensor, split_in: bool, sw: tuple,
+               sb: tuple, group) -> Tuple[torch.Tensor, bool]:
+    """One linear layer ``x @ w^T + b`` (two roundings, as
+    ``nn.linear_apply``) on this rank's shards, ``sw``/``sb`` their specs
+    (port layout); ``split_in``: ``x`` is this rank's block of columns.
+    Returns (y, whether y is this rank's block of columns).  Split by
+    columns: the input enters the split products (``enter_split``), the
+    bias is the rank's block.  Split by rows: a whole input gives the
+    rank its columns (``split_of``); the partial sums leave summed over
+    the group in f32 (``nn.mm_f32``, ``leave_split``) and round once; the
+    bias, split by the reference's spec but added to a whole output, is
+    gathered (``gather_split``).  A split input meets a layer split by
+    rows: the reference's specs split a layer's input dim wherever they
+    split the dim before it."""
+    if split_in and not _on(sw, 1):
+        raise ValueError(f"a split input into a layer laid out {sw}")
+    b = p["b"]
+    if _on(sw, 0):
+        return nn.linear_apply(p, C.enter_split(x, group)), True
+    if _on(sb, 0):
+        b = C.gather_split(b, 0, group)
+    if _on(sw, 1):
+        if not split_in:
+            x = C.split_of(x, -1, group)
+        y = C.leave_split(nn.mm_f32(x, p["w"].to(x.dtype).t()), group)
+        return y.to(x.dtype) + b.to(x.dtype), False
+    return nn.linear_apply({"w": p["w"], "b": b}, x), False
+
+
+def _mlp(layers, x: torch.Tensor, name: str, group, lay, *, act=F.relu,
+         final_act=None) -> torch.Tensor:
+    """``nn.mlp_apply`` of the MLP ``name``, under tensor parallelism
+    (``group``) layer by layer through ``_linear_tp``; the output
+    whole."""
+    if group is None:
+        return nn.mlp_apply(layers, x, act=act, final_act=final_act)
+    split = False
+    for i, p in enumerate(layers):
+        x, split = _linear_tp(p, x, split, lay[f"{name}.{i}.w"],
+                              lay[f"{name}.{i}.b"], group)
+        if i < len(layers) - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return C.gather_split(x, -1, group) if split else x
+
+
+# ---------------------------------------------------------------------------
 # DLRM  [arXiv:1906.00091]
 # ---------------------------------------------------------------------------
 
@@ -428,7 +681,8 @@ def dlrm_init(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
     n_vec = cfg.n_sparse + 1
     d_inter = n_vec * (n_vec - 1) // 2 + cfg.bot_mlp[-1]
     top = nn.mlp_init(g, [d_inter, *cfg.top_mlp], dtype=dtype, device=dev)
-    return {"tables": tbl, "bot": bot, "top": top}
+    return shard_dense({"tables": tbl, "bot": bot, "top": top}, cfg.kind,
+                       ctx)
 
 
 def dlrm_forward(params: Params, cfg: RecsysConfig, dense: torch.Tensor,
@@ -443,8 +697,9 @@ def dlrm_forward(params: Params, cfg: RecsysConfig, dense: torch.Tensor,
     else:
         emb = _lookup_simple(params["tables"], sparse_ids, compute, ctx,
                              cfg.default_vocab)
-    bot = nn.mlp_apply(params["bot"], dense.to(compute), act=F.relu,
-                       final_act=F.relu)                          # (B, D)
+    group, lay = _tp(cfg, ctx)
+    bot = _mlp(params["bot"], dense.to(compute), "bot", group, lay,
+               final_act=F.relu)                                  # (B, D)
     vecs = torch.cat([bot[:, None, :], emb], dim=1)               # (B, F+1, D)
     # dot interaction: upper triangle of the (F+1)x(F+1) gram matrix
     gram = torch.einsum("bfd,bgd->bfg", vecs, vecs)
@@ -452,7 +707,7 @@ def dlrm_forward(params: Params, cfg: RecsysConfig, dense: torch.Tensor,
     iu, ju = torch.triu_indices(n, n, 1, device=vecs.device)
     inter = gram[:, iu, ju]                                       # (B, nC2)
     x = torch.cat([bot, inter], dim=1)
-    logit = nn.mlp_apply(params["top"], x, act=F.relu)
+    logit = _mlp(params["top"], x, "top", group, lay)
     return logit[:, 0]
 
 
@@ -474,7 +729,8 @@ def wide_deep_init(cfg: RecsysConfig, *, generator: Optional[
                         rows)
     deep = nn.mlp_init(g, [cfg.n_sparse * cfg.embed_dim, *cfg.bot_mlp, 1],
                        dtype=dtype, device=dev)
-    return {"tables": tbl, "wide": wide, "deep": deep}
+    return shard_dense({"tables": tbl, "wide": wide, "deep": deep},
+                       cfg.kind, ctx)
 
 
 def wide_deep_forward(params: Params, cfg: RecsysConfig, dense,
@@ -483,7 +739,7 @@ def wide_deep_forward(params: Params, cfg: RecsysConfig, dense,
     compute, V = DTYPES[cfg.dtype], cfg.default_vocab
     emb = _lookup_simple(params["tables"], sparse_ids, compute, ctx, V)
     deep_in = emb.reshape(emb.shape[0], -1)               # concat interaction
-    deep = nn.mlp_apply(params["deep"], deep_in, act=F.relu)[:, 0]
+    deep = _mlp(params["deep"], deep_in, "deep", *_tp(cfg, ctx))[:, 0]
     # wide: sum of per-field scalar weights (an embedding of dim 1)
     wide_e = _lookup_simple(params["wide"], sparse_ids, compute, ctx, V)
     wide = torch.sum(wide_e[..., 0], dim=1)
@@ -510,14 +766,31 @@ def _tx_block_init(generator: torch.Generator, d: int, n_heads: int,
 
 
 def _tx_block_apply(p: Params, x: torch.Tensor, n_heads: int,
-                    causal: bool) -> torch.Tensor:
-    """Pre-norm block; bf16 rounds after every product, as in JAX."""
+                    causal: bool, group=None, lay=None) -> torch.Tensor:
+    """Pre-norm block; bf16 rounds after every product, as in JAX.  Under
+    tensor parallelism (``group``, ``lay`` the block's specs by leaf,
+    ``wq`` ... ``ff2.b``): where ``wq`` is split by columns and the
+    group divides the heads, a rank runs its heads (the input entering
+    its split products) and ``wo`` by rows; where it splits within a head
+    (sasrec at ``model`` 2), ``wq``/``wk``/``wv``'s columns are gathered
+    (``gather_split``) and the attention runs whole, ``wo`` by rows on the
+    rank's columns of it; ``ff1`` by columns, ``ff2`` by rows
+    (``_linear_tp``).  The residual is whole on every rank."""
     B, S, d = x.shape
     hd = max(d // n_heads, 1)
     h = nn.rmsnorm_apply(p["ln1"], x)
-    q = (h @ p["wq"].to(x.dtype)).reshape(B, S, n_heads, hd)
-    k = (h @ p["wk"].to(x.dtype)).reshape(B, S, n_heads, hd)
-    v = (h @ p["wv"].to(x.dtype)).reshape(B, S, n_heads, hd)
+    H, by_heads = n_heads, False
+    w = {n: p[n] for n in ("wq", "wk", "wv")}
+    if group is not None and _on(lay["wq"], 1):
+        nm = C.group_size(group)
+        if n_heads % nm == 0:
+            H, by_heads = n_heads // nm, True
+            h = C.enter_split(h, group)
+        else:
+            w = {n: C.gather_split(t, 1, group) for n, t in w.items()}
+    q = (h @ w["wq"].to(x.dtype)).reshape(B, S, H, hd)
+    k = (h @ w["wk"].to(x.dtype)).reshape(B, S, H, hd)
+    v = (h @ w["wv"].to(x.dtype)).reshape(B, S, H, hd)
     s = torch.einsum("bshd,bthd->bhst", q, k).to(torch.float32) \
         * hd ** -0.5
     if causal:
@@ -525,11 +798,36 @@ def _tx_block_apply(p: Params, x: torch.Tensor, n_heads: int,
                                      device=x.device))
         s = torch.where(mask[None, None], s, -1e30)
     att = torch.softmax(s, dim=-1).to(x.dtype)
-    o = torch.einsum("bhst,bthd->bshd", att, v).reshape(B, S, n_heads * hd)
-    x = x + o @ p["wo"].to(x.dtype)
+    o = torch.einsum("bhst,bthd->bshd", att, v).reshape(B, S, H * hd)
+    if group is not None and _on(lay["wo"], 0):
+        if not by_heads:
+            o = C.split_of(o, -1, group)
+        x = x + C.leave_split(nn.mm_f32(o, p["wo"].to(x.dtype)),
+                              group).to(x.dtype)
+    else:
+        x = x + o @ p["wo"].to(x.dtype)
     h = nn.rmsnorm_apply(p["ln2"], x)
-    h = F.relu(nn.linear_apply(p["ff1"], h))
-    return x + nn.linear_apply(p["ff2"], h)
+    if group is None:
+        h = F.relu(nn.linear_apply(p["ff1"], h))
+        return x + nn.linear_apply(p["ff2"], h)
+    h, split = _linear_tp(p["ff1"], h, False, lay["ff1.w"], lay["ff1.b"],
+                          group)
+    h, split = _linear_tp(p["ff2"], F.relu(h), split, lay["ff2.w"],
+                          lay["ff2.b"], group)
+    return x + (C.gather_split(h, -1, group) if split else h)
+
+
+def _blocks(params: Params, cfg: RecsysConfig, x: torch.Tensor,
+            causal: bool, ctx: Optional[ShardingCtx]) -> torch.Tensor:
+    """The transformer blocks in turn, under ``ctx``'s tensor
+    parallelism where it has any."""
+    group, lay = _tp(cfg, ctx)
+    for i, p in enumerate(params["blocks"]):
+        bl = None if lay is None else {
+            k[len(f"blocks.{i}."):]: v for k, v in lay.items()
+            if k.startswith(f"blocks.{i}.")}
+        x = _tx_block_apply(p, x, cfg.n_heads, causal, group, bl)
+    return x
 
 
 def _seq_embed(params: Params, cfg: RecsysConfig, seq: torch.Tensor,
@@ -562,7 +860,8 @@ def sasrec_init(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
     pos = _tables_init(g, (cfg.seq_len, d), dtype, dev)
     blocks = [_tx_block_init(g, d, cfg.n_heads, 4 * d, dtype, dev)
               for _ in range(cfg.n_blocks)]
-    return {"items": items, "pos": pos, "blocks": blocks}
+    return shard_dense({"items": items, "pos": pos, "blocks": blocks},
+                       cfg.kind, ctx)
 
 
 def sasrec_user_repr(params: Params, cfg: RecsysConfig,
@@ -571,9 +870,7 @@ def sasrec_user_repr(params: Params, cfg: RecsysConfig,
     """seq_ids (B, S) item history (-1 pad) -> (B, D) user representation
     (hidden state at the last position)."""
     x = _seq_embed(params, cfg, seq_ids, DTYPES[cfg.dtype], ctx)
-    for p in params["blocks"]:
-        x = _tx_block_apply(p, x, cfg.n_heads, causal=True)
-    return x[:, -1]
+    return _blocks(params, cfg, x, True, ctx)[:, -1]
 
 
 def sasrec_scores(params: Params, cfg: RecsysConfig,
@@ -607,8 +904,8 @@ def bst_init(cfg: RecsysConfig, *, generator: Optional[torch.Generator]
               for _ in range(cfg.n_blocks)]
     d_in = (cfg.seq_len + 1) * d + cfg.n_sparse * d
     mlp = nn.mlp_init(g, [d_in, *cfg.top_mlp], dtype=dtype, device=dev)
-    return {"items": items, "pos": pos, "other": other, "blocks": blocks,
-            "mlp": mlp}
+    return shard_dense({"items": items, "pos": pos, "other": other,
+                        "blocks": blocks, "mlp": mlp}, cfg.kind, ctx)
 
 
 def bst_forward(params: Params, cfg: RecsysConfig, seq_ids: torch.Tensor,
@@ -621,12 +918,11 @@ def bst_forward(params: Params, cfg: RecsysConfig, seq_ids: torch.Tensor,
     x = _seq_embed(params, cfg,
                    torch.cat([seq_ids, target_id[:, None]], dim=1), compute,
                    ctx)
-    for p in params["blocks"]:
-        x = _tx_block_apply(p, x, cfg.n_heads, causal=False)
+    x = _blocks(params, cfg, x, False, ctx)
     other = _lookup_simple(params["other"], other_ids, compute, ctx,
                            cfg.default_vocab)
     feats = torch.cat([x.reshape(B, -1), other.reshape(B, -1)], dim=1)
-    logit = nn.mlp_apply(params["mlp"], feats, act=F.relu)
+    logit = _mlp(params["mlp"], feats, "mlp", *_tp(cfg, ctx))
     return logit[:, 0]
 
 

@@ -5,8 +5,9 @@ the same mesh:
   * the JAX side runs in a child with 4 host devices and meshes with
     ``AxisType.Auto`` axes, under ``_rules_for``'s rules for the shape
     named: ``forward`` of S tokens, ``prefill`` of the same, the prefill's
-    caches padded by one position and a ``decode_step`` of the next token
-    at ``cache_len`` S, from ``init_params(key(0))``;
+    caches padded to T = S + 4 positions (which the ``kv_seq`` ranks
+    divide) and a ``decode_step`` of the next token at ``cache_len`` S,
+    from ``init_params(key(0))``;
   * the port runs the same in four gloo ranks on the CPU, each from
     ``lm_params_from_jax(ctx=)`` (its shards) on its data rank's rows
     (``rank_rows``), under ``lm_rules``;
@@ -22,15 +23,20 @@ the same mesh:
 The port runs tensor parallelism over ``model`` under these rules: under
 the prefill rules attention by heads (a rank's caches are its own KV
 heads, ``init_kv_cache(ctx=)``), the MLP and the vocabulary; under the
-decode rules heads and caches whole, the MLP and the vocabulary split.
-Held: every output (the forward's logits, the prefill's last logits and
-caches, the decode step's logits and caches) on every rank within 1e-5
-of the largest magnitude of JAX's rows for that rank (a rank's caches
-against its KV heads of JAX's; seen: 1.1e-6); the ranks of a model
-group bitwise equal, but for caches split by heads.  In one process: the 500k
-decode shape's rules at a data axis of 2 (the batch whole over two data
-ranks) make ``forward``, ``prefill``, ``decode_step`` and ``lm_loss``
-raise, and ``rank_rows`` raises for a batch the data ranks do not divide.
+decode rules heads whole, the caches' sequence over ``kv_seq`` (a rank
+decodes on ``shard_caches`` of the prefill's caches, gathered over the
+data ranks and padded, and holds its block of the positions after the
+step), the MLP and the vocabulary split.  Held: every output (the
+forward's logits, the prefill's last logits and caches, the decode
+step's logits and caches) on every rank within 1e-5 of the largest
+magnitude of JAX's rows for that rank (a rank's caches against its KV
+heads of JAX's, its decode caches against its sequence block of JAX's;
+seen: 1.1e-6); the ranks of a model group bitwise equal, but for caches
+split by heads or by sequence.  In one process: the 500k decode shape's
+rules at a data axis of 2 (the batch whole over two data ranks) make
+``forward``, ``prefill`` and ``lm_loss`` raise (``decode_step`` runs
+there: ``tests/test_torch_decode_seq.py``), and ``rank_rows`` raises for
+a batch the data ranks do not divide.
 """
 import dataclasses as dc
 import os
@@ -71,6 +77,7 @@ CASES = {"prefill-2x2": ("prefill_32k", (2, 2), 4),
          "long-1x4": ("long_500k", (1, 4), 1)}
 MESHES = sorted({m for _, m, _ in CASES.values()})
 S, B = 16, 4
+PAD = 4                  # decode caches of S + PAD positions
 OUTS = ("forward", "last", "caches/k", "caches/v", "decode",
         "decode_caches/k", "decode_caches/v")
 OF_MAX = 1e-5
@@ -110,7 +117,7 @@ JAX_CHILD = textwrap.dedent("""
     from repro.distributed.sharding import ShardingCtx
     from repro.launch import steps as JS
     from repro.models.lm import model as LM
-    CUTS, CASES, S = %s
+    CUTS, CASES, S, PAD = %s
     AUTO = (jax.sharding.AxisType.Auto,) * 2
     toks = np.load(sys.argv[2])
     out = {}
@@ -129,7 +136,7 @@ JAX_CHILD = textwrap.dedent("""
             last, caches = jax.jit(lambda p, t: LM.prefill(
                 p, cfg, t, ctx=ctx))(params, t[:, :S])
             padded = jax.tree.map(lambda c: jnp.pad(
-                c, ((0, 0), (0, 0), (0, 1), (0, 0), (0, 0))), caches)
+                c, ((0, 0), (0, 0), (0, PAD), (0, 0), (0, 0))), caches)
             dec, dcaches = jax.jit(lambda p, t, c: LM.decode_step(
                 p, cfg, t, c, S, ctx=ctx))(params, t[:, S:S + 1], padded)
             tag = f"{arch_id}/{name}"
@@ -145,6 +152,7 @@ JAX_CHILD = textwrap.dedent("""
 
 RANK = textwrap.dedent("""
     import sys, torch
+    import torch.distributed as dist
     torch.set_num_threads(1)
     from repro_torch.configs.base import get_arch
     from repro_torch.convert import lm_params_from_jax
@@ -158,7 +166,7 @@ RANK = textwrap.dedent("""
     init_distributed(rank, world, f"{tmp}/rdv-{mtag}", device="cpu")
     mesh = make_mesh(mshape, ("data", "model"))
     inp = torch.load(f"{tmp}/serve_inputs.pt", weights_only=False)
-    S = inp["S"]
+    S, T = inp["S"], inp["S"] + inp["PAD"]
     res = {}
     for arch_id, c in inp["archs"].items():
         cfg = c["cfg"]
@@ -175,14 +183,32 @@ RANK = textwrap.dedent("""
             with torch.no_grad():
                 logits = LM.forward(params, cfg, toks[:, :S], ctx=ctx)
                 last, caches = LM.prefill(params, cfg, toks[:, :S], ctx=ctx)
-                full = LM.init_kv_cache(cfg, rows, S + 1, device="cpu",
-                                        ctx=ctx)
-                for k in full:
-                    full[k][:, :, :S] = caches[k]
+                if ctx.axis_size("kv_seq") > 1:
+                    # the whole batch's caches, padded, then this rank's
+                    # rows and sequence block
+                    whole = {}
+                    for k, x in caches.items():
+                        if LM.data_axes(ctx) and mshape[0] > 1:
+                            parts = [torch.empty_like(x)
+                                     for _ in range(mshape[0])]
+                            dist.all_gather(parts, x.contiguous(),
+                                            group=ctx.group("data"))
+                            x = torch.cat(parts, dim=1)
+                        whole[k] = torch.nn.functional.pad(
+                            x, (0, 0, 0, 0, 0, T - S))
+                    full = LM.shard_caches(whole, cfg, ctx)
+                else:
+                    full = LM.init_kv_cache(cfg, rows, T, device="cpu",
+                                            ctx=ctx)
+                    for k in full:
+                        full[k][:, :, :S] = caches[k]
                 dec, full = LM.decode_step(params, cfg, toks[:, S:S + 1],
                                            full, S, ctx=ctx)
             res[f"{arch_id}/{name}"] = {
                 "rows": (ctx.axis_index("data"), rows),
+                "seq": (ctx.axis_size("kv_seq"),
+                        ctx.axis_index(ctx.mesh_axes("kv_seq"))
+                        if ctx.mesh_axes("kv_seq") else 0),
                 "kinds": (LM.moe_dispatch(cfg, rows * S, ctx),
                           LM.moe_dispatch(cfg, rows, ctx)),
                 "forward": logits, "last": last, "decode": dec,
@@ -214,13 +240,13 @@ def runs(tmp_path_factory):
         0, _cfgs(a)[0].vocab_size, (B, S + 1)).astype(np.int32)
         for a in CUTS}
     np.savez(tmp / "tokens.npz", **toks)
-    torch.save(dict(S=S, cases=CASES, archs={a: dict(
+    torch.save(dict(S=S, PAD=PAD, cases=CASES, archs={a: dict(
         cfg=_cfgs(a)[1], tokens=torch.from_numpy(toks[a]).long(),
         init=jax.tree.map(np.asarray, JLM.init_params(
             jax.random.key(0), _cfgs(a)[0])[0])) for a in CUTS}),
         tmp / "serve_inputs.pt")
     tags = [f"{m[0]}x{m[1]}" for m in MESHES]
-    outs = _wait([_run([JAX_CHILD % repr((CUTS, CASES, S)),
+    outs = _wait([_run([JAX_CHILD % repr((CUTS, CASES, S, PAD)),
                         str(tmp / "jax.npz"), str(tmp / "tokens.npz")])]
                  + [_run([RANK, str(r), "4", str(tmp), tag])
                     for tag in tags for r in range(4)])
@@ -249,15 +275,23 @@ def test_lm_serve_matches_jax_under_a_mesh(runs, arch_id, case):
         sl = slice(di * rows, (di + 1) * rows)
         peer = ranks[di * mshape[1]]
         mi = r % mshape[1]
+        n_seq, blk = got["seq"]
         for n in OUTS:
-            # the caches are (L, B, T, Hkv, hd): rows on dim 1, and a
-            # rank's own KV heads on dim 3 where the rules split them
+            # the caches are (L, B, T, Hkv, hd): rows on dim 1, a rank's
+            # own KV heads on dim 3 where the rules split them, and after
+            # the decode step its block of the positions on dim 2 where
+            # they split ``kv_seq``
             want = j[f"{tag}/{n}"][:, sl] if "caches" in n \
                 else j[f"{tag}/{n}"][sl]
             split = "caches" in n and got[n].shape[3] < want.shape[3]
             if split:
                 h = got[n].shape[3]
                 want = want[:, :, :, mi * h:(mi + 1) * h]
+            if n.startswith("decode_caches") and n_seq > 1:
+                t = want.shape[2] // n_seq
+                assert got[n].shape[2] == t, (tag, r, n)
+                want = want[:, :, blk * t:(blk + 1) * t]
+                split = True
             assert got[n].shape == want.shape, (tag, r, n)
             assert _of_max(got[n], want) <= OF_MAX, (tag, r, n)
             if not split:
@@ -280,12 +314,9 @@ def test_a_batch_kept_whole_over_data_ranks_raises():
     params = LM.init_params(cfg, generator=torch.Generator().manual_seed(0),
                             device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.long)
-    caches = LM.init_kv_cache(cfg, 1, 8, device="cpu")
     calls = {
         "forward": lambda: LM.forward(params, cfg, toks, ctx=ctx),
         "prefill": lambda: LM.prefill(params, cfg, toks, ctx=ctx),
-        "decode_step": lambda: LM.decode_step(params, cfg, toks[:, :1],
-                                              caches, 4, ctx=ctx),
         "lm_loss": lambda: LM.lm_loss(params, cfg, toks, ctx=ctx)}
     for name, call in calls.items():
         with pytest.raises(ValueError, match="batch whole"):

@@ -108,6 +108,7 @@ RANK = textwrap.dedent("""
     from repro_torch.configs.base import get_arch
     from repro_torch.convert import recsys_params_from_jax
     from repro_torch.distributed.sharding import ShardingCtx, make_rules
+    TP_OFF = {"mlp": None, "heads": None}   # no tensor parallelism
     from repro_torch.launch.mesh import init_distributed, make_mesh
     from repro_torch.launch import steps as ST
     from repro_torch.models.recsys import models as R
@@ -124,7 +125,8 @@ RANK = textwrap.dedent("""
 
     for shape in inp["meshes"]:
         mesh = make_mesh(shape, ("data", "model"))
-        ctx = ShardingCtx(make_rules(mesh), mesh)
+        # tensor parallelism off: the row-sharded path bitwise
+        ctx = ShardingCtx(make_rules(mesh, TP_OFF), mesh)
         m = f"{shape[0]}x{shape[1]}"
         rows = R.shard_rows(ctx, base.default_vocab)
         res[f"{m}/rows"] = (rows.start, rows.stop)

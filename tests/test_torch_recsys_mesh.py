@@ -140,6 +140,7 @@ RANK = textwrap.dedent("""
     from repro_torch.configs.base import get_arch
     from repro_torch.convert import recsys_params_from_jax
     from repro_torch.distributed.sharding import ShardingCtx, make_rules
+    TP_OFF = {"mlp": None, "heads": None}   # no tensor parallelism
     from repro_torch.launch.mesh import init_distributed, make_mesh
     from repro_torch.launch import steps as ST
     from repro_torch.launch.train import run_recsys
@@ -170,7 +171,8 @@ RANK = textwrap.dedent("""
         tree = jx[f"{kind}/params"]
         for shape in inp["meshes"]:
             mesh = make_mesh(shape, ("data", "model"))
-            ctx = ShardingCtx(make_rules(mesh), mesh)
+            # tensor parallelism off: the row-sharded path bitwise
+            ctx = ShardingCtx(make_rules(mesh, TP_OFF), mesh)
             tag = f"{kind}/{shape[0]}x{shape[1]}"
             rows = R.shard_rows(ctx, cfg.default_vocab)
             leaves = R.row_sharded_leaves(cfg, ctx)

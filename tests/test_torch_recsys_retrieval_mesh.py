@@ -123,6 +123,7 @@ RANK = textwrap.dedent("""
     from repro_torch.configs.base import get_arch
     from repro_torch.convert import recsys_params_from_jax
     from repro_torch.distributed.sharding import ShardingCtx, make_rules
+    TP_OFF = {"mlp": None, "heads": None}   # no tensor parallelism
     from repro_torch.launch.mesh import init_distributed, make_mesh
     from repro_torch.launch import steps as ST
     rank, world, tmp = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
@@ -136,7 +137,8 @@ RANK = textwrap.dedent("""
                  for k, v in inp["batches"][kind].items()}
         for shape in inp["meshes"]:
             mesh = make_mesh(shape, ("data", "model"))
-            ctx = ShardingCtx(make_rules(mesh), mesh)
+            # tensor parallelism off: the one-process step's bits
+            ctx = ShardingCtx(make_rules(mesh, TP_OFF), mesh)
             whole = recsys_params_from_jax(jx[f"{kind}/params"], kind,
                                            device="cpu")
             part = recsys_params_from_jax(jx[f"{kind}/params"], kind,

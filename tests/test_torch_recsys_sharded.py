@@ -142,6 +142,7 @@ RANK = textwrap.dedent("""
     torch.set_num_threads(1)
     from repro_torch.configs.base import RecsysConfig
     from repro_torch.distributed.sharding import ShardingCtx, make_rules
+    TP_OFF = {"mlp": None, "heads": None}   # no tensor parallelism
     from repro_torch.launch.mesh import init_distributed, make_mesh
     from repro_torch.launch import steps as ST
     from repro_torch.launch.train import run_recsys
@@ -165,7 +166,8 @@ RANK = textwrap.dedent("""
                  (rng.random(9) > .5).astype(np.float32))}
     for shape in %s:
         mesh = make_mesh(shape, ("data", "model"))
-        ctx = ShardingCtx(make_rules(mesh), mesh)
+        # tensor parallelism off: the row-sharded path bitwise
+        ctx = ShardingCtx(make_rules(mesh, TP_OFF), mesh)
         tag = f"{shape[0]}x{shape[1]}"
         rows = R.shard_rows(ctx, V)
         res[f"rows{tag}"] = (rows.start, rows.stop)

@@ -18,9 +18,11 @@ against the JAX package under the same mesh:
     cut (4 experts over ``expert_mlp``: ``_moe_dense`` at B 4 x S 512 a
     mesh of 2 data ranks, B 2 x S 512 at 1, ``_moe_scatter`` at B 4 x S
     8) and a kimi-k2 cut (heads over ``model`` beside ``_moe_shard_map``);
-  * ``prefill`` (last logits and caches) and ``decode_step`` (logits)
-    under the prefill and decode rules at both meshes, B 4 x S 16, for
-    the GQA and MQA cuts and grok's.
+  * ``prefill`` (last logits and caches) and ``decode_step`` (logits, on
+    the prefill's caches padded to S + 4 positions; under the decode rules
+    a rank's rows and sequence block of them, ``shard_caches``) under the
+    prefill and decode rules at both meshes, B 4 x S 16, for the GQA and
+    MQA cuts and grok's.
 
 Held (the tolerances of ``tests/test_torch_lm_mesh_train.py`` and
 ``tests/test_torch_lm_mesh_serve.py``): every rank's loss within 1e-5
@@ -77,6 +79,7 @@ DENSE_B1 = 2            # grok-dense's batch at one data rank
 SERVE_ARCHS = ("llama3.2-3b", "gemma-2b", "grok-1-314b")
 SERVE_SHAPES = ("prefill_32k", "decode_32k")
 B, S_SERVE = 4, 16
+PAD = 4                  # decode caches of S + PAD positions
 LOSS_REL, GRAD_REL, OF_MAX = 1e-5, 1e-5, 1e-5
 
 
@@ -100,7 +103,7 @@ JAX_CHILD = textwrap.dedent("""
     from repro.distributed.sharding import ShardingCtx
     from repro.launch import steps as JS
     from repro.models.lm import model as LM
-    CUTS, MESHES, LOSS, DENSE_B1, SERVE_ARCHS, SERVE_SHAPES, S = %s
+    CUTS, MESHES, LOSS, DENSE_B1, SERVE_ARCHS, SERVE_SHAPES, S, PAD = %s
     AUTO = (jax.sharding.AxisType.Auto,) * 2
     toks = np.load(sys.argv[2])
     out = {}
@@ -146,7 +149,7 @@ JAX_CHILD = textwrap.dedent("""
                 last, caches = jax.jit(lambda p, t: LM.prefill(
                     p, cfg, t, ctx=ctx))(params[arch_id], t[:, :S])
                 padded = jax.tree.map(lambda c: jnp.pad(
-                    c, ((0, 0), (0, 0), (0, 1), (0, 0), (0, 0))), caches)
+                    c, ((0, 0), (0, 0), (0, PAD), (0, 0), (0, 0))), caches)
                 dec, _ = jax.jit(lambda p, t, c: LM.decode_step(
                     p, cfg, t, c, S, ctx=ctx))(params[arch_id],
                                                t[:, S:S + 1], padded)
@@ -161,6 +164,7 @@ JAX_CHILD = textwrap.dedent("""
 
 RANK = textwrap.dedent("""
     import sys, torch
+    import torch.distributed as dist
     torch.set_num_threads(1)
     from repro_torch.configs.base import get_arch
     from repro_torch.convert import lm_params_from_jax
@@ -187,7 +191,7 @@ RANK = textwrap.dedent("""
                          kind=LM.moe_dispatch(cfg, LM.rank_rows(
                              toks, ctx).numel(), ctx) if cfg.n_experts
                          else None)
-    S = inp["S"]
+    S, T = inp["S"], inp["S"] + inp["PAD"]
     for arch_id in inp["serve_archs"]:
         cfg = inp["cfgs"][arch_id]
         for shape_name in inp["serve_shapes"]:
@@ -199,10 +203,25 @@ RANK = textwrap.dedent("""
             toks = LM.rank_rows(inp["serve"], ctx)
             with torch.no_grad():
                 last, caches = LM.prefill(params, cfg, toks[:, :S], ctx=ctx)
-                full = LM.init_kv_cache(cfg, toks.shape[0], S + 1,
-                                        device="cpu", ctx=ctx)
-                for k in full:
-                    full[k][:, :, :S] = caches[k]
+                if ctx.axis_size("kv_seq") > 1:
+                    # the whole batch's caches, padded, then this rank's
+                    # rows and sequence block
+                    whole = {}
+                    for k, x in caches.items():
+                        if mshape[0] > 1:
+                            parts = [torch.empty_like(x)
+                                     for _ in range(mshape[0])]
+                            dist.all_gather(parts, x.contiguous(),
+                                            group=ctx.group("data"))
+                            x = torch.cat(parts, dim=1)
+                        whole[k] = torch.nn.functional.pad(
+                            x, (0, 0, 0, 0, 0, T - S))
+                    full = LM.shard_caches(whole, cfg, ctx)
+                else:
+                    full = LM.init_kv_cache(cfg, toks.shape[0], T,
+                                            device="cpu", ctx=ctx)
+                    for k in full:
+                        full[k][:, :, :S] = caches[k]
                 dec, _ = LM.decode_step(params, cfg, toks[:, S:S + 1], full,
                                         S, ctx=ctx)
             res[f"{arch_id}/{shape_name}"] = {
@@ -231,14 +250,14 @@ def runs(tmp_path_factory):
             toks[case][:_loss_batch(case, m)[0]]).long())
         for case, (a, _, _) in LOSS.items()} for m in MESHES}
     torch.save(dict(
-        cfgs={a: _cfgs(a)[1] for a in CUTS}, loss=loss, S=S_SERVE,
+        cfgs={a: _cfgs(a)[1] for a in CUTS}, loss=loss, S=S_SERVE, PAD=PAD,
         serve=torch.from_numpy(toks["serve"]).long(),
         serve_archs=SERVE_ARCHS, serve_shapes=SERVE_SHAPES,
         init={a: jax.tree.map(np.asarray, JLM.init_params(
             jax.random.key(0), _cfgs(a)[0])[0]) for a in CUTS}),
         tmp / "inputs.pt")
     consts = repr((CUTS, MESHES, LOSS, DENSE_B1, SERVE_ARCHS, SERVE_SHAPES,
-                   S_SERVE))
+                   S_SERVE, PAD))
     outs = _wait([_run([JAX_CHILD % consts, str(tmp / "jax.npz"),
                         str(tmp / "tokens.npz")])]
                  + [_run([RANK, str(r), "4", str(tmp), tag])
