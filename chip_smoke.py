@@ -452,9 +452,13 @@ by columns then rows, bst's heads over the model ranks, sasrec's one
 head whole at (1, 4) and split within the head at (2, 2): in f32 compute
 the serve outputs within ``P15_F32_REL`` of the largest, the loss within
 ``P15_F32_REL`` relative and each rank's block of every dense gradient
-within ``P15_GRAD_REL`` norm-wise of the parent's (a ReLU flip between
-two sum orders moves an earlier layer's gradient by about 1e-3 at
-random labels; a wrong block, scale or sum reads 0.5 or more); in bf16
+from its own ReLUs within ``P15_GRAD_REL`` norm-wise of the parent's
+(a ReLU flip between two sum orders moves an earlier layer's gradient
+by about 1e-3 at random labels) and, from a second pass in which every
+ReLU takes the parent's mask (``relu_masks``: the rank's column block
+of it where its input is split over the model axis), flip-free, within
+``P15_GRAD_FLIPFREE`` (a wrong block, scale or sum reads 0.5 or more;
+a ReLU applied to a partial sum shows in the first); in bf16
 the serve
 outputs within ``P15_BF16_OUT`` of the largest.  15b, decode_32k's rules
 at (1, 4) (``kv_seq -> model``): llama3.2-3b and gemma-2b at full width,
@@ -472,6 +476,27 @@ seconds and the peak memory, with the note that gloo stages through the
 host.  ``--tp2-only`` builds ``embedding_bag`` and ``flash_attention``
 and runs Phase 15 alone.
 
+Phase 16 runs after Phase 14, on Phase 3's corpus: the rankgraph2
+trainer's three batch layouts and the L' double draw at full width, f32,
+on one batch of train_batch's ``P16_ROWS`` (10,922) edges a type drawn
+from ``--seed``, each step from the same initial state with the same
+negative draws, under ``deterministic_sums``.  16a: one step on the
+``dedup_ids`` batch, one on the ``dedup`` batch of the same draw
+(bitwise equal: losses and parameters) and one on the legacy layout
+(``expand_batch`` of it: every endpoint encoded again; losses within
+Phase 3's f32 tolerances, ``f32_gap``).  16b:
+``reuse_lprime_negatives=False`` with each edge type's L' bank drawn
+equal to the bank it reuses (every loss and ``grad_norm`` bitwise the
+reusing step's, the parameters after the step within ``P16_SAME_GAP``:
+the banks' gradients reach their rows through two gathers, not one),
+then with distinct L' banks (every loss but ``rq_contrastive`` bitwise
+unchanged, ``grad_norm`` moved).  16c: ``build_cell`` of the 40 cells at (16, 16) and (2, 16,
+16) on an ``AbstractMesh`` allocates nothing on the card
+(``torch.cuda.memory_allocated`` unchanged); it prints the build time.
+The steps' ``fused_contrastive`` and ``rq_assign`` launches count in the
+kernels line.  ``--layouts-only`` builds the three kernels, makes Phase
+3's corpus and runs Phase 16 alone.
+
 Each path's launch counts are zeroed just before it runs and read just
 after: ``rq_assign`` and ``queue_gather`` report Phase 2's,
 ``ppr_walk`` and ``fused_contrastive_*`` Phase 3's, ``embedding_bag_*``
@@ -486,8 +511,8 @@ steps and Phase 11's, Phase 12's, Phase 14's and Phase 15's ranks' (each
 rank counts its own and returns them: 11b's ``embedding_bag_fwd`` and
 ``embedding_bag_bwd`` on row shards, its own checks' launches left out;
 12a's prefill, 12b's steps; 14a's serve and steps, 14b's steps and
-decode, 14c's prefills; 15a's bags, 15b's and 15c's decode steps) are
-added to those; the f32 kernels' come from
+decode, 14c's prefills; 15a's bags, 15b's and 15c's decode steps) and
+Phase 16's steps are added to those; the f32 kernels' come from
 Phase 10a alone.  Every kernel in the list must have launched on its
 path.
 
@@ -546,7 +571,7 @@ from repro_torch.core.rq_index import (RQState, assign_codes,  # noqa: E402
 from repro_torch.core.serving import (ClusterQueueStore,  # noqa: E402
                                       ShardedQueueStore)
 from repro_torch.core.trainer import (FeatureStore,  # noqa: E402
-                                      apply_grads, embed_all,
+                                      apply_grads, draw_keys, embed_all,
                                       forward_losses, init_state,
                                       loss_directions, make_eval_step,
                                       make_grad_step, make_train_step,
@@ -590,8 +615,10 @@ from repro_torch.distributed.collectives import (  # noqa: E402
     block_rows, gather_rows)
 from repro_torch.distributed.sharding import (ShardingCtx,  # noqa: E402
                                               make_rules, shard_of)
-from repro_torch.launch.mesh import init_distributed, make_mesh  # noqa: E402
-from repro_torch.launch.steps import (dot_scores,  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    abstract_production_mesh, init_distributed, make_mesh)
+from repro_torch.launch.steps import (all_cells,  # noqa: E402
+                                      build_cell, dot_scores,
                                       lm_decode_step, lm_loss_and_grads,
                                       lm_prefill_step,
                                       lm_rules, lm_train_step,
@@ -800,6 +827,10 @@ P15_F32_REL = 1e-5           # 15a f32: outputs (of the largest), loss
 # test_reordered_sums_move_gradients_past_relus); a wrong block, scale or
 # sum reads 0.5 or more
 P15_GRAD_REL = 2.0 ** -6
+# 15a f32: each dense gradient block, norm-wise, where both sides take the
+# parent's ReLU masks (``relu_masks``): the flips gone, what is left is the
+# order of the f32 sums
+P15_GRAD_FLIPFREE = 1e-5
 P15_BF16_OUT = 2.0 ** -5     # 15a bf16 serve outputs, of the largest
 P15_DECODE_ARCHS = ("llama3.2-3b", "gemma-2b")   # 15b, decode_32k's rules
 P15_LAYERS = 2
@@ -810,6 +841,12 @@ P15_TIMEOUT_S = 300.0        # the spawn's limit, seconds
 # unmapped, so that its checks stay the row sharding against the one
 # process, bitwise (Phase 15a holds the tensor parallelism)
 P11_TP_OFF = {"mlp": None, "heads": None}
+P16_ROWS = CF_ROWS           # train_batch's edges a type: 10,922
+P16_SEED = 16                # Phase 16's batch and draws: --seed + this
+# 16b, each L' bank the bank it reuses: the largest parameter gap to the
+# reusing step after one step (7.89e-5 on the H100; a gradient whose sign
+# flips moves an AdamW entry by twice the dense rate, 8e-3)
+P16_SAME_GAP = 1e-3
 
 
 def card_peaks(name: str):
@@ -8622,18 +8659,81 @@ def p15a_inputs(arch: str, seed: int, dev, ctx=None) -> tuple:
     return params, batch
 
 
-def p15a_run(arch: str, params, batch, ctx=None) -> dict:
+class relu_masks:
+    """Inside the block every ReLU of the recsys models (``_mlp``'s
+    ``act``, the ``F.relu`` calls) records its input's mask ``x > 0`` in
+    ``masks`` and applies it (the ReLU itself), or with ``replay`` applies
+    ``masks`` in call order instead of its own: ``x * mask``, the mask the
+    rank's column block (``mi`` of the model group) where the rank's input
+    is its block of the parent's columns.  Both sides then take the same
+    masks, so a ReLU whose input lies within rounding of zero cannot flip
+    between them."""
+
+    def __init__(self, masks: list, replay: bool = False, mi: int = 0):
+        self.masks, self.replay, self.mi = masks, replay, mi
+        self.i = 0
+
+    def relu(self, x, inplace=False):
+        if not self.replay:
+            m = x > 0
+            self.masks.append(m.detach())
+            return x * m.to(x.dtype)
+        m = self.masks[self.i].to(x.device)
+        self.i += 1
+        if m.shape != x.shape:
+            m = m.chunk(m.shape[-1] // x.shape[-1], dim=-1)[self.mi]
+        check(m.shape == x.shape, f"a ReLU's mask {tuple(m.shape)} does "
+              f"not fit its input {tuple(x.shape)}")
+        return x * m.to(x.dtype)
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        self.real = F.relu
+        self.kw = R._mlp.__kwdefaults__
+        self.act = self.kw["act"]
+        F.relu = self.kw["act"] = self.relu
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+        F.relu = self.real
+        self.kw["act"] = self.act
+        return False
+
+
+def p15a_run(arch: str, params, batch, ctx=None, masks=None) -> dict:
     """f32: the serve outputs, the loss and the dense leaves' gradients
-    (those ``ROW_SHARDED`` does not name); bf16: the serve outputs."""
+    (those ``ROW_SHARDED`` does not name) from the models' own ReLUs;
+    with ``masks`` (a rank) also the dense gradients of a pass whose
+    ReLUs take the parent's masks (``masked``), without them (the parent)
+    the masks its own ReLUs took, which are its gradients' too; bf16: the
+    serve outputs."""
     c32, c16 = p15a_cfgs(arch)
     out32 = recsys_serve_step(params, c32, batch, ctx)
-    loss, grads = loss_and_grads(params, c32, batch, ctx)
-    dense = {k: g.detach() for k, g in grads.items()
-             if k.split(".")[0] not in R.ROW_SHARDED[c32.kind]}
+    rec = masks is None
+
+    def dense(grads):
+        return {k: g.detach() for k, g in grads.items()
+                if k.split(".")[0] not in R.ROW_SHARDED[c32.kind]}
+    masks = [] if rec else masks
+    mi = 0 if ctx is None else ctx.axis_index("model")
+    # the parent records its masks in its own pass (x * (x > 0) is its
+    # ReLU, gradient too); a rank runs its own ReLUs, then the masks
+    if rec:
+        with relu_masks(masks, mi=mi):
+            loss, grads = loss_and_grads(params, c32, batch, ctx)
+    else:
+        loss, grads = loss_and_grads(params, c32, batch, ctx)
+    own = dense(grads)
     del grads
+    masked = None
+    if not rec:
+        with relu_masks(masks, replay=True, mi=mi):
+            masked = dense(loss_and_grads(params, c32, batch, ctx)[1])
     out16 = recsys_serve_step(params, c16, batch, ctx)
-    return dict(out32=out32.float(), loss=float(loss), dense=dense,
-                out16=out16.float())
+    return dict(out32=out32.float(), loss=float(loss), dense=own,
+                masked=masked, out16=out16.float(),
+                masks=masks if rec else None)
 
 
 def p15a_reference(seed: int, dev, tmp: str) -> dict:
@@ -8643,6 +8743,8 @@ def p15a_reference(seed: int, dev, tmp: str) -> dict:
         t = time.perf_counter()
         params, batch = p15a_inputs(arch, seed, dev)
         res = p15a_run(arch, params, batch)
+        torch.save([m.cpu() for m in res.pop("masks")],
+                   f"{tmp}/p15a-{arch}-masks.pt")
         torch.save({k: ({n: g.cpu() for n, g in v.items()}
                         if k == "dense" else
                         v.cpu() if torch.is_tensor(v) else v)
@@ -8667,16 +8769,19 @@ def p15a_rank(seed: int, dev, tmp: str) -> dict:
             torch.cuda.synchronize()
             t = time.perf_counter()
             params, batch = p15a_inputs(arch, seed, dev, ctx)
-            got = p15a_run(arch, params, batch, ctx)
+            got = p15a_run(arch, params, batch, ctx,
+                           torch.load(f"{tmp}/p15a-{arch}-masks.pt"))
             torch.cuda.synchronize()
             secs = time.perf_counter() - t
             ref = torch.load(f"{tmp}/p15a-{arch}.pt")
             lay = R.param_layout(p11_kind_cfg(arch), ctx)
-            grad_gap, split = {}, []
+            grad_gap, masked_gap, split = {}, {}, []
             for k, g in got["dense"].items():
                 w = shard_of(ref["dense"][k], lay[k], ctx).to(dev)
-                grad_gap[k] = float((g.float() - w).norm()
-                                    / max(float(w.norm()), 1e-30))
+                wn = max(float(w.norm()), 1e-30)
+                grad_gap[k] = float((g.float() - w).norm() / wn)
+                masked_gap[k] = float((got["masked"][k].float() - w).norm()
+                                      / wn)
                 if any(lay[k]):
                     split.append(k)
             out[f"{m}/{arch}"] = dict(
@@ -8684,6 +8789,8 @@ def p15a_rank(seed: int, dev, tmp: str) -> dict:
                 loss=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
                 grad=max(grad_gap.values()),
                 worst=max(grad_gap, key=grad_gap.get),
+                masked=max(masked_gap.values()),
+                worst_masked=max(masked_gap, key=masked_gap.get),
                 out16=near(got["out16"], ref["out16"], P15_BF16_OUT),
                 split=len(split), secs=secs)
             del params, batch, got, ref
@@ -8842,8 +8949,12 @@ def p15a_held(role: str, outs: list) -> str:
         for arch in P15_KINDS:
             rs = [o["a"][f"{m}/{arch}"] for o in outs]
             worst = {k: max(r[k] for r in rs)
-                     for k in ("out32", "loss", "grad", "out16")}
+                     for k in ("out32", "loss", "grad", "masked", "out16")}
             gw = max(rs, key=lambda r: r["grad"])["worst"]
+            mw = max(rs, key=lambda r: r["masked"])["worst_masked"]
+            # ``grad`` from the ranks' own ReLUs, ``masked`` from a pass on
+            # the parent's masks (``relu_masks``): flip-free, so held at
+            # P15_GRAD_FLIPFREE
             what = f"15{role}a {arch} at ({shape[0]}, {shape[1]})"
             for ok, why in (
                     (all(r["split"] > 0 for r in rs),
@@ -8854,14 +8965,20 @@ def p15a_held(role: str, outs: list) -> str:
                      f"loss {worst['loss']:.3g} relative"),
                     (worst["grad"] <= P15_GRAD_REL, f"a dense gradient block "
                      f"{worst['grad']:.3g} apart norm-wise ({gw})"),
+                    (worst["masked"] <= P15_GRAD_FLIPFREE, f"a dense "
+                     f"gradient block on the parent's ReLU masks "
+                     f"{worst['masked']:.3g} apart norm-wise ({mw}), past "
+                     f"{P15_GRAD_FLIPFREE}"),
                     (worst["out16"] <= 1, f"bf16 outputs {worst['out16']:.3g}"
                      f" of {P15_BF16_OUT} of the largest")):
                 if not ok:
                     failed.append(f"{what}: {why}")
             parts.append(f"{arch} ({shape[0]}, {shape[1]}): f32 out "
                          f"{worst['out32'] * P15_F32_REL:.3g}, loss "
-                         f"{worst['loss']:.3g}, dense grads {worst['grad']:.3g}"
-                         f" ({gw}; {rs[0]['split']} split dense leaves), bf16 "
+                         f"{worst['loss']:.3g}, dense grads "
+                         f"{worst['grad']:.3g} ({gw}), on the parent's ReLU "
+                         f"masks {worst['masked']:.3g} ({mw}; "
+                         f"{rs[0]['split']} split dense leaves), bf16 "
                          f"out {worst['out16'] * P15_BF16_OUT:.3g}; "
                          f"{max(r['secs'] for r in rs):.2f} s")
     check(not failed, "; ".join(parts) + " -- " + "; ".join(failed))
@@ -8952,6 +9069,133 @@ def phase15(seed: int, dev, smi: str) -> dict:
     print(f"[phase15] wall {time.perf_counter() - t_all:.2f} s; the ranks' "
           f"launches {json.dumps(nonzero(total))}")
     return total
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the trainer's three batch layouts, the L' double draw, the cells
+# ---------------------------------------------------------------------------
+
+def p16_step(cfg, batch, draws, seed: int, dev, features=None) -> tuple:
+    """One f32 train step from run ``seed``'s initial state on ``batch``
+    with ``draws``: (metrics as tensors, parameters after it, seconds)."""
+    state, opt = init_state(cfg, generator=torch.Generator().manual_seed(
+        seed), pool_size=P3_POOL, device=dev)
+    step = make_train_step(cfg, opt, features=features)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, m = step(state, batch, draws=draws)
+    torch.cuda.synchronize()
+    return ({k: v.detach() for k, v in m.items()},
+            {k: p.detach() for k, p in named_params(state.params).items()},
+            time.perf_counter() - t)
+
+
+def differing_keys(a: dict, b: dict, skip=()) -> list:
+    """The keys of two dicts of tensors whose values differ in a bit."""
+    return [k for k in a if k not in skip and not torch.equal(a[k], b[k])]
+
+
+def phase16(seed: int, dev, corpus, smi: str) -> dict:
+    """Phase 16 (module docstring).  Returns the steps' launch counts."""
+    t_all = time.perf_counter()
+    cfg = dataclasses.replace(CONFIG, dtype="float32")
+    dbl = dataclasses.replace(cfg, reuse_lprime_negatives=False)
+    ds = EdgeDataset(corpus.tables, corpus.user_feat, corpus.item_feat,
+                     k_train=cfg.k_train, device=dev, g=corpus.graph)
+    per_type = {et: P16_ROWS for et in ("uu", "ui", "ii")}
+    t = time.perf_counter()
+    ids = ds.sample_batch(0, seed + P16_SEED, per_type)
+    feat = ds.sample_batch(0, seed + P16_SEED, per_type, format="dedup")
+    legacy = ds.expand_batch(ids)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t
+    # every bank's draws, the L' ones too, from one CPU generator (the
+    # initial state's pool is empty: no pool rows to draw)
+    g = torch.Generator().manual_seed(seed + P16_SEED)
+    draws = {k: negative_draws(P16_ROWS, cfg.n_heads, cfg.n_negatives,
+                               cfg.n_pool_neg, 0, generator=g)
+             for k in draw_keys(dbl, ids)}
+    draws_l = {k: draws[k] for k in draw_keys(cfg, ids)}
+    feats = FeatureStore(ds.user_feat, ds.item_feat)
+    common.reset_launches()
+    runs = {}
+    with deterministic_sums():     # the scatter sums repeat (its docstring)
+        runs["dedup_ids"] = p16_step(cfg, ids, draws_l, seed, dev, feats)
+        runs["dedup"] = p16_step(cfg, feat, draws_l, seed, dev)
+        runs["legacy"] = p16_step(cfg, legacy, draws_l, seed, dev)
+        reused = dict(draws_l, **{f"lprime_{et}": draws_l[et]
+                                  for et in ("ii", "ui", "uu")})
+        runs["double-same"] = p16_step(dbl, ids, reused, seed, dev, feats)
+        runs["double"] = p16_step(dbl, ids, draws, seed, dev, feats)
+    launches = common.launch_counts()
+    base_m, base_p, _ = runs["dedup_ids"]
+    floats = {name: {k: float(v) for k, v in r[0].items()}
+              for name, r in runs.items()}
+    for name, m in floats.items():
+        print(f"[phase16a] {name}: " + ", ".join(
+            f"{k} {v:.6f}" for k, v in sorted(m.items()))
+            + f"; step {runs[name][2]:.3f} s")
+    bad_m = differing_keys(runs["dedup"][0], base_m)
+    bad_p = differing_keys(runs["dedup"][1], base_p)
+    check(not bad_m and not bad_p, f"16a dedup is not dedup_ids' bitwise: "
+          f"losses {bad_m}, parameters {bad_p}")
+    gap = f32_gap(floats["legacy"], floats["dedup_ids"])
+    worst = max(floats["dedup_ids"], key=lambda k: abs(
+        floats["legacy"][k] - floats["dedup_ids"][k]))
+    print(f"[phase16a] dedup == dedup_ids bitwise (losses and "
+          f"{len(base_p)} parameters); legacy against dedup_ids "
+          f"{gap:.4g} of the f32 tolerance (F32_REL {F32_REL}, RQ losses "
+          f"{F32_RQ_REL}, F32_ABS {F32_ABS}; the farthest {worst}: "
+          f"{abs(floats['legacy'][worst] - floats['dedup_ids'][worst]):.3g})")
+    check(gap <= 1, f"16a legacy against dedup_ids: {gap:.3g} of the f32 "
+          f"tolerance ({worst})")
+    bad_same = differing_keys(runs["double-same"][0], base_m)
+    p_same = max(float((runs["double-same"][1][k] - base_p[k]).abs().max())
+                 for k in base_p)
+    print(f"[phase16b] double draw, each L' bank the bank it reuses: losses "
+          f"{'bitwise' if not bad_same else 'differ: ' + str(bad_same)}; "
+          f"grad_norm {floats['double-same']['grad_norm']:.9g} against "
+          f"{floats['dedup_ids']['grad_norm']:.9g}, largest parameter gap "
+          f"{p_same:.3g} (the banks' gradients reach their rows through two "
+          f"gathers, not one)")
+    check(not bad_same, f"16b double draw on the reused banks: {bad_same} "
+          f"differ from the reusing step")
+    check(p_same <= P16_SAME_GAP, f"16b double draw on the reused banks: "
+          f"a parameter {p_same:.3g} from the reusing step's, past "
+          f"{P16_SAME_GAP}")
+    bad_d = differing_keys(runs["double"][0], base_m,
+                           skip=("rq_contrastive", "total", "grad_norm"))
+    moved = floats["double"]["rq_contrastive"] - \
+        floats["dedup_ids"]["rq_contrastive"]
+    print(f"[phase16b] double draw, distinct L' banks: rq_contrastive moved "
+          f"{moved:.6g}, grad_norm {floats['double']['grad_norm']:.9g}; "
+          f"the other task losses "
+          f"{'bitwise' if not bad_d else 'differ: ' + str(bad_d)}")
+    check(not bad_d, f"16b distinct L' banks moved {bad_d}")
+    check(moved != 0.0, "16b distinct L' banks left rq_contrastive")
+    check(floats["double"]["grad_norm"] != floats["dedup_ids"]["grad_norm"],
+          "16b distinct L' banks left grad_norm")
+    # 16c: every cell at both production meshes, on meta
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    n = 0
+    for multi in (False, True):
+        mesh = abstract_production_mesh(multi)
+        for arch_id, shape_name in all_cells():
+            build_cell(arch_id, shape_name, mesh)
+            n += 1
+    t_cells = time.perf_counter() - t
+    after = torch.cuda.memory_allocated()
+    print(f"[phase16c] built {n} cells (the 40 at (16, 16) and (2, 16, 16)) "
+          f"in {t_cells:.2f} s; card memory allocated {before} -> {after} "
+          f"bytes")
+    check(after == before, f"16c building the cells allocated "
+          f"{after - before} bytes on the card")
+    print(f"[phase16] {P16_ROWS:,} edges a type, batches {t_batch:.2f} s; "
+          f"launches {json.dumps(nonzero(launches))}; wall "
+          f"{time.perf_counter() - t_all:.2f} s ({smi})")
+    return launches
 
 
 def nonzero(counts: dict) -> dict:
@@ -9051,6 +9295,11 @@ def main() -> int:
                          "kernels and run Phase 15 (the recsys family's "
                          "tensor parallelism, the decode rules' "
                          "sequence-sharded KV cache)")
+    ap.add_argument("--layouts-only", action="store_true",
+                    help="only build the kernels Phase 3's construction "
+                         "and training use, make Phase 3's corpus (no "
+                         "training) and run Phase 16 (the trainer's batch "
+                         "layouts, the L' double draw, the cells)")
     ap.add_argument("--decode-only", type=int, default=0, metavar="REPS",
                     help="only build flash_attention, print the whole op's "
                          "lines as --attention-only does, and run Phase 5's "
@@ -9119,6 +9368,15 @@ def main() -> int:
     if args.tp2_only:
         print_build(common.build(["embedding_bag", "flash_attention"]))
         phase15(args.seed, dev, smi)
+        return 0
+    if args.layouts_only:
+        print_build(common.build(["rq_assign", "ppr_walk",
+                                  "fused_contrastive"]))
+        t = time.perf_counter()
+        corpus = p11_corpus(args.seed, dev)
+        print(f"[phase16] Phase 3's corpus made in "
+              f"{time.perf_counter() - t:.2f} s")
+        phase16(args.seed, dev, corpus, smi)
         return 0
     if args.lm_train_only:
         print_build(common.build(["flash_attention", "flash_attention_bwd"]))
@@ -9255,6 +9513,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     progress(t_main, "Phase 14")
     launches14 = phase14(args.seed, dev, corpus, smi)
+    torch.cuda.empty_cache()
+    progress(t_main, "Phase 16")
+    launches16 = phase16(args.seed, dev, corpus, smi)
     del corpus
     torch.cuda.empty_cache()
     progress(t_main, "Phase 12")
@@ -9270,7 +9531,8 @@ def main() -> int:
             + sum(ls.get(counter, 0)
                   for ls in (launches6, launches7, launches8, launches9,
                              launches10, launches11, launches12,
-                             launches13, launches14, launches15)))
+                             launches13, launches14, launches15,
+                             launches16)))
         check(r["launches"] > 0, f"{r['name']} was not launched on its "
               f"main path")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -168,6 +168,13 @@ class ArchSpec:
     shapes: Tuple[ShapeSpec, ...]
     source: str = ""
 
+    def shape(self, name: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.name == name:
+                return s
+        raise KeyError(f"{self.arch_id} has no shape {name!r}; "
+                       f"have {[s.name for s in self.shapes]}")
+
 
 _REGISTRY: Dict[str, ArchSpec] = {}
 

@@ -1,14 +1,20 @@
 """RankGraph-2 training step (paper §4.3 + §4.4 co-learning) and
 embedding generation, as ``repro/core/trainer.py``.
 
-One ``train_step`` consumes an id-only ``dedup_ids`` batch (all edge
-types): every referenced node is encoded once from the device-resident
-feature tables, endpoints are aggregated once, per-edge views are
-gathers.  It computes the contrastive losses of every direction (U-I
-both ways) through the ``fused_contrastive`` op, co-learns the RQ index
-on all endpoint primaries (reconstruction, contrastive on the
-reconstruction reusing each direction's negatives, balance regularizer,
-utilization gap), combines everything with learned uncertainty weights,
+One ``train_step`` consumes a batch of all edge types in one of the
+three layouts of ``data.edge_dataset.BATCH_FORMATS``: ``dedup_ids``
+(id-only packs: every referenced node is encoded once from the
+device-resident ``FeatureStore``, endpoints are aggregated once, per-edge
+views are gathers), ``dedup`` (the same packs carrying their rows'
+features, no store needed) or ``legacy`` (per-(edge type, side) feature
+tensors: every endpoint is encoded again, ``model.embed_side``).  The
+three give the same losses on the same draws up to the order of float
+sums; ``dedup`` and ``dedup_ids`` are the same arithmetic.  It computes
+the contrastive losses of every direction (U-I both ways) through the
+``fused_contrastive`` op, co-learns the RQ index on all endpoint
+primaries (reconstruction, contrastive on the reconstruction, balance
+regularizer, utilization gap), combines everything with learned
+uncertainty weights,
 clips, and applies the partitioned AdaGrad/AdamW update.  The step is
 two halves, ``make_grad_step`` (forward, backward and the data-parallel
 reduction of the gradients) and ``apply_grads`` (clip, update, pool and
@@ -157,21 +163,31 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _dedup_per_type(params, cfg: RankGraph2Config, batch,
-                    features: FeatureStore,
+                    features: Optional[FeatureStore],
                     ctx: Optional[ShardingCtx] = None):
-    """Unique-node forward: encode each pack row once, aggregate each
-    endpoint-unique node once, gather per-(edge_type, side) views.
-    Returns {et: (src_heads, src_prim, dst_heads, dst_prim)} with the
-    edge types in sorted order, as the JAX step iterates them (a jitted
-    function receives a dict with its keys sorted); the order decides
-    which negative draws each direction gets, and the row order of the
-    RQ batch and the pool update."""
+    """Unique-node forward: encode each pack row once (its ``feat``, or
+    its ``ids``' rows of ``features``), aggregate each endpoint-unique
+    node once, gather per-(edge_type, side) views.  Returns {et:
+    (src_heads, src_prim, dst_heads, dst_prim)} with the edge types in
+    sorted order, as the JAX step iterates them (a jitted function
+    receives a dict with its keys sorted); the order decides which
+    negative draws each direction gets, and the row order of the RQ
+    batch and the pool update."""
     nodes, edges = batch["nodes"], batch["edges"]
     enc: Dict[str, torch.Tensor] = {}
     for tname, ntype in _NODE_TYPES:
-        table = features.user_feat if ntype == M.USER else features.item_feat
-        enc[tname] = M.encode_nodes(params, cfg, ntype,
-                                    _take(table, nodes[tname]["ids"]), ctx)
+        side = nodes[tname]
+        if "feat" in side:
+            feat = side["feat"]
+        else:
+            if features is None:
+                raise ValueError(
+                    "id-only batch but no FeatureStore; pass features= "
+                    "to make_train_step / make_eval_step")
+            table = features.user_feat if ntype == M.USER \
+                else features.item_feat
+            feat = _take(table, side["ids"])
+        enc[tname] = M.encode_nodes(params, cfg, ntype, feat, ctx)
     heads, prims = {}, {}
     for tname, ntype in _NODE_TYPES:
         side = nodes[tname]
@@ -195,16 +211,56 @@ def _dedup_per_type(params, cfg: RankGraph2Config, batch,
     return per_type
 
 
+def _per_type(params, cfg: RankGraph2Config, batch,
+              features: Optional[FeatureStore],
+              ctx: Optional[ShardingCtx] = None):
+    """``_dedup_per_type`` of a dedup batch; of a legacy batch every
+    endpoint encoded again, each side through ``model.embed_side``, as
+    the reference's legacy path.  Edge types in sorted order."""
+    if "nodes" in batch:
+        return _dedup_per_type(params, cfg, batch, features, ctx)
+    per_type = {}
+    for et in sorted(batch):
+        st, dt = _ET_TYPES[et]
+        sh, sp = M.embed_side(params, cfg, batch[et]["src"], st, ctx)
+        dh, dp = M.embed_side(params, cfg, batch[et]["dst"], dt, ctx)
+        per_type[et] = (sh, sp, dh, dp)
+    return per_type
+
+
+def edge_rows(batch) -> Dict[str, int]:
+    """Each edge type's row count, of a batch in any layout."""
+    edges = batch["edges"] if "nodes" in batch else batch
+    return {et: e["weight"].shape[0] for et, e in edges.items()}
+
+
 def loss_directions(batch) -> Tuple[str, ...]:
     """The contrastive directions of a batch, in the order their
     negatives are drawn: each edge type in sorted order (the order the
     jitted JAX step sees a batch dict in), with ``iu`` after ``ui``."""
     out = []
-    for et in sorted(batch["edges"]):
+    for et in sorted(edge_rows(batch)):
         out.append(et)
         if et == "ui":
             out.append("iu")
     return tuple(out)
+
+
+def draw_keys(cfg: RankGraph2Config, batch) -> Tuple[str, ...]:
+    """The keys of a step's negative banks in the order the reference
+    draws them (``keys[0]``, ``keys[1]``, ...): ``loss_directions``, then
+    with ``reuse_lprime_negatives=False`` one ``lprime_<et>`` bank a
+    edge type in sorted order, each against its destination side (the
+    reference's double draw)."""
+    dirs = loss_directions(batch)
+    if cfg.reuse_lprime_negatives:
+        return dirs
+    return dirs + tuple(f"lprime_{et}" for et in sorted(edge_rows(batch)))
+
+
+def _edge_of(key: str) -> str:
+    """The edge type whose rows a draw key's bank covers."""
+    return "ui" if key == "iu" else key.replace("lprime_", "")
 
 
 def _mean(x: torch.Tensor, group, n: int) -> torch.Tensor:
@@ -219,7 +275,8 @@ def _mean(x: torch.Tensor, group, n: int) -> torch.Tensor:
 
 def forward_losses(params, cfg: RankGraph2Config, batch,
                    pool: N.NegPoolState, rq_state: RQ.RQState, *,
-                   features: FeatureStore, train: bool = True,
+                   features: Optional[FeatureStore] = None,
+                   train: bool = True,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                    rq_codes: Optional[torch.Tensor] = None,
@@ -228,9 +285,11 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
                    ctx: Optional[ShardingCtx] = None):
     """Returns (task_losses, aux); aux carries the RQ state, the
     endpoint embeddings for the pool update, and the RQ's input rows
-    (``rq_input``) and selections (``codes``).  ``draws`` maps each of
-    ``loss_directions(batch)`` to its ``negatives.negative_draws``;
-    missing ones are drawn from ``generator``.  ``rq_codes``, if given,
+    (``rq_input``) and selections (``codes``).  ``batch`` is in any of
+    the three layouts; ``features`` is needed for ``dedup_ids`` packs.
+    ``draws`` maps each of ``draw_keys(cfg, batch)`` to its
+    ``negatives.negative_draws``; missing ones are drawn from
+    ``generator``, in that order.  ``rq_codes``, if given,
     are the RQ selections of the endpoint rows (``aux["codes"]`` of
     another call on the same batch; see ``rq_index.rq_forward``).
     ``shard_block`` keeps in-batch negatives inside blocks of that many
@@ -246,7 +305,7 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
     (``shard_block`` 0) and cut to this rank's rows.  ``ctx``: the mesh
     whose model axis splits ``params`` (``core/model.py``)."""
     tasks: Dict[str, torch.Tensor] = {}
-    per_type = _dedup_per_type(params, cfg, batch, features, ctx)
+    per_type = _per_type(params, cfg, batch, features, ctx)
     draws = draws or {}
     world = 1 if group is None else torch.distributed.get_world_size(group)
     if spans is None:
@@ -276,25 +335,28 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
             sh, sp, dh, dp = per_type[suffix]
             loss_dirs.append((suffix, sp, dp, dh, _ET_TYPES[suffix][1]))
 
-    dir_negs = {}
-    for suffix, sp_, dp_, dh_, dt_ in loss_dirs:
+    def bank(key, dp_, dh_, dt_):
+        """The negatives of draw key ``key`` against destination rows
+        ``dp_`` / ``dh_`` of type ``dt_``."""
         buf = pool.user if dt_ == M.USER else pool.item
         fill = pool.user_fill if dt_ == M.USER else pool.item_fill
-        n, rows = spans["ui" if suffix == "iu" else suffix]
+        n, rows = spans[_edge_of(key)]
         if group is not None and not N.shard_block_for(n, world):
             # whole-batch negatives: this rank's rows' banks drawn from
             # the whole batch's destination rows
-            negs = N.sample_negatives(
+            return N.sample_negatives(
                 gather_blocks(dp_, n, group), gather_blocks(dh_, n, group),
                 buf, fill, cfg.n_negatives, cfg.n_pool_neg,
-                draws=draws[suffix], rows=rows)
-        else:
-            negs = N.sample_negatives(dp_, dh_, buf, fill, cfg.n_negatives,
-                                      cfg.n_pool_neg,
-                                      draws=draws.get(suffix),
-                                      generator=generator,
-                                      shard_block=shard_block)
-        dir_negs[suffix] = negs
+                draws=draws[key], rows=rows)
+        return N.sample_negatives(dp_, dh_, buf, fill, cfg.n_negatives,
+                                  cfg.n_pool_neg, draws=draws.get(key),
+                                  generator=generator,
+                                  shard_block=shard_block)
+
+    dir_negs = {}
+    for suffix, sp_, dp_, dh_, dt_ in loss_dirs:
+        n = spans[_edge_of(suffix)][0]
+        negs = dir_negs[suffix] = bank(suffix, dp_, dh_, dt_)
         marg, info = _pair(sp_, dp_, negs)
         tasks[f"margin_{suffix}"] = _mean(marg, group, n)
         tasks[f"infonce_{suffix}"] = _mean(info, group, n)
@@ -309,18 +371,19 @@ def forward_losses(params, cfg: RankGraph2Config, batch,
     if cfg.rq.util_coef > 0:
         tasks["rq_util"] = rq_out["l_util"]
     # contrastive on reconstructed embeddings (L'), straight-through to
-    # the encoder, reusing each direction's negative bank
-    if not cfg.reuse_lprime_negatives:
-        raise NotImplementedError("the port reuses each direction's "
-                                  "negatives for L' (the JAX default)")
+    # the encoder: each edge type's direction's negative bank, or with
+    # reuse_lprime_negatives=False a second bank against its destination
+    # side, drawn after the L banks (the reference's double draw)
     recon_st = rq_out["recon_st"]
     offs = np.cumsum([0] + [p.shape[0] for p in endpoint_prims])
     recon_parts = {key: recon_st[lo:hi] for key, lo, hi
                    in zip(endpoint_splits, offs[:-1], offs[1:])}
     lprime = []
-    for et in per_type:
+    for et, (sh, sp, dh, dp) in per_type.items():
+        negs = dir_negs[et] if cfg.reuse_lprime_negatives \
+            else bank(f"lprime_{et}", dp, dh, _ET_TYPES[et][1])
         marg, info = _pair(recon_parts[(et, "src")],
-                           recon_parts[(et, "dst")], dir_negs[et])
+                           recon_parts[(et, "dst")], negs)
         lprime.append(_mean(0.5 * marg + 0.5 * info, group, spans[et][0]))
     tasks["rq_contrastive"] = torch.stack(lprime).mean()
     # the pool takes the whole batch's rows, in global row order
@@ -340,14 +403,21 @@ _SIDE_NAMES = {M.USER: "user", M.ITEM: "item"}
 
 
 def rank_batch(batch, rank: int, dp: int):
-    """Rank ``rank``'s block of a ``dedup_ids`` batch split over ``dp``
-    ranks: its ``block_rows`` of each edge type (rows ``rank*B/dp`` to
+    """Rank ``rank``'s block of a batch split over ``dp`` ranks: its
+    ``block_rows`` of each edge type (rows ``rank*B/dp`` to
     ``(rank+1)*B/dp - 1`` where ``dp`` divides ``B``; else blocks of
-    ``ceil(B/dp)``, the last ranks holding fewer or none), with a dedup
-    pack of its own that holds only the nodes those rows need (their
-    endpoints first, in pack order, then the neighbours the endpoints
-    reference, in pack order), so the rank encodes and aggregates only
-    those."""
+    ``ceil(B/dp)``, the last ranks holding fewer or none).  A dedup batch
+    (``ids`` or ``feat`` packs) gets a pack of its own that holds only
+    the nodes those rows need (their endpoints first, in pack order, then
+    the neighbours the endpoints reference, in pack order), so the rank
+    encodes and aggregates only those; a legacy batch, the rows of every
+    tensor."""
+    if "nodes" not in batch:
+        def cut(tree, rows):
+            return {k: cut(v, rows) if isinstance(v, dict) else v[rows]
+                    for k, v in tree.items()}
+        return {et: cut(sub, block_rows(sub["weight"].shape[0], dp, rank))
+                for et, sub in sorted(batch.items())}
     nodes, edges = batch["nodes"], batch["edges"]
     ep = {"user": [], "item": []}
     rows = {}
@@ -356,7 +426,8 @@ def rank_batch(batch, rank: int, dp: int):
         st, dt = _ET_TYPES[et]
         ep[_SIDE_NAMES[st]].append(edges[et]["src_map"][rows[et]].long())
         ep[_SIDE_NAMES[dt]].append(edges[et]["dst_map"][rows[et]].long())
-    dev = nodes["user"]["ids"].device
+    dev = nodes["user"]["unbr_idx"].device
+    rows_of = "feat" if "feat" in nodes["user"] else "ids"
     ends = {t: (torch.unique(torch.cat(v)) if v else
                 torch.zeros(0, dtype=torch.long, device=dev))
             for t, v in ep.items()}
@@ -365,7 +436,7 @@ def rank_batch(batch, rank: int, dp: int):
     nbr_key = {"user": "unbr_idx", "item": "inbr_idx"}
     remap, keep = {}, {}
     for t in ("user", "item"):
-        U = nodes[t]["ids"].shape[0]
+        U = nodes[t][rows_of].shape[0]
         need = torch.zeros(U, dtype=torch.bool, device=dev)
         for s in ("user", "item"):
             need[nodes[s][nbr_key[t]][ends[s]].long().reshape(-1)] = True
@@ -376,8 +447,8 @@ def rank_batch(batch, rank: int, dp: int):
     out_nodes = {}
     for t in ("user", "item"):
         side, e = nodes[t], ends[t]
-        out_nodes[t] = dict(
-            ids=side["ids"][keep[t]],
+        out_nodes[t] = {rows_of: side[rows_of][keep[t]]}
+        out_nodes[t].update(
             unbr_idx=remap["user"][side["unbr_idx"][e].long()].to(
                 torch.int32),
             unbr_mask=side["unbr_mask"][e],
@@ -402,22 +473,23 @@ _DST_OF = {"uu": M.USER, "ui": M.ITEM, "iu": M.USER, "ii": M.ITEM}
 def _rank_draws(cfg: RankGraph2Config, batch, pool: N.NegPoolState, draws,
                 generator, spans, dp: int):
     """This rank's rows (``spans``) of the whole batch's draws of
-    each direction: the given ones, or those the global step would draw
+    each of ``draw_keys`` (the L banks, and the L' banks where they are
+    drawn apart): the given ones, or those the global step would draw
     from ``generator`` (shard-local negatives where ``dp`` divides ``B``,
     else whole-batch ones: ``shard_block_for``; the same generator state
     on every rank gives every rank the same draws)."""
     out = {}
-    for suffix in loss_directions(batch):
-        B, rows = spans["ui" if suffix == "iu" else suffix]
-        d = (draws or {}).get(suffix)
+    for key in draw_keys(cfg, batch):
+        B, rows = spans[_edge_of(key)]
+        d = (draws or {}).get(key)
         if d is None:
-            fill = pool.user_fill if _DST_OF[suffix] == M.USER \
-                else pool.item_fill
+            dst = _DST_OF[key.replace("lprime_", "")]
+            fill = pool.user_fill if dst == M.USER else pool.item_fill
             d = N.negative_draws(B, cfg.n_heads, cfg.n_negatives,
                                  cfg.n_pool_neg, fill, generator=generator,
                                  device=pool.user.device,
                                  shard_block=N.shard_block_for(B, dp))
-        out[suffix] = {k: v[rows] for k, v in d.items()}
+        out[key] = {k: v[rows] for k, v in d.items()}
     return out
 
 
@@ -438,10 +510,13 @@ class StepGrads:
 
 
 def make_grad_step(cfg: RankGraph2Config, ctx: Optional[ShardingCtx] = None,
-                   *, features: FeatureStore, shard_block: int = 0):
+                   *, features: Optional[FeatureStore] = None,
+                   shard_block: int = 0):
     """Builds ``grad_step(state, batch, *, generator=None, draws=None)
     -> StepGrads``, the first half of ``make_train_step``'s step (which
-    ``apply_grads`` completes); ``state`` is not changed.
+    ``apply_grads`` completes); ``state`` is not changed.  ``batch`` is
+    in any layout of ``BATCH_FORMATS``; ``features`` is needed for
+    ``dedup_ids`` packs only.
 
     ``ctx`` with a mesh whose ``"batch"`` axes have ``dp > 1`` ranks
     makes the data-parallel step (see the module docstring): each rank
@@ -473,9 +548,8 @@ def make_grad_step(cfg: RankGraph2Config, ctx: Optional[ShardingCtx] = None,
             p.grad = None
         spans = None
         if group is not None:
-            spans = {et: (e["src_map"].shape[0],
-                          block_rows(e["src_map"].shape[0], dp, rank))
-                     for et, e in batch["edges"].items()}
+            spans = {et: (n, block_rows(n, dp, rank))
+                     for et, n in edge_rows(batch).items()}
             draws = _rank_draws(cfg, batch, state.pool, draws, generator,
                                 spans, dp)
             batch = rank_batch(batch, rank, dp)
@@ -524,7 +598,8 @@ def apply_grads(state: TrainState, sg: StepGrads,
 
 def make_train_step(cfg: RankGraph2Config, optimizer: opt_lib.Optimizer,
                     ctx: Optional[ShardingCtx] = None, *,
-                    features: FeatureStore, grad_clip: float = 1.0):
+                    features: Optional[FeatureStore] = None,
+                    grad_clip: float = 1.0):
     """Builds ``train_step(state, batch, *, generator=None, draws=None)
     -> (state, metrics)``: ``make_grad_step(cfg, ctx, features=)``'s
     gradients, then ``apply_grads``."""
@@ -541,7 +616,8 @@ def make_train_step(cfg: RankGraph2Config, optimizer: opt_lib.Optimizer,
     return train_step
 
 
-def make_eval_step(cfg: RankGraph2Config, *, features: FeatureStore):
+def make_eval_step(cfg: RankGraph2Config, *,
+                   features: Optional[FeatureStore] = None):
     """Builds ``eval_step(state, batch, *, generator=None, draws=None)
     -> task_losses``: ``forward_losses`` with ``train=False`` (Eq. 9
     hard RQ selection, no state update), under ``no_grad``; negatives

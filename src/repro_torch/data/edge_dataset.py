@@ -1,30 +1,36 @@
 """Edge-centric training data (paper §4.2 'Data format'), as
 ``repro/data/edge_dataset.py``: the PPR neighbour tables
-(``build_neighbor_tables``), training batches in the id-only ``dedup_ids``
-format (``sample_batch``) and the inference-side gather
-(``node_inference_batch``).
+(``build_neighbor_tables``), training batches in the three formats of
+``BATCH_FORMATS`` (``sample_batch``; ``expand_batch`` re-lays a dedup
+batch out per endpoint), the batch stream (``iter_batches``, and
+``Prefetcher``, which makes it in a background thread) and the
+inference-side gather (``node_inference_batch``).
 
 Feature and neighbour tables live on the dataset's device (the role of
 the JAX ``FeatureStore``) and every feature gather runs there: at
 production size a host gather would move tens of GB of neighbour
 features per corpus pass.  The random draws stay on the host, in numpy,
 so they are bit-identical to the JAX package's: batch t of run ``seed``
-is ``np.random.default_rng((seed, t))`` consumed in the same order (edge
-draws per type, then per node type a user- and an item-neighbour draw),
-and an inference gather re-makes ``np.random.default_rng(seed)`` per
-call.  A batch ships int32 ids, maps and f32 masks to the device.
+is ``np.random.default_rng((seed, t))`` consumed in the same order (the
+dedup formats: edge draws per type, then per node type a user- and an
+item-neighbour draw; ``legacy``: per edge type the edge draw, then the
+source and the destination side's neighbour draws), and an inference
+gather re-makes ``np.random.default_rng(seed)`` per call.  A
+``dedup_ids`` batch ships int32 ids, maps and f32 masks to the device;
+the ``dedup`` and ``legacy`` formats gather their f32 features there.
 
 Tables can keep the PPR state that powers the hour-level
 ``incremental_refresh`` (graph splice, re-walk of the affected nodes,
 Group-2 KNN fill), which matches a from-scratch build on the merged
-window on every affected row.  The ``legacy`` / ``dedup`` batch formats
-wait for a later slice.
+window on every affected row.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -149,6 +155,16 @@ def incremental_refresh(g: HeteroGraph, tables: NeighborTables,
 
 EDGE_KEYS = ("uu", "ui", "ii")
 
+# batch formats (see sample_batch):
+#   legacy    — per (edge_type, side) feature tensors, every endpoint
+#               occurrence gathered (and encoded) again;
+#   dedup     — a packed unique-node sub-batch per node type (features +
+#               pack-relative sampled-neighbour indices) plus int32 gather
+#               maps per (edge_type, side): each node is encoded once;
+#   dedup_ids — the same packs, id-only: the train step gathers the
+#               features from a FeatureStore.
+BATCH_FORMATS = ("legacy", "dedup", "dedup_ids")
+
 # edge type -> (src, dst) node-type names
 _ET_SIDES = {"uu": ("user", "user"), "ui": ("user", "item"),
              "ii": ("item", "item")}
@@ -165,9 +181,10 @@ def _round_up(n: int) -> int:
 
 
 class EdgeDataset:
-    """The JAX ``EdgeDataset`` with ``batch_format="dedup_ids"``:
-    features and neighbour tables on ``device``; ``g`` (the graph whose
-    edges are sampled) is needed for training batches only."""
+    """The JAX ``EdgeDataset``: features and neighbour tables on
+    ``device``; ``g`` (the graph whose edges are sampled) is needed for
+    training batches only.  Its batches are ``dedup_ids`` unless
+    ``sample_batch`` is asked for another format."""
 
     def __init__(self, tables: NeighborTables, user_feat, item_feat, *,
                  k_train: int = 10, device=None,
@@ -222,7 +239,7 @@ class EdgeDataset:
                                  np.random.default_rng(seed))
 
     # ------------------------------------------------------------------
-    # training batches (dedup_ids)
+    # training batches
     # ------------------------------------------------------------------
 
     def _cumw(self, et: str) -> np.ndarray:
@@ -255,29 +272,94 @@ class EdgeDataset:
             sg, dg = src + nu, dst + nu
         return sg, dg, w.astype(np.float32)
 
-    def sample_batch(self, step: int, seed: int, per_type: Dict[str, int]
-                     ) -> Dict[str, Dict]:
+    def _put(self, tree):
+        """Every numpy array of a (nested) batch as a tensor on the
+        dataset's device; tensors stay as they are."""
+        return {k: self._put(v) if isinstance(v, dict)
+                else v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in tree.items()}
+
+    def sample_batch(self, step: int, seed: int, per_type: Dict[str, int],
+                     format: str = "dedup_ids") -> Dict[str, Dict]:
         """Batch ``step`` of run ``seed``: the JAX ``sample_batch(step,
-        seed, per_type, format="dedup_ids")`` made with numpy, then every
-        array as a tensor on the dataset's device (ids and maps int32,
-        masks and weights float32)."""
+        seed, per_type, format=)`` made with numpy, then every array as a
+        tensor on the dataset's device (ids and maps int32, masks, weights
+        and features float32).  ``format`` is one of ``BATCH_FORMATS``.
+        ``legacy``
+        keeps the reference's rng order (per edge type the edge draw, then
+        the source and the destination side's neighbour draws):
+        ``{et: {"src", "dst": side, "weight", "src_ids", "dst_ids"}}``, a
+        side as ``node_inference_batch``'s.  ``dedup`` and ``dedup_ids``:
+        ``{"nodes": {"user", "item": pack}, "edges": {et: maps}}``, a
+        ``dedup`` pack with its rows' features (``feat``), a ``dedup_ids``
+        pack with their ids."""
+        if format not in BATCH_FORMATS:
+            raise ValueError(f"unknown batch format {format!r}")
         if self.g is None:
             raise ValueError("training batches need the graph: "
                              "EdgeDataset(..., g=graph)")
         rng = np.random.default_rng((seed, step))
+        if format == "legacy":
+            batch: Dict[str, Dict] = {}
+            for et in EDGE_KEYS:
+                n = per_type.get(et, 0)
+                if n == 0:
+                    continue
+                sg, dg, w = self._draw_edges(rng, et, n)
+                batch[et] = dict(src=self._gather_side(sg, rng),
+                                 dst=self._gather_side(dg, rng),
+                                 weight=w, src_ids=sg.astype(np.int32),
+                                 dst_ids=dg.astype(np.int32))
+            return self._put(batch)
         edges = {et: self._draw_edges(rng, et, n) for et in EDGE_KEYS
                  if (n := per_type.get(et, 0))}
-        batch = self._dedup_batch(rng, edges)
-        dev = self.device
+        return self._put(self._dedup_batch(rng, edges,
+                                           id_only=format == "dedup_ids"))
 
-        def put(tree):
-            return {k: put(v) if isinstance(v, dict)
-                    else torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                    for k, v in tree.items()}
-        return put(batch)
+    def expand_batch(self, batch: Dict[str, Dict]) -> Dict[str, Dict]:
+        """A dedup (or ``dedup_ids``) batch in the legacy per-endpoint
+        layout, on the same neighbour draws (the dedup forward on
+        ``batch`` and the legacy forward on the expansion give the same
+        losses); a legacy batch comes back as it is."""
+        if "nodes" not in batch:
+            return batch
+        feats = {}
+        for t, table in (("user", self.user_feat), ("item", self.item_feat)):
+            side = batch["nodes"][t]
+            feats[t] = side["feat"] if "feat" in side                 else table[side["ids"].long()]
+        out: Dict[str, Dict] = {}
+        for et, e in batch["edges"].items():
+            st, dt = _ET_SIDES[et]
+            sub = {}
+            for side_name, t, m in (("src", st, e["src_map"]),
+                                    ("dst", dt, e["dst_map"])):
+                nd = batch["nodes"][t]
+                m = m.long()
+                umask, imask = nd["unbr_mask"][m], nd["inbr_mask"][m]
+                sub[side_name] = dict(
+                    feat=feats[t][m],
+                    unbr_feat=feats["user"][nd["unbr_idx"].long()[m]]
+                    * umask[..., None],
+                    unbr_mask=umask,
+                    inbr_feat=feats["item"][nd["inbr_idx"].long()[m]]
+                    * imask[..., None],
+                    inbr_mask=imask)
+            out[et] = dict(weight=e["weight"], src_ids=e["src_ids"],
+                           dst_ids=e["dst_ids"], **sub)
+        return out
 
-    def _dedup_batch(self, rng: np.random.Generator, edges: Dict[str, Tuple]
-                     ) -> Dict[str, Dict]:
+    def iter_batches(self, seed: int, per_type: Dict[str, int],
+                     start_step: int = 0) -> Iterator[Dict]:
+        """``sample_batch(step, seed, per_type)`` (``dedup_ids``) for step
+        ``start_step``, ``start_step + 1``, ... without end."""
+        step = start_step
+        while True:
+            yield self.sample_batch(step, seed, per_type)
+            step += 1
+
+    def _dedup_batch(self, rng: np.random.Generator, edges: Dict[str, Tuple],
+                     id_only: bool = True) -> Dict[str, Dict]:
         """Packed unique-node batch: every node referenced by any
         endpoint or sampled neighbour appears exactly once per node type.
 
@@ -285,7 +367,9 @@ class EdgeDataset:
         E_pad | neighbour-only extras (sorted) | pad to U_pad]``, sizes
         bucketed to ``PAD_MULTIPLE``.  Endpoint rows [0, E) are the only
         ones aggregated; extras exist only to be feature-encoded and
-        gathered as neighbours.  ``ids`` are type-local feature rows.
+        gathered as neighbours.  ``ids`` are type-local feature rows
+        (``id_only``), else ``feat`` their features, gathered on the
+        device.
         """
         nu, ni = self.tables.n_users, self.tables.n_items
         k_imp = self.tables.user_nbrs.shape[1]
@@ -355,8 +439,13 @@ class EdgeDataset:
             umask[:E] = n["umask"].astype(np.float32)
             imask[:E] = n["imask"].astype(np.float32)
             sides[t] = dict(unbr_idx=unbr_idx, unbr_mask=umask,
-                            inbr_idx=inbr_idx, inbr_mask=imask,
-                            ids=local.astype(np.int32))
+                            inbr_idx=inbr_idx, inbr_mask=imask)
+            if id_only:
+                sides[t]["ids"] = local.astype(np.int32)
+            else:
+                table = self.user_feat if t == "user" else self.item_feat
+                sides[t]["feat"] = table[torch.from_numpy(local).to(
+                    self.device)]
 
         out_edges = {}
         for et, (sg, dg, w) in edges.items():
@@ -367,3 +456,36 @@ class EdgeDataset:
                 weight=w,
                 src_ids=sg.astype(np.int32), dst_ids=dg.astype(np.int32))
         return {"nodes": sides, "edges": out_edges}
+
+
+class Prefetcher:
+    """Host-side pipeline overlap: the batches of ``it`` are made in a
+    background thread (at most ``depth`` ahead) while the device runs the
+    step; ``close`` stops it after the batch in hand."""
+
+    def __init__(self, it: Iterator, depth: int = 2):
+        self.q: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+
+        def work():
+            for item in it:
+                if self._stop.is_set():
+                    return
+                self.q.put(item)
+
+        self.t = threading.Thread(target=work, daemon=True)
+        self.t.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass

@@ -13,11 +13,20 @@ share a card (NCCL refuses two ranks on one GPU; gloo takes CUDA tensors
 and stages them through the host, so its times say nothing of NCCL's).
 Ranks meet through a file (``init_method="file://..."``), never a TCP
 port, so runs that start at once never collide on a port.
+
+``AbstractMesh`` is a mesh with no process group: axis names, sizes and
+the coordinate of the one rank it describes.  The cells
+(``launch.steps.build_cell``) and the dry run lay a rank's shards out on
+it at the production meshes' 256 or 512 ranks; ``make_rules``,
+``mesh_sizes`` and ``ShardingCtx.size`` / ``axis_index`` read it as a
+``DeviceMesh``, and asking it for a process group raises: a cell built on
+it builds, it does not run.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -71,12 +80,58 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...]):
                             mesh_dim_names=tuple(axes))
 
 
+def production_layout(multi_pod: bool = False
+                      ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """(shape, axes) of the production mesh: (16, 16) ``("data",
+    "model")``, or (2, 16, 16) with a ``"pod"`` axis first."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """The (16, 16) ``("data", "model")`` mesh, or (2, 16, 16) with a
     ``"pod"`` axis first; raises naming the world size it needs."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(*production_layout(multi_pod))
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh of ``shape`` with dims named ``mesh_dim_names`` and no
+    process group, seen from the rank at ``coords`` (one index a dim;
+    default the first rank)."""
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
+    coords: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        coords = self.coords or (0,) * len(self.shape)
+        if len(self.shape) != len(self.mesh_dim_names) \
+                or len(coords) != len(self.shape) \
+                or any(not 0 <= c < n for c, n in zip(coords, self.shape)):
+            raise ValueError(f"mesh {self.shape} {self.mesh_dim_names} has "
+                             f"no rank at {coords}")
+        object.__setattr__(self, "coords", tuple(coords))
+
+    def get_local_rank(self, name: str) -> int:
+        return self.coords[self.mesh_dim_names.index(name)]
+
+    def _no_group(self, *_):
+        raise RuntimeError("an AbstractMesh has no process groups: a cell "
+                           "built on it builds, it does not run")
+
+    get_group = _no_group
+    mesh = property(_no_group)
+
+
+def abstract_production_mesh(multi_pod: bool = False,
+                             coords: Optional[Sequence[int]] = None
+                             ) -> AbstractMesh:
+    """The production mesh (``production_layout``) as an
+    ``AbstractMesh`` seen from the rank at ``coords``."""
+    shape, axes = production_layout(multi_pod)
+    return AbstractMesh(shape, axes,
+                        None if coords is None else tuple(coords))
 
 
 def make_host_mesh(model: Optional[int] = None):

@@ -109,8 +109,14 @@ GSPMD; the port folds the ranks' f32 outputs by their lse in rank order
 and rounds once, so an output may differ from the one-process one by the
 order of the f32 sums.  A rank whose block holds no key yet does not
 launch: its partial is out 0 and lse -inf, which weighs exactly 0.
-Where the reference keeps a cache that the ``kv_seq`` ranks do not divide
-whole (``_safe``), the port refuses it.  Moving from the prefill's caches
+Where the ``kv_seq`` ranks do not divide a cache's T positions, the
+reference keeps it whole (``_safe``), and so does the port: every rank
+holds the whole cache, writes the new key and value and attends over it
+with no fold.  Which of the two a rank holds is read from the whole
+cache's length, which ``init_kv_cache`` and ``shard_caches`` keep on the
+caches they return (``KVCaches.positions``), never from the local
+block's shape (a whole cache of T' positions and a block of T / n look
+alike).  Moving from the prefill's caches
 (by heads) to these blocks is the reference's cell boundary (``jit``
 reshards), not a step of its own.
 
@@ -1002,7 +1008,8 @@ def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
     group (``_tp``; sequence parallelism only without caches, and the
     residual then this rank's ``S / nm`` positions).  Given caches are
     the rank's block of a sequence split over ``kv_seq`` where the rules
-    split it (``_kv_seq``).  With ``remat`` (no
+    split it and its ranks divide the whole length (``_cache_seq``), else
+    whole.  With ``remat`` (no
     caches) each layer keeps only its input for the backward and runs
     again there, its gathers too.  ``lay``: ``param_layout(cfg, ctx)``
     under a mesh."""
@@ -1011,8 +1018,15 @@ def _trunk(params: Params, cfg: LMConfig, tokens: torch.Tensor, *,
     dev = tokens.device
     if positions is None:
         positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+    seq = None
+    if kv_caches is not None:
+        T = cache_length(kv_caches, ctx)
+        n = _seq_blocks(T, ctx)
+        if kv_caches["k"].shape[2] != T // n:
+            raise ValueError(f"caches of {T} positions hold {T // n} a "
+                             f"rank here, not {kv_caches['k'].shape[2]}")
+        seq = _cache_seq(ctx, T) if n > 1 else None
     tp = _tp(ctx, S, kv_caches is None and not keep_cache)
-    seq = None if kv_caches is None else _kv_seq(ctx)
     x = _embed(params, cfg, tokens, ctx, lay, tp)
     caches = kv_caches
     aux = None
@@ -1157,74 +1171,117 @@ def named_params(params: Params) -> Dict[str, torch.Tensor]:
 def cache_heads(cfg: LMConfig, ctx: Optional[ShardingCtx] = None) -> int:
     """The KV heads a rank's caches hold: ``Hkv / nm`` where attention is
     split by heads over a model axis of ``nm > 1`` ranks (``_attn_block``)
-    and ``nm`` divides ``Hkv``, else all ``Hkv``."""
-    tp = _tp(ctx, 1, False)
-    if tp is None:
+    and ``nm`` divides ``Hkv``, else all ``Hkv``.  Reads sizes only, no
+    process group."""
+    if ctx is None or ctx.mesh is None \
+            or "model" not in ctx.mesh.mesh_dim_names \
+            or ctx.size("model") == 1:
         return cfg.n_kv_heads
+    nm = ctx.size("model")
     lay = {n: param_spec(logical, ctx.rules, shape, mesh_sizes(ctx.mesh))
            for n, (shape, logical) in _layer_leaves(cfg).items()
            if n in ("wq", "wk")}
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
-    return Hkv // tp.nm if _on_model(lay, "wq", 1) and H % tp.nm == 0 \
-        and _on_model(lay, "wk", 1) and Hkv % tp.nm == 0 else Hkv
+    return Hkv // nm if _on_model(lay, "wq", 1) and H % nm == 0 \
+        and _on_model(lay, "wk", 1) and Hkv % nm == 0 else Hkv
+
+
+class KVCaches(dict):
+    """Caches ``{"k", "v"}`` (a rank's block or the whole) that keep the
+    whole cache's positions (``positions``), from which ``decode_step``
+    tells a block of a split cache from a whole one."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, positions: int):
+        super().__init__(k=k, v=v)
+        self.positions = int(positions)
+
+
+def _kv_seq_size(ctx: Optional[ShardingCtx]) -> int:
+    """The ranks the rules' ``kv_seq`` maps to (1 with no mesh); reads
+    sizes only, no process group."""
+    if ctx is None or ctx.mesh is None:
+        return 1
+    axes = ctx.mesh_axes("kv_seq")
+    return ctx.size(axes) if axes else 1
+
+
+def _cache_seq(ctx: Optional[ShardingCtx], max_len: int) -> Optional[_Seq]:
+    """The ``kv_seq`` split of a cache of ``max_len`` positions under
+    ``ctx``: None where the rules do not split it or where the ranks do
+    not divide ``max_len`` (the cache is then whole on every rank, as
+    ``_safe`` keeps it)."""
+    n = _kv_seq_size(ctx)
+    return _kv_seq(ctx) if n > 1 and max_len % n == 0 else None
 
 
 def _seq_blocks(max_len: int, ctx: Optional[ShardingCtx]) -> int:
     """The ``kv_seq`` blocks of a cache of ``max_len`` positions under
-    ``ctx`` (1 where the rules do not split it); raises where they do not
-    divide it."""
-    seq = _kv_seq(ctx)
-    if seq is None:
-        return 1
-    if max_len % seq.n:
-        raise ValueError(f"a cache of {max_len} positions cannot be split "
-                         f"over {seq.n} kv_seq ranks")
-    return seq.n
+    ``ctx`` (1 where the rules do not split it or the ranks do not divide
+    it)."""
+    n = _kv_seq_size(ctx)
+    return n if n > 1 and max_len % n == 0 else 1
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
                   device=None, ctx: Optional[ShardingCtx] = None) -> Caches:
     """Zeroed (L, B, T, Hkv, hd) caches in ``dtype`` (default: the compute
     type) on ``device``; under ``ctx`` a rank's ``cache_heads`` and, where
-    the rules split ``kv_seq``, its block of ``max_len / n`` positions
-    (``batch``: the rows the rank holds)."""
+    the rules split ``kv_seq`` over ranks that divide ``max_len``, its
+    block of ``max_len / n`` positions, else all of them (``batch``: the
+    rows the rank holds).  The caches keep ``max_len``
+    (``KVCaches``)."""
     dtype = dtype or DTYPES[cfg.dtype]
     shape = (cfg.n_layers, batch, max_len // _seq_blocks(max_len, ctx),
              cache_heads(cfg, ctx), cfg.resolved_head_dim)
     dev = resolve_device(device)
-    return {n: torch.zeros(shape, dtype=dtype, device=dev)
-            for n in ("k", "v")}
+    return KVCaches(*(torch.zeros(shape, dtype=dtype, device=dev)
+                      for _ in range(2)), max_len)
 
 
 def shard_caches(caches: Caches, cfg: LMConfig, ctx: ShardingCtx) -> Caches:
     """This rank's part of whole caches (L, B, T, Hkv, hd): its rows
     (``rank_rows``), its ``cache_heads`` (the model rank's block of the KV
     heads where attention is split by heads) and, where the rules split
-    ``kv_seq`` over ``n`` ranks, its block ``j`` of positions ``[j T / n,
-    (j + 1) T / n)``, ``j`` its coordinate along the ``kv_seq`` axes with
-    the first slowest (under ``("data", "model")``: ``di * nm + mi``).
-    Contiguous copies."""
+    ``kv_seq`` over ``n`` ranks that divide T, its block ``j`` of
+    positions ``[j T / n, (j + 1) T / n)``, ``j`` its coordinate along
+    the ``kv_seq`` axes with the first slowest (under ``("data",
+    "model")``: ``di * nm + mi``); where they do not divide T, every
+    position.  Contiguous copies, which keep T (``KVCaches``)."""
     out = {}
     T = caches["k"].shape[2]
     n = _seq_blocks(T, ctx)
     h = cache_heads(cfg, ctx)
-    for name, c in caches.items():
-        c = rank_rows(c.transpose(0, 1), ctx).transpose(0, 1)
+    for name in ("k", "v"):
+        c = rank_rows(caches[name].transpose(0, 1), ctx).transpose(0, 1)
         if n > 1:
-            j = _kv_seq(ctx).j
+            j = ctx.axis_index(ctx.mesh_axes("kv_seq"))
             c = c[:, :, j * (T // n):(j + 1) * (T // n)]
         if h < c.shape[3]:
             mi = ctx.axis_index("model")
             c = c[:, :, :, mi * h:(mi + 1) * h]
-        out[name] = c.contiguous()
-    return out
+        c = c.contiguous()
+        # a copy also where the block is already contiguous in the
+        # caller's storage (every row, position and head, or one block)
+        shared = (c.untyped_storage().data_ptr()
+                  == caches[name].untyped_storage().data_ptr())
+        out[name] = c.clone() if shared else c
+    return KVCaches(out["k"], out["v"], T)
 
 
 def cache_length(caches: Caches, ctx: Optional[ShardingCtx] = None) -> int:
     """The positions of the whole caches whose block (or whole) a rank
-    holds: ``T / n`` times the ``kv_seq`` ranks ``n``."""
-    seq = _kv_seq(ctx)
-    return caches["k"].shape[2] * (1 if seq is None else seq.n)
+    holds: ``caches.positions`` where the caches keep it (``KVCaches``),
+    else their own length, which is whole where the rules do not split
+    ``kv_seq``.  Plain caches under a ``kv_seq`` split raise: their
+    length alone cannot tell a block from a whole cache."""
+    positions = getattr(caches, "positions", None)
+    if positions is not None:
+        return positions
+    if _kv_seq_size(ctx) > 1:
+        raise ValueError("caches under a kv_seq split must keep their whole "
+                         "length: make them with init_kv_cache(ctx=) or "
+                         "shard_caches")
+    return caches["k"].shape[2]
 
 
 def decode_step(params: Params, cfg: LMConfig, tokens: torch.Tensor,
@@ -1235,7 +1292,8 @@ def decode_step(params: Params, cfg: LMConfig, tokens: torch.Tensor,
     ``cache_len``.  Writes the step's keys and values into the caches in
     place at ``cache_len``; returns (logits (B, V), the caches).  Under
     ``ctx`` the caches are the rank's (``init_kv_cache(ctx=)``,
-    ``shard_caches``: under the decode rules its block of the sequence,
+    ``shard_caches``: under the decode rules its block of the sequence, or
+    the whole cache where the ``kv_seq`` ranks do not divide it;
     ``cache_len`` the whole sequence's position) and every rank of a model
     group returns the whole vocabulary's logits.  Under the 500k decode
     rules (the batch whole) every data rank passes the whole batch."""

@@ -57,7 +57,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "             'faults.chaos', 'obs.report', 'distributed',\n"
         "             'distributed.sharding', 'distributed.runtime',\n"
         "             'distributed.compression', 'distributed.collectives',\n"
-        "             'launch.mesh'):\n"
+        "             'launch.mesh', 'launch.dryrun'):\n"
         "    assert 'repro_torch.' + want in names, want\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], env=_env(),
